@@ -1,0 +1,491 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Drives the port's main path - the paper's ECG inference, raw 2-channel
+12-bit records to logits - through the entry points a user calls, at the
+published width (``ECGConfig()`` defaults, full per-synapse fixed-pattern
+map), with random weights from a seed, on one NVIDIA GPU:
+
+    python3 chip_smoke.py          # from the root of a checkout
+
+Phases, each printing one line (a failed phase raises, and the script
+exits non-zero without printing a result):
+
+1. the card's name and power limit (``nvidia-smi``);
+2. the build of every CUDA kernel from ``src/repro_torch/csrc`` (one
+   ``nvcc`` per source, all started together) and its time;
+3. every kernel against its plain PyTorch version on the card, at the
+   main path's shapes and at a ragged sweep: max-min pooling bit-exact;
+   the analog VMM and the whole-plan chain bit-exact with integer
+   effective weights, and within the ADC contract (<= 1 LSB per chunk on
+   <= 1% of the elements) with the full gain map;
+4. the main path: ``make_dataset`` records, ``preprocess`` on the card,
+   ``ecg_init``, ``api.compile`` of the relu_shift chain and ``apply`` at
+   batch 1 and 500 through ``megakernel=True`` (one ``analog_plan``
+   launch) and ``megakernel=False`` (three ``analog_mvm`` launches); the
+   launch counts prove that each kernel ran; both routes agree with each
+   other and with the same model compiled for the CPU;
+5. timings on the card: each kernel, its plain version and, where one
+   exists, one PyTorch call computing the same function, beside the
+   least time the card could take; the end-to-end time per sample of
+   both routes;
+6. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+   last line.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+SEED = 0
+BATCHES = (1, 500)
+# H100 SXM published peaks (NVIDIA data sheet) at the full 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# share of elements that may differ by <= 1 LSB per chunk with float gains
+TIE_SHARE = 0.01
+TPU_KERNELS = {
+    "maxmin_pool": ("src/repro_torch/csrc/maxmin_pool.cu",
+                    "src/repro/kernels/preproc.py:45"),
+    "analog_mvm": ("src/repro_torch/csrc/analog_mvm.cu",
+                   "src/repro/kernels/analog_mvm.py:129"),
+    "analog_plan": ("src/repro_torch/csrc/analog_plan.cu",
+                    "src/repro/kernels/analog_plan.py:401"),
+}
+
+
+def emit(tag: str, payload) -> None:
+    print(json.dumps({tag: payload}), flush=True)
+
+
+def _fail(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def _setup():
+    import torch
+
+    if not torch.cuda.is_available():
+        _fail("torch.cuda.is_available() is False: this smoke test needs a "
+              "CUDA device")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        _fail(f"no src/repro_torch beside {__file__}: run it from a "
+              "checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    # fp32 plain versions must not drop to TF32: w_eff = code * (1 + 0.02 n)
+    # needs more than TF32's 10-bit mantissa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch
+
+
+torch = _setup()
+
+from repro_torch import api  # noqa: E402
+from repro_torch.core.analog import AnalogConfig  # noqa: E402
+from repro_torch.core.noise import NoiseConfig  # noqa: E402
+from repro_torch.data.ecg_synth import ECGDatasetConfig, make_dataset  # noqa: E402
+from repro_torch.data.preprocess import preprocess  # noqa: E402
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.analog_mvm import analog_mvm_cuda  # noqa: E402
+from repro_torch.kernels.analog_plan import analog_plan_cuda  # noqa: E402
+from repro_torch.kernels.preproc import maxmin_pool_cuda  # noqa: E402
+from repro_torch.models.ecg import (  # noqa: E402
+    ECGConfig, _im2col, ecg_init, ecg_module_spec)
+
+DEV = torch.device("cuda")
+MAX_ERR = {name: 0.0 for name in TPU_KERNELS}
+
+
+# --------------------------------------------------------------- phase 1
+def card_line() -> str:
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------- phase 3
+def _compare(kernel, got, want, *, exact, n_chunks=1, what=""):
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        raise AssertionError(f"{kernel} {what}: shape {tuple(got.shape)} "
+                             f"!= plain {tuple(want.shape)}")
+    diff = (got - want).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    share = float((diff != 0).float().mean()) if diff.numel() else 0.0
+    MAX_ERR[kernel] = max(MAX_ERR[kernel], err)
+    if exact and err != 0.0:
+        raise AssertionError(f"{kernel} {what}: not bit-exact (max |diff| "
+                             f"{err}, share {share})")
+    if err > n_chunks or share > TIE_SHARE:
+        raise AssertionError(f"{kernel} {what}: max |diff| {err} (limit "
+                             f"{n_chunks}), share {share} (limit "
+                             f"{TIE_SHARE})")
+    return {"what": what, "max_abs_err": err, "share_differing": share}
+
+
+def _pool_input(raw):
+    """The main path's pooling input: the derivative of the records."""
+    x = torch.as_tensor(raw, device=DEV)
+    d = torch.diff(x, dim=-1)
+    t = (d.shape[-1] // 32) * 32
+    return d[..., :t].reshape(-1, t).contiguous()
+
+
+def layer_inputs(model, codes):
+    """Per-layer analog operands of the relu_shift chain on ``codes``
+    ([B, 2, 126] on the card), computed with the plain versions, so that
+    each kernel is checked and timed on the main path's own operands."""
+    plan = model.lower()
+    h = _im2col(codes, 64, 2)
+    out = []
+    for lp in plan.layers:
+        a = torch.nn.functional.pad(h.reshape(-1, h.shape[-1]),
+                                    (0, lp.k_pad - h.shape[-1]))
+        epi = ("relu_shift", lp.shift) if lp.epilogue == "relu_shift" \
+            else None
+        ops_ = (a.contiguous(), lp.w_eff.contiguous(),
+                torch.broadcast_to(lp.gain, (lp.n,)).contiguous(),
+                lp.chunk_offset.contiguous())
+        out.append((lp, ops_, epi))
+        y = ref.adc_epilogue_ref(ref.analog_mvm_ref(*ops_), epi)
+        h = y.reshape(codes.shape[0], -1) if lp.flatten_out else y
+    return out
+
+
+def check_kernels(raw, model, int_model, codes):
+    """Phase 3: every kernel against its plain version on the card."""
+    results = []
+    x = _pool_input(raw)
+    results.append(_compare("maxmin_pool", maxmin_pool_cuda(x),
+                            ref.maxmin_pool_ref(x), exact=True,
+                            what=f"ECG {tuple(x.shape)}"))
+    g = torch.Generator().manual_seed(SEED)
+    for shape in ((7, 96), (3, 4064), (1, 32)):
+        r = torch.randint(-2048, 2048, shape, generator=g).float().to(DEV)
+        results.append(_compare("maxmin_pool", maxmin_pool_cuda(r),
+                                ref.maxmin_pool_ref(r), exact=True,
+                                what=f"ragged {shape}"))
+
+    for m_, exact in ((model, False), (int_model, True)):
+        kind = "integer w_eff" if exact else "full gain map"
+        for b in BATCHES:
+            for lp, args, epi in layer_inputs(m_, codes[:b]):
+                for faithful in (True, False):
+                    got = analog_mvm_cuda(*args, faithful=faithful,
+                                          epilogue=epi)
+                    want = ref.adc_epilogue_ref(
+                        ref.analog_mvm_ref(*args, faithful=faithful), epi)
+                    results.append(_compare(
+                        "analog_mvm", got, want, exact=exact,
+                        n_chunks=lp.n_chunks,
+                        what=f"{kind} B={b} {tuple(args[0].shape)}x"
+                             f"{tuple(args[1].shape)} epi={epi} "
+                             f"faithful={faithful}"))
+    for (m, k, n) in ((1, 128, 1), (17, 256, 129), (100, 384, 700),
+                      (33, 128, 70)):
+        a = torch.randint(0, 32, (m, k), generator=g).float()
+        w = torch.randint(-63, 64, (k, n), generator=g).float()
+        wf = w * (1 + 0.02 * torch.randn((k, n), generator=g))
+        gain = torch.full((n,), 0.02)
+        off = torch.randn((k // 128, n), generator=g)
+        for w_, exact in ((w, True), (wf, False)):
+            args = [t.to(DEV) for t in (a, w_, gain, off)]
+            for faithful in (True, False):
+                for epi in (None, ("relu_shift", 2)):
+                    got = analog_mvm_cuda(*args, faithful=faithful,
+                                          epilogue=epi)
+                    want = ref.adc_epilogue_ref(
+                        ref.analog_mvm_ref(*args, faithful=faithful), epi)
+                    results.append(_compare(
+                        "analog_mvm", got, want, exact=exact,
+                        n_chunks=k // 128,
+                        what=f"ragged {(m, k, n)} exact={exact} "
+                             f"faithful={faithful} epi={epi}"))
+
+    for m_, exact in ((model, False), (int_model, True)):
+        mega = m_.lower().mega
+        for b in (1, 3, 133, 500):
+            cols = _im2col(codes[:b], 64, 2).reshape(-1, 128).contiguous()
+            for faithful in (True, False):
+                args = (cols, mega.w_cat, mega.gain, mega.off)
+                got = analog_plan_cuda(*args, schedule=mega.schedule,
+                                       faithful=faithful)
+                want = ref.analog_plan_ref(*args, mega.schedule,
+                                           faithful=faithful)
+                results.append(_compare(
+                    "analog_plan", got, want, exact=exact,
+                    what=f"ECG pack B={b} exact={exact} "
+                         f"faithful={faithful}"))
+    return results
+
+
+# --------------------------------------------------------------- phase 4
+def main_path(raw, model, cpu_model):
+    """Phase 4: the relu_shift chain, raw records to logits, on the card
+    through both routes, with the launch counts of that run alone."""
+    ops.reset_launch_counts()
+    outs = {}
+    for b in BATCHES:
+        x = preprocess(raw[:b])
+        outs[b] = {mk: model.apply(x, megakernel=mk) for mk in (True, False)}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    n = len(BATCHES)
+    expected = {"maxmin_pool": n, "analog_plan": n, "analog_mvm": 3 * n}
+    if counts != expected:
+        raise AssertionError(f"launch counts {counts} != {expected}")
+
+    report = {"launches": counts}
+    for b in BATCHES:
+        y_mk, y_pl = outs[b][True], outs[b][False]
+        x_cpu = preprocess(raw[:b], device="cpu")
+        if not torch.equal(preprocess(raw[:b]).cpu(), x_cpu):
+            raise AssertionError(f"B={b}: preprocessing differs on the card")
+        y_cpu = cpu_model.apply(x_cpu, megakernel=True)
+        if not torch.equal(y_cpu, cpu_model.apply(x_cpu, megakernel=False)):
+            raise AssertionError(f"B={b}: CPU routes disagree")
+        for y in (y_mk, y_pl):
+            if tuple(y.shape) != (b, 2) or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"B={b}: logits {tuple(y.shape)} not "
+                                     "finite of shape (B, 2)")
+        if not torch.equal(y_mk, y_pl):
+            raise AssertionError(f"B={b}: megakernel and per-layer routes "
+                                 "disagree on the card")
+        y = y_mk.cpu()
+        same_rows = float((y == y_cpu).all(dim=-1).float().mean())
+        same_argmax = float((y.argmax(-1) == y_cpu.argmax(-1)).float().mean())
+        if same_rows < 1 - TIE_SHARE or same_argmax < 1 - TIE_SHARE:
+            raise AssertionError(
+                f"B={b}: card vs CPU: {same_rows:.4f} of the rows "
+                f"identical, {same_argmax:.4f} argmax agreement")
+        report[f"B={b}"] = {
+            "routes_bit_identical": True,
+            "rows_identical_to_cpu": same_rows,
+            "argmax_agreement_with_cpu": same_argmax,
+            "max_abs_diff_vs_cpu": float((y - y_cpu).abs().max()),
+            "logits_mean": float(y.mean()),
+        }
+    return report
+
+
+# --------------------------------------------------------------- phase 5
+def time_ms(fn, iters=50, reps=7) -> float:
+    """Median over ``reps`` of the mean time of ``iters`` back-to-back
+    calls, between CUDA events, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def device_trace(fn, iters=20):
+    """(device ms, device activities) per call of ``fn``, from a
+    ``torch.profiler`` trace of ``iters`` calls: the summed device time
+    of every kernel and copy it ran, and how many there were.  The time
+    is None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0.0) > 0]
+    total_us = sum(e.self_device_time_total for e in events)
+    per_call = sum(e.count for e in events) / iters
+    return (total_us / iters / 1e3 if total_us > 0 else None), per_call
+
+
+def bound(nbytes: float, nops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _row(kernel, what, kernel_fn, plain_fn, nbytes, nops, library_fn=None):
+    b_ms, b_by = bound(nbytes, nops)
+    row = {
+        "kernel": kernel, "what": what, "ms": time_ms(kernel_fn),
+        "plain_ms": time_ms(plain_fn), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None if library_fn is None else time_ms(library_fn),
+        "device_ms": device_trace(kernel_fn)[0],
+        "plain_device_ms": device_trace(plain_fn)[0],
+    }
+    emit("timing", row)
+    return row
+
+
+def plan_work(schedule, b):
+    """(bytes, operations) the chain needs for ``b`` records: layer 0's
+    input, each layer's real weight rows and columns, gains and chunk
+    offsets (not the lane padding of the packed operands), and the last
+    layer's output, in fp32."""
+    floats = schedule[0].m_mult * b * schedule[0].k + b * schedule[-1].n
+    floats += sum(s.k * s.n + s.n + s.n_chunks * s.n for s in schedule)
+    nops = sum(2 * b * s.m_mult * s.k * s.n for s in schedule)
+    return 4 * floats, nops
+
+
+def time_kernels(raw, model, codes):
+    rows = []
+    for b in BATCHES:
+        x = _pool_input(raw[:b])
+        r, t = x.shape
+        xv = x.view(r, t // 32, 32)
+
+        def aminmax(xv=xv):
+            mx, mn = torch.aminmax(xv, dim=-1)
+            return mx - mn
+
+        rows.append(_row(
+            "maxmin_pool", f"B={b} {tuple(x.shape)}",
+            lambda x=x: maxmin_pool_cuda(x),
+            lambda x=x: ref.maxmin_pool_ref(x),
+            4 * (r * t + r * t // 32), 2 * r * t, aminmax))
+        for lp, args, epi in layer_inputs(model, codes[:b]):
+            m, k = args[0].shape
+            n = args[1].shape[1]
+            rows.append(_row(
+                "analog_mvm", f"B={b} layer k={lp.k} n={n} M={m} K={k}",
+                lambda args=args, epi=epi: analog_mvm_cuda(*args,
+                                                           epilogue=epi),
+                lambda args=args, epi=epi: ref.adc_epilogue_ref(
+                    ref.analog_mvm_ref(*args), epi),
+                4 * (m * k + k * n + n + (k // 128) * n + m * n),
+                2 * m * k * n))
+        mega = model.lower().mega
+        cols = _im2col(codes[:b], 64, 2).reshape(-1, 128).contiguous()
+        args = (cols, mega.w_cat, mega.gain, mega.off)
+        nbytes, nops = plan_work(mega.schedule, b)
+        rows.append(_row(
+            "analog_plan", f"B={b} ECG chain x{tuple(cols.shape)}",
+            lambda args=args: analog_plan_cuda(*args,
+                                               schedule=mega.schedule),
+            lambda args=args: ref.analog_plan_ref(*args, mega.schedule),
+            nbytes, nops))
+    return rows
+
+
+def time_end_to_end(raw, model):
+    """Host clock per sample: raw numpy records -> logits on the card,
+    synchronized, for both routes."""
+    out = {}
+    for b in BATCHES:
+        rb = raw[:b]
+        for mk in (True, False):
+            def step(rb=rb, mk=mk):
+                y = model.apply(preprocess(rb), megakernel=mk)
+                torch.cuda.synchronize()
+                return y
+
+            x = preprocess(rb)
+            step()
+            samples, applies = [], []
+            for _ in range(100):
+                t0 = time.perf_counter()
+                step()
+                samples.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                model.apply(x, megakernel=mk)
+                torch.cuda.synchronize()
+                applies.append(time.perf_counter() - t0)
+            route = "megakernel" if mk else "per_layer"
+            apply_s = statistics.median(applies)
+            dev, n_dev = device_trace(
+                lambda x=x, mk=mk: model.apply(x, megakernel=mk))
+            q = statistics.quantiles(applies, n=4)
+            out[f"B={b} {route}"] = {
+                "raw_to_logits_us_per_sample":
+                    statistics.median(samples) / b * 1e6,
+                "apply_us_per_sample": apply_s / b * 1e6,
+                "apply_us_per_call_quartiles": [q[0] * 1e6, q[2] * 1e6],
+                "apply_device_us_per_call": None if dev is None else dev * 1e3,
+                "apply_device_activities_per_call": n_dev,
+                "device_idle_share": None if dev is None
+                else 1 - dev * 1e-3 / apply_s,
+                "samples": len(applies),
+            }
+    return out
+
+
+def main() -> None:
+    print(card_line(), flush=True)
+
+    t0 = time.monotonic()
+    secs = _build.build()
+    emit("build", {"seconds_per_kernel": secs,
+                   "wall_s": time.monotonic() - t0})
+
+    raw, _ = make_dataset(ECGDatasetConfig(n_test=max(BATCHES)), "test")
+    cfg = ECGConfig()
+    spec = ecg_module_spec(cfg, epilogue="relu_shift")
+    acfg = AnalogConfig(fused_epilogue=True)
+    params = ecg_init(torch.Generator().manual_seed(SEED), cfg)
+    model = api.compile(spec, params, acfg)
+    cpu_model = api.compile(spec, params, acfg, device="cpu")
+    # integer effective weights (no gain map), offsets kept
+    int_cfg = ECGConfig(noise=NoiseConfig(gain_std=0.0, mode="full"))
+    int_model = api.compile(
+        spec, ecg_init(torch.Generator().manual_seed(SEED + 1), int_cfg),
+        acfg)
+    codes = preprocess(raw)
+
+    checks = check_kernels(raw, model, int_model, codes)
+    emit("kernel_checks", {
+        "n": len(checks),
+        "max_abs_err": MAX_ERR,
+        "worst": max(checks, key=lambda c: c["max_abs_err"]),
+    })
+
+    report = main_path(raw, model, cpu_model)
+    emit("main_path", report)
+    counts = report["launches"]
+
+    rows = time_kernels(raw, model, codes)
+    emit("end_to_end", time_end_to_end(raw, model))
+
+    kernels = []
+    big = max(BATCHES)
+    for name, (source, replaces) in TPU_KERNELS.items():
+        sel = [r for r in rows if r["kernel"] == name
+               and r["what"].startswith(f"B={big} ")]
+        lib = [r["library_ms"] for r in sel]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": MAX_ERR[name],
+            # at B=500; analog_mvm sums its three per-layer launches
+            "ms": sum(r["ms"] for r in sel),
+            "plain_ms": sum(r["plain_ms"] for r in sel),
+            "bound_ms": sum(r["bound_ms"] for r in sel),
+            "bound_by": max(sel, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": None if None in lib else sum(lib),
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

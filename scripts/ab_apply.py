@@ -1,0 +1,147 @@
+#!/usr/bin/env python3
+"""A/B timing of ``CompiledModel.apply`` between two checkouts of the port,
+on one CUDA device, in one call:
+
+    python3 scripts/ab_apply.py BEFORE_ROOT AFTER_ROOT [--rounds 2]
+
+Each root is a checkout of the repository (``BEFORE_ROOT/src/repro_torch``
+must exist).  The sides run in the order before, after, after, before per
+round, each in a fresh Python process that imports ``repro_torch`` from
+its own root, builds its own kernels there, compiles the ECG relu_shift
+chain at the published width (``ECGConfig()``, seed 0, the records of
+``make_dataset``) and times ``apply`` at batch 1 and 500 through both
+routes: ``--calls`` synchronized calls each, after a warm-up, on the host
+clock.  It also counts the device activities of one ``apply`` in a
+``torch.profiler`` trace and keeps a checksum of the logits, so the two
+sides can be seen to compute the same thing.
+
+Prints one JSON line per process, then a summary line (each side's
+median over its processes of the per-process median and quartiles, in µs
+per call), and writes all of it to ``chiprun_out/ab_apply.json`` under
+the current directory.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+BATCHES = (1, 500)
+
+
+def one_side(root: pathlib.Path, calls: int) -> dict:
+    """Time one checkout in this process (the ``--one`` mode)."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    import repro_torch
+    from repro_torch import api
+    from repro_torch.core.analog import AnalogConfig
+    from repro_torch.data.ecg_synth import ECGDatasetConfig, make_dataset
+    from repro_torch.data.preprocess import preprocess
+    from repro_torch.models.ecg import ECGConfig, ecg_init, ecg_module_spec
+    from torch.profiler import ProfilerActivity, profile
+
+    src = pathlib.Path(repro_torch.__file__).resolve()
+    if not src.is_relative_to((root / "src").resolve()):
+        raise RuntimeError(f"repro_torch imported from {src}, not {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    raw, _ = make_dataset(ECGDatasetConfig(n_test=max(BATCHES)), "test")
+    cfg = ECGConfig()
+    model = api.compile(ecg_module_spec(cfg, epilogue="relu_shift"),
+                        ecg_init(torch.Generator().manual_seed(0), cfg),
+                        AnalogConfig(fused_epilogue=True))
+    out = {"root": str(root)}
+    for b in BATCHES:
+        x = preprocess(raw[:b])
+        for mk in (True, False):
+            for _ in range(5):
+                y = model.apply(x, megakernel=mk)
+            torch.cuda.synchronize()
+            us = []
+            for _ in range(calls):
+                t0 = time.perf_counter()
+                model.apply(x, megakernel=mk)
+                torch.cuda.synchronize()
+                us.append((time.perf_counter() - t0) * 1e6)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                model.apply(x, megakernel=mk)
+                torch.cuda.synchronize()
+            acts = sum(e.count for e in prof.key_averages()
+                       if getattr(e, "self_device_time_total", 0.0) > 0)
+            q = statistics.quantiles(us, n=4)
+            route = "megakernel" if mk else "per_layer"
+            out[f"B={b} {route}"] = {
+                "us_q1_median_q3": [q[0], q[1], q[2]],
+                "device_activities": acts,
+                "logits_sum": float(y.double().sum()),
+            }
+    return out
+
+
+def _summary(runs: list) -> dict:
+    summary = {}
+    for side in ("before", "after"):
+        mine = [r for r in runs if r["side"] == side]
+        for key in mine[0]:
+            if not key.startswith("B="):
+                continue
+            meds = [r[key]["us_q1_median_q3"] for r in mine]
+            summary[f"{side} {key}"] = {
+                "median_of_medians_us":
+                    statistics.median(m[1] for m in meds),
+                "median_of_q1_us": statistics.median(m[0] for m in meds),
+                "median_of_q3_us": statistics.median(m[2] for m in meds),
+                "device_activities": mine[0][key]["device_activities"],
+                "logits_sums": sorted({r[key]["logits_sum"] for r in mine}),
+            }
+    return summary
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="*", type=pathlib.Path)
+    ap.add_argument("--one", type=pathlib.Path, help=argparse.SUPPRESS)
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--calls", type=int, default=200)
+    args = ap.parse_args()
+    if args.one is not None:
+        print(json.dumps(one_side(args.one.resolve(), args.calls)),
+              flush=True)
+        return
+    if len(args.roots) != 2:
+        ap.error("give two checkout roots: BEFORE_ROOT AFTER_ROOT")
+    sides = dict(zip(("before", "after"),
+                     (r.resolve() for r in args.roots)))
+    for root in sides.values():
+        if not (root / "src" / "repro_torch").is_dir():
+            ap.error(f"{root} holds no src/repro_torch")
+    runs = []
+    for _ in range(args.rounds):
+        for side in ("before", "after", "after", "before"):
+            res = subprocess.run(
+                [sys.executable, str(pathlib.Path(__file__).resolve()),
+                 "--one", str(sides[side]), "--calls", str(args.calls)],
+                capture_output=True, text=True, timeout=600,
+                cwd=sides[side])
+            if res.returncode != 0:
+                sys.stderr.write(res.stdout + res.stderr)
+                raise SystemExit(f"{side} side failed ({res.returncode})")
+            run = json.loads(res.stdout.strip().splitlines()[-1])
+            run["side"] = side
+            runs.append(run)
+            print(json.dumps(run), flush=True)
+    summary = _summary(runs)
+    print(json.dumps({"summary": summary}), flush=True)
+    out = pathlib.Path("chiprun_out")
+    out.mkdir(exist_ok=True)
+    (out / "ab_apply.json").write_text(
+        json.dumps({"runs": runs, "summary": summary}, indent=1))
+
+
+if __name__ == "__main__":
+    main()

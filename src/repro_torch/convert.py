@@ -1,0 +1,31 @@
+"""Carry parameters across from the JAX package.
+
+The reference's parameter tree, with every leaf converted to a numpy
+array (``jax.tree.map(np.asarray, params)`` on the caller's side), maps
+leaf for leaf onto the port's: the same nested dicts (``w``, ``w_scale``,
+``a_scale``, ``gain``, ``b`` and the ``fpn`` fixed-pattern tables) holding
+float32 tensors.  The port cannot reproduce ``jax.random`` draws, so this
+is how a parity check hands both packages the same weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.device import DeviceLike, resolve_device
+
+
+def params_from_numpy(tree, device: DeviceLike = None):
+    """Nested dicts of numpy arrays -> the same dicts of float32 tensors on
+    ``device`` (``None`` = the CUDA device)."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        arr = np.asarray(node)
+        if arr.dtype.kind != "f":
+            raise TypeError(f"expected a floating-point leaf, got {arr.dtype}")
+        return torch.tensor(arr, dtype=torch.float32, device=dev)
+
+    return conv(tree)

@@ -1,0 +1,191 @@
+"""The analog-inference execution backend: BSS-2 VMM semantics as PyTorch
+functions (a port of ``repro.core.analog``).
+
+Faithful dataflow (paper Fig. 4 + §II-A + hxtorch row-split semantics):
+
+    a_code  = clip(round(x / a_scale), 0, 31)                  # 5-bit events
+    w_code  = clip(round(w / w_scale), -63, 63)                # 6-bit synapses
+    w_eff   = w_code * (1 + fixed_pattern_gain)                # analog mismatch
+    per 128-row chunk c:
+        v_c   = gain * (a_chunk @ w_eff_chunk) + offset_c
+        adc_c = clip(round(v_c), -128, 127)                    # saturating ADC
+    y_int   = sum_c adc_c                                      # digital sum
+    y       = y_int * a_scale * w_scale / gain  (+ bias)       # dequantize
+
+``analog_faithful`` runs exactly the above; ``analog_fast`` accumulates
+all chunks in fp32 and applies one saturating conversion at the end
+(range scaled by the number of chunks).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch.core import noise as noise_lib
+from repro_torch.core import quant
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.hw import BSS2
+from repro_torch.core.noise import NoiseConfig
+
+Params = dict
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalogConfig:
+    """Execution configuration for analog layers (how to run, not what).
+
+    ``use_kernels`` replaces the reference's ``use_pallas``: True routes
+    the hot loop through the :mod:`repro_torch.kernels.ops` wrappers (the
+    hand-written CUDA kernel for a CUDA tensor, its plain PyTorch version
+    for a CPU tensor); False runs the reference's ``use_pallas=False``
+    path (chunk scan for faithful mode, one matmul for fast mode), and
+    only on the CPU: it exists so that both reference routes can be
+    checked there, and a CUDA tensor under it raises.
+    """
+
+    mode: str = "analog_faithful"   # "digital" | "analog_faithful" | "analog_fast"
+    signed_input: str = "split"     # "none" | "split" | "offset"
+    act_calib: str = "dynamic"      # "dynamic" (per-call abs-max) | "static"
+    chunk_rows: int = BSS2.signed_rows
+    gain_headroom: float = 3.0      # sigma headroom against chunk saturation
+    act_rms_codes: float = 9.0      # assumed RMS of activation codes (calib.)
+    noise: NoiseConfig = dataclasses.field(default_factory=NoiseConfig)
+    deterministic: bool = True      # no temporal readout noise (standalone mode)
+    use_kernels: bool = True        # dispatch the hot loop to the kernels
+    fused_split: bool = True        # one fused kernel for signed-split pairs
+    fused_epilogue: bool = False    # emit ADC epilogues inside the kernel
+    #                                 (inference-only; needs use_kernels)
+
+    def replace(self, **kw) -> "AnalogConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def check_route(cfg: AnalogConfig, t: torch.Tensor) -> None:
+    """Raise when ``cfg.use_kernels`` is False and ``t`` lies on a CUDA
+    device: the ``use_pallas=False`` arithmetic runs on the CPU only, so
+    work on the card always goes through the kernels."""
+    if not cfg.use_kernels and t.device.type == "cuda":
+        raise ValueError(
+            "AnalogConfig(use_kernels=False) runs on the CPU only; on a "
+            "CUDA device the analog layers run through the kernels "
+            "(use_kernels=True)")
+
+
+def _pad_to_chunks(a_code: torch.Tensor, w_eff: torch.Tensor,
+                   chunk_rows: int):
+    k = a_code.shape[-1]
+    pad = (-k) % chunk_rows
+    if pad:
+        a_code = torch.nn.functional.pad(a_code, (0, pad))
+        w_eff = torch.nn.functional.pad(w_eff, (0, 0, 0, pad))
+    return a_code, w_eff, (k + pad) // chunk_rows
+
+
+def analog_matmul(
+    a_code: torch.Tensor,
+    w_eff: torch.Tensor,
+    gain: torch.Tensor,
+    chunk_offset,
+    cfg: AnalogConfig,
+) -> torch.Tensor:
+    """Chunked saturating analog VMM (deterministic readout).  Returns
+    integer-valued float [..., N] (the digitally accumulated ADC codes).
+
+    a_code: [..., K] integer-valued float in [0, 31]
+    w_eff:  [K, N] effective analog weights (quantized codes x fp gain)
+    gain:   scalar or [N] analog gain (code domain)
+    chunk_offset: [C, N] fixed-pattern ADC offsets or None
+    """
+    check_route(cfg, a_code)
+    a_code, w_eff, n_chunks = _pad_to_chunks(a_code, w_eff, cfg.chunk_rows)
+    n = w_eff.shape[-1]
+    batch_shape = a_code.shape[:-1]
+    gain = torch.as_tensor(gain, dtype=torch.float32, device=w_eff.device)
+
+    if cfg.use_kernels:
+        from repro_torch.kernels import ops as kernel_ops
+
+        y2 = kernel_ops.analog_mvm(
+            a_code.reshape(-1, a_code.shape[-1]), w_eff,
+            torch.broadcast_to(gain, (n,)), chunk_offset,
+            chunk_rows=cfg.chunk_rows, faithful=cfg.mode != "analog_fast",
+        )
+        return y2.reshape(batch_shape + (n,))
+
+    if cfg.mode == "analog_fast":
+        # one matmul over all chunks, a single final saturation with the
+        # accumulated range (C * [-128, 127])
+        v = torch.matmul(a_code, w_eff) * gain
+        if chunk_offset is not None:
+            v = v + chunk_offset.sum(dim=0)
+        lo = float(BSS2.adc_min) * n_chunks
+        hi = float(BSS2.adc_max) * n_chunks
+        return torch.clamp(torch.round(v), lo, hi)
+
+    # faithful: per-chunk ADC before the digital accumulation, chunk by
+    # chunk with an O([..., N]) live set (the reference's chunk scan)
+    cr = cfg.chunk_rows
+    acc = torch.zeros(batch_shape + (n,), dtype=torch.float32,
+                      device=a_code.device)
+    for c in range(n_chunks):
+        v = torch.matmul(a_code[..., c * cr:(c + 1) * cr],
+                         w_eff[c * cr:(c + 1) * cr]) * gain
+        if chunk_offset is not None:
+            v = v + chunk_offset[c]
+        acc = acc + quant.adc_readout(v)
+    return acc
+
+
+def analog_linear_init(
+    generator: torch.Generator,
+    in_dim: int,
+    out_dim: int,
+    *,
+    bias: bool = False,
+    noise: NoiseConfig = NoiseConfig(),
+    chunk_rows: int = BSS2.signed_rows,
+    w_init_scale: float = 1.0,
+    device: DeviceLike = None,
+) -> Params:
+    """Initialize master weights, static quantization scales, the analog
+    gain and the frozen fixed-pattern noise for one logical linear layer.
+
+    Draws come from ``generator`` (on its own device) and the tensors are
+    placed on ``device`` (``None`` = the CUDA device)."""
+    dev = resolve_device(device)
+    std = w_init_scale / math.sqrt(in_dim)
+    w = (std * noise_lib._normal(generator, (in_dim, out_dim), dev))
+    n_chunks = -(-in_dim // chunk_rows)
+    params = {
+        "w": w,
+        "w_scale": quant.calibrate_weight_scale(w),
+        # activation scale: static, recalibratable
+        "a_scale": torch.tensor(1.0 / BSS2.a_max, dtype=torch.float32,
+                                device=dev),
+        "gain": _statistical_gain(w, chunk_rows),
+    }
+    if bias:
+        params["b"] = torch.zeros((out_dim,), dtype=torch.float32,
+                                  device=dev)
+    fpn = noise_lib.init_fixed_pattern(generator, in_dim, out_dim, n_chunks,
+                                       noise, device=dev)
+    if fpn:
+        params["fpn"] = fpn
+    return params
+
+
+def _statistical_gain(w: torch.Tensor, chunk_rows: int,
+                      act_rms: float = 9.0,
+                      headroom: float = 3.0) -> torch.Tensor:
+    """Analog gain so that ``headroom`` sigmas of the typical chunk partial
+    sum stay inside the 8-bit ADC range (per-layer calibration)."""
+    w_scale = quant.calibrate_weight_scale(w)
+    w_code_rms = torch.sqrt(torch.mean((w / w_scale) ** 2) + 1e-6)
+    # fp32 throughout, in the reference's operation order
+    root = torch.sqrt(torch.tensor(float(chunk_rows), dtype=torch.float32,
+                                   device=w.device))
+    partial_rms = root * act_rms * w_code_rms
+    return torch.clamp_max(
+        float(BSS2.adc_max) / (headroom * partial_rms + 1e-6), 1.0)

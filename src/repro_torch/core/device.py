@@ -1,0 +1,25 @@
+"""Device resolution shared by the port's entry points.
+
+``device=None`` means the CUDA device.  There is no silent fallback: when
+no CUDA device is present the entry point raises, and the CPU runs only
+when the caller asks for it (``device="cpu"``), as the tests do.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Optional[Union[str, torch.device]]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """The torch device an entry point runs on (``None`` -> ``"cuda"``)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on the CUDA device by default, but "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "the plain PyTorch versions on the CPU"
+        )
+    return dev

@@ -1,0 +1,90 @@
+"""Statistical models of the BSS-2 analog imperfections (the frozen
+fixed pattern; see ``repro.core.noise`` for the physics and defaults).
+
+1. **fixed-pattern synaptic gain** - per-synapse multiplicative deviation
+   (``mode="full"``) or its per-row x per-column factorization
+   (``mode="rank1"``), frozen per chip.
+2. **fixed-pattern column offset** - per-(row-chunk, neuron) additive ADC
+   offset, frozen per chip.
+
+Temporal readout noise is not on the deterministic serve path and is not
+ported yet.  Draws come from an explicit ``torch.Generator``; they cannot
+reproduce ``jax.random``, so parity tests carry the JAX draws across
+(:func:`repro_torch.convert.params_from_numpy`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class NoiseConfig:
+    """Magnitudes of the analog imperfections (all in natural units)."""
+
+    gain_std: float = 0.02          # relative synapse gain spread
+    offset_std: float = 1.0         # ADC LSB, per (chunk, column)
+    readout_std: float = 0.7        # ADC LSB, per analog pass (temporal)
+    mode: str = "rank1"             # "none" | "rank1" | "full"
+
+    def with_mode(self, mode: str) -> "NoiseConfig":
+        return dataclasses.replace(self, mode=mode)
+
+
+NOISELESS = NoiseConfig(gain_std=0.0, offset_std=0.0, readout_std=0.0,
+                        mode="none")
+
+
+def _normal(generator: torch.Generator, shape, device) -> torch.Tensor:
+    # drawn on the generator's own device, then moved: the same seed gives
+    # the same pattern whatever device the model lives on
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).to(device)
+
+
+def init_fixed_pattern(
+    generator: torch.Generator,
+    k: int,
+    n: int,
+    n_chunks: int,
+    cfg: NoiseConfig,
+    *,
+    device: torch.device,
+) -> dict:
+    """Sample the frozen fixed-pattern deviations for one logical (K, N)
+    tile grid (generated from the logical shape, like the reference)."""
+    if cfg.mode == "none" or (cfg.gain_std == 0.0 and cfg.offset_std == 0.0):
+        return {}
+    out = {}
+    if cfg.gain_std > 0.0:
+        if cfg.mode == "full":
+            out["gain"] = 1.0 + cfg.gain_std * _normal(generator, (k, n),
+                                                       device)
+        elif cfg.mode == "rank1":
+            # split the variance between row (input line) and column
+            # (neuron transconductance) mismatch
+            s = cfg.gain_std / math.sqrt(2.0)
+            out["row_gain"] = 1.0 + s * _normal(generator, (k,), device)
+            out["col_gain"] = 1.0 + s * _normal(generator, (n,), device)
+        else:
+            raise ValueError(f"unknown noise mode {cfg.mode!r}")
+    if cfg.offset_std > 0.0:
+        out["chunk_offset"] = cfg.offset_std * _normal(
+            generator, (n_chunks, n), device)
+    return out
+
+
+def chunk_offsets(fpn: dict, n_chunks: int,
+                  n: int) -> Optional[torch.Tensor]:
+    off = fpn.get("chunk_offset")
+    if off is None:
+        return None
+    if tuple(off.shape) != (n_chunks, n):
+        raise ValueError(
+            f"chunk_offset shape {tuple(off.shape)} does not match the "
+            f"({n_chunks}, {n}) chunk grid"
+        )
+    return off

@@ -1,0 +1,263 @@
+"""Lowering: analog-layer parameters -> :class:`~repro_torch.exec.plan.AnalogPlan`
+(port of the stack part of ``repro.exec.lower``).
+
+The compile step of the compile-once/run-many split: everything that
+depends only on the master weights and the frozen calibration state is
+computed here, once - 6-bit weight quantization, the fixed-pattern gain
+tables (the oracle bake from ``params["fpn"]``), chunk padding of the
+weights, the chunk-offset table and, for eligible chains, the whole-plan
+megakernel packing.  Per-call quantities (the dynamic activation scale)
+stay in :mod:`repro_torch.exec.run`.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import noise as noise_lib
+from repro_torch.core import quant
+from repro_torch.core.analog import AnalogConfig, Params
+from repro_torch.exec.plan import (
+    EPILOGUE_NONE,
+    EPILOGUE_RELU_SHIFT,
+    INPUT_CODES,
+    INPUT_FLOAT,
+    AnalogPlan,
+    LayerPlan,
+    MegakernelPack,
+    WeightStore,
+    default_shift,
+)
+
+
+def lower_layer(
+    params: Params,
+    cfg: AnalogConfig,
+    *,
+    signed_input: Optional[str] = None,
+    epilogue: str = EPILOGUE_NONE,
+    flatten_out: bool = False,
+) -> LayerPlan:
+    """Lower ONE analog linear layer's parameters to a :class:`LayerPlan`
+    (on the device the parameters live on).
+
+    ``signed_input`` overrides ``cfg.signed_input`` per layer;
+    ``epilogue`` selects the inter-layer ADC treatment, whose right shift
+    is the range-matched one for this layer's chunk count.
+    """
+    if epilogue not in (EPILOGUE_NONE, EPILOGUE_RELU_SHIFT):
+        raise ValueError(f"unknown epilogue {epilogue!r}")
+    if epilogue == EPILOGUE_RELU_SHIFT and params.get("b") is not None:
+        # a relu_shift layer hands off raw 5-bit codes - a float bias has
+        # no place to act (it would be silently dropped by the executor)
+        raise ValueError(
+            "bias is not representable in a relu_shift (code-domain) "
+            "hand-off; lower the layer without bias or with epilogue='none'"
+        )
+    w = params["w"].to(torch.float32)
+    k, n = w.shape
+    w_scale = params["w_scale"]
+    w_code = quant.quantize_weight(w, w_scale)
+    n_chunks = -(-k // cfg.chunk_rows)
+    pad = n_chunks * cfg.chunk_rows - k
+    fpn = params.get("fpn", {})  # verify: allow-fpn-access
+    chunk_off = noise_lib.chunk_offsets(fpn, n_chunks, n)
+    # packed bake: the plan stores the 6-bit codes plus the gain TABLES;
+    # the fp32 w_eff product is a derived view (same elementwise multiply
+    # order as the reference, pad entries exact 1.0)
+    col_gain = row_gain = gain_map = None
+    if "gain" in fpn:
+        gain_map = F.pad(fpn["gain"].to(torch.float32), (0, 0, 0, pad),
+                         value=1.0)
+    else:
+        if "col_gain" in fpn:
+            col_gain = fpn["col_gain"].to(torch.float32)
+        if "row_gain" in fpn:
+            row_gain = F.pad(fpn["row_gain"].to(torch.float32), (0, pad),
+                             value=1.0)[None, :]
+    store = WeightStore(  # verify: allow-packed-weights
+        codes=F.pad(w_code, (0, 0, 0, pad)).to(torch.int8),
+        w_scale=w_scale,
+        gain=torch.as_tensor(params["gain"], dtype=torch.float32),
+        col_gain=col_gain,
+        row_gain=row_gain,
+        gain_map=gain_map,
+        chunk_rows=cfg.chunk_rows,
+    )
+    return LayerPlan(
+        store=store,
+        a_scale=torch.as_tensor(params["a_scale"], dtype=torch.float32),
+        chunk_offset=chunk_off,
+        bias=params.get("b"),
+        k=k,
+        n=n,
+        chunk_rows=cfg.chunk_rows,
+        signed_input=cfg.signed_input if signed_input is None
+        else signed_input,
+        epilogue=epilogue,
+        shift=default_shift(n_chunks),
+        flatten_out=flatten_out,
+    )
+
+
+def _resolve_input_domain(
+    layers: Sequence[LayerPlan], input_domain: Optional[str]
+) -> str:
+    """Bake the plan's input domain; when the caller does not state it,
+    infer it from the first layer's own hand-off format."""
+    if input_domain is not None:
+        if input_domain not in (INPUT_CODES, INPUT_FLOAT):
+            raise ValueError(f"unknown input_domain {input_domain!r}")
+        return input_domain
+    first_codes = (
+        len(layers) > 0 and layers[0].epilogue == EPILOGUE_RELU_SHIFT
+    )
+    return INPUT_CODES if first_codes else INPUT_FLOAT
+
+
+def lower_stack(
+    layer_params: Sequence[Params],
+    cfg: AnalogConfig,
+    *,
+    signed_inputs: Optional[Sequence[Optional[str]]] = None,
+    epilogues: Optional[Sequence[str]] = None,
+    flatten_outs: Optional[Sequence[bool]] = None,
+    input_domain: Optional[str] = None,
+) -> AnalogPlan:
+    """Lower an ordered stack of layers into one :class:`AnalogPlan`.
+
+    ``epilogues[i]`` is the ADC epilogue BETWEEN layer i and i+1; the last
+    layer's epilogue is forced to "none" (final outputs dequantize to
+    float).  Eligible chains also get the megakernel packing baked
+    (:func:`pack_megakernel`).
+    """
+    n = len(layer_params)
+    signed_inputs = signed_inputs or [None] * n
+    epilogues = list(epilogues or [EPILOGUE_NONE] * n)
+    flatten_outs = flatten_outs or [False] * n
+    if n:
+        epilogues[-1] = EPILOGUE_NONE
+    layers = tuple(
+        lower_layer(p, cfg, signed_input=s, epilogue=e, flatten_out=f)
+        for p, s, e, f in zip(layer_params, signed_inputs, epilogues,
+                              flatten_outs)
+    )
+    plan = AnalogPlan(layers=layers, cfg=cfg,
+                      input_domain=_resolve_input_domain(layers, input_domain))
+    mega = pack_megakernel(plan)
+    if mega is not None:
+        plan = AnalogPlan(layers=layers, cfg=cfg, mega=mega,
+                          input_domain=plan.input_domain)
+    return plan
+
+
+def megakernel_ineligible_reason(plan: AnalogPlan) -> Optional[str]:
+    """Structural megakernel eligibility of a lowered plan (None when
+    eligible, else a reason naming the first offending layer); the walk
+    lives in :func:`repro_torch.verify.domains.chain_ineligible_reason`."""
+    from repro_torch.verify.domains import chain_ineligible_reason
+
+    return chain_ineligible_reason(plan)
+
+
+def pack_megakernel(plan: AnalogPlan) -> Optional[MegakernelPack]:
+    """Pack an eligible :class:`AnalogPlan` into the stacked operands and
+    static schedule of the whole-plan kernel, or None when the plan is
+    structurally ineligible.
+
+    Per-layer gain and chunk-offset tables are column-padded to one common
+    lane width and concatenated; column padding is inert (zero weights x
+    zero gain x zero offset accumulate to zero ADC codes), and each
+    layer's zero output columns double as the next layer's chunk padding.
+    Chains with float-domain hand-offs also get the in-kernel glue rows:
+    per-column dequantization (``a_scale * w_scale / gain``, product
+    first), biases, and the static input LSB of every layer.
+    """
+    from repro_torch.kernels.analog_plan import MegaLayerMeta
+    from repro_torch.verify import domains as dom
+
+    if megakernel_ineligible_reason(plan) is not None:
+        return None
+    layers = plan.layers
+    last = len(layers) - 1
+    domains = dom.consumed_domains(plan)
+    handoffs = tuple(
+        dom.handoff_tag(lp.epilogue, i == last) for i, lp in enumerate(layers)
+    )
+    # flatten factor INTO the next layer (the im2col position merge) and
+    # the resulting rows-per-batch-row multiplier at each input
+    factors = [
+        layers[i + 1].k // lp.n if i < last and lp.flatten_out else 1
+        for i, lp in enumerate(layers)
+    ]
+    m_mults = [1] * len(layers)
+    for i in range(last - 1, -1, -1):
+        m_mults[i] = m_mults[i + 1] * factors[i]
+    encodes = [
+        dom.encode_tag(d, lp.signed_input) for d, lp in zip(domains, layers)
+    ]
+
+    lane = 128
+    n_max = max(
+        max(lp.n for lp in layers),
+        max(lp.k_pad for lp in layers[1:]),
+    )
+    n_max = -(-n_max // lane) * lane
+    needs_extras = any(e != "codes" for e in encodes) or any(
+        h not in ("codes", "raw") for h in handoffs
+    )
+    dev = layers[0].store.codes.device
+    schedule, gain_rows, off_blocks = [], [], []
+    deq_rows, bias_rows, enc_rows = [], [], []
+    row0 = c0 = 0
+    for i, lp in enumerate(layers):
+        gain_b = torch.broadcast_to(
+            torch.as_tensor(lp.gain, dtype=torch.float32), (lp.n,))
+        gain_rows.append(F.pad(gain_b, (0, n_max - lp.n)))
+        off = (lp.chunk_offset if lp.chunk_offset is not None
+               else torch.zeros((lp.n_chunks, lp.n), dtype=torch.float32,
+                                device=dev))
+        off_blocks.append(F.pad(off, (0, n_max - lp.n)))
+        if needs_extras:
+            # the static input LSB this layer encodes (and therefore
+            # dequantizes) with; 1.0 for raw code inputs
+            if encodes[i] == "codes":
+                in_scale = torch.tensor(1.0, dtype=torch.float32, device=dev)
+            else:
+                in_scale = lp.a_scale.reshape(())
+            enc_rows.append(in_scale[None])
+            # per-column dequant row: EXACTLY run_layer's expression
+            # (product first, then the gain divide) for bit-exactness
+            deq = (in_scale * lp.w_scale.reshape(-1)) / gain_b
+            deq_rows.append(F.pad(deq, (0, n_max - lp.n)))
+            bias = (lp.bias.to(torch.float32) if lp.bias is not None
+                    else torch.zeros((lp.n,), dtype=torch.float32,
+                                     device=dev))
+            bias_rows.append(F.pad(bias, (0, n_max - lp.n)))
+        schedule.append(MegaLayerMeta(
+            row0=row0, c0=c0, k=lp.k, k_pad=lp.k_pad, n=lp.n,
+            n_chunks=lp.n_chunks, shift=lp.shift,
+            relu_shift=lp.epilogue == EPILOGUE_RELU_SHIFT,
+            flatten=factors[i], m_mult=m_mults[i],
+            encode=encodes[i], handoff=handoffs[i],
+        ))
+        row0 += lp.k_pad
+        c0 += lp.n_chunks
+    extras = {}
+    if needs_extras:
+        extras = dict(
+            deq=torch.stack(deq_rows, dim=0),
+            bias=torch.stack(bias_rows, dim=0),
+            enc=torch.stack(enc_rows, dim=0),
+        )
+    return MegakernelPack(
+        stores=tuple(lp.store for lp in layers),
+        gain=torch.stack(gain_rows, dim=0),
+        off=torch.cat(off_blocks, dim=0),
+        schedule=tuple(schedule),
+        n_max=n_max,
+        chunk_rows=layers[0].chunk_rows,
+        **extras,
+    )

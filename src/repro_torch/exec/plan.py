@@ -1,0 +1,208 @@
+"""Compiled execution plans for stacks of analog layers (port of
+``repro.exec.plan``).
+
+The paper executes its network as a *pre-compiled schedule* of chunked
+analog VMM passes on fixed synapse tiles (Fig. 4, §II-C): weights are
+quantized, calibrated and placed ONCE, then inference replays the
+schedule.  The plans are frozen dataclasses holding tensors:
+
+- :class:`WeightStore` - the packed weight state of one lowered layer:
+  int8 6-bit weight codes (padded to whole 128-row chunks), the
+  per-column weight LSB, the calibrated gain and the fixed-pattern gain
+  tables; the fp32 effective weights (:attr:`w_eff`) are derived from
+  them once, when the store is built.
+- :class:`LayerPlan` - one lowered analog layer.
+- :class:`MegakernelPack` - the kernel-ready packing of a whole chain.
+- :class:`AnalogPlan` - an ordered stack of :class:`LayerPlan`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.analog import AnalogConfig
+from repro_torch.core.hw import BSS2
+
+# Epilogue tags. "none": raw accumulated ADC codes leave the layer and are
+# dequantized to float. "relu_shift": ADC-fused ReLU + right-shift
+# requantization to 5-bit codes (paper §II-A).
+EPILOGUE_NONE = "none"
+EPILOGUE_RELU_SHIFT = "relu_shift"
+
+# Input-domain tags, baked at lower time: "codes" skips activation
+# quantization, "float" quantizes like any other float activation.
+INPUT_CODES = "codes"
+INPUT_FLOAT = "float"
+
+
+def default_shift(n_chunks: int) -> int:
+    """Right-shift mapping the accumulated non-negative ADC range
+    ``[0, C * adc_max]`` onto the 5-bit activation range (paper §II-A:
+    "applying bitwise right-shifts")."""
+    full = n_chunks * BSS2.adc_max
+    shift = 0
+    while (full >> shift) > BSS2.a_max:
+        shift += 1
+    return shift
+
+
+@dataclasses.dataclass(frozen=True)
+class WeightStore:
+    """Packed weight state of one lowered analog layer.
+
+      codes:      [K_pad, N] int8 6-bit weight codes, rows zero-padded to
+                  a whole number of chunks.
+      w_scale:    [1, N] per-column weight LSB.
+      gain:       scalar calibrated analog gain (NOT folded into w_eff).
+      col_gain:   optional [N] per-column fixed-pattern gain (rank-1).
+      row_gain:   optional [1, K_pad] per-row fixed-pattern gain; pad
+                  rows hold exact 1.0.
+      gain_map:   optional [K_pad, N] full per-synapse gain map; pad rows
+                  hold exact 1.0.
+
+    Dequantization contract (:attr:`w_eff`): multiply the codes by
+    col_gain, then row_gain, then gain_map - elementwise in exactly the
+    reference's order, which reproduces its effective weights bit for bit
+    (``x * 1.0`` is exact).  The reference's measured ``chunk_gain``
+    table comes with the calibration subsystem, not ported yet.
+
+    Derived once, at construction, and kept beside the tables (an eager
+    replay would otherwise rebuild them on every call; the reference's
+    jit folds that work into its compiled program):
+
+      w_eff:      [K_pad, N] fp32 effective weights.
+      gain_row:   [N] the gain broadcast over the columns, contiguous.
+    """
+
+    codes: torch.Tensor
+    w_scale: torch.Tensor
+    gain: torch.Tensor
+    col_gain: Optional[torch.Tensor] = None
+    row_gain: Optional[torch.Tensor] = None
+    gain_map: Optional[torch.Tensor] = None
+    chunk_rows: int = BSS2.signed_rows
+    w_eff: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                            compare=False)
+    gain_row: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                               compare=False)
+
+    def __post_init__(self):
+        w = self.codes.to(torch.float32)
+        if self.col_gain is not None:
+            w = w * self.col_gain[None, :]
+        if self.row_gain is not None:
+            w = w * self.row_gain[0, :, None]
+        if self.gain_map is not None:
+            w = w * self.gain_map
+        object.__setattr__(self, "w_eff", w)
+        object.__setattr__(self, "gain_row", torch.broadcast_to(
+            self.gain, (self.codes.shape[-1],)).contiguous())
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerPlan:
+    """One lowered analog layer.
+
+    Tensors: ``store`` (the :class:`WeightStore`), ``a_scale`` (scalar
+    static activation LSB), ``chunk_offset`` ([C, N] fixed-pattern ADC
+    offsets or None), ``bias`` ([N] or None).  Static attributes: ``k``
+    (logical input width), ``n`` (output width), ``chunk_rows``,
+    ``signed_input``, ``epilogue``, ``shift`` (relu_shift right shift) and
+    ``flatten_out`` (merge the position axis into features before the
+    next layer - the conv->fc1 im2col glue).
+    """
+
+    store: WeightStore
+    a_scale: torch.Tensor
+    chunk_offset: Optional[torch.Tensor]
+    bias: Optional[torch.Tensor]
+    k: int
+    n: int
+    chunk_rows: int
+    signed_input: str
+    epilogue: str = EPILOGUE_NONE
+    shift: int = 0
+    flatten_out: bool = False
+
+    @property
+    def w_eff(self) -> torch.Tensor:
+        return self.store.w_eff
+
+    @property
+    def w_scale(self) -> torch.Tensor:
+        return self.store.w_scale
+
+    @property
+    def gain(self) -> torch.Tensor:
+        return self.store.gain
+
+    @property
+    def gain_row(self) -> torch.Tensor:
+        return self.store.gain_row
+
+    @property
+    def k_pad(self) -> int:
+        return self.store.codes.shape[-2]
+
+    @property
+    def n_chunks(self) -> int:
+        return self.store.codes.shape[0] // self.chunk_rows
+
+
+@dataclasses.dataclass(frozen=True)
+class MegakernelPack:
+    """Kernel-ready packing of an AnalogPlan chain for the whole-plan
+    kernel (built once by :func:`repro_torch.exec.lower.pack_megakernel`).
+
+      stores:   the per-layer :class:`WeightStore` records, shared with
+                the chain's layers; ``w_cat`` ([sum(k_pad), n_max]
+                effective weights, columns zero-padded to the common lane
+                width, row-concatenated) is derived from them once, at
+                construction.
+      gain:     [L, n_max] per-layer analog gains (broadcast + padded).
+      off:      [sum(n_chunks), n_max] chunk offsets (zeros where a layer
+                has none), chunk-concatenated.
+      deq, bias, enc: float-domain hand-off rows ([L, n_max], [L, n_max],
+                [L, 1]) or None for pure code chains.
+      schedule: tuple of :class:`repro_torch.kernels.analog_plan.MegaLayerMeta`.
+      n_max:    packed lane width (max layer width, 128-aligned).
+    """
+
+    stores: Tuple[WeightStore, ...]
+    gain: torch.Tensor
+    off: torch.Tensor
+    schedule: tuple
+    n_max: int
+    chunk_rows: int
+    deq: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None
+    enc: Optional[torch.Tensor] = None
+    w_cat: torch.Tensor = dataclasses.field(init=False, repr=False,
+                                            compare=False)
+
+    def __post_init__(self):
+        blocks = [
+            torch.nn.functional.pad(s.w_eff, (0, self.n_max - meta.n))
+            for s, meta in zip(self.stores, self.schedule)
+        ]
+        object.__setattr__(self, "w_cat", torch.cat(blocks, dim=0))
+
+
+@dataclasses.dataclass(frozen=True)
+class AnalogPlan:
+    """A lowered stack of analog layers plus the execution config it was
+    lowered for.  ``input_domain`` ("codes" | "float") states what the
+    plan's INITIAL input is; ``mega`` is the optional whole-plan packing,
+    present iff the chain is megakernel-eligible."""
+
+    layers: Tuple[LayerPlan, ...]
+    cfg: AnalogConfig
+    mega: Optional[MegakernelPack] = None
+    input_domain: Optional[str] = None
+
+    @property
+    def expects_codes(self) -> bool:
+        """Does the plan's first layer consume 5-bit codes?"""
+        return self.input_domain == INPUT_CODES

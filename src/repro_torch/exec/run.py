@@ -1,0 +1,226 @@
+"""Plan execution: ``run(plan, x)`` replays a pre-lowered analog program
+(port of the stack part of ``repro.exec.run``, deterministic readout).
+
+Left to run time (everything else was baked by
+:mod:`repro_torch.exec.lower`):
+
+- dynamic activation calibration (one abs-max over the whole batch) when
+  ``cfg.act_calib == "dynamic"``,
+- the analog passes of each layer (the ``analog_mvm`` kernel when
+  ``cfg.use_kernels``),
+- the inter-layer ADC epilogue: ReLU + right-shift requantization to
+  5-bit codes (paper §II-A), fused into the kernel when
+  ``cfg.fused_epilogue`` and ``cfg.use_kernels``,
+- megakernel routing: an eligible code-domain plan replays as ONE
+  dispatch (the ``analog_plan`` kernel, or its plain version when
+  ``cfg.use_kernels`` is False, on the CPU); chains whose packed schedule needs the
+  float-domain hand-offs, not ported yet, replay layer by layer, and
+  ``megakernel=True`` raises with the first offending reason.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import quant
+from repro_torch.core.analog import AnalogConfig, analog_matmul, check_route
+from repro_torch.exec.plan import (
+    EPILOGUE_NONE,
+    EPILOGUE_RELU_SHIFT,
+    AnalogPlan,
+    LayerPlan,
+)
+
+
+def _pad_codes(a: torch.Tensor, k_pad: int) -> torch.Tensor:
+    pad = k_pad - a.shape[-1]
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+    return a
+
+
+def run_layer(
+    lp: LayerPlan,
+    x: torch.Tensor,
+    cfg: AnalogConfig,
+    *,
+    x_is_codes: bool = False,
+) -> torch.Tensor:
+    """Execute one lowered layer: x [..., K] -> y [..., N].
+
+    ``x_is_codes=True`` means ``x`` already holds unsigned 5-bit event
+    codes (LSB 1.0), so quantization is skipped.  Output: float
+    activations when ``lp.epilogue == "none"`` (dequantized, bias
+    applied), else 5-bit codes for the next stacked layer.
+    """
+    in_dtype = x.dtype
+    x = x.to(torch.float32)
+    if x_is_codes:
+        a_scale = 1.0       # codes have LSB 1 (x * 1.0 is exact)
+    elif cfg.act_calib == "dynamic":
+        # per-call abs-max calibration over the WHOLE batch (the FPGA
+        # preprocessing / SIMD-CPU right-shift choice on hardware)
+        a_scale = quant.act_scale_from_max(x.detach().abs().max() + 1e-9)
+    else:
+        a_scale = lp.a_scale
+    signed = "none" if x_is_codes else lp.signed_input
+    if signed != "none":
+        raise NotImplementedError(
+            f"signed_input {signed!r} on float activations is not ported "
+            "yet (ROADMAP queue 2: the split kernel)"
+        )
+    a_code = x if x_is_codes else quant.quantize_act(x, a_scale)
+    a_code = _pad_codes(a_code, lp.k_pad)
+    y_int = analog_matmul(a_code, lp.w_eff, lp.gain_row, lp.chunk_offset,
+                          cfg)
+
+    if lp.epilogue == EPILOGUE_RELU_SHIFT:
+        # inter-layer ADC epilogue: output is 5-bit codes, not floats
+        return quant.requantize_5bit(torch.clamp_min(y_int, 0.0), lp.shift)
+    y = y_int * (a_scale * lp.w_scale.reshape(-1) / lp.gain)
+    if lp.bias is not None:
+        y = y + lp.bias
+    return y.to(in_dtype)
+
+
+def _run_layer_fused_infer(lp: LayerPlan, codes: torch.Tensor,
+                           cfg: AnalogConfig) -> torch.Tensor:
+    """Deterministic code-domain layer with the epilogue fused into the
+    ``analog_mvm`` kernel (inference only)."""
+    from repro_torch.kernels import ops as kernel_ops
+
+    a = _pad_codes(codes.to(torch.float32), lp.k_pad)
+    batch_shape = a.shape[:-1]
+    epi = (EPILOGUE_RELU_SHIFT, lp.shift) \
+        if lp.epilogue == EPILOGUE_RELU_SHIFT else None
+    y = kernel_ops.analog_mvm(
+        a.reshape(-1, a.shape[-1]), lp.w_eff, lp.gain_row, lp.chunk_offset,
+        chunk_rows=lp.chunk_rows, faithful=cfg.mode != "analog_fast",
+        epilogue=epi,
+    )
+    return y.reshape(batch_shape + (lp.n,))
+
+
+def _megakernel_batch_shape(plan: AnalogPlan, x: torch.Tensor):
+    """The megakernel's output batch shape from ``x``'s leading dims, or a
+    reason string when the shapes cannot feed the packed schedule.  Every
+    flatten_out layer consumes the then-trailing batch dim."""
+    lead = list(x.shape[:-1])
+    for lp, meta in zip(plan.layers[:-1], plan.mega.schedule[:-1]):
+        if not lp.flatten_out:
+            continue
+        if not lead or lead[-1] != meta.flatten:
+            return (
+                f"flatten layer expects a trailing batch dim of "
+                f"{meta.flatten} positions, got input shape "
+                f"{tuple(x.shape)}"
+            )
+        lead.pop()
+    return tuple(lead)
+
+
+def _run_megakernel(plan: AnalogPlan, x: torch.Tensor,
+                    lead: tuple) -> torch.Tensor:
+    """Replay a packed code-domain plan as ONE dispatch; bit-exact vs the
+    layer-by-layer replay (same per-chunk ADC arithmetic, same floor-shift
+    epilogue, same dequantization expression)."""
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels.ref import analog_plan_ref
+
+    cfg, mega = plan.cfg, plan.mega
+    lp = plan.layers[-1]
+    x2 = _pad_codes(x.to(torch.float32).reshape(-1, x.shape[-1]),
+                    plan.layers[0].k_pad)
+    run_chain = (kernel_ops.analog_plan_codes if cfg.use_kernels
+                 else analog_plan_ref)
+    y_int = run_chain(
+        x2, mega.w_cat, mega.gain, mega.off, schedule=mega.schedule,
+        chunk_rows=mega.chunk_rows, faithful=cfg.mode != "analog_fast",
+    )
+    y_int = y_int.reshape(lead + (lp.n,))
+    # the same dequantization as run_layer's epilogue == "none" hand-off
+    # on code inputs (LSB 1.0)
+    y = y_int * (1.0 * lp.w_scale.reshape(-1) / lp.gain)
+    if lp.bias is not None:
+        y = y + lp.bias
+    if lp.flatten_out:
+        y = y.reshape(y.shape[:-2] + (-1,))
+    return y
+
+
+def _megakernel_route(plan: AnalogPlan, x: torch.Tensor, x_is_codes: bool):
+    """The output batch-shape tuple when this call can take the megakernel
+    route, else the reason string it cannot."""
+    from repro_torch.kernels.analog_plan import stage_a_reason
+
+    if plan.mega is None:
+        from repro_torch.exec.lower import megakernel_ineligible_reason
+
+        return megakernel_ineligible_reason(plan) or "plan was not packed"
+    reason = stage_a_reason(plan.mega.schedule)
+    if reason is not None:
+        return reason
+    if not x_is_codes:
+        return (
+            "input is float but the packed chain consumes 5-bit codes "
+            "(layer 0 encode 'codes')"
+        )
+    return _megakernel_batch_shape(plan, x)
+
+
+def run(
+    plan: AnalogPlan,
+    x: torch.Tensor,
+    *,
+    megakernel="auto",
+) -> torch.Tensor:
+    """Execute a whole lowered stack.
+
+    Layers whose predecessor emitted a ``relu_shift`` epilogue consume
+    5-bit codes directly; the plan's baked ``input_domain`` states
+    whether the initial input already is codes.
+
+    ``megakernel``: ``"auto"`` (default) takes the whole-plan route
+    whenever the plan and the call are eligible, ``False`` forces the
+    layer-by-layer replay, ``True`` requires the whole-plan route and
+    raises ``ValueError`` with the reason when it cannot be taken.
+
+    ``cfg.use_kernels=False`` (the reference's plain arithmetic) runs on
+    the CPU only; a CUDA input under it raises ``ValueError``.
+    """
+    cfg = plan.cfg
+    check_route(cfg, x)
+    n = len(plan.layers)
+    if megakernel not in (True, False, "auto"):
+        raise ValueError(f"megakernel must be 'auto'|True|False, "
+                         f"got {megakernel!r}")
+    x_is_codes = plan.expects_codes
+    if megakernel is True or megakernel == "auto":
+        route = _megakernel_route(plan, x, x_is_codes)
+        if not isinstance(route, str):
+            return _run_megakernel(plan, x, route)
+        if megakernel is True:
+            raise ValueError(f"megakernel=True, but: {route}")
+    is_codes = x_is_codes
+    h = x
+    for i, lp in enumerate(plan.layers):
+        fuse_in_kernel = (
+            cfg.fused_epilogue and cfg.use_kernels and is_codes
+            and lp.signed_input == "none"
+            and lp.epilogue == EPILOGUE_RELU_SHIFT
+        )
+        if fuse_in_kernel:
+            h = _run_layer_fused_infer(lp, h, cfg)
+        else:
+            h = run_layer(lp, h, cfg, x_is_codes=is_codes)
+        if lp.epilogue == EPILOGUE_NONE and i < n - 1:
+            # float hand-off between layers: ReLU in the float domain,
+            # the next layer re-quantizes
+            h = torch.relu(h)
+            is_codes = False
+        else:
+            is_codes = lp.epilogue == EPILOGUE_RELU_SHIFT
+        if lp.flatten_out:
+            # merge the position axis into the feature axis, preserving
+            # any leading batch dims
+            h = h.reshape(h.shape[:-2] + (-1,))
+    return h

@@ -1,0 +1,158 @@
+"""Build, load and launch the hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled on its own by ``nvcc`` into a shared library with
+a plain C interface, at first use, into ``build/kernels/`` at the root of
+the checkout, and loaded with ``ctypes``.  The file name carries a hash of
+the source and the flags, so an edited source rebuilds and an unchanged
+one is reused.  :func:`build` starts one ``nvcc`` per missing source, all
+at once, and waits for them.
+
+Every launch goes through :func:`launch`: it calls the C entry point on
+PyTorch's current stream, raises when the entry point returns a CUDA
+error, and only then adds one to the kernel's launch count.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+from typing import Dict, Iterable, Sequence
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
+KERNELS = ("maxmin_pool", "analog_mvm", "analog_plan")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError(
+        "nvcc not found: the CUDA kernels of repro_torch are compiled at "
+        "first use and need the CUDA toolkit (nvcc on PATH or under "
+        "/usr/local/cuda)"
+    )
+
+
+def library_path(name: str) -> pathlib.Path:
+    """Where the shared library of kernel ``name`` is (or will be) built."""
+    if name not in KERNELS:
+        raise KeyError(f"unknown kernel {name!r}; known: {KERNELS}")
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
+    """Compile every kernel in ``names`` whose library is missing, one
+    ``nvcc`` process per source, all started together.  Returns the wall
+    seconds each build took (0.0 for a library that was already built).
+    ``nvcc``'s register and shared-memory report (``-Xptxas -v``) is kept
+    beside each library as ``<library>.log``."""
+    names = tuple(names)
+    todo = {n: library_path(n) for n in names}
+    todo = {n: p for n, p in todo.items() if not p.exists()}
+    seconds = {n: 0.0 for n in names}
+    if not todo:
+        return seconds
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.monotonic()
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, out)
+    failures = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.monotonic() - t0
+        out.with_name(out.name + ".log").write_text(log)
+        if proc.returncode != 0:
+            failures.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return seconds
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(name: str, argtypes: Sequence, *args) -> None:
+    """Call ``<name>_launch(*args)`` of kernel ``name``; raise on a CUDA
+    error, else count the launch.  Pointers and the stream are passed as
+    ``ctypes.c_void_p`` (Python ints would be cut to 32 bits)."""
+    lib = _library(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    rc = fn(*args)
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                           f"({msg})")
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches of each kernel since the last :func:`reset_launch_counts`."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def check_operand(name: str, t: torch.Tensor, device: torch.device,
+                  shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+    ``device`` (what the kernels take)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def current_stream(device: torch.device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``."""
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
