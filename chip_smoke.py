@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's main path - the paper's ECG inference, raw 2-channel
-12-bit records to logits - through the entry points a user calls, at the
-published width (``ECGConfig()`` defaults, full per-synapse fixed-pattern
-map), with random weights from a seed, on one NVIDIA GPU:
+Drives the port's two main paths through the entry points a user calls,
+with random weights from a seed, on one NVIDIA GPU:
+
+- the paper's ECG inference, raw 2-channel 12-bit records to logits, at
+  the published width (``ECGConfig()`` defaults, full per-synapse
+  fixed-pattern map);
+- analog LM serving: ``ServeEngine.serve`` on phi4-mini-3.8b at its
+  published width (32 layers, d_model 3072, 24/8 heads, d_ff 8192,
+  vocab 200064), every parameter matmul a split-encoded analog layer.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -29,7 +34,21 @@ exits non-zero without printing a result):
    exists, one PyTorch call computing the same function, beside the
    least time the card could take; the end-to-end time per sample of
    both routes;
-6. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+6. the split kernel against its plain version at the six phi4-mini
+   layer shapes (fused QKV, o, up, gate, down, lm_head) at M = 4 (decode)
+   and 48 (prefill) and at a ragged sweep, faithful and fast, with and
+   without the epilogue: bit-exact with integer effective weights (dyadic
+   gain and offsets, so every partial sum is exact), within 1 LSB on
+   <= 1% of the elements with rank-1 gains;
+7. the LM main path: ``ServeEngine`` (compile once) serves 8 requests at
+   batch 4 with 8 new tokens each; exactly 161 ``analog_mvm_split``
+   launches (32 layers x 5 + lm_head) per prefill or decode call;
+8. the smoke config served on the card and on the CPU at fp32
+   activations: equal greedy tokens, and the max |logit diff|;
+9. LM timings: the split kernel per launch at each shape beside its
+   bound and its plain version; prefill latency, decode time per step
+   and the device idle share per decode step at batch 4;
+10. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 """
 from __future__ import annotations
@@ -40,6 +59,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
@@ -54,9 +75,17 @@ TPU_KERNELS = {
                     "src/repro/kernels/preproc.py:45"),
     "analog_mvm": ("src/repro_torch/csrc/analog_mvm.cu",
                    "src/repro/kernels/analog_mvm.py:129"),
+    "analog_mvm_split": ("src/repro_torch/csrc/analog_mvm_split.cu",
+                         "src/repro/kernels/analog_mvm.py:251"),
     "analog_plan": ("src/repro_torch/csrc/analog_plan.cu",
                     "src/repro/kernels/analog_plan.py:401"),
 }
+LM_ARCH = "phi4-mini-3.8b"
+LM_BATCH = 4
+LM_MAX_LEN = 128
+LM_REQUESTS = 8
+LM_NEW_TOKENS = 8
+LM_M = {"decode": LM_BATCH, "prefill": 48}
 
 
 def emit(tag: str, payload) -> None:
@@ -93,7 +122,12 @@ from repro_torch.core.noise import NoiseConfig  # noqa: E402
 from repro_torch.data.ecg_synth import ECGDatasetConfig, make_dataset  # noqa: E402
 from repro_torch.data.preprocess import preprocess  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.analog_mvm import analog_mvm_cuda  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.configs.base import RunConfig  # noqa: E402
+from repro_torch.kernels.analog_mvm import (  # noqa: E402
+    analog_mvm_cuda, analog_mvm_split_cuda)
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.kernels.analog_plan import analog_plan_cuda  # noqa: E402
 from repro_torch.kernels.preproc import maxmin_pool_cuda  # noqa: E402
 from repro_torch.models.ecg import (  # noqa: E402
@@ -240,7 +274,8 @@ def main_path(raw, model, cpu_model):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     n = len(BATCHES)
-    expected = {"maxmin_pool": n, "analog_plan": n, "analog_mvm": 3 * n}
+    expected = {"maxmin_pool": n, "analog_plan": n, "analog_mvm": 3 * n,
+                "analog_mvm_split": 0}
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
 
@@ -428,6 +463,283 @@ def time_end_to_end(raw, model):
     return out
 
 
+# ----------------------------------------------------- LM: split kernel
+def _split_codes(m, k, g):
+    """Signed-split codes of a random float activation [m, k] at the
+    dynamic calibration's LSB (abs-max / 31), on the card."""
+    x = torch.randn((m, k), generator=g, device=DEV)
+    scale = x.abs().max() / 31.0
+    a_pos = torch.clamp(torch.round(x / scale), 0.0, 31.0)
+    a_neg = torch.clamp(torch.round(-x / scale), 0.0, 31.0)
+    return a_pos.contiguous(), a_neg.contiguous()
+
+
+def _split_weights(k, n, g, rank1):
+    """Integer w_eff with a dyadic gain (2**-9) and dyadic offsets, or the
+    same codes times rank-1 row/column gains."""
+    w = torch.randint(-63, 64, (k, n), generator=g, device=DEV).float()
+    if rank1:
+        row = 1 + 0.014 * torch.randn((k, 1), generator=g, device=DEV)
+        col = 1 + 0.014 * torch.randn((1, n), generator=g, device=DEV)
+        w = w * col * row
+    gain = torch.full((n,), 2.0 ** -9, device=DEV)
+    off = torch.randint(-16, 17, (k // 128, n), generator=g,
+                        device=DEV).float() / 8
+    return w.contiguous(), gain, off
+
+
+def lm_shapes(cfg):
+    """(name, K, N) of the analog layers of one decode step, K padded to
+    whole 128-row chunks."""
+    d, f = (-(-k // 128) * 128 for k in (cfg.d_model, cfg.d_ff))
+    nq, nkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    return (("qkv", d, nq + 2 * nkv), ("wo", -(-nq // 128) * 128,
+                                       cfg.d_model),
+            ("up", d, cfg.d_ff), ("gate", d, cfg.d_ff),
+            ("down", f, cfg.d_model), ("lm_head", d, cfg.vocab_size))
+
+
+def check_split_kernel(cfg):
+    """Phase 6: the split kernel against its plain version on the card."""
+    results = []
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    cases = [(f"{name} M={m}", m, k, n) for name, k, n in lm_shapes(cfg)
+             for m in LM_M.values()]
+    cases += [(f"ragged {(m, k, n)}", m, k, n) for m, k, n in (
+        (1, 128, 1), (5, 256, 129), (16, 384, 70), (17, 128, 700),
+        (100, 384, 65))]
+    for what, m, k, n in cases:
+        a_pos, a_neg = _split_codes(m, k, g)
+        for rank1 in (False, True):
+            w, gain, off = _split_weights(k, n, g, rank1)
+            for faithful in (True, False):
+                for epi in (None, ("relu_shift", 5)):
+                    args = (a_pos, a_neg, w, gain, off)
+                    got = analog_mvm_split_cuda(*args, faithful=faithful,
+                                                epilogue=epi)
+                    want = ref.adc_epilogue_ref(ref.analog_mvm_split_ref(
+                        *args, faithful=faithful), epi)
+                    results.append(_compare(
+                        "analog_mvm_split", got, want, exact=not rank1,
+                        what=f"{what} rank1={rank1} faithful={faithful} "
+                             f"epi={epi}"))
+            del w, gain, off
+    return results
+
+
+# ------------------------------------------------------- LM: main path
+def _lm_requests(cfg):
+    """``examples/serve_batch.py``'s request draw."""
+    rng = np.random.default_rng(0)
+    return [Request(uid=i,
+                    prompt=rng.integers(0, cfg.vocab_size,
+                                        rng.integers(4, 12)),
+                    max_new_tokens=LM_NEW_TOKENS)
+            for i in range(LM_REQUESTS)]
+
+
+def _counting(engine):
+    """Wrap the engine's steps: count the calls and check every call's
+    last-position logits (finite, [B, vocab])."""
+    calls = {"prefill": 0, "decode": 0}
+
+    def wrap(name, step):
+        def run(params, batch, cache):
+            logits, cache = step(params, batch, cache)
+            calls[name] += 1
+            b = cache["layers"]["l0"]["attn"]["k"].shape[1]
+            if tuple(logits.shape) != (b, engine.cfg.vocab_size) or not bool(
+                    torch.isfinite(logits).all()):
+                raise AssertionError(f"{name}: logits {tuple(logits.shape)} "
+                                     "not finite of shape (B, vocab)")
+            return logits, cache
+        return run
+
+    engine.prefill = wrap("prefill", engine.prefill)
+    engine.decode = wrap("decode", engine.decode)
+    return calls
+
+
+def lm_main_path():
+    """Phase 7: ServeEngine on phi4-mini-3.8b at its published width."""
+    cfg = configs.get_arch(LM_ARCH)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    t0 = time.monotonic()
+    params = T.lm_init(torch.Generator(device=DEV).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    engine = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                         max_len=LM_MAX_LEN)
+    torch.cuda.synchronize()
+    t_compile = time.monotonic() - t0 - t_init
+    del params
+    calls = _counting(engine)
+    reqs = _lm_requests(cfg)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    done = engine.serve(reqs)
+    torch.cuda.synchronize()
+    t_serve = time.monotonic() - t0
+    counts = ops.launch_counts()
+    n_calls = calls["prefill"] + calls["decode"]
+    per_call = 5 * cfg.n_layers + 1
+    expected = {"maxmin_pool": 0, "analog_mvm": 0, "analog_plan": 0,
+                "analog_mvm_split": per_call * n_calls}
+    if counts != expected:
+        raise AssertionError(f"LM launch counts {counts} != {expected} "
+                             f"({calls})")
+    for r in done:
+        out = r.output.tolist()
+        if len(out) != LM_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"request {r.uid}: tokens {out}")
+    return engine, {
+        "arch": cfg.name, "launches": counts, "calls": calls,
+        "launches_per_call": per_call,
+        "init_s": t_init, "compile_s": t_compile, "serve_s": t_serve,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "tokens": {r.uid: r.output.tolist() for r in done},
+        "prompt_lens": [len(r.prompt) for r in done],
+    }
+
+
+def lm_card_vs_cpu():
+    """Phase 8: the smoke config, one parameter tree, on the card and on
+    the CPU at fp32 activations."""
+    cfg = configs.get_smoke(LM_ARCH)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"),
+                    activation_dtype="float32")
+    params = T.lm_init(torch.Generator().manual_seed(SEED), cfg,
+                       device="cpu")
+    engines = {dev: ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                                max_len=LM_MAX_LEN, device=dev)
+               for dev in ("cuda", "cpu")}
+    tokens = {dev: [r.output.tolist() for r in eng.serve(_lm_requests(cfg))]
+              for dev, eng in engines.items()}
+    if tokens["cuda"] != tokens["cpu"]:
+        raise AssertionError(f"greedy tokens differ: card {tokens['cuda']} "
+                             f"cpu {tokens['cpu']}")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (LM_BATCH, 12))
+    logits = {}
+    for dev, eng in engines.items():
+        cache = T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN,
+                                dtype=torch.float32, device=dev)
+        logits[dev], _ = eng.prefill(
+            eng.params, {"tokens": torch.as_tensor(toks, device=dev)}, cache)
+    diff = (logits["cuda"].cpu() - logits["cpu"]).abs()
+    return {"arch": cfg.name, "tokens_equal": True,
+            "tokens": tokens["cuda"],
+            "prefill_max_abs_logit_diff": float(diff.max()),
+            "prefill_max_abs_logit": float(logits["cpu"].abs().max())}
+
+
+# ---------------------------------------------------------- LM: timing
+def _layer_plans(engine):
+    """The lowered plans of group 0's six analog layer shapes and of the
+    lm_head, in :func:`lm_shapes` order."""
+    tree = engine.params
+    g0 = T.stack_index(tree["layers"]["l0"], 0)
+    return (g0["attn"]["_groups"]["qkv"].fused, g0["attn"]["wo"]["_plan"],
+            g0["mlp"]["up"]["_plan"], g0["mlp"]["gate"]["_plan"],
+            g0["mlp"]["down"]["_plan"], tree["lm_head"]["_plan"])
+
+
+def time_split(engine):
+    """Phase 9a: the split kernel at the main path's operands: the real
+    lowered weights of each layer shape, codes of a random activation."""
+    cfg = engine.cfg
+    g = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    rows = []
+    for (name, k, n), lp in zip(lm_shapes(cfg), _layer_plans(engine)):
+        if (lp.k_pad, lp.n) != (k, n):
+            raise AssertionError(f"{name}: plan {(lp.k_pad, lp.n)} != "
+                                 f"{(k, n)}")
+        for phase, m in LM_M.items():
+            a_pos, a_neg = _split_codes(m, k, g)
+            args = (a_pos, a_neg, lp.w_eff, lp.gain_row, lp.chunk_offset)
+            c = k // 128
+            nbytes = 4 * (2 * m * k + k * n + n + c * n + m * n)
+            b_ms, b_by = bound(nbytes, 2 * 2 * m * k * n)
+            kern = lambda args=args: analog_mvm_split_cuda(*args)  # noqa: E731
+            plain = lambda args=args: ref.analog_mvm_split_ref(*args)  # noqa: E731
+            row = {
+                "kernel": "analog_mvm_split", "phase": phase, "layer": name,
+                "what": f"{phase} {name} M={m} K={k} N={n}",
+                "ms": time_ms(kern, iters=10, reps=5),
+                "plain_ms": time_ms(plain, iters=5, reps=3),
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "device_ms": device_trace(kern, iters=10)[0],
+                "plain_device_ms": device_trace(plain, iters=5)[0],
+            }
+            row["device_share_of_bound"] = (
+                None if row["device_ms"] is None
+                else b_ms / row["device_ms"])
+            emit("timing", row)
+            rows.append(row)
+    return rows
+
+
+def per_step(rows, phase, key, n_layers):
+    """A per-call sum over the 161 launches of one prefill or decode call:
+    n_layers x the five layer shapes + the lm_head."""
+    sel = {r["layer"]: r[key] for r in rows if r["phase"] == phase}
+    if any(v is None for v in sel.values()):
+        return None
+    return n_layers * sum(v for k, v in sel.items() if k != "lm_head") \
+        + sel["lm_head"]
+
+
+def time_serving(engine):
+    """Phase 9b: prefill latency and decode time per step at batch 4
+    (host clock around synchronized calls), and the device idle share per
+    decode step from a profiler trace."""
+    cfg = engine.cfg
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (LM_BATCH, 12)), device=DEV)
+
+    def fresh_cache():
+        return T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN,
+                               dtype=torch.float32, device=DEV)
+
+    prefill_s = []
+    for _ in range(4):
+        cache = fresh_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = engine.prefill(engine.params, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    state = {"cache": cache}
+
+    def decode():
+        lg, state["cache"] = engine.decode(engine.params, tok,
+                                           state["cache"])
+        return lg
+
+    decode_s = []
+    for _ in range(16):
+        t0 = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t0)
+    dev_ms, n_act = device_trace(decode, iters=8)
+    step_ms = statistics.median(decode_s[1:]) * 1e3
+    return {
+        "batch": LM_BATCH, "prompt_len": int(toks.shape[1]),
+        "prefill_ms_median": statistics.median(prefill_s[1:]) * 1e3,
+        "prefill_ms_all": [t * 1e3 for t in prefill_s],
+        "decode_ms_per_step_median": step_ms,
+        "decode_ms_per_step_quartiles": [
+            q * 1e3 for q in statistics.quantiles(decode_s[1:], n=4)[::2]],
+        "decode_tokens_per_s": LM_BATCH / step_ms * 1e3,
+        "decode_device_ms_per_step": dev_ms,
+        "decode_device_activities_per_step": n_act,
+        "decode_device_idle_share": None if dev_ms is None
+        else 1 - dev_ms / step_ms,
+    }
+
+
 def main() -> None:
     print(card_line(), flush=True)
 
@@ -463,10 +775,47 @@ def main() -> None:
 
     rows = time_kernels(raw, model, codes)
     emit("end_to_end", time_end_to_end(raw, model))
+    del model, cpu_model, int_model, codes
+
+    cfg = configs.get_arch(LM_ARCH)
+    checks = check_split_kernel(cfg)
+    emit("split_kernel_checks", {
+        "n": len(checks), "max_abs_err": MAX_ERR["analog_mvm_split"],
+        "exact_cases_bit_exact": True,
+        "worst": max(checks, key=lambda c: c["max_abs_err"]),
+        "max_share_differing": max(c["share_differing"] for c in checks),
+    })
+    torch.cuda.empty_cache()
+
+    engine, lm_report = lm_main_path()
+    emit("lm_main_path", lm_report)
+    counts["analog_mvm_split"] = lm_report["launches"]["analog_mvm_split"]
+    emit("lm_card_vs_cpu", lm_card_vs_cpu())
+    split_rows = time_split(engine)
+    lm_timing = time_serving(engine)
+    for key in ("ms", "plain_ms", "bound_ms", "device_ms"):
+        lm_timing[f"split_{key}_per_decode_step"] = per_step(
+            split_rows, "decode", key, cfg.n_layers)
+        lm_timing[f"split_{key}_per_prefill"] = per_step(
+            split_rows, "prefill", key, cfg.n_layers)
+    emit("lm_serving", lm_timing)
 
     kernels = []
     big = max(BATCHES)
     for name, (source, replaces) in TPU_KERNELS.items():
+        if name == "analog_mvm_split":
+            # one decode step at batch 4: the sum over its 161 launches
+            dec = [r for r in split_rows if r["phase"] == "decode"]
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": MAX_ERR[name],
+                **{k: per_step(split_rows, "decode", k, cfg.n_layers)
+                   for k in ("ms", "plain_ms", "bound_ms")},
+                "bound_by": max(dec, key=lambda r: r["bound_ms"])["bound_by"],
+                "library_ms": None,
+            })
+            continue
         sel = [r for r in rows if r["kernel"] == name
                and r["what"].startswith(f"B={big} ")]
         lib = [r["library_ms"] for r in sel]

@@ -1,7 +1,9 @@
 """The front door: declare (:class:`ModuleSpec`) -> :func:`compile` ->
 ``CompiledModel.apply``."""
 from repro_torch.api.compile import compile  # noqa: A004
-from repro_torch.api.module import LayerSpec, ModuleSpec
-from repro_torch.api.program import CompiledModel
+from repro_torch.api.compile import lower_tree, tree_spec
+from repro_torch.api.module import GroupSpec, LayerSpec, ModuleSpec
+from repro_torch.api.program import CompiledModel, apply_linear
 
-__all__ = ["compile", "CompiledModel", "LayerSpec", "ModuleSpec"]
+__all__ = ["compile", "CompiledModel", "GroupSpec", "LayerSpec",
+           "ModuleSpec", "apply_linear", "lower_tree", "tree_spec"]

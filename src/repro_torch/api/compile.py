@@ -1,20 +1,41 @@
 """``compile(spec, params, run_cfg)``: the compile half of the front door
-(port of the stack branch of ``repro.api.compile``).
+(port of the stack and tree branches of ``repro.api.compile``).
 
-Every analog layer of a stack spec is lowered exactly once, on the
-target device, into one :class:`~repro_torch.exec.plan.AnalogPlan`.
-The static verify step of the reference, digital mode, tree/block specs
-and measured calibration are not ported yet.
+- stack specs lower to one :class:`~repro_torch.exec.plan.AnalogPlan`
+  (:func:`repro_torch.exec.lower.lower_stack`);
+- tree specs pre-lower every analog layer in place in the params tree (a
+  ``"_plan"`` entry beside its parameters; a scan-stacked layer dict gets
+  a :class:`~repro_torch.exec.plan.PlanStack`, one plan per slice) and
+  every declared fusion group into a
+  :class:`~repro_torch.exec.plan.GroupPlan` under the members' parent
+  node (``"_groups"``): ONE analog dispatch where the per-layer path
+  issued N.
+
+Everything is lowered once, on the target device.  Not ported yet: the
+static verify step, measured calibration (``calibration=``), the
+``"block"`` spec kind, and digital mode for stacks.
 """
 from __future__ import annotations
 
-import torch
+from typing import Iterator, Optional, Sequence, Tuple
 
-from repro_torch.api.module import ModuleSpec
+from repro_torch.api.module import (
+    STACK,
+    TREE,
+    GroupSpec,
+    LayerSpec,
+    ModuleSpec,
+    group_parent,
+)
 from repro_torch.api.program import CompiledModel
 from repro_torch.core.analog import AnalogConfig
-from repro_torch.core.device import DeviceLike, resolve_device
-from repro_torch.exec.lower import lower_stack
+from repro_torch.core.device import DeviceLike, resolve_device, to_device
+from repro_torch.exec.lower import lower_fused, lower_layer, lower_stack
+from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, GroupPlan, PlanStack
+
+_PLAN = "_plan"
+_GROUPS = "_groups"
+_QKV_MEMBERS = ("wq", "wk", "wv")
 
 
 def _acfg(run_cfg) -> AnalogConfig:
@@ -23,20 +44,154 @@ def _acfg(run_cfg) -> AnalogConfig:
 
 
 def _is_analog_layer(node) -> bool:
-    """An analog linear's parameter dict (2-D master weights)."""
+    """An analog linear's parameter dict: 2-D master weights, or 3-D when
+    stacked with a leading scan axis."""
     return (
         isinstance(node, dict)
         and "w" in node and "w_scale" in node and "gain" in node
-        and getattr(node["w"], "ndim", 0) == 2
+        and getattr(node["w"], "ndim", 0) in (2, 3)
     )
 
 
-def _to_device(tree, device: torch.device):
-    if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    return tree
+def _slice(node, i: int):
+    """Slice ``i`` of a scan-stacked params node (every tensor leaf)."""
+    if isinstance(node, dict):
+        return {k: _slice(v, i) for k, v in node.items()}
+    return node[i]
+
+
+def _lower_leaf(node: dict, acfg: AnalogConfig):
+    """Lower one analog layer dict; a scan-stacked one slice by slice (the
+    reference vmaps over the stack axis)."""
+    if node["w"].ndim == 3:
+        return PlanStack(lower_layer(_slice(node, i), acfg)
+                         for i in range(node["w"].shape[0]))
+    return lower_layer(node, acfg)
+
+
+def _derive_groups(params) -> Tuple[GroupSpec, ...]:
+    """The fusion-group declaration of a bare params tree: one
+    ``column_concat`` group per attention node whose wq/wk/wv share the
+    input dim and the stack rank (the walk :func:`tree_spec` records)."""
+    groups = []
+
+    def walk(node, path):
+        if _is_analog_layer(node) or not isinstance(node, dict):
+            return
+        ms = [node.get(m) for m in _QKV_MEMBERS]
+        if (all(_is_analog_layer(m) for m in ms)
+                and len({(m["w"].ndim, m["w"].shape[-2]) for m in ms}) == 1):
+            prefix = ".".join(path + [""]) if path else ""
+            groups.append(GroupSpec(
+                name=prefix + "qkv", kind=GROUP_COLUMN_CONCAT,
+                members=tuple(prefix + m for m in _QKV_MEMBERS),
+            ))
+        for k, v in node.items():
+            walk(v, path + [k])
+
+    walk(params, [])
+    return tuple(groups)
+
+
+def _lower_group(g: GroupSpec, locals_: Sequence[str], node: dict,
+                 acfg: AnalogConfig):
+    """Lower one declared fusion group at its parent node, or None when it
+    cannot fuse under this config (column_concat needs dynamic activation
+    calibration: the group shares one input encoding; the members then
+    keep their per-layer plans).  Scan-stacked members give a
+    :class:`PlanStack` of per-slice group plans."""
+    if acfg.act_calib != "dynamic":
+        return None
+    members = [node[m] for m in locals_]
+    member_ns = tuple(int(m["w"].shape[-1]) for m in members)
+
+    def group(ms):
+        return GroupPlan(kind=g.kind, fused=lower_fused(ms, acfg),
+                         member_names=tuple(locals_), member_ns=member_ns)
+
+    if members[0]["w"].ndim == 3:
+        return PlanStack(group([_slice(m, i) for m in members])
+                         for i in range(members[0]["w"].shape[0]))
+    return group(members)
+
+
+def lower_tree(params, run_cfg, *,
+               groups: Optional[Sequence[GroupSpec]] = None):
+    """Pre-lower every analog layer in a params tree: each analog-layer
+    dict gains a ``"_plan"`` entry, every fusion group a
+    :class:`~repro_torch.exec.plan.GroupPlan` in its parent node's
+    ``"_groups"`` dict (fused members get no per-layer plan).  ``groups``
+    is the fusion declaration (``spec.groups`` when called through
+    :func:`compile`); None derives it from the params structure.  Returns
+    the params tree unchanged in digital mode."""
+    acfg = _acfg(run_cfg)
+    if acfg.mode == "digital":
+        return params
+    if groups is None:
+        groups = _derive_groups(params)
+    by_parent: dict = {}
+    for g in groups:
+        parent, locals_ = group_parent(g)
+        by_parent.setdefault(parent, []).append((g, locals_))
+
+    def walk(node, path):
+        if _is_analog_layer(node):
+            return {**node, _PLAN: _lower_leaf(node, acfg)}
+        if not isinstance(node, dict):
+            return node
+        joined = ".".join(path)
+        gplans: dict = {}
+        fused: set = set()
+        for g, locals_ in by_parent.get(joined, ()):
+            missing = [m for m in locals_ if m not in node]
+            if missing:
+                raise ValueError(
+                    f"group {g.name!r}: members {missing} not found under "
+                    f"params node {joined or '<root>'!r}"
+                )
+            gp = _lower_group(g, locals_, node, acfg)
+            if gp is not None:
+                gplans[g.local_name] = gp
+                fused.update(locals_)
+        out = {k: dict(v) if k in fused else walk(v, path + [k])
+               for k, v in node.items()}
+        if gplans:
+            out[_GROUPS] = gplans
+        return out
+
+    return walk(params, [])
+
+
+def iter_analog_layers(params) -> Iterator[Tuple[str, dict]]:
+    """Yield (dotted path, layer params) for every analog layer dict."""
+
+    def walk(node, path):
+        if _is_analog_layer(node):
+            yield ".".join(path), node
+        elif isinstance(node, dict):
+            for k in node:
+                yield from walk(node[k], path + [k])
+
+    yield from walk(params, [])
+
+
+def tree_spec(name: str, params, *, apply_fn=None) -> ModuleSpec:
+    """A tree-kind :class:`ModuleSpec` from a params tree: one
+    :class:`LayerSpec` per analog layer plus the derived fusion groups
+    (:func:`_derive_groups`).  The groups are authoritative:
+    :func:`compile` lowers exactly ``spec.groups``."""
+    groups = _derive_groups(params)
+    member_group = {m: g.name for g in groups for m in g.members}
+    layers = []
+    for path, node in iter_analog_layers(params):
+        w = node["w"]
+        layers.append(LayerSpec(
+            name=path, in_dim=int(w.shape[-2]), out_dim=int(w.shape[-1]),
+            group=member_group.get(path),
+            stacked=int(w.shape[0]) if w.ndim == 3 else 0,
+        ))
+    return ModuleSpec(name=name, layers=tuple(layers), kind=TREE,
+                      apply_fn=apply_fn, groups=groups)
 
 
 def _stack_params(spec: ModuleSpec, params) -> list:
@@ -50,10 +205,10 @@ def _stack_params(spec: ModuleSpec, params) -> list:
             raise ValueError(
                 f"spec layer {l.name!r}: no analog layer params found"
             )
-        if not _is_analog_layer(p):
+        if not _is_analog_layer(p) or p["w"].ndim != 2:
             raise ValueError(
                 f"spec layer {l.name!r}: params are not an analog layer "
-                "dict (need w / w_scale / gain)"
+                "dict (need 2-D w / w_scale / gain)"
             )
         got = tuple(p["w"].shape[-2:])
         if got != (l.in_dim, l.out_dim):
@@ -67,23 +222,28 @@ def _stack_params(spec: ModuleSpec, params) -> list:
 
 def compile(spec: ModuleSpec, params, run_cfg, *,  # noqa: A001
             device: DeviceLike = None) -> CompiledModel:
-    """Compile a declared stack against concrete parameters on ``device``
+    """Compile a declared model against concrete parameters on ``device``
     (``None`` = the CUDA device; raises when there is none).  The
-    parameters are moved there first, then lowered once."""
+    parameters are moved there first, then every analog layer is lowered
+    once: a stack into one AnalogPlan, a tree into plan entries beside the
+    params (fusion groups planned from ``spec.groups``)."""
     dev = resolve_device(device)
     acfg = _acfg(run_cfg)
-    if acfg.mode == "digital":
+    params = to_device(params, dev)
+    if spec.kind == TREE:
+        lowered = lower_tree(params, acfg, groups=spec.groups)
+    elif acfg.mode == "digital":
         raise NotImplementedError(
-            f"spec {spec.name!r}: digital mode is not ported yet"
+            f"spec {spec.name!r}: digital mode of a stack is not ported yet"
         )
-    params = _to_device(params, dev)
-    layer_params = _stack_params(spec, params)
-    lowered = lower_stack(
-        layer_params, acfg,
-        signed_inputs=[l.signed_input for l in spec.layers],
-        epilogues=[l.epilogue for l in spec.layers],
-        flatten_outs=[l.flatten_out for l in spec.layers],
-        input_domain=spec.input_domain,
-    )
+    else:
+        assert spec.kind == STACK, spec.kind
+        lowered = lower_stack(
+            _stack_params(spec, params), acfg,
+            signed_inputs=[l.signed_input for l in spec.layers],
+            epilogues=[l.epilogue for l in spec.layers],
+            flatten_outs=[l.flatten_out for l in spec.layers],
+            input_domain=spec.input_domain,
+        )
     return CompiledModel(spec=spec, params=params, run_cfg=run_cfg,
                          lowered=lowered, device=dev)

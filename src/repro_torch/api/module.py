@@ -1,30 +1,46 @@
 """Declarative module specs: the "declare once" half of the front door
-(port of the stack kind of ``repro.api.module``).
+(port of the stack and tree kinds of ``repro.api.module``).
 
-A :class:`ModuleSpec` of kind ``"stack"`` names every analog layer of a
-model exactly once - name, in/out dims, inter-layer epilogue - and
-:func:`repro_torch.api.compile` turns (spec, params, config) into a
-:class:`repro_torch.api.program.CompiledModel`.  The ``"tree"`` and
-``"block"`` kinds and fusion groups are not ported yet.
+- ``"stack"``: the layers ARE the model - an ordered chain executed as one
+  :class:`~repro_torch.exec.plan.AnalogPlan` (the ECG net).
+- ``"tree"``: the analog layers live inside a larger host program
+  (attention, norms, the residual stream stay digital).  The spec lists
+  them by dotted path into the params tree; :func:`repro_torch.api.compile`
+  bakes a plan beside each layer's parameters and the host program
+  (``apply_fn``) replays them.
+
+Fusion groups (tree specs): a :class:`GroupSpec` names the layers that
+replay as ONE analog dispatch.  The port runs the ``"column_concat"`` kind
+(same input, concatenated output columns - the attention QKV); the
+reference's ``"batch_concat"`` and ``"expert_stack"`` kinds and the
+``"block"`` spec kind are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional, Tuple
 
+from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, GROUP_KINDS
+
 STACK = "stack"
+TREE = "tree"
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
     """One analog layer, declared once.
 
-    name:         layer name ("fc1"), the key of its params.
+    name:         layer name ("fc1") or dotted path into the params tree
+                  ("layers.l0.attn.wq").
     in_dim/out_dim: logical matmul dims (pre chunk padding).
     signed_input: per-layer override of ``cfg.signed_input`` or None.
     epilogue:     ADC hand-off to the NEXT stacked layer ("none" float
                   glue | "relu_shift" code-domain chain).
     flatten_out:  flatten trailing output dims before the next layer.
+    group:        name of the :class:`GroupSpec` this layer dispatches
+                  with, or None; a tag without a declared GroupSpec implies
+                  a ``column_concat`` group of the layers sharing it.
+    stacked:      leading scan-stack size (0 = plain 2-D layer).
     """
 
     name: str
@@ -33,6 +49,83 @@ class LayerSpec:
     signed_input: Optional[str] = None
     epilogue: str = "none"
     flatten_out: bool = False
+    group: Optional[str] = None
+    stacked: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    """One fusion group: the members that replay as ONE analog dispatch.
+
+    name:    group name; its dotted prefix locates the group
+             ("layers.l0.attn.qkv"), the last segment is its local name at
+             the parent params node.
+    kind:    "column_concat".
+    members: ordered member layer names (declared layers, all siblings).
+    """
+
+    name: str
+    kind: str
+    members: Tuple[str, ...]
+
+    def __post_init__(self):
+        object.__setattr__(self, "members", tuple(self.members))
+
+    @property
+    def local_name(self) -> str:
+        """The group's key inside its parent node's ``"_groups"`` dict."""
+        return self.name.rsplit(".", 1)[-1]
+
+
+def _parent_of(path: str) -> str:
+    return path.rsplit(".", 1)[0] if "." in path else ""
+
+
+def _local_of(path: str) -> str:
+    return path.rsplit(".", 1)[-1]
+
+
+def group_parent(g: GroupSpec) -> Tuple[str, Tuple[str, ...]]:
+    """(parent dotted path, local member names) of a validated group."""
+    return _parent_of(g.members[0]), tuple(_local_of(m) for m in g.members)
+
+
+def _validate_group(g: GroupSpec, by_name: dict, spec_name: str) -> None:
+    where = f"spec {spec_name!r} group {g.name!r}"
+    if g.kind not in GROUP_KINDS:
+        raise NotImplementedError(
+            f"{where}: kind {g.kind!r} is not ported yet; ported kinds: "
+            f"{', '.join(GROUP_KINDS)}"
+        )
+    if not g.members:
+        raise ValueError(f"{where}: a group needs at least one member")
+    missing = [m for m in g.members if m not in by_name]
+    if missing:
+        raise ValueError(
+            f"{where}: members {missing} are not declared layers; "
+            f"declared: {', '.join(by_name) or '(none)'}"
+        )
+    if len(set(g.members)) != len(g.members):
+        raise ValueError(f"{where}: duplicate members {g.members}")
+    parents = {_parent_of(m) for m in g.members}
+    if len(parents) != 1:
+        raise ValueError(
+            f"{where}: members must be siblings (direct children of one "
+            f"params node); got parents {sorted(parents)}"
+        )
+    ls = [by_name[m] for m in g.members]
+    if {l.epilogue for l in ls} != {"none"}:
+        raise ValueError(
+            f"{where}: fused members hand off dequantized floats and "
+            "cannot carry a code-domain epilogue"
+        )
+    for attr in ("signed_input", "stacked", "in_dim"):
+        if len({getattr(l, attr) for l in ls}) != 1:
+            raise ValueError(
+                f"{where}: {GROUP_COLUMN_CONCAT} members share one input "
+                f"and must agree on {attr}; got "
+                f"{[(l.name, getattr(l, attr)) for l in ls]}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,10 +134,11 @@ class ModuleSpec:
 
     ``apply_fn(model, *args, **kw)`` is the host program executed by
     ``CompiledModel.apply`` (stacks default to running their plan).
-    ``input_domain`` declares what the compiled program's INITIAL input
-    is: "codes" (unsigned 5-bit event codes, quantization skipped) or
-    "float" (quantized on entry); None infers it from the first layer's
-    epilogue.
+    ``input_domain`` (stack kind) declares what the compiled program's
+    INITIAL input is: "codes" (unsigned 5-bit event codes, quantization
+    skipped) or "float" (quantized on entry); None infers it from the
+    first layer's epilogue.  ``groups`` declares the fusion groups (tree
+    kind); a ``LayerSpec.group`` tag must name one of them.
     """
 
     name: str
@@ -52,16 +146,55 @@ class ModuleSpec:
     kind: str = STACK
     apply_fn: Optional[Callable] = None
     input_domain: Optional[str] = None
+    groups: Tuple[GroupSpec, ...] = ()
 
     def __post_init__(self):
-        if self.kind != STACK:
+        if self.kind not in (STACK, TREE):
             raise NotImplementedError(
                 f"spec {self.name!r}: kind {self.kind!r} is not ported yet; "
-                "only 'stack' specs compile"
+                f"ported kinds: {STACK!r}, {TREE!r}"
             )
         object.__setattr__(self, "layers", tuple(self.layers))
-        names = [l.name for l in self.layers]
-        if len(set(names)) != len(names):
+        by_name = {l.name: l for l in self.layers}
+        if len(by_name) != len(self.layers):
             raise ValueError(
-                f"spec {self.name!r}: duplicate layer names in {names}"
+                f"spec {self.name!r}: duplicate layer names in "
+                f"{[l.name for l in self.layers]}"
             )
+        object.__setattr__(self, "groups", tuple(self.groups))
+        declared = {g.name for g in self.groups}
+        if len(declared) != len(self.groups):
+            raise ValueError(
+                f"spec {self.name!r}: duplicate group names in "
+                f"{[g.name for g in self.groups]}"
+            )
+        untied = [l.name for l in self.layers
+                  if l.group is not None and l.group not in declared]
+        if untied:
+            raise ValueError(
+                f"spec {self.name!r}: layers {untied} name an undeclared "
+                "fusion group"
+            )
+        if self.groups and self.kind != TREE:
+            raise ValueError(
+                f"spec {self.name!r}: fusion groups are a tree-spec feature"
+            )
+        seen: dict = {}
+        for g in self.groups:
+            _validate_group(g, by_name, self.name)
+            key = (_parent_of(g.members[0]), g.local_name)
+            if key in seen:
+                raise ValueError(
+                    f"spec {self.name!r}: groups {seen[key]!r} and "
+                    f"{g.name!r} collide on local name {g.local_name!r}"
+                )
+            seen[key] = g.name
+
+    def group(self, name: str) -> GroupSpec:
+        for g in self.groups:
+            if g.name == name:
+                return g
+        raise KeyError(
+            f"no fusion group {name!r} in spec {self.name!r}; declared "
+            f"groups: {', '.join(g.name for g in self.groups) or '(none)'}"
+        )

@@ -1,32 +1,58 @@
-"""Compiled analog programs: :class:`CompiledModel` (port of the stack part
-of ``repro.api.program``).
+"""Compiled analog programs (port of ``repro.api.program``):
+:class:`CompiledModel` plus the single-layer :func:`apply_linear`, the
+function every model matmul routes through.
 
     model = api.compile(spec, params, run_cfg)   # on the CUDA device
     y     = model.apply(x)                       # run the compiled program
-    plan  = model.lower()                        # the baked AnalogPlan
+    plan  = model.lower()                        # AnalogPlan / lowered tree
 
-Serving compiles once and replays the plan for every request.
+Serving compiles once and replays the baked plans for every request.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
-from repro_torch.exec.plan import AnalogPlan
+from repro_torch.core.analog import AnalogConfig
+from repro_torch.exec.lower import lower_layer
 from repro_torch.exec.run import run as run_plan
+from repro_torch.exec.run import run_layer
+
+
+def apply_linear(params: dict, x: torch.Tensor,
+                 cfg: AnalogConfig) -> torch.Tensor:
+    """Apply one analog (or digital) linear layer: x [..., K] -> y [..., N].
+
+    A pre-baked ``"_plan"`` entry (placed by
+    :func:`repro_torch.api.compile.lower_tree`) is replayed directly;
+    otherwise the layer is lowered for this call.  A baked plan whose
+    static attributes disagree with the call-site config is ignored
+    rather than run with the wrong encoding."""
+    if cfg.mode == "digital":
+        y = torch.matmul(x, params["w"].to(x.dtype))
+        if "b" in params:
+            y = y + params["b"].to(y.dtype)
+        return y
+    lp = params.get("_plan")
+    if lp is not None and (lp.signed_input != cfg.signed_input
+                           or lp.chunk_rows != cfg.chunk_rows):
+        lp = None
+    if lp is None:
+        lp = lower_layer(params, cfg)
+    return run_layer(lp, x, cfg)
 
 
 @dataclasses.dataclass(frozen=True)
 class CompiledModel:
-    """An executable analog model: declaration + params + the baked plan,
+    """An executable analog model: declaration + params + the baked plans,
     all on ``device``."""
 
     spec: Any                      # ModuleSpec
     params: Any                    # the float master parameters
-    run_cfg: Any                   # AnalogConfig (or an object with .analog)
-    lowered: AnalogPlan
+    run_cfg: Any                   # RunConfig or AnalogConfig
+    lowered: Any                   # AnalogPlan (stack) | lowered tree
     device: torch.device
 
     def apply(self, *args, **kw):
@@ -35,6 +61,8 @@ class CompiledModel:
         the layer chain (``(x, *, megakernel="auto")``)."""
         if self.spec.apply_fn is not None:
             return self.spec.apply_fn(self, *args, **kw)
+        if self.spec.kind != "stack":
+            raise ValueError(f"spec {self.spec.name!r} declares no apply_fn")
         return self.run_stack(*args, **kw)
 
     def run_stack(self, x: torch.Tensor, *, megakernel="auto"
@@ -42,6 +70,24 @@ class CompiledModel:
         """Replay the layer chain (megakernel-routed when eligible)."""
         return run_plan(self.lowered, x, megakernel=megakernel)
 
-    def lower(self) -> AnalogPlan:
-        """The compiled artifact: the stack's :class:`AnalogPlan`."""
+    def lower(self):
+        """The compiled artifact: the stack's AnalogPlan, or the
+        pre-lowered params tree (tree kind; the raw params in digital
+        mode)."""
         return self.lowered
+
+    def group_plan(self, name: str) -> Optional[Any]:
+        """The lowered :class:`~repro_torch.exec.plan.GroupPlan` (a
+        :class:`~repro_torch.exec.plan.PlanStack` of them for scan-stacked
+        members) of a declared fusion group, or None when the group did
+        not fuse under this config."""
+        from repro_torch.api.module import group_parent
+
+        g = self.spec.group(name)          # KeyError lists declared groups
+        if self.spec.kind != "tree":
+            return None
+        parent, _ = group_parent(g)
+        node = self.lowered
+        for part in parent.split(".") if parent else ():
+            node = node[part]
+        return node.get("_groups", {}).get(g.local_name)

@@ -1,0 +1,80 @@
+"""Architecture and run configuration dataclasses (a copy of the
+``ArchConfig`` and ``RunConfig`` of ``repro.configs.base``: the reference
+module imports ``jax.numpy`` for its dtypes, so the port keeps its own,
+whose :attr:`ArchConfig.dtype` is a torch dtype)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.analog import AnalogConfig
+from repro_torch.core.noise import NoiseConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                      # dense | moe | ssm | hybrid | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    norm: str = "rmsnorm"
+    act: str = "swiglu"
+    rope_theta: float = 1e4
+    mrope: bool = False              # Qwen2-VL multimodal RoPE
+    embed_inputs: bool = True        # False: frontend stub feeds embeddings
+    tie_embeddings: bool = False
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0                # per-expert hidden dim
+    n_shared_experts: int = 0
+    moe_every: int = 1               # 2 -> interleaved dense/MoE (Llama-4)
+    moe_dense_d_ff: int = 0          # d_ff of the interleaved dense layers
+    # --- SSM / hybrid ---
+    block: str = "attn"              # attn | rwkv | mamba
+    ssm_state: int = 0
+    attn_every: int = 0              # Zamba2: shared attn block every k layers
+    # --- execution ---
+    param_dtype: str = "float32"     # "bfloat16" for the 400B config
+    remat: bool = True
+    scan_layers: bool = True
+    source: str = ""                 # provenance tag [hf/arXiv; tier]
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return (torch.bfloat16 if self.param_dtype == "bfloat16"
+                else torch.float32)
+
+    def layer_kind(self, i: int) -> str:
+        if self.block == "rwkv":
+            return "rwkv"
+        if self.block == "mamba":
+            return "mamba"
+        if self.n_experts and (i % self.moe_every == self.moe_every - 1):
+            return "attn_moe"
+        return "attn_mlp"
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Execution knobs orthogonal to the architecture: the two the serve
+    path reads.  The reference's optimizer, MoE, flash and distribution
+    knobs come with the code that reads them (ROADMAP)."""
+
+    analog: AnalogConfig = dataclasses.field(
+        default_factory=lambda: AnalogConfig(
+            mode="digital", noise=NoiseConfig(mode="rank1")
+        )
+    )
+    activation_dtype: str = "bfloat16"

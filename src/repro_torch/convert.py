@@ -4,8 +4,10 @@ The reference's parameter tree, with every leaf converted to a numpy
 array (``jax.tree.map(np.asarray, params)`` on the caller's side), maps
 leaf for leaf onto the port's: the same nested dicts (``w``, ``w_scale``,
 ``a_scale``, ``gain``, ``b`` and the ``fpn`` fixed-pattern tables) holding
-float32 tensors.  The port cannot reproduce ``jax.random`` draws, so this
-is how a parity check hands both packages the same weights.
+float32 tensors; an LM tree carries its scan-stacked ``layers`` (a
+leading ``[n_groups]`` axis on every leaf), ``embed`` and the norms the
+same way.  The port cannot reproduce ``jax.random`` draws, so this is
+how a parity check hands both packages the same weights.
 """
 from __future__ import annotations
 

@@ -147,6 +147,7 @@ def analog_linear_init(
     noise: NoiseConfig = NoiseConfig(),
     chunk_rows: int = BSS2.signed_rows,
     w_init_scale: float = 1.0,
+    dtype: torch.dtype = torch.float32,
     device: DeviceLike = None,
 ) -> Params:
     """Initialize master weights, static quantization scales, the analog
@@ -156,19 +157,19 @@ def analog_linear_init(
     placed on ``device`` (``None`` = the CUDA device)."""
     dev = resolve_device(device)
     std = w_init_scale / math.sqrt(in_dim)
-    w = (std * noise_lib._normal(generator, (in_dim, out_dim), dev))
+    w = (std * noise_lib._normal(generator, (in_dim, out_dim), dev)).to(dtype)
+    w32 = w.to(torch.float32)
     n_chunks = -(-in_dim // chunk_rows)
     params = {
         "w": w,
-        "w_scale": quant.calibrate_weight_scale(w),
+        "w_scale": quant.calibrate_weight_scale(w32),
         # activation scale: static, recalibratable
         "a_scale": torch.tensor(1.0 / BSS2.a_max, dtype=torch.float32,
                                 device=dev),
-        "gain": _statistical_gain(w, chunk_rows),
+        "gain": _statistical_gain(w32, chunk_rows),
     }
     if bias:
-        params["b"] = torch.zeros((out_dim,), dtype=torch.float32,
-                                  device=dev)
+        params["b"] = torch.zeros((out_dim,), dtype=dtype, device=dev)
     fpn = noise_lib.init_fixed_pattern(generator, in_dim, out_dim, n_chunks,
                                        noise, device=dev)
     if fpn:

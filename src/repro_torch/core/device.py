@@ -23,3 +23,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "the plain PyTorch versions on the CPU"
         )
     return dev
+
+
+def to_device(tree, device: torch.device):
+    """A nested dict of tensors moved to ``device`` (a tensor already there
+    is not copied)."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree

@@ -5,9 +5,10 @@ The compile step of the compile-once/run-many split: everything that
 depends only on the master weights and the frozen calibration state is
 computed here, once - 6-bit weight quantization, the fixed-pattern gain
 tables (the oracle bake from ``params["fpn"]``), chunk padding of the
-weights, the chunk-offset table and, for eligible chains, the whole-plan
-megakernel packing.  Per-call quantities (the dynamic activation scale)
-stay in :mod:`repro_torch.exec.run`.
+weights, the chunk-offset table, the column-concatenated plan of a
+fusion group (:func:`lower_fused`) and, for eligible chains, the
+whole-plan megakernel packing.  Per-call quantities (the dynamic
+activation scale) stay in :mod:`repro_torch.exec.run`.
 """
 from __future__ import annotations
 
@@ -99,6 +100,91 @@ def lower_layer(
         epilogue=epilogue,
         shift=default_shift(n_chunks),
         flatten_out=flatten_out,
+    )
+
+
+def lower_fused(
+    layer_params: Sequence[Params],
+    cfg: AnalogConfig,
+    *,
+    signed_input: Optional[str] = None,
+) -> LayerPlan:
+    """Lower N same-input layers into ONE dispatch: their output columns
+    concatenate into a single ``[K_pad, sum(N_i)]`` plan, so the executor
+    issues one analog pass where the per-layer path issued N (the
+    attention QKV group).
+
+    Column-exact by construction: every per-column quantity (weight
+    scale, gain, chunk offsets, the per-chunk ADC saturation) is
+    independent across columns, so the fused dispatch equals the
+    per-layer ones whenever the layers share the input encoding - always
+    under dynamic activation calibration (the scale is recomputed from
+    the shared input per call).  Under static calibration the group bakes
+    ONE input LSB, so differing per-layer ``a_scale`` raise.
+    """
+    plans = [lower_layer(p, cfg, signed_input=signed_input)
+             for p in layer_params]
+    p0 = plans[0]
+    for lp in plans:
+        if lp.k != p0.k or lp.chunk_rows != p0.chunk_rows:
+            raise ValueError(
+                "fused layers must share the input dim and chunk geometry: "
+                f"{[(p.k, p.chunk_rows) for p in plans]}"
+            )
+    if cfg.act_calib == "static":
+        scales = [float(lp.a_scale) for lp in plans]
+        if any(sc != scales[0] for sc in scales):
+            raise ValueError(
+                "lower_fused with act_calib='static' requires identical "
+                f"a_scale across the fused layers, got {scales}; lower them "
+                "per layer or recalibrate to a shared scale"
+            )
+
+    def cat(parts):
+        return torch.cat(parts, dim=-1)
+
+    def cat_or_fill(vals, fill):
+        if all(v is None for v in vals):
+            return None
+        return cat([fill(lp) if v is None else v for v, lp in zip(vals, plans)])
+
+    dev = p0.store.codes.device
+    c, k_pad = p0.n_chunks, p0.k_pad
+    f32 = dict(dtype=torch.float32, device=dev)
+    stores = [lp.store for lp in plans]
+    row_gain = col_blocks = None
+    if any(s.row_gain is not None for s in stores):
+        # per-member row gains cannot fold into one vector: one row per
+        # column block (absent ones exact 1.0, and x * 1.0 is exact)
+        row_gain = torch.stack([
+            s.row_gain[0] if s.row_gain is not None
+            else torch.ones((k_pad,), **f32) for s in stores
+        ], dim=0)
+        col_blocks = tuple(lp.n for lp in plans)
+    store = WeightStore(  # verify: allow-packed-weights
+        codes=cat([s.codes for s in stores]),
+        w_scale=cat([s.w_scale for s in stores]),
+        gain=cat([torch.broadcast_to(s.gain, (lp.n,))
+                  for s, lp in zip(stores, plans)]),
+        col_gain=cat_or_fill([s.col_gain for s in stores],
+                             lambda lp: torch.ones((lp.n,), **f32)),
+        row_gain=row_gain,
+        gain_map=cat_or_fill([s.gain_map for s in stores],
+                             lambda lp: torch.ones((k_pad, lp.n), **f32)),
+        chunk_rows=p0.chunk_rows,
+        col_blocks=col_blocks,
+    )
+    return LayerPlan(
+        store=store,
+        a_scale=p0.a_scale,
+        chunk_offset=cat_or_fill([lp.chunk_offset for lp in plans],
+                                 lambda lp: torch.zeros((c, lp.n), **f32)),
+        bias=cat_or_fill([lp.bias for lp in plans],
+                         lambda lp: torch.zeros((lp.n,), **f32)),
+        k=p0.k,
+        n=sum(lp.n for lp in plans),
+        chunk_rows=p0.chunk_rows,
+        signed_input=p0.signed_input,
     )
 
 

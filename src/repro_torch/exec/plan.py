@@ -12,6 +12,9 @@ schedule.  The plans are frozen dataclasses holding tensors:
   tables; the fp32 effective weights (:attr:`w_eff`) are derived from
   them once, when the store is built.
 - :class:`LayerPlan` - one lowered analog layer.
+- :class:`GroupPlan` - one lowered fusion group (the attention QKV
+  ``column_concat`` group: one dispatch over concatenated columns).
+- :class:`PlanStack` - the per-member plans of a scan-stacked layer.
 - :class:`MegakernelPack` - the kernel-ready packing of a whole chain.
 - :class:`AnalogPlan` - an ordered stack of :class:`LayerPlan`.
 """
@@ -37,6 +40,14 @@ INPUT_CODES = "codes"
 INPUT_FLOAT = "float"
 
 
+# Fusion-group kinds.  "column_concat": layers with the same input and
+# concatenated output columns (attention QKV) run as one [K, sum(N_i)]
+# pass.  The reference's "batch_concat" (RWKV) and "expert_stack" (MoE)
+# kinds are not ported yet.
+GROUP_COLUMN_CONCAT = "column_concat"
+GROUP_KINDS = (GROUP_COLUMN_CONCAT,)
+
+
 def default_shift(n_chunks: int) -> int:
     """Right-shift mapping the accumulated non-negative ADC range
     ``[0, C * adc_max]`` onto the 5-bit activation range (paper §II-A:
@@ -57,15 +68,20 @@ class WeightStore:
       w_scale:    [1, N] per-column weight LSB.
       gain:       scalar calibrated analog gain (NOT folded into w_eff).
       col_gain:   optional [N] per-column fixed-pattern gain (rank-1).
-      row_gain:   optional [1, K_pad] per-row fixed-pattern gain; pad
-                  rows hold exact 1.0.
+      row_gain:   optional [G, K_pad] per-row fixed-pattern gain, one
+                  row vector per column block (G = 1 for a solo layer, one
+                  per member of a column_concat fusion, split by
+                  ``col_blocks``); pad rows hold exact 1.0.
       gain_map:   optional [K_pad, N] full per-synapse gain map; pad rows
                   hold exact 1.0.
 
+    Static: ``chunk_rows`` and ``col_blocks`` (the member widths of a
+    column_concat fusion, summing to N, or None for one block).
+
     Dequantization contract (:attr:`w_eff`): multiply the codes by
-    col_gain, then row_gain, then gain_map - elementwise in exactly the
-    reference's order, which reproduces its effective weights bit for bit
-    (``x * 1.0`` is exact).  The reference's measured ``chunk_gain``
+    col_gain, then the per-block row_gain, then gain_map - elementwise in
+    exactly the reference's order, which reproduces its effective weights
+    bit for bit (``x * 1.0`` is exact).  The reference's measured ``chunk_gain``
     table comes with the calibration subsystem, not ported yet.
 
     Derived once, at construction, and kept beside the tables (an eager
@@ -83,6 +99,7 @@ class WeightStore:
     row_gain: Optional[torch.Tensor] = None
     gain_map: Optional[torch.Tensor] = None
     chunk_rows: int = BSS2.signed_rows
+    col_blocks: Optional[Tuple[int, ...]] = None
     w_eff: torch.Tensor = dataclasses.field(init=False, repr=False,
                                             compare=False)
     gain_row: torch.Tensor = dataclasses.field(init=False, repr=False,
@@ -93,7 +110,15 @@ class WeightStore:
         if self.col_gain is not None:
             w = w * self.col_gain[None, :]
         if self.row_gain is not None:
-            w = w * self.row_gain[0, :, None]
+            if self.col_blocks is None:
+                w = w * self.row_gain[0, :, None]
+            else:
+                parts, c0 = [], 0
+                for gi, nb in enumerate(self.col_blocks):
+                    parts.append(w[:, c0:c0 + nb]
+                                 * self.row_gain[gi, :, None])
+                    c0 += nb
+                w = torch.cat(parts, dim=-1)
         if self.gain_map is not None:
             w = w * self.gain_map
         object.__setattr__(self, "w_eff", w)
@@ -149,6 +174,47 @@ class LayerPlan:
     @property
     def n_chunks(self) -> int:
         return self.store.codes.shape[0] // self.chunk_rows
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupPlan:
+    """One lowered fusion group: the fused dispatch plus the member layout
+    that hands each member its own columns.
+
+      kind:         one of :data:`GROUP_KINDS`.
+      fused:        a :class:`LayerPlan` over the concatenated output
+                    columns ``[K_pad, sum(N_i)]``
+                    (:func:`repro_torch.exec.lower.lower_fused`).
+      member_names: the members' local names in the parent params node,
+                    declaration order (e.g. ``("wq", "wk", "wv")``).
+      member_ns:    each member's output width (the column split).
+    """
+
+    kind: str
+    fused: LayerPlan
+    member_names: Tuple[str, ...]
+    member_ns: Tuple[int, ...]
+
+
+def find_group(groups, kind: str, member_names: Tuple[str, ...]
+               ) -> Optional[GroupPlan]:
+    """Resolve a lowered :class:`GroupPlan` from a node's ``"_groups"``
+    dict by (kind, exact member names), whatever the group's name: a
+    group of another kind is never fed to the wrong replay."""
+    for gp in (groups or {}).values():
+        if gp.kind == kind and gp.member_names == tuple(member_names):
+            return gp
+    return None
+
+
+class PlanStack(tuple):
+    """The plans of a scan-stacked layer dict or fusion group (leading
+    stack axis S of the parameters): member ``i`` is the plan of slice
+    ``i``.  The reference vmaps its lowering into one plan with stacked
+    leaves; the port lowers each slice on its own, so that every member
+    owns its contiguous derived weights, and a model loop over the stack
+    picks member ``i`` (:func:`repro_torch.models.transformer.stack_index`).
+    """
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,8 +6,11 @@ Left to run time (everything else was baked by
 
 - dynamic activation calibration (one abs-max over the whole batch) when
   ``cfg.act_calib == "dynamic"``,
+- signed-input encoding of float activations: ``"split"`` runs both
+  passes as ONE dispatch (the ``analog_mvm_split`` kernel on the card),
 - the analog passes of each layer (the ``analog_mvm`` kernel when
-  ``cfg.use_kernels``),
+  ``cfg.use_kernels``), and the column split of a fused group
+  (:func:`run_group`),
 - the inter-layer ADC epilogue: ReLU + right-shift requantization to
   5-bit codes (paper §II-A), fused into the kernel when
   ``cfg.fused_epilogue`` and ``cfg.use_kernels``,
@@ -16,6 +19,10 @@ Left to run time (everything else was baked by
   ``cfg.use_kernels`` is False, on the CPU); chains whose packed schedule needs the
   float-domain hand-offs, not ported yet, replay layer by layer, and
   ``megakernel=True`` raises with the first offending reason.
+
+Every analog dispatch the executor issues adds one to
+:func:`dispatch_count` (on every device: the kernels' own launch counts,
+:func:`repro_torch.kernels.ops.launch_counts`, move only on the card).
 """
 from __future__ import annotations
 
@@ -26,9 +33,28 @@ from repro_torch.core.analog import AnalogConfig, analog_matmul, check_route
 from repro_torch.exec.plan import (
     EPILOGUE_NONE,
     EPILOGUE_RELU_SHIFT,
+    GROUP_COLUMN_CONCAT,
     AnalogPlan,
+    GroupPlan,
     LayerPlan,
 )
+
+_DISPATCHES = 0
+
+
+def reset_dispatch_count() -> None:
+    global _DISPATCHES
+    _DISPATCHES = 0
+
+
+def dispatch_count() -> int:
+    """Analog dispatches since the last :func:`reset_dispatch_count`."""
+    return _DISPATCHES
+
+
+def _count() -> None:
+    global _DISPATCHES
+    _DISPATCHES += 1
 
 
 def _pad_codes(a: torch.Tensor, k_pad: int) -> torch.Tensor:
@@ -63,15 +89,37 @@ def run_layer(
     else:
         a_scale = lp.a_scale
     signed = "none" if x_is_codes else lp.signed_input
-    if signed != "none":
+    if signed == "none":
+        a_code = x if x_is_codes else quant.quantize_act(x, a_scale)
+        a_code = _pad_codes(a_code, lp.k_pad)
+        _count()
+        y_int = analog_matmul(a_code, lp.w_eff, lp.gain_row,
+                              lp.chunk_offset, cfg)
+    elif signed == "split":
+        if not cfg.fused_split:
+            raise NotImplementedError(
+                "signed_input 'split' with fused_split=False (the two-pass "
+                "route of noisy readout keys) is not ported yet (ROADMAP "
+                "queue 1, item 6)")
+        # ONE dispatch over shared weight tiles for both passes
+        from repro_torch.kernels import ops as kernel_ops
+
+        check_route(cfg, x)
+        a_pos = _pad_codes(quant.quantize_act(x, a_scale), lp.k_pad)
+        a_neg = _pad_codes(quant.quantize_act(-x, a_scale), lp.k_pad)
+        batch_shape = a_pos.shape[:-1]
+        _count()
+        y_int = kernel_ops.analog_mvm_split(
+            a_pos.reshape(-1, lp.k_pad), a_neg.reshape(-1, lp.k_pad),
+            lp.w_eff, lp.gain_row, lp.chunk_offset,
+            chunk_rows=lp.chunk_rows, faithful=cfg.mode != "analog_fast",
+        ).reshape(batch_shape + (lp.n,))
+    elif signed == "offset":
         raise NotImplementedError(
-            f"signed_input {signed!r} on float activations is not ported "
-            "yet (ROADMAP queue 2: the split kernel)"
-        )
-    a_code = x if x_is_codes else quant.quantize_act(x, a_scale)
-    a_code = _pad_codes(a_code, lp.k_pad)
-    y_int = analog_matmul(a_code, lp.w_eff, lp.gain_row, lp.chunk_offset,
-                          cfg)
+            "signed_input 'offset' is not ported yet (ROADMAP queue 1, "
+            "item 6)")
+    else:
+        raise ValueError(f"unknown signed_input {signed!r}")
 
     if lp.epilogue == EPILOGUE_RELU_SHIFT:
         # inter-layer ADC epilogue: output is 5-bit codes, not floats
@@ -80,6 +128,16 @@ def run_layer(
     if lp.bias is not None:
         y = y + lp.bias
     return y.to(in_dtype)
+
+
+def run_group(gp: GroupPlan, x: torch.Tensor, cfg: AnalogConfig):
+    """Replay a lowered fusion group: ``x`` is the members' shared input;
+    returns the tuple of member outputs (one fused dispatch, the columns
+    split back per member)."""
+    if gp.kind != GROUP_COLUMN_CONCAT:
+        raise ValueError(f"unknown group kind {gp.kind!r}")
+    y = run_layer(gp.fused, x, cfg)
+    return tuple(torch.split(y, list(gp.member_ns), dim=-1))
 
 
 def _run_layer_fused_infer(lp: LayerPlan, codes: torch.Tensor,
@@ -92,6 +150,7 @@ def _run_layer_fused_infer(lp: LayerPlan, codes: torch.Tensor,
     batch_shape = a.shape[:-1]
     epi = (EPILOGUE_RELU_SHIFT, lp.shift) \
         if lp.epilogue == EPILOGUE_RELU_SHIFT else None
+    _count()
     y = kernel_ops.analog_mvm(
         a.reshape(-1, a.shape[-1]), lp.w_eff, lp.gain_row, lp.chunk_offset,
         chunk_rows=lp.chunk_rows, faithful=cfg.mode != "analog_fast",
@@ -132,6 +191,7 @@ def _run_megakernel(plan: AnalogPlan, x: torch.Tensor,
                     plan.layers[0].k_pad)
     run_chain = (kernel_ops.analog_plan_codes if cfg.use_kernels
                  else analog_plan_ref)
+    _count()
     y_int = run_chain(
         x2, mega.w_cat, mega.gain, mega.off, schedule=mega.schedule,
         chunk_rows=mega.chunk_rows, faithful=cfg.mode != "analog_fast",

@@ -18,7 +18,8 @@ import torch
 from repro_torch.core.hw import BSS2
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
-from repro_torch.kernels.analog_mvm import analog_mvm_cuda
+from repro_torch.kernels.analog_mvm import (analog_mvm_cuda,
+                                            analog_mvm_split_cuda)
 from repro_torch.kernels.analog_plan import analog_plan_cuda
 from repro_torch.kernels.preproc import maxmin_pool_cuda
 
@@ -58,6 +59,63 @@ def analog_mvm(
                                epilogue=epilogue)
     y = ref_lib.analog_mvm_ref(a_code, w_eff, gain, chunk_offset,
                                chunk_rows=chunk_rows, faithful=faithful)
+    return ref_lib.adc_epilogue_ref(y, epilogue)
+
+
+def _mvm_split_chunk_scan(a_pos, a_neg, w_eff, gain, chunk_offset,
+                          chunk_rows):
+    """Faithful signed split as one chunk scan: both passes share each
+    weight chunk and their ADC codes subtract into a single [M, N]
+    accumulator (no [2M, K] concat, no [2M, C, N] per-chunk tensor).
+    The codes are integer-valued fp32, so the per-chunk subtraction is
+    bit-exact against ``yp - yn`` of the two-pass version."""
+    m, k = a_pos.shape
+    n = w_eff.shape[1]
+    if k % chunk_rows:
+        raise ValueError(f"K={k} is not a multiple of chunk_rows={chunk_rows}")
+    acc = torch.zeros((m, n), dtype=torch.float32, device=a_pos.device)
+    for c in range(k // chunk_rows):
+        rows = slice(c * chunk_rows, (c + 1) * chunk_rows)
+        w_c = w_eff[rows].to(torch.float32)
+        o = 0.0 if chunk_offset is None else chunk_offset[c]
+        vp = torch.matmul(a_pos[:, rows].to(torch.float32), w_c) * gain + o
+        vn = torch.matmul(a_neg[:, rows].to(torch.float32), w_c) * gain + o
+        acc = acc + (torch.clamp(torch.round(vp), BSS2.adc_min, BSS2.adc_max)
+                     - torch.clamp(torch.round(vn), BSS2.adc_min,
+                                   BSS2.adc_max))
+    return acc
+
+
+def analog_mvm_split(
+    a_pos: torch.Tensor,
+    a_neg: torch.Tensor,
+    w_eff: torch.Tensor,
+    gain: torch.Tensor,
+    chunk_offset: Optional[torch.Tensor],
+    *,
+    chunk_rows: int = BSS2.signed_rows,
+    faithful: bool = True,
+    epilogue=None,
+) -> torch.Tensor:
+    """Signed-split analog VMM ``mvm(a_pos) - mvm(a_neg)`` as ONE dispatch
+    (the per-layer hot path of LM plans), with the optional fused
+    ``relu_shift`` epilogue.  On the CPU: the faithful chunk scan, or for
+    fast mode the stacked ``[2M, K]`` plain version (pre-round sums are
+    order-sensitive, so fast mode keeps the oracle's arithmetic)."""
+    if _on_cuda(a_pos):
+        return analog_mvm_split_cuda(
+            a_pos.contiguous(), a_neg.contiguous(), w_eff.contiguous(),
+            gain.contiguous(), _contiguous(chunk_offset),
+            chunk_rows=chunk_rows, faithful=faithful, epilogue=epilogue)
+    if faithful:
+        y = _mvm_split_chunk_scan(a_pos, a_neg, w_eff, gain, chunk_offset,
+                                  chunk_rows)
+    else:
+        m = a_pos.shape[0]
+        y2 = ref_lib.analog_mvm_ref(
+            torch.cat([a_pos, a_neg], dim=0), w_eff, gain, chunk_offset,
+            chunk_rows=chunk_rows, faithful=False)
+        y = y2[:m] - y2[m:]
     return ref_lib.adc_epilogue_ref(y, epilogue)
 
 

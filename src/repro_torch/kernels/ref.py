@@ -41,6 +41,26 @@ def analog_mvm_ref(
     return torch.clamp(torch.round(total), BSS2.adc_min * c, BSS2.adc_max * c)
 
 
+def analog_mvm_split_ref(
+    a_pos: torch.Tensor,
+    a_neg: torch.Tensor,
+    w_eff: torch.Tensor,
+    gain: torch.Tensor,
+    chunk_offset: Optional[torch.Tensor],
+    *,
+    chunk_rows: int = BSS2.signed_rows,
+    faithful: bool = True,
+) -> torch.Tensor:
+    """Two-pass signed split: the positive and the negative activation
+    parts as two independent analog runs on the same tiles, subtracted
+    digitally (the semantics the fused kernel reproduces)."""
+    yp = analog_mvm_ref(a_pos, w_eff, gain, chunk_offset,
+                        chunk_rows=chunk_rows, faithful=faithful)
+    yn = analog_mvm_ref(a_neg, w_eff, gain, chunk_offset,
+                        chunk_rows=chunk_rows, faithful=faithful)
+    return yp - yn
+
+
 def adc_epilogue_ref(y_int: torch.Tensor, epilogue) -> torch.Tensor:
     """ADC epilogue (paper §II-A): ReLU at the readout + right-shift
     requantization onto 5-bit codes; ``epilogue`` is None or

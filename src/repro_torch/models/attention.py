@@ -1,0 +1,149 @@
+"""Grouped-query attention with a dense float KV cache (port of the
+fused-QKV plan path, the dense prefill and the float-cache branch of
+``repro.models.attention``).
+
+The parameter projections (QKV/O) run on the analog backend; the
+activation x activation products (logits, AV) stay digital - the BSS-2
+synapse array holds static weights only.  Not ported yet (ROADMAP): the
+int8 KV cache, flash attention for long prefills without a cache, and
+context-parallel attention.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.core.analog import AnalogConfig
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.noise import NoiseConfig
+from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, find_group
+from repro_torch.exec.run import run_layer
+from repro_torch.models import layers as L
+
+NEG_INF = -1e30
+
+
+def attention_init(generator, d_model, n_heads, n_kv_heads, head_dim, *,
+                   noise: NoiseConfig = NoiseConfig(), dtype=torch.float32,
+                   device: DeviceLike = None):
+    kw = dict(noise=noise, dtype=dtype, device=device)
+    return {
+        "wq": L.linear_init(generator, d_model, n_heads * head_dim, **kw),
+        "wk": L.linear_init(generator, d_model, n_kv_heads * head_dim, **kw),
+        "wv": L.linear_init(generator, d_model, n_kv_heads * head_dim, **kw),
+        "wo": L.linear_init(generator, n_heads * head_dim, d_model, **kw),
+    }
+
+
+def _dense_attention(q, k, v, *, causal: bool, q_offset=0):
+    """q: [B,Sq,KVH,G,dh], k/v: [B,Sk,KVH,dh].  Direct path for short S."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.to(torch.float32),
+                     k.to(torch.float32)) * scale
+    if causal:
+        sq, sk = q.shape[1], k.shape[1]
+        qpos = torch.arange(sq, device=q.device)[:, None] + q_offset
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        mask = qpos >= kpos
+        s = torch.where(mask[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    return o.to(q.dtype)
+
+
+def _qkv_plan(params, acfg: AnalogConfig):
+    """The compiled QKV dispatch group of this attention node (resolved by
+    kind and exact members), or None when there is none or its baked
+    attributes disagree with the call site."""
+    if acfg.mode == "digital":
+        return None
+    gp = find_group(params.get("_groups"), GROUP_COLUMN_CONCAT,
+                    ("wq", "wk", "wv"))
+    if gp is None:
+        return None
+    lp = gp.fused
+    if (lp.signed_input != acfg.signed_input
+            or lp.chunk_rows != acfg.chunk_rows
+            or acfg.act_calib != "dynamic"):
+        return None
+    return lp
+
+
+def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
+                    n_kv_heads, head_dim, rope_theta, mrope=False,
+                    cache=None, flash_threshold=2048):
+    """Returns (out, new_cache).  ``cache``: dict(k, v, len) for decode.
+
+    The cache is updated IN PLACE: the new keys and values are written
+    into ``cache["k"]``/``cache["v"]`` at positions ``len .. len+S-1`` (the
+    reference's functional update donates its cache the same way), and
+    the returned cache holds the same tensors and the advanced length."""
+    if mrope:
+        raise NotImplementedError("M-RoPE (Qwen2-VL) is not ported yet")
+    b, s, _ = x.shape
+    g = n_heads // n_kv_heads
+    nq = n_heads * head_dim
+    nkv = n_kv_heads * head_dim
+    qkv_lp = _qkv_plan(params, acfg)
+    if qkv_lp is not None:
+        # the three same-input projections as ONE analog dispatch over the
+        # concatenated output columns
+        qkv = run_layer(qkv_lp, x, acfg)
+        q, k, v = torch.split(qkv, [nq, nkv, nkv], dim=-1)
+    else:
+        q = L.linear_apply(params["wq"], x, acfg)
+        k = L.linear_apply(params["wk"], x, acfg)
+        v = L.linear_apply(params["wv"], x, acfg)
+    q = q.reshape(b, s, n_heads, head_dim)
+    k = k.reshape(b, s, n_kv_heads, head_dim)
+    v = v.reshape(b, s, n_kv_heads, head_dim)
+    q = L.apply_rope(q, positions, rope_theta)
+    k = L.apply_rope(k, positions, rope_theta)
+    qg = q.reshape(b, s, n_kv_heads, g, head_dim)
+
+    if cache is not None:
+        # decode: append to the cache, attend over the valid prefix
+        ck, cv = cache["k"], cache["v"]
+        if not ck.dtype.is_floating_point:
+            raise NotImplementedError(
+                "the int8 KV cache is not ported yet (ROADMAP)")
+        length = cache["len"]
+        ck[:, length:length + s] = k.to(ck.dtype)
+        cv[:, length:length + s] = v.to(cv.dtype)
+        smax = ck.shape[1]
+        kpos = torch.arange(smax, device=x.device)
+        qpos = length + torch.arange(s, device=x.device)
+        mask = qpos[:, None] >= kpos[None, :]
+        mask &= (kpos < length + s)[None, :]
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
+                          ck.to(torch.float32)) / math.sqrt(head_dim)
+        sc = torch.where(mask[None, None, None], sc, NEG_INF)
+        p = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, cv.to(torch.float32))
+        o = o.to(x.dtype)
+        new_cache = {"k": ck, "v": cv, "len": length + s}
+    else:
+        if s > flash_threshold:
+            raise NotImplementedError(
+                f"prefill of {s} > {flash_threshold} positions without a "
+                "cache needs flash attention, not ported yet (ROADMAP)")
+        o = _dense_attention(qg, k, v, causal=True)
+        new_cache = None
+
+    o = o.reshape(b, s, nq)
+    return L.linear_apply(params["wo"], o, acfg), new_cache
+
+
+def init_cache(batch, max_len, n_kv_heads, head_dim, dtype=torch.bfloat16,
+               device: DeviceLike = None):
+    if not dtype.is_floating_point:
+        raise NotImplementedError(
+            "the int8 KV cache is not ported yet (ROADMAP)")
+    dev = resolve_device(device)
+    shape = (batch, max_len, n_kv_heads, head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=dev),
+        "v": torch.zeros(shape, dtype=dtype, device=dev),
+        "len": 0,
+    }

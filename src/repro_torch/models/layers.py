@@ -1,0 +1,119 @@
+"""Shared model building blocks (port of ``repro.models.layers``): norms,
+RoPE, embeddings and MLPs - every parameter matmul runs through the
+analog backend (:func:`repro_torch.api.program.apply_linear`).
+
+Module convention: ``<name>_init(generator, ..., device) -> params`` and
+``<name>_apply(params, x, ...) -> y`` on plain dicts of tensors.  The
+reference's sharding hints (``constrain``) have no effect on one device
+and are left out; M-RoPE (Qwen2-VL) is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.api.program import apply_linear
+from repro_torch.core.analog import AnalogConfig, analog_linear_init
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.noise import NoiseConfig, _normal
+
+
+# ---------------------------------------------------------------- linear
+def linear_init(generator, in_dim, out_dim, *, bias=False,
+                noise: NoiseConfig = NoiseConfig(), w_init_scale=1.0,
+                dtype=torch.float32, device: DeviceLike = None):
+    return analog_linear_init(
+        generator, in_dim, out_dim, bias=bias, noise=noise,
+        w_init_scale=w_init_scale, dtype=dtype, device=device,
+    )
+
+
+def linear_apply(params, x, acfg: AnalogConfig):
+    return apply_linear(params, x, acfg)
+
+
+# ----------------------------------------------------------------- norms
+def norm_init(dim, kind="rmsnorm", device: DeviceLike = None):
+    dev = resolve_device(device)
+    p = {"scale": torch.ones((dim,), dtype=torch.float32, device=dev)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((dim,), dtype=torch.float32, device=dev)
+    return p
+
+
+def norm_apply(params, x, kind="rmsnorm", eps=1e-5):
+    xf = x.to(torch.float32)
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    elif kind == "layernorm":
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, unbiased=False, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    else:
+        raise ValueError(kind)
+    y = y * params["scale"]
+    if "bias" in params:
+        y = y + params["bias"]
+    return y.to(x.dtype)
+
+
+# ------------------------------------------------------------------ RoPE
+def rope_freqs(head_dim: int, theta: float,
+               device: DeviceLike = "cpu") -> torch.Tensor:
+    even = 2.0 * torch.arange(head_dim // 2, dtype=torch.float32,
+                              device=device)
+    return 1.0 / (theta ** (even / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, dh]; positions: [B, S] integers."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)                  # [dh/2]
+    angle = positions[..., None].to(torch.float32) * freqs   # [B, S, dh/2]
+    cos = torch.cos(angle)[:, :, None, :]
+    sin = torch.sin(angle)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- embedding
+def embedding_init(generator, vocab, dim, dtype=torch.float32,
+                   device: DeviceLike = None):
+    dev = resolve_device(device)
+    return {"table": (_normal(generator, (vocab, dim), dev) * 0.02).to(dtype)}
+
+
+def embedding_apply(params, tokens):
+    return params["table"][tokens]
+
+
+# ------------------------------------------------------------------- MLP
+def mlp_init(generator, d_model, d_ff, *, act="swiglu",
+             noise: NoiseConfig = NoiseConfig(), dtype=torch.float32,
+             device: DeviceLike = None):
+    kw = dict(noise=noise, dtype=dtype, device=device)
+    p = {
+        "up": linear_init(generator, d_model, d_ff, **kw),
+        "down": linear_init(generator, d_ff, d_model, **kw),
+    }
+    if act == "swiglu":
+        p["gate"] = linear_init(generator, d_model, d_ff, **kw)
+    return p
+
+
+def mlp_apply(params, x, acfg: AnalogConfig, *, act="swiglu"):
+    up = linear_apply(params["up"], x, acfg)
+    if act == "swiglu":
+        gate = linear_apply(params["gate"], x, acfg)
+        h = F.silu(gate) * up
+    elif act == "gelu":
+        h = F.gelu(up, approximate="tanh")
+    elif act == "relu":
+        h = torch.relu(up)
+    elif act == "relu2":      # squared ReLU (Nemotron/Minitron, Primer)
+        h = torch.square(torch.relu(up))
+    else:
+        raise ValueError(act)
+    return linear_apply(params["down"], h, acfg)

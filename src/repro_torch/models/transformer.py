@@ -1,0 +1,261 @@
+"""Decoder LM (port of the ``attn_mlp`` kind of
+``repro.models.transformer``: the dense transformers).
+
+Layers are grouped into homogeneous scan groups with stacked parameters,
+as in the reference (dense: one layer per group, every leaf with a
+leading ``[n_groups]`` axis).  The reference scans the groups with
+``lax.scan``; the port loops over them, handing group ``i`` the ``i``-th
+slice of every parameter, plan and cache leaf (:func:`stack_index`).
+
+Every parameter matmul dispatches through the analog backend; the
+execution mode (digital / analog_faithful / analog_fast) is a RunConfig
+knob.  Not ported yet: MoE, RWKV, Mamba and the hybrid families, the
+shared attention block, the fused attention+MLP block plans
+(``attach_block_plans``) and training (``lm_loss``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.noise import NoiseConfig
+from repro_torch.exec.plan import PlanStack
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+NOISE = NoiseConfig()  # module-level default, as in the reference
+
+
+# ----------------------------------------------------------- group layout
+def group_def(cfg: ArchConfig) -> list:
+    """Kinds of the layers inside one scan group."""
+    if cfg.block == "mamba" and cfg.attn_every:
+        return ["mamba"] * cfg.attn_every          # + shared attn at entry
+    if cfg.n_experts and cfg.moe_every > 1:
+        return [cfg.layer_kind(i) for i in range(cfg.moe_every)]
+    return [cfg.layer_kind(0)]
+
+
+def n_groups(cfg: ArchConfig) -> int:
+    g = len(group_def(cfg))
+    if cfg.n_layers % g:
+        raise ValueError(f"{cfg.n_layers} layers do not split into groups "
+                         f"of {g}")
+    return cfg.n_layers // g
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    kinds = set(group_def(cfg))
+    if kinds != {"attn_mlp"} or cfg.attn_every or cfg.mrope:
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {sorted(kinds)} (shared attention: "
+            f"{bool(cfg.attn_every)}, M-RoPE: {cfg.mrope}) are not ported "
+            "yet; the port runs dense attn_mlp transformers (ROADMAP)"
+        )
+
+
+def stack_index(node, i: int):
+    """Group ``i`` of a scan-stacked tree: slice ``i`` of every tensor,
+    member ``i`` of every :class:`PlanStack` and of every list."""
+    if isinstance(node, dict):
+        return {k: stack_index(v, i) for k, v in node.items()}
+    if isinstance(node, (torch.Tensor, PlanStack, list)):
+        return node[i]
+    return node
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(make, n: int):
+    """``n`` draws of ``make()`` stacked along a new leading axis, filled
+    in place (peak memory: the stack plus one draw)."""
+    first = make()
+    out = _map(first, lambda t: t.new_empty((n,) + tuple(t.shape)))
+
+    def fill(dst, src, i):
+        if isinstance(dst, dict):
+            for k in dst:
+                fill(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    fill(out, first, 0)
+    del first
+    for i in range(1, n):
+        fill(out, make(), i)
+    return out
+
+
+# ------------------------------------------------------------------ init
+def _layer_init(generator, kind: str, cfg: ArchConfig, device):
+    if kind != "attn_mlp":
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    return {
+        "ln1": L.norm_init(cfg.d_model, cfg.norm, device),
+        "attn": A.attention_init(
+            generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            noise=NOISE, dtype=cfg.dtype, device=device,
+        ),
+        "ln2": L.norm_init(cfg.d_model, cfg.norm, device),
+        "mlp": L.mlp_init(generator, cfg.d_model,
+                          cfg.moe_dense_d_ff or cfg.d_ff, act=cfg.act,
+                          noise=NOISE, dtype=cfg.dtype, device=device),
+    }
+
+
+def _group_init(generator, cfg: ArchConfig, device):
+    return {f"l{i}": _layer_init(generator, kind, cfg, device)
+            for i, kind in enumerate(group_def(cfg))}
+
+
+def lm_init(generator: torch.Generator, cfg: ArchConfig,
+            device: DeviceLike = None):
+    """Random LM parameters from ``generator`` (drawn on the generator's
+    own device), placed on ``device`` (``None`` = the CUDA device).  The
+    tree has the reference's layout: ``embed``, ``layers`` (stacked
+    groups), ``final_norm``, ``lm_head``."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    params = {}
+    if cfg.embed_inputs:
+        params["embed"] = L.embedding_init(generator, cfg.vocab_size,
+                                           cfg.d_model, dtype=cfg.dtype,
+                                           device=dev)
+    params["layers"] = _stack(lambda: _group_init(generator, cfg, dev),
+                              n_groups(cfg))
+    params["final_norm"] = L.norm_init(cfg.d_model, cfg.norm, dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L.linear_init(
+            generator, cfg.d_model, cfg.vocab_size, noise=NOISE,
+            dtype=cfg.dtype, device=dev,
+        )
+    return params
+
+
+def lm_module_spec(cfg: ArchConfig, params):
+    """Declare the LM's analog layers once for the front door:
+    ``api.compile(lm_module_spec(cfg, params), params, run)`` bakes every
+    parameter matmul - the attention QKV fused into one dispatch group per
+    scan-stacked layer - and ``CompiledModel.apply(batch, cache=)`` is
+    :func:`lm_apply` over the pre-lowered tree."""
+    from repro_torch import api
+
+    def _apply(model, batch, *, cache=None):
+        return lm_apply(model.lower(), batch, cfg, model.run_cfg,
+                        cache=cache)
+
+    return api.tree_spec(f"lm_{cfg.name}", params, apply_fn=_apply)
+
+
+# ------------------------------------------------------------------ apply
+def _layer_apply(p, x, *, cfg, run, positions, cache):
+    acfg = run.analog
+    h = L.norm_apply(p["ln1"], x, cfg.norm)
+    attn_out, c = A.attention_apply(
+        p["attn"], h, positions=positions, acfg=acfg,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        rope_theta=cfg.rope_theta,
+        cache=None if cache is None else cache["attn"],
+    )
+    x = x + attn_out.to(x.dtype)
+    h = L.norm_apply(p["ln2"], x, cfg.norm)
+    y = L.mlp_apply(p["mlp"], h, acfg, act=cfg.act)
+    x = x + y.to(x.dtype)
+    return x, (None if cache is None else {"attn": c})
+
+
+def _group_apply(gp, x, *, cfg, run, positions, cache):
+    new_cache = {} if cache is not None else None
+    for i in range(len(group_def(cfg))):
+        x, c = _layer_apply(
+            gp[f"l{i}"], x, cfg=cfg, run=run, positions=positions,
+            cache=None if cache is None else cache[f"l{i}"],
+        )
+        if cache is not None:
+            new_cache[f"l{i}"] = c
+    return x, new_cache
+
+
+def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
+             cache: Optional[dict] = None):
+    """batch: {"tokens": [B,S] ints} or {"embeds": [B,S,d]}, optional
+    {"positions": [B,S]}.  Returns (logits, new_cache, aux).
+
+    With a cache (:func:`init_lm_cache`) the KV tensors are updated in
+    place and the returned cache holds the advanced lengths."""
+    _check_ported(cfg)
+    acfg = run.analog
+    adt = (torch.bfloat16 if run.activation_dtype == "bfloat16"
+           else torch.float32)
+    if cfg.embed_inputs:
+        x = L.embedding_apply(params["embed"], batch["tokens"])
+    else:
+        x = batch["embeds"]
+    x = x.to(adt)
+    b, s = x.shape[:2]
+    if "positions" in batch:
+        positions = batch["positions"]
+    else:
+        start = cache["step"] if cache is not None else 0
+        pos = start + torch.arange(s, dtype=torch.int32, device=x.device)
+        positions = torch.broadcast_to(pos[None, :], (b, s))
+
+    layer_cache = None if cache is None else cache["layers"]
+    for i in range(n_groups(cfg)):
+        x, nc = _group_apply(
+            stack_index(params["layers"], i), x, cfg=cfg, run=run,
+            positions=positions,
+            cache=None if layer_cache is None else stack_index(layer_cache,
+                                                               i),
+        )
+        if layer_cache is not None:
+            _store_lengths(layer_cache, nc, i)
+
+    x = L.norm_apply(params["final_norm"], x, cfg.norm)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x,
+                              params["embed"]["table"].to(x.dtype))
+    else:
+        logits = L.linear_apply(params["lm_head"], x, acfg)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"layers": layer_cache, "step": cache["step"] + s}
+    return logits, new_cache, 0.0
+
+
+def _store_lengths(stacked, group_cache, i: int) -> None:
+    """Write group ``i``'s advanced cache lengths back into the stacked
+    cache (its KV tensors were updated in place)."""
+    for k, v in group_cache.items():
+        if isinstance(v, dict):
+            _store_lengths(stacked[k], v, i)
+        elif k == "len":
+            stacked[k][i] = v
+
+
+# ------------------------------------------------------------------ cache
+def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device: DeviceLike = None):
+    """The decode cache: per group and layer a float KV cache with a
+    leading ``[n_groups]`` axis (one length per group), plus the global
+    step."""
+    _check_ported(cfg)
+    ng = n_groups(cfg)
+    dev = resolve_device(device)
+
+    def stacked_attn():
+        c = A.init_cache(batch * ng, max_len, cfg.n_kv_heads, cfg.hd,
+                         dtype, dev)
+        shape = (ng, batch) + tuple(c["k"].shape[1:])
+        return {"attn": {"k": c["k"].reshape(shape),
+                         "v": c["v"].reshape(shape), "len": [0] * ng}}
+
+    group = {f"l{i}": stacked_attn() for i in range(len(group_def(cfg)))}
+    return {"layers": group, "step": 0}

@@ -1,0 +1,4 @@
+"""Serving: prefill/decode steps and the batched :class:`ServeEngine`."""
+from repro_torch.serve.engine import Request, ServeEngine
+
+__all__ = ["Request", "ServeEngine"]

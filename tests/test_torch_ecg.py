@@ -321,6 +321,10 @@ class TestDevice:
             "import sys\n"
             "import repro_torch.models.ecg, repro_torch.api\n"
             "import repro_torch.kernels.ops, repro_torch.convert\n"
+            "import repro_torch.configs, repro_torch.models.transformer\n"
+            "import repro_torch.serve, repro_torch.serve.serve_step\n"
+            "for name in repro_torch.configs.ARCH_NAMES:\n"
+            "    repro_torch.configs.get_arch(name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
