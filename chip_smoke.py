@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``).
 
-Drives the port's two main paths through the entry points a user calls,
+Drives the port's main paths through the entry points a user calls,
 with random weights from a seed, on one NVIDIA GPU:
 
 - the paper's ECG inference, raw 2-channel 12-bit records to logits, at
   the published width (``ECGConfig()`` defaults, full per-synapse
-  fixed-pattern map);
+  fixed-pattern map): the relu_shift code chain and the static-
+  calibration float-glue chain (``epilogue="none"``);
 - analog LM serving: ``ServeEngine.serve`` on phi4-mini-3.8b at its
   published width (32 layers, d_model 3072, 24/8 heads, d_ff 8192,
-  vocab 200064), every parameter matmul a split-encoded analog layer.
+  vocab 200064), every parameter matmul a split-encoded analog layer;
+- the same model's static-calibration prefill with one launch per
+  transformer block (``attach_block_plans`` + ``lm_apply``).
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -19,21 +22,23 @@ exits non-zero without printing a result):
 1. the card's name and power limit (``nvidia-smi``);
 2. the build of every CUDA kernel from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and its time;
-3. every kernel against its plain PyTorch version on the card, at the
-   main path's shapes and at a ragged sweep: max-min pooling bit-exact;
-   the analog VMM and the whole-plan chain bit-exact with integer
+3. every ECG kernel against its plain PyTorch version on the card, at the
+   main paths' shapes and at a ragged sweep: max-min pooling bit-exact;
+   the analog VMM and the whole-plan chain (code chain, and the float
+   chain's unsigned encodes and relu hand-offs) bit-exact with integer
    effective weights, and within the ADC contract (<= 1 LSB per chunk on
    <= 1% of the elements) with the full gain map;
-4. the main path: ``make_dataset`` records, ``preprocess`` on the card,
-   ``ecg_init``, ``api.compile`` of the relu_shift chain and ``apply`` at
-   batch 1 and 500 through ``megakernel=True`` (one ``analog_plan``
-   launch) and ``megakernel=False`` (three ``analog_mvm`` launches); the
-   launch counts prove that each kernel ran; both routes agree with each
-   other and with the same model compiled for the CPU;
+4. the ECG main paths: ``make_dataset`` records, ``preprocess`` on the
+   card, ``ecg_init``, ``api.compile`` of the relu_shift chain, then of
+   the float chain, each ``apply``-ed at batch 1 and 500 through
+   ``megakernel=True`` (one ``analog_plan`` launch) and
+   ``megakernel=False`` (three ``analog_mvm`` launches); the launch
+   counts of each path's run prove that each kernel ran; both routes
+   agree with each other and with the same model compiled for the CPU;
 5. timings on the card: each kernel, its plain version and, where one
    exists, one PyTorch call computing the same function, beside the
    least time the card could take; the end-to-end time per sample of
-   both routes;
+   both routes of both chains;
 6. the split kernel against its plain version at the six phi4-mini
    layer shapes (fused QKV, o, up, gate, down, lm_head) at M = 4 (decode)
    and 48 (prefill) and at a ragged sweep, faithful and fast, with and
@@ -48,11 +53,25 @@ exits non-zero without printing a result):
 9. LM timings: the split kernel per launch at each shape beside its
    bound and its plain version; prefill latency, decode time per step
    and the device idle share per decode step at batch 4;
-10. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+10. the block path: the serving plans freed, the same parameters lowered
+   for static calibration and ``attach_block_plans(seq=12)``; one 4 x 12
+   prefill through ``lm_apply`` issues exactly 32 ``analog_plan_block``
+   launches and 1 ``analog_mvm_split`` launch; its logits against the
+   per-layer static path's (225 split launches); peak device memory;
+11. the block kernel stage by stage at M = 48, each stage's plain version
+   fed the kernel's own stage input from its scratch region: VMM stages
+   bit-exact on integer effective weights and within 1 LSB on rank-1
+   gains, glue stages within GLUE_TOL; the whole block against the plain
+   version (relative max diff, share of flipped 5-bit codes);
+12. block timings: per launch beside its bound and its plain version,
+   the per-layer routes of the same block, prefill host and device time
+   of the block and the per-layer route;
+13. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import statistics
@@ -79,6 +98,8 @@ TPU_KERNELS = {
                          "src/repro/kernels/analog_mvm.py:251"),
     "analog_plan": ("src/repro_torch/csrc/analog_plan.cu",
                     "src/repro/kernels/analog_plan.py:401"),
+    "analog_plan_block": ("src/repro_torch/csrc/analog_plan_block.cu",
+                          "src/repro/kernels/analog_plan.py:401"),
 }
 LM_ARCH = "phi4-mini-3.8b"
 LM_BATCH = 4
@@ -86,6 +107,18 @@ LM_MAX_LEN = 128
 LM_REQUESTS = 8
 LM_NEW_TOKENS = 8
 LM_M = {"decode": LM_BATCH, "prefill": 48}
+LM_SEQ = 12
+# the block kernel's glue stages (RMSNorm, attention, SwiGLU) reduce and
+# take transcendentals in another order than PyTorch: fed the kernel's own
+# stage input, each stays within this share of its stage's max |value|
+GLUE_TOL = 1e-6
+# whole block against the plain version: a glue ulp can flip a 5-bit code
+# at a rounding tie, and the flipped code moves an ADC sum by about one
+# LSB, which the following stages carry on (each flip is a dequant LSB,
+# ~1e-3 of the output's range).  Gate: at most 1 % of the codes flipped
+# and the output within 5 % of its max |value|.
+BLOCK_CODE_SHARE = 0.01
+BLOCK_REL_TOL = 0.05
 
 
 def emit(tag: str, payload) -> None:
@@ -128,7 +161,13 @@ from repro_torch.kernels.analog_mvm import (  # noqa: E402
     analog_mvm_cuda, analog_mvm_split_cuda)
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
-from repro_torch.kernels.analog_plan import analog_plan_cuda  # noqa: E402
+from repro_torch.core.quant import quantize_act  # noqa: E402
+from repro_torch.exec import run as trun  # noqa: E402
+from repro_torch.exec.lower import lower_block  # noqa: E402
+from repro_torch.kernels.analog_plan import (  # noqa: E402
+    BLOCK_STAGES, analog_plan_block_cuda, analog_plan_cuda)
+from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.kernels.preproc import maxmin_pool_cuda  # noqa: E402
 from repro_torch.models.ecg import (  # noqa: E402
     ECGConfig, _im2col, ecg_init, ecg_module_spec)
@@ -195,7 +234,7 @@ def layer_inputs(model, codes):
     return out
 
 
-def check_kernels(raw, model, int_model, codes):
+def check_kernels(raw, model, int_model, codes, fmodel, int_fmodel):
     """Phase 3: every kernel against its plain version on the card."""
     results = []
     x = _pool_input(raw)
@@ -259,6 +298,24 @@ def check_kernels(raw, model, int_model, codes):
                     "analog_plan", got, want, exact=exact,
                     what=f"ECG pack B={b} exact={exact} "
                          f"faithful={faithful}"))
+
+    # stage b: the static-calibration float chain (unsigned encodes, relu
+    # hand-offs with the im2col flatten, raw out), float inputs
+    for m_, exact in ((fmodel, False), (int_fmodel, True)):
+        mega = m_.lower().mega
+        for b in (1, 3, 133, 500):
+            cols = _im2col(codes[:b], 64, 2).reshape(-1, 128).contiguous()
+            for faithful in (True, False):
+                args = (cols, mega.w_cat, mega.gain, mega.off)
+                got = analog_plan_cuda(*args, schedule=mega.schedule,
+                                       faithful=faithful, extras=mega.extras)
+                want = ref.analog_plan_ref(*args, mega.schedule,
+                                           faithful=faithful,
+                                           extras=mega.extras)
+                results.append(_compare(
+                    "analog_plan", got, want, exact=exact,
+                    what=f"ECG float chain B={b} exact={exact} "
+                         f"faithful={faithful}"))
     return results
 
 
@@ -275,7 +332,7 @@ def main_path(raw, model, cpu_model):
     counts = ops.launch_counts()
     n = len(BATCHES)
     expected = {"maxmin_pool": n, "analog_plan": n, "analog_mvm": 3 * n,
-                "analog_mvm_split": 0}
+                "analog_mvm_split": 0, "analog_plan_block": 0}
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
 
@@ -373,15 +430,18 @@ def _row(kernel, what, kernel_fn, plain_fn, nbytes, nops, library_fn=None):
 def plan_work(schedule, b):
     """(bytes, operations) the chain needs for ``b`` records: layer 0's
     input, each layer's real weight rows and columns, gains and chunk
-    offsets (not the lane padding of the packed operands), and the last
-    layer's output, in fp32."""
+    offsets (not the lane padding of the packed operands), the dequant,
+    bias and encode rows of float layers, and the last layer's output, in
+    fp32; a split layer does its dot twice."""
     floats = schedule[0].m_mult * b * schedule[0].k + b * schedule[-1].n
     floats += sum(s.k * s.n + s.n + s.n_chunks * s.n for s in schedule)
-    nops = sum(2 * b * s.m_mult * s.k * s.n for s in schedule)
+    floats += sum(2 * s.n + 1 for s in schedule if s.encode != "codes")
+    nops = sum((2 if s.encode == "split" else 1) * 2 * b * s.m_mult * s.k
+               * s.n for s in schedule)
     return 4 * floats, nops
 
 
-def time_kernels(raw, model, codes):
+def time_kernels(raw, model, codes, fmodel):
     rows = []
     for b in BATCHES:
         x = _pool_input(raw[:b])
@@ -417,6 +477,16 @@ def time_kernels(raw, model, codes):
             lambda args=args: analog_plan_cuda(*args,
                                                schedule=mega.schedule),
             lambda args=args: ref.analog_plan_ref(*args, mega.schedule),
+            nbytes, nops))
+        fmega = fmodel.lower().mega
+        fargs = (cols, fmega.w_cat, fmega.gain, fmega.off)
+        nbytes, nops = plan_work(fmega.schedule, b)
+        rows.append(_row(
+            "analog_plan", f"B={b} ECG float chain x{tuple(cols.shape)}",
+            lambda args=fargs: analog_plan_cuda(
+                *args, schedule=fmega.schedule, extras=fmega.extras),
+            lambda args=fargs: ref.analog_plan_ref(
+                *args, fmega.schedule, extras=fmega.extras),
             nbytes, nops))
     return rows
 
@@ -584,7 +654,7 @@ def lm_main_path():
     n_calls = calls["prefill"] + calls["decode"]
     per_call = 5 * cfg.n_layers + 1
     expected = {"maxmin_pool": 0, "analog_mvm": 0, "analog_plan": 0,
-                "analog_mvm_split": per_call * n_calls}
+                "analog_mvm_split": per_call * n_calls, "analog_plan_block": 0}
     if counts != expected:
         raise AssertionError(f"LM launch counts {counts} != {expected} "
                              f"({calls})")
@@ -740,6 +810,245 @@ def time_serving(engine):
     }
 
 
+# ------------------------------------------- LM: the whole-block kernel
+def _strip_plans(node):
+    """The raw parameter tree under a lowered one (the same tensors)."""
+    if isinstance(node, dict):
+        return {k: _strip_plans(v) for k, v in node.items()
+                if k not in ("_plan", "_groups")}
+    return node
+
+
+def _block_run():
+    acfg = AnalogConfig(mode="analog_faithful", act_calib="static")
+    return acfg, RunConfig(analog=acfg, activation_dtype="float32")
+
+
+def block_main_path(params, cfg):
+    """Phase 10: the block path at full width - ``attach_block_plans`` on
+    the static-calibration plan tree, then ``lm_apply`` of a 4 x 12
+    prefill with no cache: one ``analog_plan_block`` launch per block and
+    one split launch (the analog lm_head).  The same prefill through the
+    per-layer static path (wq, wk, wv as three launches) for comparison."""
+    acfg, run = _block_run()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tree = api.lower_tree(params, run)
+    p_block = T.attach_block_plans(tree, cfg, acfg, seq=LM_SEQ)
+    torch.cuda.synchronize()
+    t_lower = time.monotonic() - t0
+    stack = p_block["layers"]["l0"]["_block_plan"]
+    if any(bp.mega.w_cat is not None for bp in stack):
+        raise AssertionError("a block plan holds a column-padded w_cat")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
+    out = {}
+    per_layer = 7 * cfg.n_layers + 1
+    for name, tree_, want in (
+            ("block", p_block, {"analog_plan_block": cfg.n_layers,
+                                "analog_mvm_split": 1}),
+            ("per_layer", tree, {"analog_plan_block": 0,
+                                 "analog_mvm_split": per_layer})):
+        ops.reset_launch_counts()
+        logits = T.lm_apply(tree_, {"tokens": toks}, cfg, run)[0]
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        want = {"maxmin_pool": 0, "analog_mvm": 0, "analog_plan": 0, **want}
+        if counts != want:
+            raise AssertionError(f"{name} prefill launch counts {counts} != "
+                                 f"{want}")
+        if tuple(logits.shape) != (LM_BATCH, LM_SEQ, cfg.vocab_size) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{name} prefill logits "
+                                 f"{tuple(logits.shape)} not finite")
+        out[name] = (logits, counts)
+    yb, yp = out["block"][0], out["per_layer"][0]
+    agree = float((yb.argmax(-1) == yp.argmax(-1)).float().mean())
+    if agree < 0.5:
+        raise AssertionError(f"block and per-layer prefill agree on only "
+                             f"{agree:.3f} of the argmax tokens")
+    report = {
+        "arch": cfg.name, "batch": LM_BATCH, "seq": LM_SEQ,
+        "launches": out["block"][1],
+        "per_layer_launches": out["per_layer"][1],
+        "rel_max_logit_diff_vs_per_layer": float(
+            (yb - yp).abs().max() / yp.abs().max()),
+        "argmax_agreement_vs_per_layer": agree,
+        "lower_and_attach_s": t_lower,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "block_w_cat": None,
+    }
+    return tree, p_block, toks, report
+
+
+def _int_block(cfg):
+    """One full-width block with integer effective weights (no gain
+    spread; chunk offsets kept), lowered like the main path's."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    noise = NoiseConfig(gain_std=0.0)
+    params = {
+        "ln1": {"scale": 1 + 0.1 * torch.randn((cfg.d_model,), generator=g,
+                                               device=DEV)},
+        "attn": A.attention_init(g, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                                 cfg.hd, noise=noise, device=DEV),
+        "ln2": {"scale": 1 + 0.1 * torch.randn((cfg.d_model,), generator=g,
+                                               device=DEV)},
+        "mlp": L.mlp_init(g, cfg.d_model, cfg.d_ff, noise=noise, device=DEV),
+    }
+    return lower_block(params, _block_run()[0], n_heads=cfg.n_heads,
+                       n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                       seq=LM_SEQ, rope_theta=cfg.rope_theta)
+
+
+def _block_args(bp):
+    m = bp.mega
+    return (m.weights, m.gain, m.off), dict(schedule=m.schedule,
+                                            block=m.block, extras=m.extras)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def check_block_kernel(cfg, bp_rank1, x):
+    """Phase 11: the block kernel stage by stage at full width, M = 48:
+    each stage's plain version fed the kernel's own stage input (read
+    back from its scratch region); VMM stages bit-exact on integer w_eff
+    and within 1 ADC LSB on the rank-1 gains, res2 and the output
+    bit-exact, glue stages within GLUE_TOL.  Then the whole block against
+    the plain version: the output's relative max diff and the share of
+    flipped 5-bit codes at the four encodes."""
+    results, whole = [], []
+    for kind, bp, exact in (("integer w_eff", _int_block(cfg), True),
+                            ("rank-1", bp_rank1, False)):
+        tensors, kw = _block_args(bp)
+        for faithful in (True, False):
+            out, stages, grid = analog_plan_block_cuda(
+                x, *tensors, faithful=faithful, **kw)
+            want = ref.block_stages_ref(
+                x, stages, *tensors, kw["schedule"], kw["block"],
+                kw["extras"], faithful=faithful)
+            glue = {}
+            for name in [n for n, _, _ in BLOCK_STAGES] + ["out"]:
+                got = out if name == "out" else stages[name]
+                what = f"{kind} faithful={faithful} stage {name}"
+                if name.startswith("acc_"):
+                    results.append(_compare("analog_plan_block", got,
+                                            want[name], exact=exact,
+                                            what=what))
+                elif name in ("res2", "out"):
+                    if not torch.equal(got, want[name]):
+                        raise AssertionError(f"{what}: not bit-exact")
+                else:
+                    glue[name] = _rel(got, want[name])
+                    if glue[name] > GLUE_TOL:
+                        raise AssertionError(f"{what}: rel diff "
+                                             f"{glue[name]} > {GLUE_TOL}")
+            trace = []
+            y_plain = ref.analog_plan_ref(
+                x, *tensors, kw["schedule"], faithful=faithful,
+                extras=kw["extras"], block=kw["block"], trace=trace)
+            flips = total = 0
+            enc = kw["extras"][2]
+            for li, name in enumerate(("n1", "attn", "n2", "sw")):
+                meta = kw["schedule"][li]
+                for sign in (1.0, -1.0):
+                    a = quantize_act(sign * stages[name][:, :meta.k],
+                                     enc[li, 0])
+                    b = quantize_act(sign * trace[li][0][:, :meta.k],
+                                     enc[li, 0])
+                    flips += int((a != b).sum())
+                    total += a.numel()
+            rel = _rel(out, y_plain)
+            whole.append({"kind": kind, "faithful": faithful, "grid": grid,
+                          "glue_rel_diff": glue,
+                          "block_rel_max_diff_vs_plain": rel,
+                          "flipped_code_share": flips / total})
+            if rel > BLOCK_REL_TOL or flips / total > BLOCK_CODE_SHARE:
+                raise AssertionError(f"{kind} faithful={faithful}: whole "
+                                     f"block rel diff {rel}, flipped codes "
+                                     f"{flips / total}")
+        del tensors, kw, bp
+    return results, whole
+
+
+def block_work(bp, rows):
+    """(bytes, operations) of one block launch: the residual stream in and
+    out, each layer's real weights, gains, offsets and dequant/bias/encode
+    rows, the ln rows and the RoPE table, once each, in fp32; a split
+    layer does its dot twice; attention's two products per (row, key)."""
+    m, blk = bp.mega, bp.mega.block
+    d = m.schedule[0].k
+    floats = 2 * rows * d + 2 * d + blk.seq * blk.head_dim
+    nops = 0
+    for s in m.schedule:
+        floats += s.k * s.n + s.n_chunks * s.n + 3 * s.n + 1
+        nops += (2 if s.encode == "split" else 1) * 2 * rows * s.k * s.n
+    nops += 2 * 2 * rows * blk.seq * blk.n_heads * blk.head_dim
+    return 4 * floats, nops
+
+
+def time_block(cfg, tree, p_block, toks, x):
+    """Phase 12: the block kernel per launch beside its bound and its
+    plain version; the per-layer routes of the same block (the model's
+    static path, 7 split launches, and the block plan's 4-launch
+    fallback); prefill host and device time of both routes."""
+    acfg, run = _block_run()
+    bp = p_block["layers"]["l0"]["_block_plan"][0]
+    tensors, kw = _block_args(bp)
+    nbytes, nops = block_work(bp, x.shape[0])
+    b_ms, b_by = bound(nbytes, nops)
+    kern = lambda: analog_plan_block_cuda(x, *tensors, **kw)[0]  # noqa: E731
+    plain = lambda: ref.analog_plan_ref(  # noqa: E731
+        x, *tensors, kw["schedule"], extras=kw["extras"], block=kw["block"])
+    x3 = x.reshape(LM_BATCH, LM_SEQ, cfg.d_model)
+    pos = torch.broadcast_to(torch.arange(LM_SEQ, dtype=torch.int32,
+                                          device=DEV)[None], x3.shape[:2])
+    layer0 = T.stack_index(tree["layers"]["l0"], 0)
+    model_path = lambda: T._layer_apply(  # noqa: E731
+        layer0, x3, cfg=cfg, run=run, positions=pos, cache=None)
+    fallback = lambda: trun.run(bp, x3, megakernel=False)  # noqa: E731
+    row = {
+        "kernel": "analog_plan_block",
+        "what": f"phi4-mini block M={x.shape[0]} (4 x {LM_SEQ})",
+        "ms": time_ms(kern, iters=10, reps=5),
+        "plain_ms": time_ms(plain, iters=3, reps=3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "bytes": nbytes, "operations": nops,
+        "device_ms": device_trace(kern, iters=10)[0],
+        "plain_device_ms": device_trace(plain, iters=3)[0],
+        "per_layer_model_path_ms": time_ms(model_path, iters=3, reps=3),
+        "per_layer_model_path_device_ms": device_trace(model_path, 3)[0],
+        "fallback_4_launch_ms": time_ms(fallback, iters=3, reps=3),
+        "fallback_4_launch_device_ms": device_trace(fallback, 3)[0],
+    }
+    emit("timing", row)
+
+    prefill = {}
+    for name, tree_ in (("block", p_block), ("per_layer", tree)):
+        def call(tree_=tree_):
+            return T.lm_apply(tree_, {"tokens": toks}, cfg, run)[0]
+
+        host = []
+        call()
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            host.append(time.perf_counter() - t0)
+        dev_ms, n_act = device_trace(call, iters=2)
+        prefill[name] = {
+            "host_ms_median": statistics.median(host) * 1e3,
+            "host_ms_all": [t * 1e3 for t in host],
+            "device_ms": dev_ms, "device_activities": n_act,
+            "device_idle_share": None if dev_ms is None
+            else 1 - dev_ms / (statistics.median(host) * 1e3),
+        }
+    emit("block_prefill", prefill)
+    return row
+
+
 def main() -> None:
     print(card_line(), flush=True)
 
@@ -757,12 +1066,17 @@ def main() -> None:
     cpu_model = api.compile(spec, params, acfg, device="cpu")
     # integer effective weights (no gain map), offsets kept
     int_cfg = ECGConfig(noise=NoiseConfig(gain_std=0.0, mode="full"))
-    int_model = api.compile(
-        spec, ecg_init(torch.Generator().manual_seed(SEED + 1), int_cfg),
-        acfg)
+    int_params = ecg_init(torch.Generator().manual_seed(SEED + 1), int_cfg)
+    int_model = api.compile(spec, int_params, acfg)
+    # stage b: the static-calibration float-glue chain of the same weights
+    fspec = ecg_module_spec(cfg, epilogue="none")
+    facfg = AnalogConfig(act_calib="static", fused_epilogue=True)
+    fmodel = api.compile(fspec, params, facfg)
+    cpu_fmodel = api.compile(fspec, params, facfg, device="cpu")
+    int_fmodel = api.compile(fspec, int_params, facfg)
     codes = preprocess(raw)
 
-    checks = check_kernels(raw, model, int_model, codes)
+    checks = check_kernels(raw, model, int_model, codes, fmodel, int_fmodel)
     emit("kernel_checks", {
         "n": len(checks),
         "max_abs_err": MAX_ERR,
@@ -771,11 +1085,16 @@ def main() -> None:
 
     report = main_path(raw, model, cpu_model)
     emit("main_path", report)
-    counts = report["launches"]
+    counts = dict(report["launches"])
+    report = main_path(raw, fmodel, cpu_fmodel)
+    emit("main_path_float_chain", report)
+    for name, n in report["launches"].items():
+        counts[name] += n
 
-    rows = time_kernels(raw, model, codes)
+    rows = time_kernels(raw, model, codes, fmodel)
     emit("end_to_end", time_end_to_end(raw, model))
-    del model, cpu_model, int_model, codes
+    emit("end_to_end_float_chain", time_end_to_end(raw, fmodel))
+    del model, cpu_model, int_model, fmodel, cpu_fmodel, int_fmodel, codes
 
     cfg = configs.get_arch(LM_ARCH)
     checks = check_split_kernel(cfg)
@@ -800,6 +1119,28 @@ def main() -> None:
             split_rows, "prefill", key, cfg.n_layers)
     emit("lm_serving", lm_timing)
 
+    # the block path reuses the full-width parameters; the dynamic plans
+    # of the serving phase are freed first
+    params = _strip_plans(engine.params)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    tree, p_block, toks, breport = block_main_path(params, cfg)
+    emit("block_main_path", breport)
+    counts["analog_plan_block"] = breport["launches"]["analog_plan_block"]
+    counts["analog_mvm_split"] += breport["launches"]["analog_mvm_split"]
+    x = L.embedding_apply(params["embed"], toks).reshape(
+        -1, cfg.d_model).to(torch.float32).contiguous()
+    checks, whole = check_block_kernel(
+        cfg, p_block["layers"]["l0"]["_block_plan"][0], x)
+    emit("block_kernel_checks", {
+        "n": len(checks), "max_abs_err": MAX_ERR["analog_plan_block"],
+        "worst": max(checks, key=lambda c: c["max_abs_err"]),
+        "max_share_differing": max(c["share_differing"] for c in checks),
+        "whole_block": whole,
+    })
+    block_row = time_block(cfg, tree, p_block, toks, x)
+
     kernels = []
     big = max(BATCHES)
     for name, (source, replaces) in TPU_KERNELS.items():
@@ -816,6 +1157,16 @@ def main() -> None:
                 "library_ms": None,
             })
             continue
+        if name == "analog_plan_block":
+            # one block of the 4 x 12 prefill (32 launches per prefill)
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": MAX_ERR[name], "per": "launch",
+                **{k: block_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+            })
+            continue
         sel = [r for r in rows if r["kernel"] == name
                and r["what"].startswith(f"B={big} ")]
         lib = [r["library_ms"] for r in sel]
@@ -823,7 +1174,8 @@ def main() -> None:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": MAX_ERR[name],
-            # at B=500; analog_mvm sums its three per-layer launches
+            # at B=500; analog_mvm sums its three per-layer launches,
+            # analog_plan the code chain's and the float chain's launch
             "ms": sum(r["ms"] for r in sel),
             "plain_ms": sum(r["plain_ms"] for r in sel),
             "bound_ms": sum(r["bound_ms"] for r in sel),

@@ -11,15 +11,20 @@
   node (``"_groups"``): ONE analog dispatch where the per-layer path
   issued N.
 
+- block specs (:func:`block_spec`, :func:`compile_block`) lower one
+  attention+MLP transformer block into a 4-layer plan that replays as ONE
+  kernel launch (:func:`~repro_torch.exec.lower.lower_block`).
+
 Everything is lowered once, on the target device.  Not ported yet: the
-static verify step, measured calibration (``calibration=``), the
-``"block"`` spec kind, and digital mode for stacks.
+static verify step, measured calibration (``calibration=``), and digital
+mode for stacks.
 """
 from __future__ import annotations
 
 from typing import Iterator, Optional, Sequence, Tuple
 
 from repro_torch.api.module import (
+    BLOCK,
     STACK,
     TREE,
     GroupSpec,
@@ -30,7 +35,8 @@ from repro_torch.api.module import (
 from repro_torch.api.program import CompiledModel
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.device import DeviceLike, resolve_device, to_device
-from repro_torch.exec.lower import lower_fused, lower_layer, lower_stack
+from repro_torch.exec.lower import (lower_block, lower_fused, lower_layer,
+                                    lower_stack)
 from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, GroupPlan, PlanStack
 
 _PLAN = "_plan"
@@ -220,18 +226,97 @@ def _stack_params(spec: ModuleSpec, params) -> list:
     return layer_params
 
 
+def block_spec(name: str, *, d_model: int, d_ff: int, n_heads: int,
+               n_kv_heads: int, head_dim: int, seq: int,
+               rope_theta: float = 10000.0, eps: float = 1e-5,
+               signed_input: Optional[str] = None) -> ModuleSpec:
+    """Spec for one attention+MLP transformer block compiled as a SINGLE
+    whole-block dispatch.  The four declared layers are the block's analog
+    dispatches in schedule order."""
+    nq = n_heads * head_dim
+    nkv = n_kv_heads * head_dim
+    return ModuleSpec(
+        name=name,
+        layers=(
+            LayerSpec("qkv", d_model, nq + 2 * nkv,
+                      signed_input=signed_input),
+            LayerSpec("o", nq, d_model, signed_input=signed_input),
+            LayerSpec("up_gate", d_model, 2 * d_ff,
+                      signed_input=signed_input),
+            LayerSpec("down", d_ff, d_model, signed_input=signed_input),
+        ),
+        kind=BLOCK,
+        input_domain="float",
+        block_geom={
+            "n_heads": n_heads, "n_kv_heads": n_kv_heads,
+            "head_dim": head_dim, "seq": seq,
+            "rope_theta": rope_theta, "eps": eps,
+        },
+    )
+
+
+def _compile_block(spec: ModuleSpec, params, acfg: AnalogConfig):
+    g = spec.block_geom
+    return lower_block(
+        params, acfg,
+        n_heads=g["n_heads"], n_kv_heads=g["n_kv_heads"],
+        head_dim=g["head_dim"], seq=g["seq"],
+        rope_theta=g["rope_theta"], eps=g.get("eps", 1e-5),
+    )
+
+
+def compile_block(block_params, run_cfg, *, n_heads: int, n_kv_heads: int,
+                  head_dim: int, seq: int, rope_theta: float = 10000.0,
+                  eps: float = 1e-5, name: str = "block",
+                  calibration=None,
+                  device: DeviceLike = None) -> CompiledModel:
+    """Compile ONE attention+MLP transformer block into a single-dispatch
+    program on ``device`` (``None`` = the CUDA device).
+
+    ``block_params`` is the standard block node ``{"ln1", "attn": {wq,
+    wk, wv, wo}, "ln2", "mlp": {up, down, gate}}``.  The resulting model
+    applies as ``model.apply(x)`` with ``x [batch, seq, d_model]`` (the
+    baked prefill ``seq`` is static); its ``lower()`` artifact is a
+    4-layer block :class:`~repro_torch.exec.plan.AnalogPlan` whose
+    canonical replay is ONE kernel launch.  Needs an analog mode with
+    ``act_calib='static'`` and ``signed_input`` in ``('none', 'split')``.
+    """
+    if calibration is not None:
+        raise NotImplementedError(
+            "compile_block(calibration=...): measured calibration is not "
+            "ported yet (ROADMAP)")
+    attn, mlp = block_params["attn"], block_params["mlp"]
+    spec = block_spec(
+        name,
+        d_model=int(attn["wq"]["w"].shape[0]),
+        d_ff=int(mlp["up"]["w"].shape[1]),
+        n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
+        seq=seq, rope_theta=rope_theta, eps=eps,
+    )
+    return compile(spec, block_params, run_cfg, device=device)
+
+
 def compile(spec: ModuleSpec, params, run_cfg, *,  # noqa: A001
             device: DeviceLike = None) -> CompiledModel:
     """Compile a declared model against concrete parameters on ``device``
     (``None`` = the CUDA device; raises when there is none).  The
     parameters are moved there first, then every analog layer is lowered
     once: a stack into one AnalogPlan, a tree into plan entries beside the
-    params (fusion groups planned from ``spec.groups``)."""
+    params (fusion groups planned from ``spec.groups``), a block into one
+    block plan."""
     dev = resolve_device(device)
     acfg = _acfg(run_cfg)
     params = to_device(params, dev)
     if spec.kind == TREE:
         lowered = lower_tree(params, acfg, groups=spec.groups)
+    elif spec.kind == BLOCK:
+        if acfg.mode == "digital":
+            raise ValueError(
+                f"spec {spec.name!r}: digital mode compiles no analog "
+                "block; run the transformer model path instead "
+                "(models.transformer)"
+            )
+        lowered = _compile_block(spec, params, acfg)
     elif acfg.mode == "digital":
         raise NotImplementedError(
             f"spec {spec.name!r}: digital mode of a stack is not ported yet"

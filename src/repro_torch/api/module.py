@@ -9,11 +9,18 @@
   bakes a plan beside each layer's parameters and the host program
   (``apply_fn``) replays them.
 
+- ``"block"``: one attention+MLP transformer block whose four analog
+  dispatches (fused QKV, o, fused up|gate, down) AND digital glue
+  (RMSNorms, RoPE + attention, residuals, SwiGLU) run as ONE kernel
+  launch (:func:`repro_torch.exec.lower.lower_block`).  ``block_geom``
+  carries the geometry the in-kernel glue needs (head counts, head_dim,
+  the baked prefill ``seq``, rope_theta, the RMSNorm eps).
+
 Fusion groups (tree specs): a :class:`GroupSpec` names the layers that
 replay as ONE analog dispatch.  The port runs the ``"column_concat"`` kind
 (same input, concatenated output columns - the attention QKV); the
-reference's ``"batch_concat"`` and ``"expert_stack"`` kinds and the
-``"block"`` spec kind are not ported yet.
+reference's ``"batch_concat"`` and ``"expert_stack"`` kinds are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, GROUP_KINDS
 
 STACK = "stack"
 TREE = "tree"
+BLOCK = "block"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +147,9 @@ class ModuleSpec:
     skipped) or "float" (quantized on entry); None infers it from the
     first layer's epilogue.  ``groups`` declares the fusion groups (tree
     kind); a ``LayerSpec.group`` tag must name one of them.
+    ``block_geom`` (block kind only, required there) is the geometry dict
+    :func:`repro_torch.exec.lower.lower_block` takes: ``n_heads``,
+    ``n_kv_heads``, ``head_dim``, ``seq``, ``rope_theta``, ``eps``.
     """
 
     name: str
@@ -147,12 +158,19 @@ class ModuleSpec:
     apply_fn: Optional[Callable] = None
     input_domain: Optional[str] = None
     groups: Tuple[GroupSpec, ...] = ()
+    block_geom: Optional[dict] = None
 
     def __post_init__(self):
-        if self.kind not in (STACK, TREE):
+        if self.kind not in (STACK, TREE, BLOCK):
             raise NotImplementedError(
                 f"spec {self.name!r}: kind {self.kind!r} is not ported yet; "
-                f"ported kinds: {STACK!r}, {TREE!r}"
+                f"ported kinds: {STACK!r}, {TREE!r}, {BLOCK!r}"
+            )
+        if self.kind == BLOCK and self.block_geom is None:
+            raise ValueError(
+                f"spec {self.name!r}: block specs need block_geom "
+                "(n_heads/n_kv_heads/head_dim/seq/rope_theta/eps); use "
+                "api.block_spec() to build one"
             )
         object.__setattr__(self, "layers", tuple(self.layers))
         by_name = {l.name: l for l in self.layers}

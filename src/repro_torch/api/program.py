@@ -58,16 +58,20 @@ class CompiledModel:
     def apply(self, *args, **kw):
         """Run the compiled program: the spec's host program
         (``spec.apply_fn(model, *args, **kw)``) when it declares one, else
-        the layer chain (``(x, *, megakernel="auto")``)."""
+        the layer chain (``(x, *, megakernel="auto")``); a block spec
+        takes ``x [batch, seq, d_model]`` and replays the whole block -
+        one launch on the megakernel route, 4 dispatches per layer with
+        ``megakernel=False``."""
         if self.spec.apply_fn is not None:
             return self.spec.apply_fn(self, *args, **kw)
-        if self.spec.kind != "stack":
+        if self.spec.kind not in ("stack", "block"):
             raise ValueError(f"spec {self.spec.name!r} declares no apply_fn")
         return self.run_stack(*args, **kw)
 
     def run_stack(self, x: torch.Tensor, *, megakernel="auto"
                   ) -> torch.Tensor:
-        """Replay the layer chain (megakernel-routed when eligible)."""
+        """Replay the layer chain or block (megakernel-routed when
+        eligible)."""
         return run_plan(self.lowered, x, megakernel=megakernel)
 
     def lower(self):

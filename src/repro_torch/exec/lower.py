@@ -6,12 +6,14 @@ depends only on the master weights and the frozen calibration state is
 computed here, once - 6-bit weight quantization, the fixed-pattern gain
 tables (the oracle bake from ``params["fpn"]``), chunk padding of the
 weights, the chunk-offset table, the column-concatenated plan of a
-fusion group (:func:`lower_fused`) and, for eligible chains, the
-whole-plan megakernel packing.  Per-call quantities (the dynamic
+fusion group (:func:`lower_fused`), the fused attention+MLP block
+(:func:`lower_block`) and, for eligible chains, the whole-plan
+megakernel packing.  Per-call quantities (the dynamic
 activation scale) stay in :mod:`repro_torch.exec.run`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import torch
@@ -26,6 +28,7 @@ from repro_torch.exec.plan import (
     INPUT_CODES,
     INPUT_FLOAT,
     AnalogPlan,
+    BlockGlue,
     LayerPlan,
     MegakernelPack,
     WeightStore,
@@ -248,9 +251,91 @@ def megakernel_ineligible_reason(plan: AnalogPlan) -> Optional[str]:
     return chain_ineligible_reason(plan)
 
 
+def lower_block(
+    block_params: Params,
+    cfg: AnalogConfig,
+    *,
+    n_heads: int,
+    n_kv_heads: int,
+    head_dim: int,
+    seq: int,
+    rope_theta: float,
+    eps: float = 1e-5,
+) -> AnalogPlan:
+    """Lower ONE attention+MLP transformer block into a 4-layer
+    :class:`AnalogPlan` that replays as a single whole-block dispatch.
+
+    ``block_params`` is the standard block node ``{"ln1", "attn": {wq, wk,
+    wv, wo}, "ln2", "mlp": {up, down, gate}}``.  The three QKV projections
+    fuse into one ``column_concat`` layer (:func:`lower_fused`, which holds
+    the group to one static LSB), up/gate likewise; the digital glue
+    between the four analog dispatches - RoPE + causal attention, residual
+    adds, RMSNorms, SwiGLU - is carried as hand-off tags in the schedule
+    plus a :class:`BlockGlue` record, and runs inside the kernel.  ``seq``
+    is baked: the in-kernel attention needs the static prefill length
+    (positions ``0..seq-1``).
+
+    Raises ``ValueError`` when the block cannot pack: every layer consumes
+    float activations, so it needs a static input LSB (``act_calib ==
+    "static"``) and a none/split signed encoding, and the MLP a gate.
+    """
+    if cfg.act_calib != "static":
+        raise ValueError(
+            "lower_block: every layer of a fused block consumes float "
+            f"activations, and act_calib={cfg.act_calib!r} cannot bake "
+            "the in-kernel encoding LSB; lower with act_calib='static' "
+            "(or replay the block per-layer via the model path)"
+        )
+    if cfg.signed_input not in ("none", "split"):
+        raise ValueError(
+            f"lower_block: signed_input {cfg.signed_input!r} is not "
+            "packable in-kernel (the offset encoding's column-sum "
+            "correction stays per-layer); use 'none' or 'split'"
+        )
+    attn, mlp = block_params["attn"], block_params["mlp"]
+    if mlp.get("gate") is None:
+        raise ValueError(
+            "lower_block: the block MLP has no gate projection; the "
+            "fused swiglu hand-off needs act='swiglu'"
+        )
+    qkv = lower_fused([attn["wq"], attn["wk"], attn["wv"]], cfg)
+    o = lower_layer(attn["wo"], cfg)
+    upgate = lower_fused([mlp["up"], mlp["gate"]], cfg)
+    down = lower_layer(mlp["down"], cfg)
+
+    d_model = qkv.k
+    d_ff = mlp["up"]["w"].shape[1]
+    nq = n_heads * head_dim
+    nkv = n_kv_heads * head_dim
+    if qkv.n != nq + 2 * nkv:
+        raise ValueError(
+            f"lower_block: fused QKV width {qkv.n} != "
+            f"n_heads*head_dim + 2*n_kv_heads*head_dim = {nq + 2 * nkv}"
+        )
+    if o.k != nq or o.n != d_model:
+        raise ValueError(
+            f"lower_block: wo maps {o.k}->{o.n}, expected {nq}->{d_model}"
+        )
+    if upgate.n != 2 * d_ff or down.k != d_ff or down.n != d_model:
+        raise ValueError(
+            "lower_block: MLP widths do not chain: "
+            f"up|gate {upgate.k}->{upgate.n}, down {down.k}->{down.n}, "
+            f"expected {d_model}->{2 * d_ff} and {d_ff}->{d_model}"
+        )
+    glue = BlockGlue(
+        ln1=block_params["ln1"]["scale"].to(torch.float32),
+        ln2=block_params["ln2"]["scale"].to(torch.float32),
+        n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
+        seq=seq, rope_theta=rope_theta, d_ff=d_ff, eps=eps,
+    )
+    plan = AnalogPlan(layers=(qkv, o, upgate, down), cfg=cfg,
+                      input_domain=INPUT_FLOAT, block=glue)
+    return dataclasses.replace(plan, mega=pack_megakernel(plan))
+
+
 def pack_megakernel(plan: AnalogPlan) -> Optional[MegakernelPack]:
     """Pack an eligible :class:`AnalogPlan` into the stacked operands and
-    static schedule of the whole-plan kernel, or None when the plan is
+    static schedule of the whole-plan kernels, or None when the plan is
     structurally ineligible.
 
     Per-layer gain and chunk-offset tables are column-padded to one common
@@ -259,28 +344,36 @@ def pack_megakernel(plan: AnalogPlan) -> Optional[MegakernelPack]:
     layer's zero output columns double as the next layer's chunk padding.
     Chains with float-domain hand-offs also get the in-kernel glue rows:
     per-column dequantization (``a_scale * w_scale / gain``, product
-    first), biases, and the static input LSB of every layer.
+    first), biases, and the static input LSB of every layer.  Block plans
+    (:func:`lower_block`) carry the attention+MLP hand-off tags and the
+    RMSNorm scale rows.
     """
-    from repro_torch.kernels.analog_plan import MegaLayerMeta
+    from repro_torch.kernels.analog_plan import BLOCK_HANDOFFS, MegaLayerMeta
     from repro_torch.verify import domains as dom
 
-    if megakernel_ineligible_reason(plan) is not None:
+    if plan.block is None and megakernel_ineligible_reason(plan) is not None:
         return None
     layers = plan.layers
     last = len(layers) - 1
-    domains = dom.consumed_domains(plan)
-    handoffs = tuple(
-        dom.handoff_tag(lp.epilogue, i == last) for i, lp in enumerate(layers)
-    )
-    # flatten factor INTO the next layer (the im2col position merge) and
-    # the resulting rows-per-batch-row multiplier at each input
-    factors = [
-        layers[i + 1].k // lp.n if i < last and lp.flatten_out else 1
-        for i, lp in enumerate(layers)
-    ]
-    m_mults = [1] * len(layers)
-    for i in range(last - 1, -1, -1):
-        m_mults[i] = m_mults[i + 1] * factors[i]
+    if plan.block is not None:
+        handoffs = BLOCK_HANDOFFS
+        domains = [dom.DOMAIN_FLOAT] * len(layers)
+        factors = [1] * len(layers)
+        # every layer of a block sees seq rows per batch element
+        m_mults = [plan.block.seq] * len(layers)
+    else:
+        domains = dom.consumed_domains(plan)
+        handoffs = tuple(dom.handoff_tag(lp.epilogue, i == last)
+                         for i, lp in enumerate(layers))
+        # flatten factor INTO the next layer (the im2col position merge)
+        # and the resulting rows-per-batch-row multiplier at each input
+        factors = [
+            layers[i + 1].k // lp.n if i < last and lp.flatten_out else 1
+            for i, lp in enumerate(layers)
+        ]
+        m_mults = [1] * len(layers)
+        for i in range(last - 1, -1, -1):
+            m_mults[i] = m_mults[i + 1] * factors[i]
     encodes = [
         dom.encode_tag(d, lp.signed_input) for d, lp in zip(domains, layers)
     ]
@@ -338,6 +431,12 @@ def pack_megakernel(plan: AnalogPlan) -> Optional[MegakernelPack]:
             bias=torch.stack(bias_rows, dim=0),
             enc=torch.stack(enc_rows, dim=0),
         )
+    if plan.block is not None:
+        bg = plan.block
+        ln = torch.zeros((2, n_max), dtype=torch.float32, device=dev)
+        ln[0, :layers[0].k] = bg.ln1
+        ln[1, :layers[1].n] = bg.ln2
+        extras.update(ln=ln, block=bg.meta)
     return MegakernelPack(
         stores=tuple(lp.store for lp in layers),
         gain=torch.stack(gain_rows, dim=0),

@@ -15,7 +15,9 @@ schedule.  The plans are frozen dataclasses holding tensors:
 - :class:`GroupPlan` - one lowered fusion group (the attention QKV
   ``column_concat`` group: one dispatch over concatenated columns).
 - :class:`PlanStack` - the per-member plans of a scan-stacked layer.
-- :class:`MegakernelPack` - the kernel-ready packing of a whole chain.
+- :class:`MegakernelPack` - the kernel-ready packing of a whole chain or
+  transformer block.
+- :class:`BlockGlue` - the digital glue of a fused attention+MLP block.
 - :class:`AnalogPlan` - an ordered stack of :class:`LayerPlan`.
 """
 from __future__ import annotations
@@ -219,21 +221,26 @@ class PlanStack(tuple):
 
 @dataclasses.dataclass(frozen=True)
 class MegakernelPack:
-    """Kernel-ready packing of an AnalogPlan chain for the whole-plan
-    kernel (built once by :func:`repro_torch.exec.lower.pack_megakernel`).
+    """Kernel-ready packing of an AnalogPlan chain or transformer block for
+    the whole-plan kernels (built once by
+    :func:`repro_torch.exec.lower.pack_megakernel`).
 
       stores:   the per-layer :class:`WeightStore` records, shared with
-                the chain's layers; ``w_cat`` ([sum(k_pad), n_max]
-                effective weights, columns zero-padded to the common lane
-                width, row-concatenated) is derived from them once, at
-                construction.
+                the plan's layers.  A chain also derives ``w_cat``
+                ([sum(k_pad), n_max] effective weights, columns
+                zero-padded to the common lane width, row-concatenated)
+                once, at construction; a block does not (at phi4-mini
+                width that copy would be 1.14 GB per block): its kernel
+                reads each store's ``w_eff`` in place.
       gain:     [L, n_max] per-layer analog gains (broadcast + padded).
       off:      [sum(n_chunks), n_max] chunk offsets (zeros where a layer
                 has none), chunk-concatenated.
       deq, bias, enc: float-domain hand-off rows ([L, n_max], [L, n_max],
                 [L, 1]) or None for pure code chains.
+      ln:       [2, n_max] a block's ln1/ln2 scales, else None.
       schedule: tuple of :class:`repro_torch.kernels.analog_plan.MegaLayerMeta`.
       n_max:    packed lane width (max layer width, 128-aligned).
+      block:    a block's :class:`repro_torch.kernels.analog_plan.BlockMeta`.
     """
 
     stores: Tuple[WeightStore, ...]
@@ -245,15 +252,66 @@ class MegakernelPack:
     deq: Optional[torch.Tensor] = None
     bias: Optional[torch.Tensor] = None
     enc: Optional[torch.Tensor] = None
-    w_cat: torch.Tensor = dataclasses.field(init=False, repr=False,
-                                            compare=False)
+    ln: Optional[torch.Tensor] = None
+    block: Optional[tuple] = None
+    w_cat: Optional[torch.Tensor] = dataclasses.field(
+        init=False, repr=False, compare=False)
 
     def __post_init__(self):
-        blocks = [
-            torch.nn.functional.pad(s.w_eff, (0, self.n_max - meta.n))
-            for s, meta in zip(self.stores, self.schedule)
-        ]
-        object.__setattr__(self, "w_cat", torch.cat(blocks, dim=0))
+        w_cat = None
+        if self.block is None:
+            w_cat = torch.cat([
+                torch.nn.functional.pad(s.w_eff, (0, self.n_max - meta.n))
+                for s, meta in zip(self.stores, self.schedule)
+            ], dim=0)
+        object.__setattr__(self, "w_cat", w_cat)
+
+    @property
+    def weights(self):
+        """What the whole-plan kernel reads: a chain's ``w_cat``, a
+        block's per-layer ``w_eff`` tuple."""
+        if self.w_cat is not None:
+            return self.w_cat
+        return tuple(s.w_eff for s in self.stores)
+
+    @property
+    def extras(self):
+        """The float-glue operand tuple of the dispatch (None for a pure
+        code-domain pack)."""
+        if self.deq is None:
+            return None
+        return (self.deq, self.bias, self.enc, self.ln)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockGlue:
+    """The digital glue of one fused attention+MLP transformer block,
+    attached to an :class:`AnalogPlan` lowered by
+    :func:`repro_torch.exec.lower.lower_block`: the two RMSNorm scales
+    (``ln1`` before QKV, ``ln2`` before the MLP) and the attention/MLP
+    geometry.  ``meta`` renders the geometry as the
+    :class:`repro_torch.kernels.analog_plan.BlockMeta` of the kernel
+    schedule."""
+
+    ln1: torch.Tensor
+    ln2: torch.Tensor
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    seq: int
+    rope_theta: float
+    d_ff: int
+    eps: float = 1e-5
+
+    @property
+    def meta(self):
+        from repro_torch.kernels.analog_plan import BlockMeta
+
+        return BlockMeta(
+            n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
+            head_dim=self.head_dim, seq=self.seq,
+            rope_theta=self.rope_theta, d_ff=self.d_ff, eps=self.eps,
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,14 +319,36 @@ class AnalogPlan:
     """A lowered stack of analog layers plus the execution config it was
     lowered for.  ``input_domain`` ("codes" | "float") states what the
     plan's INITIAL input is; ``mega`` is the optional whole-plan packing,
-    present iff the chain is megakernel-eligible."""
+    present iff the chain is megakernel-eligible; ``block`` is the glue of
+    a plan lowered by :func:`repro_torch.exec.lower.lower_block`."""
 
     layers: Tuple[LayerPlan, ...]
     cfg: AnalogConfig
     mega: Optional[MegakernelPack] = None
     input_domain: Optional[str] = None
+    block: Optional[BlockGlue] = None
 
     @property
     def expects_codes(self) -> bool:
         """Does the plan's first layer consume 5-bit codes?"""
         return self.input_domain == INPUT_CODES
+
+    @property
+    def expected_dispatches(self) -> int:
+        """Analog dispatches ONE layer-by-layer replay of this plan issues,
+        from its static metadata alone (a block's canonical replay is its
+        single whole-block dispatch; the megakernel route of a chain
+        issues 1)."""
+        if self.block is not None:
+            return 1
+        is_codes = self.expects_codes
+        n = 0
+        last = len(self.layers) - 1
+        for i, lp in enumerate(self.layers):
+            signed = "none" if is_codes else lp.signed_input
+            n += 2 if (signed == "split" and not self.cfg.fused_split) else 1
+            if lp.epilogue == EPILOGUE_NONE and i < last:
+                is_codes = False
+            else:
+                is_codes = lp.epilogue == EPILOGUE_RELU_SHIFT
+        return n

@@ -14,11 +14,14 @@ Left to run time (everything else was baked by
 - the inter-layer ADC epilogue: ReLU + right-shift requantization to
   5-bit codes (paper §II-A), fused into the kernel when
   ``cfg.fused_epilogue`` and ``cfg.use_kernels``,
-- megakernel routing: an eligible code-domain plan replays as ONE
+- megakernel routing: an eligible plan - a code-domain chain, or a
+  static-calibration chain with float hand-offs - replays as ONE
   dispatch (the ``analog_plan`` kernel, or its plain version when
-  ``cfg.use_kernels`` is False, on the CPU); chains whose packed schedule needs the
-  float-domain hand-offs, not ported yet, replay layer by layer, and
-  ``megakernel=True`` raises with the first offending reason.
+  ``cfg.use_kernels`` is False, on the CPU); ``megakernel=True`` raises
+  with the first reason a plan or call cannot,
+- block plans (:func:`repro_torch.exec.lower.lower_block`): the whole
+  attention+MLP block as ONE dispatch (the ``analog_plan_block``
+  kernel), or the 4-dispatch per-layer fallback.
 
 Every analog dispatch the executor issues adds one to
 :func:`dispatch_count` (on every device: the kernels' own launch counts,
@@ -179,27 +182,32 @@ def _megakernel_batch_shape(plan: AnalogPlan, x: torch.Tensor):
 
 def _run_megakernel(plan: AnalogPlan, x: torch.Tensor,
                     lead: tuple) -> torch.Tensor:
-    """Replay a packed code-domain plan as ONE dispatch; bit-exact vs the
-    layer-by-layer replay (same per-chunk ADC arithmetic, same floor-shift
-    epilogue, same dequantization expression)."""
+    """Replay a packed plan as ONE dispatch, the inter-layer activations -
+    5-bit codes or re-encoded float features - kept inside the kernel.
+    Bit-exact vs the layer-by-layer replay on the same device (same
+    per-chunk ADC arithmetic, same floor-shift epilogue, same static
+    encoding LSB and dequantization expression)."""
     from repro_torch.kernels import ops as kernel_ops
     from repro_torch.kernels.ref import analog_plan_ref
 
     cfg, mega = plan.cfg, plan.mega
     lp = plan.layers[-1]
-    x2 = _pad_codes(x.to(torch.float32).reshape(-1, x.shape[-1]),
-                    plan.layers[0].k_pad)
+    x2 = x.to(torch.float32).reshape(-1, x.shape[-1])
+    if mega.schedule[0].encode == "codes":
+        x2 = _pad_codes(x2, plan.layers[0].k_pad)
     run_chain = (kernel_ops.analog_plan_codes if cfg.use_kernels
                  else analog_plan_ref)
     _count()
     y_int = run_chain(
-        x2, mega.w_cat, mega.gain, mega.off, schedule=mega.schedule,
+        x2, mega.weights, mega.gain, mega.off, schedule=mega.schedule,
         chunk_rows=mega.chunk_rows, faithful=cfg.mode != "analog_fast",
+        extras=mega.extras,
     )
     y_int = y_int.reshape(lead + (lp.n,))
-    # the same dequantization as run_layer's epilogue == "none" hand-off
-    # on code inputs (LSB 1.0)
-    y = y_int * (1.0 * lp.w_scale.reshape(-1) / lp.gain)
+    # run_layer's dequantization at the LSB the last layer's input was
+    # encoded at: 1.0 for raw codes, the baked static scale for floats
+    a_scale = 1.0 if mega.schedule[-1].encode == "codes" else lp.a_scale
+    y = y_int * (a_scale * lp.w_scale.reshape(-1) / lp.gain)
     if lp.bias is not None:
         y = y + lp.bias
     if lp.flatten_out:
@@ -210,21 +218,86 @@ def _run_megakernel(plan: AnalogPlan, x: torch.Tensor,
 def _megakernel_route(plan: AnalogPlan, x: torch.Tensor, x_is_codes: bool):
     """The output batch-shape tuple when this call can take the megakernel
     route, else the reason string it cannot."""
-    from repro_torch.kernels.analog_plan import stage_a_reason
-
     if plan.mega is None:
         from repro_torch.exec.lower import megakernel_ineligible_reason
 
         return megakernel_ineligible_reason(plan) or "plan was not packed"
-    reason = stage_a_reason(plan.mega.schedule)
-    if reason is not None:
-        return reason
-    if not x_is_codes:
+    entry = plan.mega.schedule[0].encode
+    if entry == "codes" and not x_is_codes:
         return (
             "input is float but the packed chain consumes 5-bit codes "
             "(layer 0 encode 'codes')"
         )
+    if entry != "codes" and x_is_codes:
+        return (
+            "input is codes but the packed chain encodes float "
+            f"activations in-kernel (layer 0 encode {entry!r})"
+        )
     return _megakernel_batch_shape(plan, x)
+
+
+def _run_block_fallback(plan: AnalogPlan, x: torch.Tensor) -> torch.Tensor:
+    """Per-layer replay of a block plan: 4 analog dispatches (fused QKV,
+    o, fused up|gate, down) with the digital glue in PyTorch - the glue
+    functions the whole-block plain version calls, so on one device the
+    two routes agree bit for bit (tested)."""
+    from repro_torch.models.attention import prefill_attention_glue
+    from repro_torch.models.layers import norm_apply
+
+    bg, cfg = plan.block, plan.cfg
+    qkv_lp, o_lp, ug_lp, dn_lp = plan.layers
+    b, s, _ = x.shape
+    res = x.to(torch.float32)
+    h = norm_apply({"scale": bg.ln1}, res, eps=bg.eps)
+    qkv = run_layer(qkv_lp, h, cfg)
+    o_in = prefill_attention_glue(
+        qkv.reshape(b * s, qkv_lp.n), batch=b, seq=s,
+        n_heads=bg.n_heads, n_kv_heads=bg.n_kv_heads,
+        head_dim=bg.head_dim, rope_theta=bg.rope_theta,
+    )
+    res = res + run_layer(o_lp, o_in.reshape(b, s, o_lp.k), cfg)
+    h = norm_apply({"scale": bg.ln2}, res, eps=bg.eps)
+    ug = run_layer(ug_lp, h, cfg)
+    up, gate = ug[..., :bg.d_ff], ug[..., bg.d_ff:]
+    y = run_layer(dn_lp, torch.nn.functional.silu(gate) * up, cfg)
+    return (res + y).to(x.dtype)
+
+
+def _run_block(plan: AnalogPlan, x: torch.Tensor, *,
+               megakernel) -> torch.Tensor:
+    """Execute a block plan (:func:`repro_torch.exec.lower.lower_block`):
+    ``x [batch, seq, d_model]`` -> same shape, the whole attention+MLP
+    block as ONE dispatch (the ``analog_plan_block`` kernel on the card),
+    or 4 on the per-layer fallback (``megakernel=False``).  Computes in
+    fp32 and casts the output back to ``x``'s dtype once."""
+    from repro_torch.kernels import ops as kernel_ops
+    from repro_torch.kernels.ref import analog_plan_ref
+
+    bg, cfg, mega = plan.block, plan.cfg, plan.mega
+    if x.ndim != 3 or x.shape[-1] != plan.layers[0].k:
+        raise ValueError(
+            f"block plan expects [batch, seq, {plan.layers[0].k}] float "
+            f"activations, got shape {tuple(x.shape)}"
+        )
+    if x.shape[1] != bg.seq:
+        raise ValueError(
+            f"block plan was lowered for the static prefill length "
+            f"seq={bg.seq}, got seq={x.shape[1]}; re-lower for this "
+            "length (the in-kernel attention bakes its positions)"
+        )
+    if megakernel is False:
+        return _run_block_fallback(plan, x)
+    b, s, d = x.shape
+    run_block = (kernel_ops.analog_plan_codes if cfg.use_kernels
+                 else analog_plan_ref)
+    _count()
+    y = run_block(
+        x.to(torch.float32).reshape(b * s, d), mega.weights, mega.gain,
+        mega.off, schedule=mega.schedule, chunk_rows=mega.chunk_rows,
+        faithful=cfg.mode != "analog_fast", extras=mega.extras,
+        block=mega.block,
+    )
+    return y.reshape(b, s, d).to(x.dtype)
 
 
 def run(
@@ -242,7 +315,8 @@ def run(
     ``megakernel``: ``"auto"`` (default) takes the whole-plan route
     whenever the plan and the call are eligible, ``False`` forces the
     layer-by-layer replay, ``True`` requires the whole-plan route and
-    raises ``ValueError`` with the reason when it cannot be taken.
+    raises ``ValueError`` with the reason when it cannot be taken.  A
+    block plan takes ``x [batch, seq, d_model]`` (:func:`_run_block`).
 
     ``cfg.use_kernels=False`` (the reference's plain arithmetic) runs on
     the CPU only; a CUDA input under it raises ``ValueError``.
@@ -253,6 +327,8 @@ def run(
     if megakernel not in (True, False, "auto"):
         raise ValueError(f"megakernel must be 'auto'|True|False, "
                          f"got {megakernel!r}")
+    if plan.block is not None:
+        return _run_block(plan, x, megakernel=megakernel)
     x_is_codes = plan.expects_codes
     if megakernel is True or megakernel == "auto":
         route = _megakernel_route(plan, x, x_is_codes)

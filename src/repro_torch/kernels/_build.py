@@ -27,7 +27,8 @@ import torch
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-KERNELS = ("maxmin_pool", "analog_mvm", "analog_mvm_split", "analog_plan")
+KERNELS = ("maxmin_pool", "analog_mvm", "analog_mvm_split", "analog_plan",
+           "analog_plan_block")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

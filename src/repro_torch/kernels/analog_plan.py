@@ -1,28 +1,43 @@
-"""Whole-plan CUDA kernel: one launch per packed AnalogPlan chain.
+"""Whole-plan CUDA kernels: one launch per packed AnalogPlan chain, and one
+launch per transformer block.
 
 The paper's headline figure - 276 us / 192 uJ per ECG sample (§IV) -
 comes from the conv->fc1->fc2 CDNN running as ONE uninterrupted analog
-program on the ASIC: inter-layer 5-bit activation codes never leave the
-chip (§II-A).  ``csrc/analog_plan.cu`` replaces the TPU kernel
-``repro/kernels/analog_plan.py::analog_plan_pallas`` for the code-domain
-part of its schedule (stage a): layers that consume 5-bit codes, the
-``"codes"`` hand-off (ReLU + right-shift requantization at the ADC, with
-the ``flatten`` im2col merge of the ECG conv->fc1 step) and the final
-``"raw"`` hand-off.  The float-domain encodes (``"unsigned"``,
-``"split"``), the ``"relu"`` hand-off and the transformer-block glue are
-not ported yet; the wrapper raises on them.
+program on the ASIC: inter-layer activations never leave the chip
+(§II-A).  Both kernels here replace the TPU kernel
+``repro/kernels/analog_plan.py::analog_plan_pallas``, whose static
+schedule (:class:`MegaLayerMeta`, plus :class:`BlockMeta` for a block)
+they run:
 
-The grid runs over batch elements (each block owns ``per_block`` records
-end to end) and the inter-layer codes stay in shared memory.  The packed
-weights are read from global memory (L2-resident): the TPU kernel keeps
-them resident in VMEM, but the ECG pack (512 x 256 fp32 = 512 KiB) does
-not fit a Hopper block's 227 KB of shared memory.  The plain version is
-:func:`repro_torch.kernels.ref.analog_plan_ref`.
+- ``csrc/analog_plan.cu`` (:func:`analog_plan_cuda`): a layer chain, the
+  grid over batch elements, each block owning ``per_block`` records end
+  to end with the inter-layer activations in shared memory.  Encodes
+  ``"codes"`` (5-bit codes as they are), ``"unsigned"`` and ``"split"``
+  (float features quantized at the layer's baked LSB, the split as two
+  passes against the same weights); hand-offs ``"codes"`` (ReLU +
+  right-shift requantization at the ADC), ``"relu"`` (in-kernel dequant
+  + bias + ReLU, re-encoded by the next layer), both with the ``flatten``
+  im2col merge, and the final ``"raw"`` (accumulated ADC codes out).
+  The packed weights (512 KiB for the ECG chain) exceed a block's 227 KB
+  of shared memory, so they are read from global memory (L2-resident).
+- ``csrc/analog_plan_block.cu`` (:func:`analog_plan_block_cuda`): one
+  attention+MLP block (hand-offs ``attn``, ``res_ln``, ``swiglu``,
+  ``res_out``) as ONE cooperative launch.  At phi4-mini width one row of
+  the widest hand-off is 64 KiB and the block's weights 403 MB, so the
+  batch-parallel design cannot carry over: every stage is spread over the
+  whole grid, the stages are separated by grid-wide barriers, and the
+  activations between them live in a global scratch (one region per
+  stage, L2-resident).  Each layer's ``w_eff`` is read in place through a
+  per-layer pointer (block plans hold no column-padded ``w_cat``).
+
+The plain version of both is :func:`repro_torch.kernels.ref.analog_plan_ref`.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Tuple
+import functools
+import math
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -32,11 +47,35 @@ from repro_torch.kernels import _build
 MAX_LAYERS = 8
 MAX_PER_BLOCK = 4
 _SMEM_LIMIT = 227 * 1024
-_ARGTYPES = (
+ENCODES = {"codes": 0, "unsigned": 1, "split": 2}
+CHAIN_HANDOFFS = {"codes": 0, "relu": 1, "raw": 2}
+BLOCK_HANDOFFS = ("attn", "res_ln", "swiglu", "res_out")
+# the stage regions of the block kernel's scratch, in execution order:
+# (name, layer whose width sets the row length, "k" input or "n" output)
+BLOCK_STAGES = (
+    ("n1", 0, "k"),        # RMSNorm(ln1) of the residual stream
+    ("acc_qkv", 0, "n"),   # fused QKV: accumulated ADC codes
+    ("attn", 1, "k"),      # dequant + RoPE + causal attention
+    ("acc_o", 1, "n"),     # o: accumulated ADC codes
+    ("res2", 1, "n"),      # residual + dequantized o
+    ("n2", 2, "k"),        # RMSNorm(ln2) of res2
+    ("acc_ug", 2, "n"),    # fused up|gate: accumulated ADC codes
+    ("sw", 3, "k"),        # dequant + SwiGLU
+    ("acc_dn", 3, "n"),    # down: accumulated ADC codes
+)
+_CHAIN_ARGTYPES = (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+)
+_BLOCK_ARGTYPES = (
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
 )
 
 
@@ -56,22 +95,42 @@ class MegaLayerMeta(NamedTuple):
     m_mult: int      # input rows per final batch row at this layer
     # input encoding of THIS layer: "codes" | "unsigned" | "split"
     encode: str = "codes"
-    # hand-off to the NEXT layer: "codes" | "relu" | ... (inter-layer),
-    # "raw" | "res_out" (final)
+    # hand-off to the NEXT layer: "codes" | "relu" | "attn" | "res_ln" |
+    # "swiglu" (inter-layer), "raw" | "res_out" (final)
     handoff: str = ""
 
 
-def stage_a_reason(schedule: Tuple[MegaLayerMeta, ...]):
-    """None when the CUDA kernel runs ``schedule`` (code-domain stage a),
-    else the reason it cannot."""
+class BlockMeta(NamedTuple):
+    """Static transformer-block glue geometry (attention+MLP megakernel):
+    the companion of the 4-layer schedule ``[qkv, o, up_gate, down]`` with
+    hand-offs ``[attn, res_ln, swiglu, res_out]``."""
+
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    seq: int
+    rope_theta: float
+    d_ff: int
+    eps: float = 1e-5
+
+
+def layer_handoff(meta: MegaLayerMeta, last: bool) -> str:
+    """A schedule entry's hand-off tag (entries built before the domain
+    tags carry ``handoff == ""``)."""
+    if meta.handoff:
+        return meta.handoff
+    if last:
+        return "raw"
+    return "codes" if meta.relu_shift else "relu"
+
+
+def needs_extras(schedule: Sequence[MegaLayerMeta]) -> bool:
+    """Does the schedule need the packed deq/bias/enc rows (a float
+    encode or a float-domain hand-off anywhere)?"""
     last = len(schedule) - 1
-    for i, meta in enumerate(schedule):
-        want = "raw" if i == last else "codes"
-        if meta.encode != "codes" or meta.handoff != want:
-            return (f"layer {i} encodes {meta.encode!r} and hands off "
-                    f"{meta.handoff!r}: float-domain megakernel hand-offs "
-                    "are not ported yet (ROADMAP queue 2)")
-    return None
+    return any(m.encode != "codes" for m in schedule) or any(
+        layer_handoff(m, i == last) not in ("codes", "raw")
+        for i, m in enumerate(schedule))
 
 
 def default_per_block(batch: int, device: torch.device) -> int:
@@ -81,8 +140,26 @@ def default_per_block(batch: int, device: torch.device) -> int:
     return max(1, min(MAX_PER_BLOCK, batch // sms))
 
 
+def _check_extras(extras, dev, n_layers, n_max, *, block: bool):
+    if extras is None:
+        raise ValueError(
+            "float-domain schedule entries need the packed deq/bias/enc "
+            "operands (extras; repro_torch.exec.lower.pack_megakernel "
+            "builds them)")
+    deq, bias, enc, ln = extras
+    for name, t, shape in (("deq", deq, (n_layers, n_max)),
+                           ("bias", bias, (n_layers, n_max)),
+                           ("enc", enc, (n_layers, 1))):
+        _build.check_operand(name, t, dev, shape)
+    if block:
+        if ln is None:
+            raise ValueError("a block schedule needs the packed ln rows")
+        _build.check_operand("ln", ln, dev, (2, n_max))
+    return deq, bias, enc, ln
+
+
 def analog_plan_cuda(
-    x_in: torch.Tensor,          # [B * m_mult0, k0_pad] 5-bit codes
+    x_in: torch.Tensor,          # [B * m_mult0, k0_pad] codes, or k0 floats
     w_cat: torch.Tensor,         # [sum(k_pad), n_max]
     gain_all: torch.Tensor,      # [L, n_max]
     off_cat: torch.Tensor,       # [sum(n_chunks), n_max]
@@ -90,18 +167,30 @@ def analog_plan_cuda(
     schedule: Tuple[MegaLayerMeta, ...],
     chunk_rows: int = BSS2.signed_rows,
     faithful: bool = True,
+    extras=None,                 # (deq [L,n_max], bias [L,n_max], enc [L,1], ln)
 ) -> torch.Tensor:
-    """Run a packed code-domain chain in one launch; returns the last
-    layer's raw accumulated ADC codes ``[B * m_mult_last, n_last]``."""
+    """Run a packed layer chain in one launch; returns the last layer's
+    raw accumulated ADC codes ``[B * m_mult_last, n_last]``.  ``x_in``
+    holds 5-bit codes padded to ``k_pad`` when layer 0 encodes
+    ``"codes"``, else ``k`` float features."""
     dev = x_in.device
     if dev.type != "cuda":
         raise ValueError(f"analog_plan_cuda needs CUDA tensors, got {dev}")
-    if not 1 <= len(schedule) <= MAX_LAYERS:
+    n_layers = len(schedule)
+    if not 1 <= n_layers <= MAX_LAYERS:
         raise ValueError(f"schedule needs 1..{MAX_LAYERS} layers, got "
-                         f"{len(schedule)}")
-    reason = stage_a_reason(schedule)
-    if reason is not None:
-        raise ValueError(reason)
+                         f"{n_layers}")
+    hand = []
+    for i, meta in enumerate(schedule):
+        h = layer_handoff(meta, i == n_layers - 1)
+        allowed = ("raw",) if i == n_layers - 1 else ("codes", "relu")
+        if meta.encode not in ENCODES or h not in allowed:
+            raise ValueError(
+                f"layer {i} encodes {meta.encode!r} and hands off {h!r}: "
+                "the chain kernel runs encodes codes/unsigned/split and "
+                "hand-offs codes/relu/raw (a transformer block runs "
+                "through analog_plan_block_cuda)")
+        hand.append(CHAIN_HANDOFFS[h])
     for i, (meta, nxt) in enumerate(zip(schedule, schedule[1:])):
         if (meta.flatten * meta.n > nxt.k_pad
                 or meta.m_mult != nxt.m_mult * meta.flatten):
@@ -109,34 +198,166 @@ def analog_plan_cuda(
                              f"{meta} -> {nxt}")
     m0, first, lastm = schedule[0].m_mult, schedule[0], schedule[-1]
     rows, cols = x_in.shape
-    if rows % m0 or cols != first.k_pad:
+    want = first.k_pad if first.encode == "codes" else first.k
+    if rows % m0 or cols != want:
         raise ValueError(f"x_in {tuple(x_in.shape)} does not match layer 0 "
-                         f"(m_mult {m0}, k_pad {first.k_pad})")
+                         f"(m_mult {m0}, {want} columns for encode "
+                         f"{first.encode!r})")
+    if chunk_rows <= 0 or any(m.k_pad % chunk_rows for m in schedule):
+        raise ValueError(f"chunk_rows={chunk_rows} does not divide k_pad")
     batch = rows // m0
     n_max = w_cat.shape[1]
-    n_layers = len(schedule)
     for name, t, shape in (
             ("x_in", x_in, (rows, cols)),
             ("w_cat", w_cat, (sum(m.k_pad for m in schedule), n_max)),
             ("gain_all", gain_all, (n_layers, n_max)),
             ("off_cat", off_cat, (sum(m.n_chunks for m in schedule), n_max))):
         _build.check_operand(name, t, dev, shape)
+    deq = bias = enc = None
+    if needs_extras(schedule):
+        deq, bias, enc, _ = _check_extras(extras, dev, n_layers, n_max,
+                                          block=False)
     pb = default_per_block(batch, dev)
     buf = max((pb * m.m_mult * m.k_pad for m in schedule[1:]), default=1)
     if 2 * 4 * buf > _SMEM_LIMIT:
         raise ValueError(f"{pb} records per block need {8 * buf} bytes of "
                          f"shared memory, over the {_SMEM_LIMIT} a block has")
-    sched = (ctypes.c_int * (8 * n_layers))(*[
-        v for m in schedule for v in (m.row0, m.c0, m.k_pad, m.n, m.n_chunks,
-                                      m.shift, m.flatten, m.m_mult)])
+    sched = (ctypes.c_int * (11 * n_layers))(*[
+        v for m, h in zip(schedule, hand)
+        for v in (m.row0, m.c0, m.k, m.k_pad, m.n, m.n_chunks, m.shift,
+                  m.flatten, m.m_mult, ENCODES[m.encode], h)])
     out = torch.empty((batch * lastm.m_mult, lastm.n), dtype=torch.float32,
                       device=dev)
+
+    def opt(t):
+        return ctypes.c_void_p(None) if t is None else _build.ptr(t)
+
     with torch.cuda.device(dev):
         _build.launch(
-            "analog_plan", _ARGTYPES, _build.ptr(x_in), _build.ptr(w_cat),
-            _build.ptr(gain_all), _build.ptr(off_cat), _build.ptr(out),
+            "analog_plan", _CHAIN_ARGTYPES, _build.ptr(x_in),
+            _build.ptr(w_cat), _build.ptr(gain_all), _build.ptr(off_cat),
+            opt(deq), opt(bias), opt(enc), _build.ptr(out),
             batch, cols, n_max, ctypes.cast(sched, ctypes.c_void_p),
             n_layers, chunk_rows, int(faithful), pb,
             _build.current_stream(dev),
         )
     return out
+
+
+@functools.lru_cache(maxsize=16)
+def rope_table(seq: int, head_dim: int, theta: float,
+               device: torch.device) -> torch.Tensor:
+    """``[2, seq, head_dim // 2]``: cos and sin of RoPE's angles at the
+    positions ``0..seq-1``, with the arithmetic of
+    :func:`repro_torch.models.layers.apply_rope` on ``device`` (the block
+    kernel takes them as an operand, so its rotation rounds like the
+    model path's)."""
+    from repro_torch.models.layers import rope_freqs
+
+    pos = torch.arange(seq, dtype=torch.int32, device=device)
+    angle = pos[:, None].to(torch.float32) * rope_freqs(head_dim, theta,
+                                                        device)
+    return torch.stack([torch.cos(angle), torch.sin(angle)]).contiguous()
+
+
+def _check_block(schedule, block: BlockMeta, x_in: torch.Tensor,
+                 chunk_rows: int):
+    if len(schedule) != 4 or tuple(
+            layer_handoff(m, i == 3) for i, m in enumerate(schedule)
+    ) != BLOCK_HANDOFFS:
+        raise ValueError(f"a block schedule is 4 layers handing off "
+                         f"{BLOCK_HANDOFFS}, got {schedule}")
+    if any(m.encode not in ("unsigned", "split") for m in schedule):
+        raise ValueError("every layer of a block encodes float features "
+                         "('unsigned' or 'split')")
+    d = schedule[0].k
+    nq = block.n_heads * block.head_dim
+    nkv = block.n_kv_heads * block.head_dim
+    widths = [(m.k, m.n) for m in schedule]
+    if widths != [(d, nq + 2 * nkv), (nq, d), (d, 2 * block.d_ff),
+                  (block.d_ff, d)]:
+        raise ValueError(f"block widths {widths} do not chain (d_model {d}, "
+                         f"heads {block.n_heads}/{block.n_kv_heads} of "
+                         f"{block.head_dim}, d_ff {block.d_ff})")
+    if block.n_heads % block.n_kv_heads or block.head_dim % 2:
+        raise ValueError(f"bad attention geometry {block}")
+    if chunk_rows <= 0 or chunk_rows % 32 or any(
+            m.k_pad % chunk_rows or m.k_pad != m.n_chunks * chunk_rows
+            for m in schedule):
+        raise ValueError(f"chunk_rows={chunk_rows} must be a multiple of 32 "
+                         "dividing every k_pad")
+    rows, cols = x_in.shape
+    if cols != d or rows % block.seq:
+        raise ValueError(f"x_in {tuple(x_in.shape)} is not [batch * "
+                         f"{block.seq}, {d}]")
+    attn_floats = 3 * block.seq * block.head_dim + block.seq * block.seq
+    if 4 * attn_floats > _SMEM_LIMIT:
+        raise ValueError(f"seq {block.seq} x head_dim {block.head_dim} needs "
+                         f"{4 * attn_floats} bytes of shared memory for the "
+                         f"attention stage, over the {_SMEM_LIMIT} a block "
+                         "has")
+
+
+def analog_plan_block_cuda(
+    x_in: torch.Tensor,                  # [B * seq, d_model] residual stream
+    weights: Sequence[torch.Tensor],     # 4 x [k_pad, n] effective weights
+    gain_all: torch.Tensor,              # [4, n_max]
+    off_cat: torch.Tensor,               # [sum(n_chunks), n_max]
+    *,
+    schedule: Tuple[MegaLayerMeta, ...],
+    block: BlockMeta,
+    extras,                              # (deq, bias, enc, ln)
+    chunk_rows: int = BSS2.signed_rows,
+    faithful: bool = True,
+):
+    """One transformer block in ONE cooperative launch.  Returns the block
+    output ``[B * seq, d_model]``, the stage regions of the scratch (a
+    dict of ``[rows, width]`` views, :data:`BLOCK_STAGES`, for checking
+    each stage on its own) and the grid size the launch used."""
+    dev = x_in.device
+    if dev.type != "cuda":
+        raise ValueError(f"analog_plan_block_cuda needs CUDA tensors, got "
+                         f"{dev}")
+    _check_block(schedule, block, x_in, chunk_rows)
+    n_max = gain_all.shape[1]
+    rows = x_in.shape[0]
+    _build.check_operand("x_in", x_in, dev, tuple(x_in.shape))
+    if len(weights) != 4:
+        raise ValueError(f"a block takes 4 weight tensors, got {len(weights)}")
+    for i, (w, m) in enumerate(zip(weights, schedule)):
+        _build.check_operand(f"weights[{i}]", w, dev, (m.k_pad, m.n))
+    _build.check_operand("gain_all", gain_all, dev, (4, n_max))
+    _build.check_operand("off_cat", off_cat, dev,
+                         (sum(m.n_chunks for m in schedule), n_max))
+    deq, bias, enc, ln = _check_extras(extras, dev, 4, n_max, block=True)
+    if max(m.n for m in schedule) > n_max:
+        raise ValueError(f"n_max {n_max} is narrower than a layer")
+    rope = rope_table(block.seq, block.head_dim, float(block.rope_theta), dev)
+    widths = [getattr(schedule[li], kind) for _, li, kind in BLOCK_STAGES]
+    scratch = torch.empty((rows * sum(widths),), dtype=torch.float32,
+                          device=dev)
+    stages = {name: t.view(rows, w) for (name, _, _), t, w in zip(
+        BLOCK_STAGES, torch.split(scratch, [rows * w for w in widths]),
+        widths)}
+    out = torch.empty((rows, schedule[0].k), dtype=torch.float32, device=dev)
+    wptrs = (ctypes.c_void_p * 4)(*[w.data_ptr() for w in weights])
+    sched = (ctypes.c_int * 24)(*[
+        v for m in schedule
+        for v in (m.c0, m.k, m.k_pad, m.n, m.n_chunks,
+                  int(m.encode == "split"))])
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        _build.launch(
+            "analog_plan_block", _BLOCK_ARGTYPES, _build.ptr(x_in),
+            ctypes.cast(wptrs, ctypes.c_void_p), _build.ptr(gain_all),
+            _build.ptr(off_cat), _build.ptr(deq), _build.ptr(bias),
+            _build.ptr(enc), _build.ptr(ln), _build.ptr(rope),
+            _build.ptr(out), _build.ptr(scratch),
+            ctypes.cast(sched, ctypes.c_void_p), rows, n_max, chunk_rows,
+            int(faithful), block.n_heads, block.n_kv_heads, block.head_dim,
+            block.seq, block.d_ff, float(block.eps),
+            1.0 / math.sqrt(block.head_dim),
+            ctypes.c_void_p(ctypes.addressof(grid)),
+            _build.current_stream(dev),
+        )
+    return out, stages, grid.value

@@ -20,7 +20,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
 from repro_torch.kernels.analog_mvm import (analog_mvm_cuda,
                                             analog_mvm_split_cuda)
-from repro_torch.kernels.analog_plan import analog_plan_cuda
+from repro_torch.kernels.analog_plan import (analog_plan_block_cuda,
+                                             analog_plan_cuda)
 from repro_torch.kernels.preproc import maxmin_pool_cuda
 
 launch_counts = _build.launch_counts
@@ -121,24 +122,37 @@ def analog_mvm_split(
 
 def analog_plan_codes(
     x_in: torch.Tensor,
-    w_cat: torch.Tensor,
+    weights,
     gain_all: torch.Tensor,
     off_cat: torch.Tensor,
     *,
     schedule,
     chunk_rows: int = BSS2.signed_rows,
     faithful: bool = True,
+    extras=None,
+    block=None,
 ) -> torch.Tensor:
-    """Whole-plan dispatch of a code-domain chain: ONE kernel launch.
-    Returns the final layer's raw accumulated ADC codes
-    ``[B * m_last, n_last]``."""
+    """Whole-plan dispatch: ONE kernel launch for a packed layer chain
+    (``weights`` is its ``w_cat``) or for one attention+MLP block
+    (``block`` set; ``weights`` is the per-layer ``w_eff`` tuple).
+    ``extras`` carries the packed float-glue rows ``(deq, bias, enc,
+    ln)``.  Returns the final layer's raw accumulated ADC codes
+    ``[B * m_last, n_last]``, or the block output."""
     if _on_cuda(x_in):
-        return analog_plan_cuda(x_in.contiguous(), w_cat.contiguous(),
-                                gain_all.contiguous(), off_cat.contiguous(),
+        args = (x_in.contiguous(), gain_all.contiguous(), off_cat.contiguous())
+        if extras is not None:
+            extras = tuple(_contiguous(t) for t in extras)
+        if block is not None:
+            return analog_plan_block_cuda(
+                args[0], tuple(w.contiguous() for w in weights), *args[1:],
+                schedule=schedule, block=block, extras=extras,
+                chunk_rows=chunk_rows, faithful=faithful)[0]
+        return analog_plan_cuda(args[0], weights.contiguous(), *args[1:],
                                 schedule=schedule, chunk_rows=chunk_rows,
-                                faithful=faithful)
-    return ref_lib.analog_plan_ref(x_in, w_cat, gain_all, off_cat, schedule,
-                                   chunk_rows=chunk_rows, faithful=faithful)
+                                faithful=faithful, extras=extras)
+    return ref_lib.analog_plan_ref(x_in, weights, gain_all, off_cat, schedule,
+                                   chunk_rows=chunk_rows, faithful=faithful,
+                                   extras=extras, block=block)
 
 
 def maxmin_pool(x: torch.Tensor, window: int = 32) -> torch.Tensor:

@@ -75,58 +75,208 @@ def adc_epilogue_ref(y_int: torch.Tensor, epilogue) -> torch.Tensor:
     return torch.clamp(y, 0.0, float(BSS2.a_max))
 
 
+def _layer_weights(weights, schedule):
+    """Per-layer ``[k_pad, n]`` weights: slices of a packed ``w_cat`` (a
+    chain's pack) or the given per-layer tensors (a block's)."""
+    if isinstance(weights, torch.Tensor):
+        return [weights[m.row0:m.row0 + m.k_pad, :m.n] for m in schedule]
+    return list(weights)
+
+
+def _chunk_adc(a, w_l, gain, offs, n_chunks, chunk_rows, faithful):
+    """The chunked saturating analog VMM of one pass, chunk by chunk in
+    ascending order (the order the CUDA kernels sum in)."""
+    acc = torch.zeros((a.shape[0], w_l.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for c in range(n_chunks):
+        v = torch.matmul(a[:, c * chunk_rows:(c + 1) * chunk_rows],
+                         w_l[c * chunk_rows:(c + 1) * chunk_rows])
+        v = v * gain + offs[c]
+        if faithful:
+            v = torch.clamp(torch.round(v), BSS2.adc_min, BSS2.adc_max)
+        acc = acc + v
+    if not faithful:
+        lo = float(BSS2.adc_min) * n_chunks
+        hi = float(BSS2.adc_max) * n_chunks
+        acc = torch.clamp(torch.round(acc), lo, hi)
+    return acc
+
+
+def plan_layer_ref(h, w_l, gain, offs, meta, scale, *,
+                   chunk_rows: int = BSS2.signed_rows,
+                   faithful: bool = True) -> torch.Tensor:
+    """One scheduled layer: ``h`` holds 5-bit codes padded to ``k_pad``
+    (encode ``"codes"``) or float features whose first ``k`` columns are
+    quantized at ``scale`` and then padded (``"unsigned"``; ``"split"``
+    runs the positive and the negative part as two passes and subtracts
+    them).  Returns the accumulated ADC codes ``[rows, n]``."""
+    from repro_torch.core.quant import quantize_act
+
+    def mvm(a):
+        return _chunk_adc(a, w_l, gain, offs, meta.n_chunks, chunk_rows,
+                          faithful)
+
+    if meta.encode == "codes":
+        return mvm(h)
+    f = h[:, :meta.k]
+    pad = meta.k_pad - meta.k
+
+    def codes(v):
+        return torch.nn.functional.pad(quantize_act(v, scale), (0, pad))
+
+    acc = mvm(codes(f))
+    if meta.encode == "split":
+        acc = acc - mvm(codes(-f))
+    elif meta.encode != "unsigned":
+        raise ValueError(f"unknown encode {meta.encode!r}")
+    return acc
+
+
+def block_glue_ref(handoff: str, y: torch.Tensor, res, ln_row, block):
+    """The float glue after a dequantized layer output ``y``: returns the
+    next layer's input features and the residual stream.  ``"relu"`` is
+    the chain's float hand-off; ``"attn"``, ``"res_ln"`` and ``"swiglu"``
+    are a transformer block's, computed by the model path's own functions
+    (:func:`repro_torch.models.attention.prefill_attention_glue`,
+    :func:`repro_torch.models.layers.norm_apply`, SwiGLU as in
+    :func:`repro_torch.models.layers.mlp_apply`)."""
+    if handoff == "relu":
+        return torch.relu(y), res
+    if handoff == "attn":
+        from repro_torch.models.attention import prefill_attention_glue
+
+        return prefill_attention_glue(
+            y, batch=y.shape[0] // block.seq, seq=block.seq,
+            n_heads=block.n_heads, n_kv_heads=block.n_kv_heads,
+            head_dim=block.head_dim, rope_theta=block.rope_theta), res
+    if handoff == "res_ln":
+        from repro_torch.models.layers import norm_apply
+
+        res = res + y
+        return norm_apply({"scale": ln_row}, res, eps=block.eps), res
+    if handoff == "swiglu":
+        return (torch.nn.functional.silu(y[:, block.d_ff:])
+                * y[:, :block.d_ff]), res
+    raise ValueError(f"unknown hand-off {handoff!r}")
+
+
 def analog_plan_ref(
-    x_in: torch.Tensor,         # [B * m_mult0, k0_pad] 5-bit codes
-    w_cat: torch.Tensor,        # [sum(k_pad), n_max] packed weights
+    x_in: torch.Tensor,         # [B * m_mult0, k0_pad] codes, or floats
+    weights,                    # w_cat [sum(k_pad), n_max] | per-layer list
     gain_all: torch.Tensor,     # [L, n_max] per-layer gains
     off_cat: torch.Tensor,      # [sum(n_chunks), n_max] offsets
     schedule,                   # tuple of MegaLayerMeta
     *,
     chunk_rows: int = BSS2.signed_rows,
     faithful: bool = True,
+    extras=None,                # (deq [L,n_max], bias [L,n_max], enc [L,1],
+                                #  ln [2,n_max] | None)
+    block=None,                 # BlockMeta | None (transformer glue)
+    trace: Optional[list] = None,
 ) -> torch.Tensor:
-    """A whole packed layer chain, code-domain subset: every layer
-    consumes 5-bit codes (encode ``"codes"``), hands codes on (``"codes"``,
-    with the optional ``flatten`` position merge) and the last layer
-    returns its raw accumulated ADC codes (``"raw"``), shape
-    ``[B * m_mult_last, n_last]``.  Same per-chunk arithmetic and op order
-    as the per-layer route."""
+    """A whole packed layer chain - code-domain hand-offs, float-domain
+    hand-offs, or one attention+MLP block - with the per-layer route's
+    arithmetic: the encodes of :func:`plan_layer_ref`, the ``"codes"``
+    hand-off's ReLU + right-shift requantization, and the float hand-offs
+    dequantized as ``acc * deq + bias`` (``deq = a_scale * w_scale /
+    gain``, run_layer's expression) before :func:`block_glue_ref`.  The
+    ``flatten`` merge relabels position rows into the next layer's
+    features.  Returns the last layer's raw accumulated ADC codes
+    ``[B * m_mult_last, n_last]`` (``"raw"``) or the block output
+    (``"res_out"``).  ``trace``, when a list, receives each layer's
+    ``(input, accumulated ADC codes)``.  Forward only."""
+    from repro_torch.kernels.analog_plan import layer_handoff, needs_extras
+
+    deq = bias = enc = ln = None
+    if extras is not None:
+        deq, bias, enc, ln = extras
+    elif needs_extras(schedule):
+        raise ValueError(
+            "float-domain schedule entries need the packed deq/bias/enc "
+            "operands (extras); without them only the code-domain "
+            "schedule runs")
+    ws = _layer_weights(weights, schedule)
     h = x_in.to(torch.float32)
+    res = None
     last = len(schedule) - 1
+    if block is not None:
+        from repro_torch.models.layers import norm_apply
+
+        d0 = schedule[0].k
+        res = h[:, :d0]
+        h = norm_apply({"scale": ln[0, :d0]}, res, eps=block.eps)
     for li, meta in enumerate(schedule):
-        if meta.encode != "codes" or meta.handoff not in ("codes", "raw"):
-            raise ValueError(
-                f"layer {li}: encode {meta.encode!r} / hand-off "
-                f"{meta.handoff!r} is outside the code-domain schedule"
-            )
-        w_l = w_cat[meta.row0:meta.row0 + meta.k_pad, :meta.n]
-        gain = gain_all[li, :meta.n]
-        acc = torch.zeros((h.shape[0], meta.n), dtype=torch.float32,
-                          device=h.device)
-        for c in range(meta.n_chunks):
-            v = torch.matmul(h[:, c * chunk_rows:(c + 1) * chunk_rows],
-                             w_l[c * chunk_rows:(c + 1) * chunk_rows])
-            v = v * gain + off_cat[meta.c0 + c, :meta.n]
-            if faithful:
-                v = torch.clamp(torch.round(v), BSS2.adc_min, BSS2.adc_max)
-            acc = acc + v
-        if not faithful:
-            lo = float(BSS2.adc_min) * meta.n_chunks
-            hi = float(BSS2.adc_max) * meta.n_chunks
-            acc = torch.clamp(torch.round(acc), lo, hi)
+        acc = plan_layer_ref(
+            h, ws[li], gain_all[li, :meta.n],
+            off_cat[meta.c0:meta.c0 + meta.n_chunks, :meta.n], meta,
+            None if meta.encode == "codes" else enc[li, 0],
+            chunk_rows=chunk_rows, faithful=faithful)
+        if trace is not None:
+            trace.append((h, acc))
+        handoff = layer_handoff(meta, li == last)
         if li == last:
+            if handoff == "res_out":
+                return res + (acc * deq[li, :meta.n] + bias[li, :meta.n])
+            if handoff != "raw":
+                raise ValueError(f"unknown final hand-off {handoff!r}")
             return acc
-        codes = torch.clamp_min(acc, 0.0)
-        codes = torch.clamp(torch.floor(codes / float(1 << meta.shift)), 0.0,
-                            float(BSS2.a_max))
+        if handoff == "codes":
+            nxt = torch.clamp_min(acc, 0.0)
+            nxt = torch.clamp(torch.floor(nxt / float(1 << meta.shift)), 0.0,
+                              float(BSS2.a_max))
+        else:
+            y = acc * deq[li, :meta.n] + bias[li, :meta.n]
+            ln_row = None if ln is None else ln[1, :meta.n]
+            nxt, res = block_glue_ref(handoff, y, res, ln_row, block)
         if meta.flatten > 1:
-            codes = codes.reshape(codes.shape[0] // meta.flatten,
-                                  meta.flatten * meta.n)
-        pad = schedule[li + 1].k_pad - codes.shape[1]
-        if pad:
-            codes = torch.nn.functional.pad(codes, (0, pad))
-        h = codes
+            nxt = nxt.reshape(nxt.shape[0] // meta.flatten,
+                              meta.flatten * meta.n)
+        if schedule[li + 1].encode == "codes":
+            pad = schedule[li + 1].k_pad - nxt.shape[1]
+            if pad:
+                nxt = torch.nn.functional.pad(nxt, (0, pad))
+        h = nxt
     return acc
+
+
+def block_stages_ref(x_in, stages, weights, gain_all, off_cat, schedule,
+                     block, extras, *, chunk_rows: int = BSS2.signed_rows,
+                     faithful: bool = True) -> dict:
+    """Every stage of the block kernel by the plain version, each fed the
+    kernel's OWN input to that stage: ``stages`` is the dict of stage
+    regions :func:`repro_torch.kernels.analog_plan.analog_plan_block_stages`
+    returns.  Returns a dict of the same names plus ``"out"`` (the block
+    output from the kernel's ``res2`` and ``acc_dn``), so that each stage
+    can be held against its plain version on its own."""
+    from repro_torch.models.layers import norm_apply
+
+    deq, bias, enc, ln = extras
+    d = schedule[0].k
+
+    def dq(acc, li):
+        n = schedule[li].n
+        return acc * deq[li, :n] + bias[li, :n]
+
+    def mvm(li, h):
+        m = schedule[li]
+        return plan_layer_ref(h, weights[li], gain_all[li, :m.n],
+                              off_cat[m.c0:m.c0 + m.n_chunks, :m.n], m,
+                              enc[li, 0], chunk_rows=chunk_rows,
+                              faithful=faithful)
+
+    want = {"n1": norm_apply({"scale": ln[0, :d]}, x_in, eps=block.eps)}
+    want["acc_qkv"] = mvm(0, stages["n1"])
+    want["attn"] = block_glue_ref("attn", dq(stages["acc_qkv"], 0), None,
+                                  None, block)[0]
+    want["acc_o"] = mvm(1, stages["attn"])
+    want["n2"], want["res2"] = block_glue_ref(
+        "res_ln", dq(stages["acc_o"], 1), x_in, ln[1, :d], block)
+    want["acc_ug"] = mvm(2, stages["n2"])
+    want["sw"] = block_glue_ref("swiglu", dq(stages["acc_ug"], 2), None,
+                                None, block)[0]
+    want["acc_dn"] = mvm(3, stages["sw"])
+    want["out"] = stages["res2"] + dq(stages["acc_dn"], 3)
+    return want
 
 
 def maxmin_pool_ref(x: torch.Tensor, window: int = 32) -> torch.Tensor:

@@ -4,9 +4,10 @@ fused-QKV plan path, the dense prefill and the float-cache branch of
 
 The parameter projections (QKV/O) run on the analog backend; the
 activation x activation products (logits, AV) stay digital - the BSS-2
-synapse array holds static weights only.  Not ported yet (ROADMAP): the
-int8 KV cache, flash attention for long prefills without a cache, and
-context-parallel attention.
+synapse array holds static weights only.  :func:`prefill_attention_glue`
+is the static-prefill glue of a fused attention+MLP block.  Not ported
+yet (ROADMAP): the int8 KV cache, flash attention for long prefills
+without a cache, and context-parallel attention.
 """
 from __future__ import annotations
 
@@ -50,6 +51,36 @@ def _dense_attention(q, k, v, *, causal: bool, q_offset=0):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
     return o.to(q.dtype)
+
+
+def prefill_attention_glue(qkv, *, batch: int, seq: int, n_heads: int,
+                           n_kv_heads: int, head_dim: int,
+                           rope_theta: float) -> torch.Tensor:
+    """The digital glue between the fused QKV projection and the output
+    projection for a STATIC prefill (positions ``0..seq-1``, no cache,
+    dense causal attention): split the concatenated QKV columns, apply
+    RoPE, group the query heads, attend.
+
+    ``qkv``: ``[batch * seq, nq + 2 * nkv]`` (the column layout of the
+    ``column_concat`` QKV group) -> ``[batch * seq, nq]``.  The per-layer
+    block fallback (``repro_torch.exec.run._run_block_fallback``) and the
+    whole-block plain version (``repro_torch.kernels.ref``) both call it.
+    """
+    nq = n_heads * head_dim
+    nkv = n_kv_heads * head_dim
+    g = n_heads // n_kv_heads
+    qkv = qkv.reshape(batch, seq, nq + 2 * nkv)
+    q, k, v = torch.split(qkv, [nq, nkv, nkv], dim=-1)
+    q = q.reshape(batch, seq, n_heads, head_dim)
+    k = k.reshape(batch, seq, n_kv_heads, head_dim)
+    v = v.reshape(batch, seq, n_kv_heads, head_dim)
+    pos = torch.arange(seq, dtype=torch.int32, device=qkv.device)
+    positions = torch.broadcast_to(pos[None, :], (batch, seq))
+    q = L.apply_rope(q, positions, rope_theta)
+    k = L.apply_rope(k, positions, rope_theta)
+    qg = q.reshape(batch, seq, n_kv_heads, g, head_dim)
+    o = _dense_attention(qg, k, v, causal=True)
+    return o.reshape(batch * seq, nq)
 
 
 def _qkv_plan(params, acfg: AnalogConfig):

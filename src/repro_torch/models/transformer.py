@@ -9,9 +9,10 @@ slice of every parameter, plan and cache leaf (:func:`stack_index`).
 
 Every parameter matmul dispatches through the analog backend; the
 execution mode (digital / analog_faithful / analog_fast) is a RunConfig
-knob.  Not ported yet: MoE, RWKV, Mamba and the hybrid families, the
-shared attention block, the fused attention+MLP block plans
-(``attach_block_plans``) and training (``lm_loss``).
+knob.  :func:`attach_block_plans` adds fused attention+MLP block plans
+that replay a static prefill one dispatch per block.  Not ported yet:
+MoE, RWKV, Mamba and the hybrid families, the shared attention block and
+training (``lm_loss``).
 """
 from __future__ import annotations
 
@@ -157,6 +158,15 @@ def lm_module_spec(cfg: ArchConfig, params):
 # ------------------------------------------------------------------ apply
 def _layer_apply(p, x, *, cfg, run, positions, cache):
     acfg = run.analog
+    bp = p.get("_block_plan")
+    if bp is not None and cache is None and x.shape[1] == bp.block.seq:
+        # pre-lowered fused block plan (attach_block_plans): the whole
+        # attention+MLP block replays as ONE dispatch.  Static prefill
+        # only - the baked attention assumes positions 0..seq-1 and no
+        # cache; decode and other lengths keep the per-layer path below
+        from repro_torch.exec.run import run as run_plan
+
+        return run_plan(bp, x), None
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     attn_out, c = A.attention_apply(
         p["attn"], h, positions=positions, acfg=acfg,
@@ -228,6 +238,46 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
     if cache is not None:
         new_cache = {"layers": layer_cache, "step": cache["step"] + s}
     return logits, new_cache, 0.0
+
+
+def attach_block_plans(params, cfg: ArchConfig, acfg, *, seq: int):
+    """Pre-lower every ``attn_mlp`` block of an LM into a fused
+    attention+MLP plan (:func:`repro_torch.exec.lower.lower_block`) and
+    attach it as a ``"_block_plan"`` entry beside the block's parameters.
+    :func:`lm_apply` then replays each of those blocks as ONE dispatch on
+    static prefills of length ``seq`` (no cache, default positions);
+    decode and other lengths keep the per-layer path.
+
+    The scan groups hold stacked parameters: each slice is lowered on its
+    own into a :class:`~repro_torch.exec.plan.PlanStack` of block plans
+    (the reference vmaps the lowering), so every block's weights stay
+    contiguous.  ``acfg`` must be megakernel-eligible (``act_calib ==
+    "static"``, none/split signed encoding); the architecture must use
+    the glue the kernel bakes (rmsnorm + swiglu, plain RoPE).  ``params``
+    may be a raw or a pre-lowered tree.
+    """
+    from repro_torch.exec.lower import lower_block
+
+    if cfg.norm != "rmsnorm" or cfg.act != "swiglu" or cfg.mrope:
+        raise ValueError(
+            "attach_block_plans: the fused block kernel bakes rmsnorm + "
+            f"swiglu + plain RoPE glue; got norm={cfg.norm!r}, "
+            f"act={cfg.act!r}, mrope={cfg.mrope}"
+        )
+    acfg = getattr(acfg, "analog", acfg)
+    new_layers = dict(params["layers"])
+    for i, kind in enumerate(group_def(cfg)):
+        if kind != "attn_mlp":
+            continue
+        node = new_layers[f"l{i}"]
+        block = {k: node[k] for k in ("ln1", "attn", "ln2", "mlp")}
+        plans = PlanStack(
+            lower_block(stack_index(block, s), acfg, n_heads=cfg.n_heads,
+                        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                        seq=seq, rope_theta=cfg.rope_theta)
+            for s in range(n_groups(cfg)))
+        new_layers[f"l{i}"] = {**node, "_block_plan": plans}
+    return {**params, "layers": new_layers}
 
 
 def _store_lengths(stacked, group_cache, i: int) -> None:

@@ -7,7 +7,10 @@ torch and the port, so it runs where JAX is not installed:
 
 Tolerance: bit-exact throughout (integer effective weights; the kernels
 repeat the plain versions' per-chunk arithmetic), and equal greedy tokens
-for the smoke LM served on the card and on the CPU.
+for the smoke LM served on the card and on the CPU.  The block kernel's
+glue stages (RMSNorm, attention, SwiGLU) reduce and take transcendentals
+in another order than PyTorch: each is held within 1e-6 of its stage's
+max |value| when fed the kernel's own stage input.
 """
 import numpy as np
 import pytest
@@ -16,12 +19,17 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import api, configs  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
-from repro_torch.core.analog import AnalogConfig  # noqa: E402
+from repro_torch.core.analog import AnalogConfig, analog_linear_init  # noqa: E402
 from repro_torch.core.noise import NoiseConfig  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.analog_mvm import (  # noqa: E402
     analog_mvm_cuda, analog_mvm_split_cuda)
-from repro_torch.kernels.analog_plan import analog_plan_cuda  # noqa: E402
+from repro_torch.core.device import to_device  # noqa: E402
+from repro_torch.exec.lower import lower_block, lower_stack  # noqa: E402
+from repro_torch.kernels.analog_plan import (  # noqa: E402
+    BLOCK_STAGES, analog_plan_block_cuda, analog_plan_cuda)
+from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.kernels.preproc import maxmin_pool_cuda  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.ecg import ECGConfig, ecg_init, ecg_module_spec  # noqa: E402
@@ -127,7 +135,8 @@ def test_routes_agree_and_count_launches(cuda):
     y_mk = model.apply(x, megakernel=True)
     y_pl = model.apply(x, megakernel=False)
     assert ops.launch_counts() == {"maxmin_pool": 0, "analog_mvm": 3,
-                                   "analog_mvm_split": 0, "analog_plan": 1}
+                                   "analog_mvm_split": 0, "analog_plan": 1,
+                                   "analog_plan_block": 0}
     cpu = _ecg_model("cpu")
     assert torch.equal(y_mk, y_pl)
     assert torch.equal(y_mk.cpu(), cpu.apply(x.cpu()))
@@ -169,3 +178,136 @@ def test_lm_plain_route_refuses_the_card(cuda):
     params = T.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
     with pytest.raises(ValueError, match="use_kernels=False"):
         _lm_serve(cuda, run, params, cfg)
+
+
+# integer effective weights (a gain map of exactly 1), offsets kept
+INT_NOISE = NoiseConfig(gain_std=0.0, mode="full")
+GLUE_TOL = 1e-6
+
+
+def _float_chain(device, encode):
+    """A static-calibration float chain: k = 100 and 300 (ragged chunk
+    padding), relu hand-offs, every layer encoding floats in-kernel."""
+    g = torch.Generator().manual_seed(3)
+    layers = [to_device(analog_linear_init(g, k, n, noise=INT_NOISE,
+                                           device="cpu"), device)
+              for k, n in ((100, 70), (70, 300), (300, 9))]
+    acfg = AnalogConfig(act_calib="static", signed_input=encode,
+                        fused_epilogue=True)
+    return lower_stack(layers, acfg, input_domain="float")
+
+
+@pytest.mark.parametrize("encode", ["none", "split"])
+@pytest.mark.parametrize("faithful", [True, False])
+def test_analog_plan_float_chain(cuda, encode, faithful):
+    mega = _float_chain(cuda, encode).mega
+    assert [m.encode for m in mega.schedule] == [
+        "split" if encode == "split" else "unsigned"] * 3
+    for b in (1, 37):
+        x = torch.randn((b, 100), generator=torch.Generator().manual_seed(b)
+                        ).to(cuda)
+        args = (x, mega.w_cat, mega.gain, mega.off)
+        got = analog_plan_cuda(*args, schedule=mega.schedule,
+                               faithful=faithful, extras=mega.extras)
+        want = ref.analog_plan_ref(*args, mega.schedule, faithful=faithful,
+                                   extras=mega.extras)
+        assert torch.equal(got, want)
+
+
+def test_ecg_float_chain_routes_agree(cuda):
+    cfg = ECGConfig(noise=NoiseConfig(gain_std=0.0, mode="full"))
+    params = ecg_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    spec = ecg_module_spec(cfg, epilogue="none")
+    acfg = AnalogConfig(act_calib="static", fused_epilogue=True)
+    model = api.compile(spec, params, acfg, device=cuda)
+    x = torch.randint(0, 32, (5, 2, 126), dtype=torch.float32,
+                      generator=torch.Generator().manual_seed(1)).to(cuda)
+    ops.reset_launch_counts()
+    y_mk = model.apply(x, megakernel=True)
+    assert ops.launch_counts()["analog_plan"] == 1
+    assert torch.equal(y_mk, model.apply(x, megakernel=False))
+    cpu = api.compile(spec, params, acfg, device="cpu")
+    assert torch.equal(y_mk.cpu(), cpu.apply(x.cpu(), megakernel=True))
+
+
+# (d_model, heads, kv heads, head_dim, d_ff, batch, seq): GQA, ragged
+# widths, and M = 15, 48 and 84 rows (every row-tile height, two row tiles)
+BLOCK_GEOMS = [(96, 6, 2, 16, 192, 3, 5), (128, 4, 2, 32, 160, 4, 12),
+               (64, 2, 2, 32, 96, 7, 12)]
+
+
+def _block_plan(device, geom, faithful, seed=0):
+    d, h, kvh, hd, dff, _, seq = geom
+    g = torch.Generator().manual_seed(seed)
+    params = {
+        "ln1": {"scale": 1 + 0.1 * torch.randn((d,), generator=g)},
+        "attn": A.attention_init(g, d, h, kvh, hd, noise=INT_NOISE,
+                                 device="cpu"),
+        "ln2": {"scale": 1 + 0.1 * torch.randn((d,), generator=g)},
+        "mlp": L.mlp_init(g, d, dff, noise=INT_NOISE, device="cpu"),
+    }
+    acfg = AnalogConfig(mode="analog_faithful" if faithful else "analog_fast",
+                        act_calib="static")
+    return lower_block(to_device(params, device), acfg, n_heads=h,
+                       n_kv_heads=kvh, head_dim=hd, seq=seq,
+                       rope_theta=1e4)
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("geom", BLOCK_GEOMS)
+@pytest.mark.parametrize("faithful", [True, False])
+def test_analog_plan_block_stages(cuda, geom, faithful):
+    mega = _block_plan(cuda, geom, faithful).mega
+    assert mega.w_cat is None
+    d, batch, seq = geom[0], geom[5], geom[6]
+    x = torch.randn((batch * seq, d), generator=torch.Generator(
+    ).manual_seed(9)).to(cuda)
+    args = (x, mega.weights, mega.gain, mega.off)
+    out, stages, grid = analog_plan_block_cuda(
+        *args, schedule=mega.schedule, block=mega.block, extras=mega.extras,
+        faithful=faithful)
+    assert grid >= torch.cuda.get_device_properties(cuda).multi_processor_count
+    want = ref.block_stages_ref(x, stages, *args[1:], mega.schedule,
+                                mega.block, mega.extras, faithful=faithful)
+    for name, _, _ in BLOCK_STAGES:
+        if name.startswith("acc_") or name == "res2":
+            assert torch.equal(stages[name], want[name]), name
+        else:
+            assert _rel(stages[name], want[name]) <= GLUE_TOL, name
+    assert torch.equal(out, want["out"])
+    ops.reset_launch_counts()
+    again = ops.analog_plan_codes(*args, schedule=mega.schedule,
+                                  faithful=faithful, extras=mega.extras,
+                                  block=mega.block)
+    assert ops.launch_counts()["analog_plan_block"] == 1
+    assert torch.equal(again, out)
+
+
+def test_lm_block_route_on_card(cuda):
+    """attach_block_plans + lm_apply on the smoke config: one block launch
+    per layer and one split launch (lm_head) per prefill; the logits
+    close to the CPU's (a glue ulp may flip a code at a tie)."""
+    cfg = configs.get_smoke("phi4-mini-3.8b")
+    acfg = AnalogConfig(mode="analog_faithful", act_calib="static")
+    run = RunConfig(analog=acfg, activation_dtype="float32")
+    params = T.lm_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 12)))
+    logits = {}
+    for dev in (cuda, torch.device("cpu")):
+        tree = T.attach_block_plans(api.lower_tree(to_device(params, dev), run),
+                                    cfg, acfg, seq=12)
+        ops.reset_launch_counts()
+        logits[dev.type] = T.lm_apply(tree, {"tokens": toks.to(dev)}, cfg,
+                                      run)[0].cpu()
+        if dev.type == "cuda":
+            assert ops.launch_counts() == {
+                "maxmin_pool": 0, "analog_mvm": 0, "analog_mvm_split": 1,
+                "analog_plan": 0, "analog_plan_block": cfg.n_layers}
+    want = logits["cpu"]
+    assert _rel(logits["cuda"], want) <= 1e-2
+    assert float((logits["cuda"].argmax(-1) == want.argmax(-1)).float().mean()
+                 ) >= 0.95

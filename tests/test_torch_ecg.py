@@ -219,24 +219,30 @@ class TestEndToEnd:
         np.testing.assert_array_equal(got.numpy(), want)
 
     def test_float_domain_megakernel_routes_per_layer(self):
-        """A static float-glue chain needs stage b of the whole-plan
-        kernel: the port replays it layer by layer (the reference's
-        megakernel is bit-exact against that replay) and refuses
-        megakernel=True with the reason."""
-        model = _port_model("none", "analog_faithful", True,
-                            act_calib="static")
+        """A static float-glue chain (unsigned encodes, relu hand-offs
+        with the im2col flatten) takes the whole-plan route: with
+        megakernel=True it matches the reference's megakernel within the
+        full-map tolerance, bit-exact under NOISELESS, and equals the
+        port's own per-layer replay bit for bit."""
         x = preprocess(_RAW, device="cpu")
-        with pytest.raises(ValueError, match="not ported yet"):
-            model.apply(x, megakernel=True)
-        cfg, params = _jparams(False)
-        jmodel = japi.compile(
-            jecg_spec(cfg, epilogue="none"), params,
-            JAnalogConfig(use_pallas=True, fused_epilogue=True,
-                          act_calib="static"))
-        want = np.asarray(jmodel.apply(preprocess_batch(_RAW),
-                                       megakernel=True))
-        np.testing.assert_allclose(model.apply(x).numpy(), want, rtol=0,
-                                   atol=FULL_MAP_TOL)
+        for noiseless in (False, True):
+            model = _port_model("none", "analog_faithful", True, noiseless,
+                                act_calib="static")
+            cfg, params = _jparams(noiseless)
+            jmodel = japi.compile(
+                jecg_spec(cfg, epilogue="none"), params,
+                JAnalogConfig(use_pallas=True, fused_epilogue=True,
+                              act_calib="static"))
+            want = np.asarray(jmodel.apply(preprocess_batch(_RAW),
+                                           megakernel=True))
+            got = model.apply(x, megakernel=True).numpy()
+            np.testing.assert_array_equal(
+                got, model.apply(x, megakernel=False).numpy())
+            if noiseless:
+                np.testing.assert_array_equal(got, want)
+            else:
+                np.testing.assert_allclose(got, want, rtol=0,
+                                           atol=FULL_MAP_TOL)
 
 
 class TestInit:
@@ -323,6 +329,8 @@ class TestDevice:
             "import repro_torch.kernels.ops, repro_torch.convert\n"
             "import repro_torch.configs, repro_torch.models.transformer\n"
             "import repro_torch.serve, repro_torch.serve.serve_step\n"
+            "import repro_torch.kernels.analog_plan, repro_torch.exec.lower\n"
+            "import repro_torch.exec.run, repro_torch.models.attention\n"
             "for name in repro_torch.configs.ARCH_NAMES:\n"
             "    repro_torch.configs.get_arch(name)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
