@@ -23,7 +23,8 @@ exits non-zero without printing a result):
 2. the build of every CUDA kernel from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, all started together) and its time;
 3. every ECG kernel against its plain PyTorch version on the card, at the
-   main paths' shapes and at a ragged sweep: max-min pooling bit-exact;
+   main paths' shapes and at a ragged sweep: max-min pooling bit-exact
+   (B=500, B=1 and ragged row counts);
    the analog VMM and the whole-plan chain (code chain, and the float
    chain's unsigned encodes and relu hand-offs) bit-exact with integer
    effective weights, and within the ADC contract (<= 1 LSB per chunk on
@@ -39,20 +40,24 @@ exits non-zero without printing a result):
    exists, one PyTorch call computing the same function, beside the
    least time the card could take; the end-to-end time per sample of
    both routes of both chains;
-6. the split kernel against its plain version at the six phi4-mini
-   layer shapes (fused QKV, o, up, gate, down, lm_head) at M = 4 (decode)
-   and 48 (prefill) and at a ragged sweep, faithful and fast, with and
+6. the split kernel's two weight operands (the int8 codes with their
+   gain tables, and fp32 effective weights) against the plain version at
+   the six phi4-mini layer shapes (fused QKV, o, up, gate, down, lm_head)
+   at M = 4 (decode) and 48 (prefill), the fused QKV with one row-gain
+   vector per member, and a ragged sweep, faithful and fast, with and
    without the epilogue: bit-exact with integer effective weights (dyadic
    gain and offsets, so every partial sum is exact), within 1 LSB on
-   <= 1% of the elements with rank-1 gains;
+   <= 1% of the elements with rank-1 gains; the two operands
+   bit-identical to each other;
 7. the LM main path: ``ServeEngine`` (compile once) serves 8 requests at
    batch 4 with 8 new tokens each; exactly 161 ``analog_mvm_split``
    launches (32 layers x 5 + lm_head) per prefill or decode call;
 8. the smoke config served on the card and on the CPU at fp32
    activations: equal greedy tokens, and the max |logit diff|;
-9. LM timings: the split kernel per launch at each shape beside its
-   bound and its plain version; prefill latency, decode time per step
-   and the device idle share per decode step at batch 4;
+9. LM timings: the split kernel per launch at each shape, as the main
+   path calls it (int8 code operand) and with the fp32 operand, each
+   beside its bound, and its plain version; prefill latency, decode time
+   per step and the device idle share per decode step at batch 4;
 10. the block path: the serving plans freed, the same parameters lowered
    for static calibration and ``attach_block_plans(seq=12)``; one 4 x 12
    prefill through ``lm_apply`` issues exactly 32 ``analog_plan_block``
@@ -87,6 +92,7 @@ BATCHES = (1, 500)
 # H100 SXM published peaks (NVIDIA data sheet) at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense tensor-core peak
 # share of elements that may differ by <= 1 LSB per chunk with float gains
 TIE_SHARE = 0.01
 TPU_KERNELS = {
@@ -158,7 +164,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.kernels.analog_mvm import (  # noqa: E402
-    analog_mvm_cuda, analog_mvm_split_cuda)
+    analog_mvm_cuda, analog_mvm_split_codes_cuda, analog_mvm_split_cuda)
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.core.quant import quantize_act  # noqa: E402
@@ -242,7 +248,7 @@ def check_kernels(raw, model, int_model, codes, fmodel, int_fmodel):
                             ref.maxmin_pool_ref(x), exact=True,
                             what=f"ECG {tuple(x.shape)}"))
     g = torch.Generator().manual_seed(SEED)
-    for shape in ((7, 96), (3, 4064), (1, 32)):
+    for shape in ((2, 4032), (333, 4032), (7, 96), (3, 4064), (1, 32)):
         r = torch.randint(-2048, 2048, shape, generator=g).float().to(DEV)
         results.append(_compare("maxmin_pool", maxmin_pool_cuda(r),
                                 ref.maxmin_pool_ref(r), exact=True,
@@ -408,9 +414,9 @@ def device_trace(fn, iters=20):
     return (total_us / iters / 1e3 if total_us > 0 else None), per_call
 
 
-def bound(nbytes: float, nops: float):
+def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -544,18 +550,25 @@ def _split_codes(m, k, g):
     return a_pos.contiguous(), a_neg.contiguous()
 
 
-def _split_weights(k, n, g, rank1):
-    """Integer w_eff with a dyadic gain (2**-9) and dyadic offsets, or the
-    same codes times rank-1 row/column gains."""
-    w = torch.randint(-63, 64, (k, n), generator=g, device=DEV).float()
+def _split_weights(k, n, g, rank1, blocks=None):
+    """A split layer's weight operands: int8 codes with no gain tables
+    (integer w_eff; a dyadic gain (2**-9) and dyadic offsets keep every
+    partial sum exact), or the same kind of codes with rank-1 column and
+    row gains (one row-gain vector per column block).  Returns the code
+    operand ``(codes, col_gain, row_gain)``, its w_eff rebuilt by the
+    plain version, the gain and the offsets."""
+    codes = torch.randint(-63, 64, (k, n), generator=g, device=DEV).to(
+        torch.int8)
+    col = row = None
     if rank1:
-        row = 1 + 0.014 * torch.randn((k, 1), generator=g, device=DEV)
-        col = 1 + 0.014 * torch.randn((1, n), generator=g, device=DEV)
-        w = w * col * row
+        col = 1 + 0.014 * torch.randn((n,), generator=g, device=DEV)
+        row = 1 + 0.014 * torch.randn((1 if blocks is None else len(blocks),
+                                       k), generator=g, device=DEV)
+    w = ref.rebuild_w_eff_ref(codes, col, row, blocks).contiguous()
     gain = torch.full((n,), 2.0 ** -9, device=DEV)
     off = torch.randint(-16, 17, (k // 128, n), generator=g,
                         device=DEV).float() / 8
-    return w.contiguous(), gain, off
+    return (codes, col, row), w, gain, off
 
 
 def lm_shapes(cfg):
@@ -570,30 +583,46 @@ def lm_shapes(cfg):
 
 
 def check_split_kernel(cfg):
-    """Phase 6: the split kernel against its plain version on the card."""
+    """Phase 6: the split kernel's two weight operands against the plain
+    version on the card, and against each other (bit-identical)."""
     results = []
     g = torch.Generator(device=DEV).manual_seed(SEED)
-    cases = [(f"{name} M={m}", m, k, n) for name, k, n in lm_shapes(cfg)
+    nq, nkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    cases = [(f"{name} M={m}", m, k, n, None) for name, k, n in lm_shapes(cfg)
              for m in LM_M.values()]
-    cases += [(f"ragged {(m, k, n)}", m, k, n) for m, k, n in (
+    _, k_qkv, n_qkv = lm_shapes(cfg)[0]
+    cases += [(f"qkv col_blocks M={m}", m, k_qkv, n_qkv, (nq, nkv, nkv))
+              for m in LM_M.values()]
+    cases += [(f"ragged {(m, k, n)}", m, k, n, None) for m, k, n in (
         (1, 128, 1), (5, 256, 129), (16, 384, 70), (17, 128, 700),
-        (100, 384, 65))]
-    for what, m, k, n in cases:
+        (100, 384, 65), (65, 640, 300))]
+    for what, m, k, n, blocks in cases:
         a_pos, a_neg = _split_codes(m, k, g)
-        for rank1 in (False, True):
-            w, gain, off = _split_weights(k, n, g, rank1)
+        for rank1 in (False, True) if blocks is None else (True,):
+            (codes, col, row), w, gain, off = _split_weights(k, n, g, rank1,
+                                                             blocks)
             for faithful in (True, False):
                 for epi in (None, ("relu_shift", 5)):
                     args = (a_pos, a_neg, w, gain, off)
-                    got = analog_mvm_split_cuda(*args, faithful=faithful,
-                                                epilogue=epi)
+                    got = analog_mvm_split_codes_cuda(
+                        a_pos, a_neg, codes, col, row, gain, off,
+                        col_blocks=blocks, faithful=faithful, epilogue=epi)
                     want = ref.adc_epilogue_ref(ref.analog_mvm_split_ref(
                         *args, faithful=faithful), epi)
+                    tag = (f"{what} rank1={rank1} faithful={faithful} "
+                           f"epi={epi}")
                     results.append(_compare(
                         "analog_mvm_split", got, want, exact=not rank1,
-                        what=f"{what} rank1={rank1} faithful={faithful} "
-                             f"epi={epi}"))
-            del w, gain, off
+                        n_chunks=k // 128, what=f"codes {tag}"))
+                    got_w = analog_mvm_split_cuda(*args, faithful=faithful,
+                                                  epilogue=epi)
+                    results.append(_compare(
+                        "analog_mvm_split", got_w, want, exact=not rank1,
+                        n_chunks=k // 128, what=f"w_eff {tag}"))
+                    if not torch.equal(got, got_w):
+                        raise AssertionError(f"{tag}: the two weight "
+                                             "operands disagree")
+            del codes, col, row, w, gain, off
     return results
 
 
@@ -714,9 +743,26 @@ def _layer_plans(engine):
             g0["mlp"]["down"]["_plan"], tree["lm_head"]["_plan"])
 
 
+def split_work(m, k, n, st, c):
+    """(bytes with the int8 code operand, bytes with the fp32 operand,
+    operations) of one split launch: both passes' activation codes,
+    the weights, their gain tables, the gain, the chunk offsets and the
+    output, each once; both passes' products."""
+    common = 4 * (2 * m * k + n + c * n + m * n)
+    tables = sum(4 * t.numel() for t in (st.col_gain, st.row_gain)
+                 if t is not None)
+    return common + k * n + tables, common + 4 * k * n, 2 * 2 * m * k * n
+
+
 def time_split(engine):
     """Phase 9a: the split kernel at the main path's operands: the real
-    lowered weights of each layer shape, codes of a random activation."""
+    lowered weights of each layer shape, codes of a random activation.
+    The main path's call (the int8 code operand, through the dispatching
+    wrapper with the layer's store) beside the fp32 operand on the same
+    layer, each with its bound: bytes over the memory rate, or the
+    products, counted once, over the bf16 tensor-core peak (the fastest
+    unit that forms them exactly); the fp32-operand bound also at the
+    fp32 CUDA-core rate, as before the tensor cores."""
     cfg = engine.cfg
     g = torch.Generator(device=DEV).manual_seed(SEED + 2)
     rows = []
@@ -724,26 +770,41 @@ def time_split(engine):
         if (lp.k_pad, lp.n) != (k, n):
             raise AssertionError(f"{name}: plan {(lp.k_pad, lp.n)} != "
                                  f"{(k, n)}")
+        if lp.store.gain_map is not None:
+            raise AssertionError(f"{name}: the main path's store holds a "
+                                 "full gain map")
         for phase, m in LM_M.items():
             a_pos, a_neg = _split_codes(m, k, g)
             args = (a_pos, a_neg, lp.w_eff, lp.gain_row, lp.chunk_offset)
             c = k // 128
-            nbytes = 4 * (2 * m * k + k * n + n + c * n + m * n)
-            b_ms, b_by = bound(nbytes, 2 * 2 * m * k * n)
-            kern = lambda args=args: analog_mvm_split_cuda(*args)  # noqa: E731
+            b_codes, b_weff, nops = split_work(m, k, n, lp.store, c)
+            b_ms, b_by = bound(b_codes, nops, BF16_OPS_PER_S)
+            kern = lambda args=args, lp=lp: ops.analog_mvm_split(  # noqa: E731
+                *args, store=lp.store)
+            kern_w = lambda args=args: analog_mvm_split_cuda(*args)  # noqa: E731
             plain = lambda args=args: ref.analog_mvm_split_ref(*args)  # noqa: E731
             row = {
                 "kernel": "analog_mvm_split", "phase": phase, "layer": name,
                 "what": f"{phase} {name} M={m} K={k} N={n}",
+                "operand": "int8 codes + rank-1 gain tables",
                 "ms": time_ms(kern, iters=10, reps=5),
                 "plain_ms": time_ms(plain, iters=5, reps=3),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
                 "device_ms": device_trace(kern, iters=10)[0],
                 "plain_device_ms": device_trace(plain, iters=5)[0],
+                "fp32_operand_ms": time_ms(kern_w, iters=10, reps=5),
+                "fp32_operand_device_ms": device_trace(kern_w, iters=10)[0],
+                "fp32_operand_bound_ms": bound(b_weff, nops,
+                                               BF16_OPS_PER_S)[0],
+                "fp32_operand_fp32_ops_bound_ms": bound(b_weff, nops)[0],
             }
             row["device_share_of_bound"] = (
                 None if row["device_ms"] is None
-                else b_ms / row["device_ms"])
+                else row["bound_ms"] / row["device_ms"])
+            row["fp32_operand_device_share_of_bound"] = (
+                None if row["fp32_operand_device_ms"] is None
+                else row["fp32_operand_bound_ms"]
+                / row["fp32_operand_device_ms"])
             emit("timing", row)
             rows.append(row)
     return rows
@@ -1112,7 +1173,9 @@ def main() -> None:
     emit("lm_card_vs_cpu", lm_card_vs_cpu())
     split_rows = time_split(engine)
     lm_timing = time_serving(engine)
-    for key in ("ms", "plain_ms", "bound_ms", "device_ms"):
+    for key in ("ms", "plain_ms", "bound_ms", "device_ms", "fp32_operand_ms",
+                "fp32_operand_device_ms", "fp32_operand_bound_ms",
+                "fp32_operand_fp32_ops_bound_ms"):
         lm_timing[f"split_{key}_per_decode_step"] = per_step(
             split_rows, "decode", key, cfg.n_layers)
         lm_timing[f"split_{key}_per_prefill"] = per_step(

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""A/B timing of ``CompiledModel.apply`` between two checkouts of the port,
-on one CUDA device, in one call:
+"""A/B timing of ``CompiledModel.apply`` (or of LM serving steps) between
+two checkouts of the port, on one CUDA device, in one call:
 
     python3 scripts/ab_apply.py BEFORE_ROOT AFTER_ROOT [--rounds 2]
+    python3 scripts/ab_apply.py BEFORE_ROOT AFTER_ROOT --lm [--rounds 2]
 
 Each root is a checkout of the repository (``BEFORE_ROOT/src/repro_torch``
 must exist).  The sides run in the order before, after, after, before per
@@ -15,10 +16,20 @@ clock.  It also counts the device activities of one ``apply`` in a
 ``torch.profiler`` trace and keeps a checksum of the logits, so the two
 sides can be seen to compute the same thing.
 
+With ``--lm`` each process instead builds phi4-mini-3.8b at its published
+width (random weights, seed 0), compiles a ``ServeEngine`` (batch 4,
+faithful analog mode, as ``chip_smoke.py`` serves it) and times a 4 x 12
+prefill (``--calls // 20`` calls) and decode steps on its cache
+(``--calls // 10`` steps), each synchronized on the host clock, plus the
+device time and activities of one decode step from a profiler trace, and
+the host time per call of one small split layer (``run_layer`` on a
+4 x 256 x 256 rank-1 layer, 400 calls back to back per sample), where
+the device work is too small to hide the dispatch path.
+
 Prints one JSON line per process, then a summary line (each side's
 median over its processes of the per-process median and quartiles, in µs
-per call), and writes all of it to ``chiprun_out/ab_apply.json`` under
-the current directory.
+per call), and writes all of it to ``chiprun_out/ab_apply.json`` (with
+``--lm``: ``chiprun_out/ab_serve.json``) under the current directory.
 """
 from __future__ import annotations
 
@@ -33,7 +44,94 @@ import time
 BATCHES = (1, 500)
 
 
-def one_side(root: pathlib.Path, calls: int) -> dict:
+def _quartiles(us):
+    q = statistics.quantiles(us, n=4)
+    return [q[0], q[1], q[2]]
+
+
+def one_side_lm(root: pathlib.Path, calls: int) -> dict:
+    """Time LM serving steps of one checkout in this process."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core.analog import AnalogConfig, analog_linear_init
+    from repro_torch.exec.lower import lower_layer
+    from repro_torch.exec.run import run_layer
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import ServeEngine
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    cfg = configs.get_arch("phi4-mini-3.8b")
+    params = T.lm_init(torch.Generator(device=dev).manual_seed(0), cfg)
+    engine = ServeEngine(cfg, RunConfig(analog=AnalogConfig(
+        mode="analog_faithful")), params, batch_size=4, max_len=128)
+    del params
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (4, 12)), device=dev)
+
+    def prefill():
+        cache = T.init_lm_cache(cfg, 4, 128, dtype=torch.float32,
+                                device=dev)
+        return engine.prefill(engine.params, {"tokens": toks}, cache)
+
+    logits, cache = prefill()
+    pre = []
+    for _ in range(max(3, calls // 20)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill()
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e6)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    state = {"cache": cache}
+
+    def decode():
+        lg, state["cache"] = engine.decode(engine.params, tok,
+                                           state["cache"])
+        return lg
+
+    decode()
+    dec = []
+    for _ in range(max(3, calls // 10)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = decode()
+        torch.cuda.synchronize()
+        dec.append((time.perf_counter() - t0) * 1e6)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "self_device_time_total", 0.0) > 0]
+    acfg = AnalogConfig(mode="analog_faithful")
+    lp = lower_layer(analog_linear_init(
+        torch.Generator(device=dev).manual_seed(1), 256, 256), acfg)
+    x = torch.randn((4, 256), device=dev)
+    for _ in range(50):
+        run_layer(lp, x, acfg)
+    layer = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(400):
+            run_layer(lp, x, acfg)
+        torch.cuda.synchronize()
+        layer.append((time.perf_counter() - t0) / 400 * 1e6)
+    return {
+        "LM layer call 4x256x256": {"us_q1_median_q3": _quartiles(layer)},
+        "LM prefill 4x12": {"us_q1_median_q3": _quartiles(pre),
+                            "logits_sum": float(logits.double().sum())},
+        "LM decode step": {
+            "us_q1_median_q3": _quartiles(dec),
+            "device_us": sum(e.self_device_time_total for e in events),
+            "device_activities": sum(e.count for e in events),
+            "logits_sum": float(lg.double().sum())},
+    }
+
+
+def one_side(root: pathlib.Path, calls: int, lm: bool = False) -> dict:
     """Time one checkout in this process (the ``--one`` mode)."""
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -50,6 +148,8 @@ def one_side(root: pathlib.Path, calls: int) -> dict:
         raise RuntimeError(f"repro_torch imported from {src}, not {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if lm:
+        return {"root": str(root), **one_side_lm(root, calls)}
     raw, _ = make_dataset(ECGDatasetConfig(n_test=max(BATCHES)), "test")
     cfg = ECGConfig()
     model = api.compile(ecg_module_spec(cfg, epilogue="relu_shift"),
@@ -73,10 +173,9 @@ def one_side(root: pathlib.Path, calls: int) -> dict:
                 torch.cuda.synchronize()
             acts = sum(e.count for e in prof.key_averages()
                        if getattr(e, "self_device_time_total", 0.0) > 0)
-            q = statistics.quantiles(us, n=4)
             route = "megakernel" if mk else "per_layer"
             out[f"B={b} {route}"] = {
-                "us_q1_median_q3": [q[0], q[1], q[2]],
+                "us_q1_median_q3": _quartiles(us),
                 "device_activities": acts,
                 "logits_sum": float(y.double().sum()),
             }
@@ -88,7 +187,7 @@ def _summary(runs: list) -> dict:
     for side in ("before", "after"):
         mine = [r for r in runs if r["side"] == side]
         for key in mine[0]:
-            if not key.startswith("B="):
+            if not isinstance(mine[0][key], dict):
                 continue
             meds = [r[key]["us_q1_median_q3"] for r in mine]
             summary[f"{side} {key}"] = {
@@ -96,8 +195,10 @@ def _summary(runs: list) -> dict:
                     statistics.median(m[1] for m in meds),
                 "median_of_q1_us": statistics.median(m[0] for m in meds),
                 "median_of_q3_us": statistics.median(m[2] for m in meds),
-                "device_activities": mine[0][key]["device_activities"],
-                "logits_sums": sorted({r[key]["logits_sum"] for r in mine}),
+                "device_activities": mine[0][key].get("device_activities"),
+                "device_us": [r[key].get("device_us") for r in mine],
+                "logits_sums": sorted({r[key].get("logits_sum")
+                                       for r in mine} - {None}),
             }
     return summary
 
@@ -108,9 +209,11 @@ def main() -> None:
     ap.add_argument("--one", type=pathlib.Path, help=argparse.SUPPRESS)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--calls", type=int, default=200)
+    ap.add_argument("--lm", action="store_true",
+                    help="time phi4-mini serving steps, not the ECG apply")
     args = ap.parse_args()
     if args.one is not None:
-        print(json.dumps(one_side(args.one.resolve(), args.calls)),
+        print(json.dumps(one_side(args.one.resolve(), args.calls, args.lm)),
               flush=True)
         return
     if len(args.roots) != 2:
@@ -125,7 +228,8 @@ def main() -> None:
         for side in ("before", "after", "after", "before"):
             res = subprocess.run(
                 [sys.executable, str(pathlib.Path(__file__).resolve()),
-                 "--one", str(sides[side]), "--calls", str(args.calls)],
+                 "--one", str(sides[side]), "--calls", str(args.calls)]
+                + (["--lm"] if args.lm else []),
                 capture_output=True, text=True, timeout=600,
                 cwd=sides[side])
             if res.returncode != 0:
@@ -139,7 +243,7 @@ def main() -> None:
     print(json.dumps({"summary": summary}), flush=True)
     out = pathlib.Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / "ab_apply.json").write_text(
+    (out / ("ab_serve.json" if args.lm else "ab_apply.json")).write_text(
         json.dumps({"runs": runs, "summary": summary}, indent=1))
 
 

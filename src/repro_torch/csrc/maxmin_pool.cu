@@ -5,57 +5,87 @@
 // (body _kernel).  Bound on Hopper: bytes.  Each input sample is read
 // once and one float per window is written, so the least time is
 // (rows * t + rows * t / window) * 4 bytes over the device memory rate.
-// Design: one warp per output window.  Lane i reads sample i of the
-// window (a 32-sample window is one coalesced 128-byte load), and the
-// max and the min are reduced across the warp with shuffles; nothing is
-// staged in shared memory.  The ragged edge (126 outputs per ECG row is
-// no power of two) is handled by flat indexing over rows * t_out windows
-// with a per-warp guard.  max and min are exact, so the result is
-// bit-exact against the plain version.
+// Design: t is a multiple of the window, so the windows of all rows are
+// one flat sequence and window w is x[w * window, (w + 1) * window).  A
+// group of window / 4 lanes reads one window as float4 loads (8 lanes for
+// the FPGA's 32 samples, 4 windows per warp), and each thread issues the
+// loads of kUnroll windows (a grid stride apart) before it reduces any of
+// them, so that enough bytes are in flight per SM to reach the memory
+// rate.  Max and min are reduced inside each group with xor shuffles, and
+// the group's first lanes write neighbouring outputs.  Max and min are
+// exact, so the result is bit-exact against the plain version.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-maxmin_pool_kernel(const float* __restrict__ x, float* __restrict__ out,
-                   int rows, int t, int window) {
-  const int t_out = t / window;
-  const long long total = static_cast<long long>(rows) * t_out;
+// lanes: window / 4 (a power of two <= 32); windows per warp: 32 / lanes
+__global__ void __launch_bounds__(kThreads)
+maxmin_pool_kernel(const float4* __restrict__ x, float* __restrict__ out,
+                   long long total, int lanes) {
   const int lane = threadIdx.x & 31;
-  const long long win =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  if (win >= total) return;  // uniform across the warp
-  const long long r = win / t_out;
-  const long long o = win - r * t_out;
-  const float* seg = x + r * t + o * window;
-  float mx = -CUDART_INF_F;
-  float mn = CUDART_INF_F;
-  for (int i = lane; i < window; i += 32) {
-    const float v = seg[i];
-    mx = fmaxf(mx, v);
-    mn = fminf(mn, v);
-  }
+  const int sub = lane & (lanes - 1);
+  const int per_warp = 32 / lanes;
+  const long long warp =
+      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const long long n_warps =
+      static_cast<long long>(gridDim.x) * (kThreads / 32);
+  const long long slots = (total + per_warp - 1) / per_warp;
+  // warp-uniform loop: every lane takes part in every shuffle
+  for (long long s0 = warp; s0 < slots; s0 += n_warps * kUnroll) {
+    float4 v[kUnroll];
+    long long win[kUnroll];
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, s));
-    mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, s));
+    for (int u = 0; u < kUnroll; ++u) {
+      win[u] = (s0 + u * n_warps) * per_warp + lane / lanes;
+      v[u] = win[u] < total ? __ldg(x + win[u] * lanes + sub)
+                            : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float mx = fmaxf(fmaxf(v[u].x, v[u].y), fmaxf(v[u].z, v[u].w));
+      float mn = fminf(fminf(v[u].x, v[u].y), fminf(v[u].z, v[u].w));
+      for (int s = lanes >> 1; s > 0; s >>= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, s));
+        mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, s));
+      }
+      if (sub == 0 && win[u] < total) out[win[u]] = mx - mn;
+    }
   }
-  if (lane == 0) out[win] = mx - mn;
+}
+
+int sm_count() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    if (count <= 0) count = 1;
+  }
+  return count;
 }
 
 }  // namespace
 
-extern "C" int maxmin_pool_launch(const float* x, float* out, int rows,
-                                  int t, int window, void* stream) {
-  const long long total = static_cast<long long>(rows) * (t / window);
+// total: rows * (t / window) windows; x 16-byte aligned, t % window == 0
+extern "C" int maxmin_pool_launch(const float* x, float* out, long long total,
+                                  int window, void* stream) {
   if (total == 0) return 0;
-  const long long blocks = (total + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  maxmin_pool_kernel<<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32,
-                       0, static_cast<cudaStream_t>(stream)>>>(
-      x, out, rows, t, window);
+  const int lanes = window / 4;
+  if (window % 4 != 0 || lanes < 1 || lanes > 32 || (lanes & (lanes - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long per_block =
+      static_cast<long long>(kThreads / lanes) * kUnroll;
+  long long blocks = (total + per_block - 1) / per_block;
+  // at most a few waves: the grid-stride loop covers the rest
+  const long long cap = 16LL * sm_count();
+  if (blocks > cap) blocks = cap;
+  maxmin_pool_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      reinterpret_cast<const float4*>(x), out, total, lanes);
   return static_cast<int>(cudaGetLastError());
 }
 

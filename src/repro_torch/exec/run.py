@@ -7,7 +7,9 @@ Left to run time (everything else was baked by
 - dynamic activation calibration (one abs-max over the whole batch) when
   ``cfg.act_calib == "dynamic"``,
 - signed-input encoding of float activations: ``"split"`` runs both
-  passes as ONE dispatch (the ``analog_mvm_split`` kernel on the card),
+  passes as ONE dispatch (the ``analog_mvm_split`` kernel on the card,
+  reading the store's int8 codes and gain tables unless the store holds
+  a full gain map),
 - the analog passes of each layer (the ``analog_mvm`` kernel when
   ``cfg.use_kernels``), and the column split of a fused group
   (:func:`run_group`),
@@ -116,6 +118,7 @@ def run_layer(
             a_pos.reshape(-1, lp.k_pad), a_neg.reshape(-1, lp.k_pad),
             lp.w_eff, lp.gain_row, lp.chunk_offset,
             chunk_rows=lp.chunk_rows, faithful=cfg.mode != "analog_fast",
+            store=lp.store,
         ).reshape(batch_shape + (lp.n,))
     elif signed == "offset":
         raise NotImplementedError(

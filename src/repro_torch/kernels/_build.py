@@ -9,7 +9,11 @@ at once, and waits for them.
 
 Every launch goes through :func:`launch`: it calls the C entry point on
 PyTorch's current stream, raises when the entry point returns a CUDA
-error, and only then adds one to the kernel's launch count.
+error, and only then adds one to the kernel's launch count.  Each kernel
+module declares its entry point's C signature once
+(:func:`declare`); the entry point is looked up and bound when its
+library loads, so a launch only calls it (pointers as plain ints, which
+``ctypes.c_void_p`` arguments take at full width).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import pathlib
 import shutil
 import subprocess
 import time
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -35,7 +39,12 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ARGTYPES: Dict[str, tuple] = {}
+_ENTRIES: Dict[str, object] = {}
 _LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# PyTorch's current stream as a plain int (the private binding its own
+# Triton launcher uses), else through a Stream object
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def _nvcc() -> str:
@@ -97,6 +106,14 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     return seconds
 
 
+def declare(name: str, argtypes: Sequence) -> None:
+    """Declare the C signature of ``<name>_launch`` without its trailing
+    stream argument (bound when the library loads)."""
+    if name not in KERNELS:
+        raise KeyError(f"unknown kernel {name!r}; known: {KERNELS}")
+    _ARGTYPES[name] = tuple(argtypes) + (ctypes.c_void_p,)
+
+
 def _library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
@@ -105,24 +122,55 @@ def _library(name: str) -> ctypes.CDLL:
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = list(_ARGTYPES[name])
+        fn.restype = ctypes.c_int
+        _ENTRIES[name] = fn
         _LIBS[name] = lib
     return lib
 
 
-def launch(name: str, argtypes: Sequence, *args) -> None:
-    """Call ``<name>_launch(*args)`` of kernel ``name``; raise on a CUDA
-    error, else count the launch.  Pointers and the stream are passed as
-    ``ctypes.c_void_p`` (Python ints would be cut to 32 bits)."""
-    lib = _library(name)
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    rc = fn(*args)
+def function(name: str, symbol: str, argtypes: Sequence,
+             restype=ctypes.c_int):
+    """Another C function of kernel ``name``'s library (a query, not a
+    launch: not counted), bound once."""
+    key = f"{name}:{symbol}"
+    fn = _ENTRIES.get(key)
+    if fn is None:
+        fn = getattr(_library(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = restype
+        _ENTRIES[key] = fn
+    return fn
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call ``<name>_launch(*args, stream)`` of kernel ``name`` on
+    PyTorch's current stream of ``device``; raise on a CUDA error, else
+    count the launch.  ``device`` becomes the current device only for
+    the call, and only when it is not already."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        _library(name)
+        fn = _ENTRIES[name]
+    index = device.index
+    current = torch.cuda.current_device()
+    if index is None or index == current:
+        rc = fn(*args, _stream(current))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, _stream(index))
     if rc != 0:
-        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        msg = getattr(_LIBS[name], f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({msg})")
     _LAUNCHES[name] += 1
+
+
+def _stream(index: int) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def launch_counts() -> Dict[str, int]:
@@ -150,10 +198,7 @@ def check_operand(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} is not contiguous")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def current_stream(device: torch.device) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``device``."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address for a ``ctypes.c_void_p`` argument
+    (None for an absent operand: a null pointer)."""
+    return None if t is None else t.data_ptr()

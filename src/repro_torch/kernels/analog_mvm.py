@@ -12,25 +12,37 @@ and accumulation; M and N are masked, not padded.  The plain version is
 :func:`repro_torch.kernels.ref.analog_mvm_ref` (+ ``adc_epilogue_ref``).
 
 ``csrc/analog_mvm_split.cu`` replaces ``analog_mvm_split_pallas``: the
-signed-split pair ``mvm(a_pos) - mvm(a_neg)`` in one launch, each weight
-slice staged once for both passes, each pass rounded and clipped on its
-own; plain version :func:`repro_torch.kernels.ref.analog_mvm_split_ref`.
+signed-split pair ``mvm(a_pos) - mvm(a_neg)`` in one launch, on the
+tensor cores (each fp32 weight cut exactly into three bf16 pieces), both
+passes sharing every weight fragment, each pass rounded and clipped on
+its own; faithful mode splits the chunks of each column tile over
+several CTAs (:func:`split_plan`).  Two weight operands: the plan's int8
+codes with their gain tables (:func:`analog_mvm_split_codes_cuda`, plain
+version :func:`repro_torch.kernels.ref.analog_mvm_split_codes_ref`), or
+an fp32 ``w_eff`` (:func:`analog_mvm_split_cuda`, plain version
+:func:`repro_torch.kernels.ref.analog_mvm_split_ref`).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.core.hw import BSS2
 from repro_torch.kernels import _build
 
-_ARGTYPES = (
+_build.declare("analog_mvm", (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-)
+    ctypes.c_int, ctypes.c_int,
+))
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_build.declare("analog_mvm_split", (
+    _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+))
 
 
 def _epilogue_shift(epilogue) -> int:
@@ -76,17 +88,129 @@ def analog_mvm_cuda(
                            ("chunk_offset", chunk_offset, (n_chunks, n))):
         _build.check_operand(name, t, dev, shape)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _build.launch(
-            "analog_mvm", _ARGTYPES, _build.ptr(a_code), _build.ptr(w_eff),
-            _build.ptr(gain), _build.ptr(chunk_offset), _build.ptr(out),
-            m, k, n, chunk_rows, int(faithful), shift,
-            _build.current_stream(dev),
-        )
+    _build.launch("analog_mvm", dev, a_code.data_ptr(), w_eff.data_ptr(),
+                  gain.data_ptr(), chunk_offset.data_ptr(), out.data_ptr(),
+                  m, k, n, chunk_rows, int(faithful), shift)
     return out
 
 
-_SPLIT_ARGTYPES = (ctypes.c_void_p,) + _ARGTYPES
+# the split kernel's geometry (csrc/analog_mvm_split.cu)
+SPLIT_BN = 128          # output columns per CTA
+SPLIT_STAGE_ROWS = 32   # weight rows per pipeline stage
+SPLIT_MAX_BLOCKS = 4    # column blocks with their own row-gain vector
+
+
+class SplitPlan(NamedTuple):
+    """How one split-kernel launch cuts its work: ``mt`` m16 tiles (8
+    activation rows each) per CTA, ``row_groups`` of them over M,
+    ``col_tiles`` of :data:`SPLIT_BN` columns, and the chunks cut into
+    ``n_splits`` ranges of ``chunks_per_cta`` (the last may be shorter)."""
+
+    mt: int
+    row_groups: int
+    col_tiles: int
+    chunks_per_cta: int
+    n_splits: int
+
+
+def split_tile_rows(m: int) -> int:
+    """m16 tiles per CTA for M rows: M <= 8 (decode) one (8 rows of both
+    passes), M <= 16 two, M <= 24 three, larger M six (48 rows: a 4 x 12
+    prefill in one row group, so each weight is rebuilt once)."""
+    return 1 if m <= 8 else 2 if m <= 16 else 3 if m <= 24 else 6
+
+
+@functools.lru_cache(maxsize=4096)
+def split_plan(m: int, n: int, n_chunks: int, faithful: bool,
+               slots: int) -> SplitPlan:
+    """The launch geometry, fixed by the shapes, the mode and ``slots``
+    (the CTAs the card holds at once: SMs x CTAs per SM of this tiling).
+
+    Faithful mode cuts each tile's chunks into as few ranges as keep one
+    wave of CTAs on the card: the longest range per CTA that still fills
+    the slots (a second, partial wave would leave SMs idle at its end).
+    Fast mode walks all chunks in one CTA: its pre-round sums depend on
+    the chunk order."""
+    mt = split_tile_rows(m)
+    row_groups = -(-m // (8 * mt))
+    col_tiles = -(-n // SPLIT_BN)
+    cps = n_chunks
+    if faithful:
+        per_tile = max(1, slots // (row_groups * col_tiles))
+        cps = -(-n_chunks // min(per_tile, n_chunks))
+    return SplitPlan(mt, row_groups, col_tiles, cps, -(-n_chunks // cps))
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(index: int, form: int, mt: int, faithful: bool) -> int:
+    """SMs x resident CTAs per SM of one kernel instantiation."""
+    query = _build.function("analog_mvm_split", "analog_mvm_split_occupancy",
+                            (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_void_p))
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = query(form, mt, int(faithful), ctypes.addressof(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"analog_mvm_split occupancy query failed: CUDA "
+                           f"error {rc}, {blocks.value} CTAs per SM")
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * blocks.value
+
+
+@functools.lru_cache(maxsize=None)
+def _block_ends(ends: tuple):
+    """A C int array of the column-block ends (one per distinct layout)."""
+    return (ctypes.c_int * SPLIT_MAX_BLOCKS)(*ends)
+
+
+def _split_launch(form, a_pos, a_neg, w, col_gain, row_gain, block_ends,
+                  gain, chunk_offset, chunk_rows, faithful, epilogue):
+    """Check the operands shared by both forms, cut the work
+    (:func:`split_plan`) and launch once."""
+    dev = a_pos.device
+    m, k = a_pos.shape
+    n = w.shape[1]
+    if k % chunk_rows or chunk_rows % SPLIT_STAGE_ROWS or not k:
+        raise ValueError(f"K={k} must be a nonzero multiple of chunk_rows="
+                         f"{chunk_rows}, itself a multiple of "
+                         f"{SPLIT_STAGE_ROWS}")
+    n_chunks = k // chunk_rows
+    chunk_offset = _chunk_offsets(chunk_offset, n_chunks, n, dev)
+    shift = _epilogue_shift(epilogue)
+    for name, t, shape in (("a_pos", a_pos, (m, k)), ("a_neg", a_neg, (m, k)),
+                           ("gain", gain, (n,)),
+                           ("chunk_offset", chunk_offset, (n_chunks, n))):
+        _build.check_operand(name, t, dev, shape)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    plan = split_plan(m, n, n_chunks, faithful,
+                      _slots(index, form, split_tile_rows(m), faithful))
+    part = counters = None
+    if plan.n_splits > 1:
+        part = torch.empty((plan.n_splits, m, n), dtype=torch.float32,
+                           device=dev)
+        counters = torch.zeros((plan.row_groups * plan.col_tiles,),
+                               dtype=torch.int32, device=dev)
+    staged = [a_pos, a_neg, w, chunk_offset] + [
+        t for t in (row_gain,) if t is not None]
+    vec = int(all(t.data_ptr() % 16 == 0 for t in staged)
+              and (n * w.element_size()) % 16 == 0)
+    _build.launch(
+        "analog_mvm_split", dev, a_pos.data_ptr(), a_neg.data_ptr(),
+        w.data_ptr(), form, _build.ptr(col_gain), _build.ptr(row_gain),
+        len(block_ends), ctypes.addressof(_block_ends(block_ends)),
+        gain.data_ptr(), chunk_offset.data_ptr(), out.data_ptr(),
+        _build.ptr(part),
+        _build.ptr(counters), m, k, n, chunk_rows, plan.chunks_per_cta,
+        plan.n_splits, plan.mt, int(faithful), shift, vec)
+    return out
+
+
+def _on_card(name, a_pos):
+    if a_pos.device.type != "cuda":
+        raise ValueError(f"{name} needs CUDA tensors, got {a_pos.device}")
 
 
 def analog_mvm_split_cuda(
@@ -101,29 +225,61 @@ def analog_mvm_split_cuda(
     epilogue=None,                         # None | ("relu_shift", shift)
 ) -> torch.Tensor:
     """Launch the signed-split analog VMM ``mvm(a_pos) - mvm(a_neg)`` on
-    the CUDA device."""
+    the CUDA device, reading fp32 effective weights.  The activations are
+    5-bit codes (integers 0..31)."""
+    _on_card("analog_mvm_split_cuda", a_pos)
+    _build.check_operand("w_eff", w_eff, a_pos.device,
+                         (a_pos.shape[1], w_eff.shape[-1]))
+    return _split_launch(1, a_pos, a_neg, w_eff, None, None,
+                         (w_eff.shape[1],), gain, chunk_offset, chunk_rows,
+                         faithful, epilogue)
+
+
+def analog_mvm_split_codes_cuda(
+    a_pos: torch.Tensor,                   # [M, K] codes of max(x, 0)
+    a_neg: torch.Tensor,                   # [M, K] codes of max(-x, 0)
+    codes: torch.Tensor,                   # [K, N] int8 weight codes
+    col_gain: Optional[torch.Tensor],      # [N] or None
+    row_gain: Optional[torch.Tensor],      # [G, K] or None
+    gain: torch.Tensor,                    # [N]
+    chunk_offset: Optional[torch.Tensor],  # [C, N] or None
+    *,
+    col_blocks: Optional[Sequence[int]] = None,
+    chunk_rows: int = BSS2.signed_rows,
+    faithful: bool = True,
+    epilogue=None,                         # None | ("relu_shift", shift)
+) -> torch.Tensor:
+    """The same VMM reading a :class:`~repro_torch.exec.plan.WeightStore`'s
+    int8 codes and rank-1 gain tables: each weight is rebuilt in registers
+    as ``(code * col_gain[n]) * row_gain[block(n), k]``, the store's own
+    ``w_eff``, bit for bit.  ``col_blocks`` are the widths of a
+    column_concat fusion's members (row ``b`` of ``row_gain`` serves block
+    ``b``); each block boundary is a multiple of 4 columns."""
+    _on_card("analog_mvm_split_codes_cuda", a_pos)
     dev = a_pos.device
-    if dev.type != "cuda":
-        raise ValueError(
-            f"analog_mvm_split_cuda needs CUDA tensors, got {dev}")
-    m, k = a_pos.shape
-    n = w_eff.shape[1]
-    if k % chunk_rows or chunk_rows % 32:
-        raise ValueError(f"K={k} must be a multiple of chunk_rows="
-                         f"{chunk_rows}, itself a multiple of 32")
-    n_chunks = k // chunk_rows
-    chunk_offset = _chunk_offsets(chunk_offset, n_chunks, n, dev)
-    shift = _epilogue_shift(epilogue)
-    for name, t, shape in (("a_pos", a_pos, (m, k)), ("a_neg", a_neg, (m, k)),
-                           ("w_eff", w_eff, (k, n)), ("gain", gain, (n,)),
-                           ("chunk_offset", chunk_offset, (n_chunks, n))):
-        _build.check_operand(name, t, dev, shape)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _build.launch(
-            "analog_mvm_split", _SPLIT_ARGTYPES, _build.ptr(a_pos),
-            _build.ptr(a_neg), _build.ptr(w_eff), _build.ptr(gain),
-            _build.ptr(chunk_offset), _build.ptr(out), m, k, n, chunk_rows,
-            int(faithful), shift, _build.current_stream(dev),
-        )
-    return out
+    k, n = codes.shape
+    if codes.dtype != torch.int8 or codes.device != dev or \
+            not codes.is_contiguous() or k != a_pos.shape[1]:
+        raise ValueError(f"codes must be contiguous int8 [K={a_pos.shape[1]}"
+                         f", N] on {dev}, got {codes.dtype} "
+                         f"{tuple(codes.shape)} on {codes.device}")
+    if col_gain is not None:
+        _build.check_operand("col_gain", col_gain, dev, (n,))
+    blocks = (n,)
+    if row_gain is not None:
+        if col_blocks is not None:
+            blocks = tuple(col_blocks)
+            if sum(blocks) != n or len(blocks) > SPLIT_MAX_BLOCKS or any(
+                    b % 4 for b in blocks[:-1]):
+                raise ValueError(
+                    f"col_blocks {blocks} must sum to N={n}, hold at most "
+                    f"{SPLIT_MAX_BLOCKS} blocks, and end each but the last "
+                    "on a multiple of 4 columns")
+        _build.check_operand("row_gain", row_gain, dev, (len(blocks), k))
+    ends, acc = [], 0
+    for b in blocks:
+        acc += b
+        ends.append(acc)
+    return _split_launch(0, a_pos, a_neg, codes, col_gain, row_gain,
+                         tuple(ends), gain, chunk_offset, chunk_rows,
+                         faithful, epilogue)

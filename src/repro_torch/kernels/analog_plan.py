@@ -63,20 +63,20 @@ BLOCK_STAGES = (
     ("sw", 3, "k"),        # dequant + SwiGLU
     ("acc_dn", 3, "n"),    # down: accumulated ADC codes
 )
-_CHAIN_ARGTYPES = (
+_build.declare("analog_plan", (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-)
-_BLOCK_ARGTYPES = (
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+))
+_build.declare("analog_plan_block", (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
-)
+    ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+))
 
 
 class MegaLayerMeta(NamedTuple):
@@ -229,18 +229,13 @@ def analog_plan_cuda(
     out = torch.empty((batch * lastm.m_mult, lastm.n), dtype=torch.float32,
                       device=dev)
 
-    def opt(t):
-        return ctypes.c_void_p(None) if t is None else _build.ptr(t)
-
-    with torch.cuda.device(dev):
-        _build.launch(
-            "analog_plan", _CHAIN_ARGTYPES, _build.ptr(x_in),
-            _build.ptr(w_cat), _build.ptr(gain_all), _build.ptr(off_cat),
-            opt(deq), opt(bias), opt(enc), _build.ptr(out),
-            batch, cols, n_max, ctypes.cast(sched, ctypes.c_void_p),
-            n_layers, chunk_rows, int(faithful), pb,
-            _build.current_stream(dev),
-        )
+    _build.launch(
+        "analog_plan", dev, x_in.data_ptr(), w_cat.data_ptr(),
+        gain_all.data_ptr(), off_cat.data_ptr(), _build.ptr(deq),
+        _build.ptr(bias), _build.ptr(enc), out.data_ptr(), batch, cols,
+        n_max, ctypes.cast(sched, ctypes.c_void_p), n_layers, chunk_rows,
+        int(faithful), pb,
+    )
     return out
 
 
@@ -346,18 +341,14 @@ def analog_plan_block_cuda(
         for v in (m.c0, m.k, m.k_pad, m.n, m.n_chunks,
                   int(m.encode == "split"))])
     grid = ctypes.c_int(0)
-    with torch.cuda.device(dev):
-        _build.launch(
-            "analog_plan_block", _BLOCK_ARGTYPES, _build.ptr(x_in),
-            ctypes.cast(wptrs, ctypes.c_void_p), _build.ptr(gain_all),
-            _build.ptr(off_cat), _build.ptr(deq), _build.ptr(bias),
-            _build.ptr(enc), _build.ptr(ln), _build.ptr(rope),
-            _build.ptr(out), _build.ptr(scratch),
-            ctypes.cast(sched, ctypes.c_void_p), rows, n_max, chunk_rows,
-            int(faithful), block.n_heads, block.n_kv_heads, block.head_dim,
-            block.seq, block.d_ff, float(block.eps),
-            1.0 / math.sqrt(block.head_dim),
-            ctypes.c_void_p(ctypes.addressof(grid)),
-            _build.current_stream(dev),
-        )
+    _build.launch(
+        "analog_plan_block", dev, x_in.data_ptr(),
+        ctypes.cast(wptrs, ctypes.c_void_p), gain_all.data_ptr(),
+        off_cat.data_ptr(), deq.data_ptr(), bias.data_ptr(), enc.data_ptr(),
+        ln.data_ptr(), rope.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        ctypes.cast(sched, ctypes.c_void_p), rows, n_max, chunk_rows,
+        int(faithful), block.n_heads, block.n_kv_heads, block.head_dim,
+        block.seq, block.d_ff, float(block.eps),
+        1.0 / math.sqrt(block.head_dim), ctypes.addressof(grid),
+    )
     return out, stages, grid.value

@@ -19,6 +19,7 @@ from repro_torch.core.hw import BSS2
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
 from repro_torch.kernels.analog_mvm import (analog_mvm_cuda,
+                                            analog_mvm_split_codes_cuda,
                                             analog_mvm_split_cuda)
 from repro_torch.kernels.analog_plan import (analog_plan_block_cuda,
                                              analog_plan_cuda)
@@ -97,13 +98,24 @@ def analog_mvm_split(
     chunk_rows: int = BSS2.signed_rows,
     faithful: bool = True,
     epilogue=None,
+    store=None,
 ) -> torch.Tensor:
     """Signed-split analog VMM ``mvm(a_pos) - mvm(a_neg)`` as ONE dispatch
     (the per-layer hot path of LM plans), with the optional fused
-    ``relu_shift`` epilogue.  On the CPU: the faithful chunk scan, or for
-    fast mode the stacked ``[2M, K]`` plain version (pre-round sums are
-    order-sensitive, so fast mode keeps the oracle's arithmetic)."""
+    ``relu_shift`` epilogue.  On the card, a ``store`` (the layer's
+    :class:`~repro_torch.exec.plan.WeightStore`, whose ``w_eff`` this is)
+    without a full gain map selects the kernel's int8 code operand; any
+    other store, or none, the fp32 ``w_eff`` operand.  On the CPU: the
+    faithful chunk scan, or for fast mode the stacked ``[2M, K]`` plain
+    version (pre-round sums are order-sensitive, so fast mode keeps the
+    oracle's arithmetic)."""
     if _on_cuda(a_pos):
+        if store is not None and store.gain_map is None:
+            return analog_mvm_split_codes_cuda(
+                a_pos.contiguous(), a_neg.contiguous(), store.codes,
+                store.col_gain, store.row_gain, gain.contiguous(),
+                _contiguous(chunk_offset), col_blocks=store.col_blocks,
+                chunk_rows=chunk_rows, faithful=faithful, epilogue=epilogue)
         return analog_mvm_split_cuda(
             a_pos.contiguous(), a_neg.contiguous(), w_eff.contiguous(),
             gain.contiguous(), _contiguous(chunk_offset),

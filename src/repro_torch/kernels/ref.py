@@ -61,6 +61,71 @@ def analog_mvm_split_ref(
     return yp - yn
 
 
+def rebuild_w_eff_ref(codes: torch.Tensor,
+                      col_gain: Optional[torch.Tensor],
+                      row_gain: Optional[torch.Tensor],
+                      col_blocks=None) -> torch.Tensor:
+    """The split kernel's int8 code operand rebuilt into fp32 effective
+    weights: ``(code * col_gain[n]) * row_gain[block(n), k]``, each an
+    fp32 multiply, a missing factor skipped; ``col_blocks`` (member
+    widths of a column_concat fusion) pick the row-gain vector of each
+    column, row 0 serving all columns without them."""
+    w = codes.to(torch.float32)
+    if col_gain is not None:
+        w = w * col_gain[None, :]
+    if row_gain is not None:
+        blocks = (w.shape[1],) if col_blocks is None else tuple(col_blocks)
+        parts, c0 = [], 0
+        for b, nb in enumerate(blocks):
+            parts.append(w[:, c0:c0 + nb] * row_gain[b, :, None])
+            c0 += nb
+        w = torch.cat(parts, dim=1)
+    return w
+
+
+def analog_mvm_split_codes_ref(a_pos, a_neg, codes, col_gain, row_gain,
+                               gain, chunk_offset, *, col_blocks=None,
+                               chunk_rows: int = BSS2.signed_rows,
+                               faithful: bool = True) -> torch.Tensor:
+    """Plain version of the split kernel's code operand: the weights
+    rebuilt (:func:`rebuild_w_eff_ref`), then the two-pass split."""
+    w = rebuild_w_eff_ref(codes, col_gain, row_gain, col_blocks)
+    return analog_mvm_split_ref(a_pos, a_neg, w, gain, chunk_offset,
+                                chunk_rows=chunk_rows, faithful=faithful)
+
+
+def bf16_split3_ref(w: torch.Tensor):
+    """The split kernel's exact cut of fp32 weights into three bf16
+    values (held in fp32): ``hi`` keeps the top 8 significand bits
+    (truncation), ``mid`` the top 8 of the rest, ``lo`` what remains
+    (at most 8 bits), so ``hi + mid + lo == w`` exactly."""
+    mask = -65536  # 0xffff0000 as int32
+
+    def trunc(x):
+        return (x.contiguous().view(torch.int32) & mask).view(torch.float32)
+
+    hi = trunc(w.to(torch.float32))
+    r1 = w - hi
+    mid = trunc(r1)
+    return hi, mid, r1 - mid
+
+
+def split_chunk_range_ref(a_pos, a_neg, w_eff, gain, chunk_offset, c0, c1,
+                          *, chunk_rows: int = BSS2.signed_rows
+                          ) -> torch.Tensor:
+    """One CTA's partial total of the faithful split kernel: the sum over
+    chunks ``[c0, c1)`` of ``clip(rint(v_pos)) - clip(rint(v_neg))``.
+    Integer-valued, so the partial totals of any cut of the chunks sum
+    to the whole in any order."""
+    rows = slice(c0 * chunk_rows, c1 * chunk_rows)
+    off = None if chunk_offset is None else chunk_offset[c0:c1]
+    yp = analog_mvm_ref(a_pos[:, rows], w_eff[rows], gain, off,
+                        chunk_rows=chunk_rows, faithful=True)
+    yn = analog_mvm_ref(a_neg[:, rows], w_eff[rows], gain, off,
+                        chunk_rows=chunk_rows, faithful=True)
+    return yp - yn
+
+
 def adc_epilogue_ref(y_int: torch.Tensor, epilogue) -> torch.Tensor:
     """ADC epilogue (paper §II-A): ReLU at the readout + right-shift
     requantization onto 5-bit codes; ``epilogue`` is None or

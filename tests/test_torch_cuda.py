@@ -7,7 +7,11 @@ torch and the port, so it runs where JAX is not installed:
 
 Tolerance: bit-exact throughout (integer effective weights; the kernels
 repeat the plain versions' per-chunk arithmetic), and equal greedy tokens
-for the smoke LM served on the card and on the CPU.  The block kernel's
+for the smoke LM served on the card and on the CPU.  The split kernel with
+rank-1 float gains sums each chunk's products in another order (tensor
+cores) than the plain version: each element within 1 ADC LSB per chunk,
+at most 1 % of the elements differing (the reference's contract at ADC
+rounding ties); its two weight operands agree bit for bit.  The block kernel's
 glue stages (RMSNorm, attention, SwiGLU) reduce and take transcendentals
 in another order than PyTorch: each is held within 1e-6 of its stage's
 max |value| when fed the kernel's own stage input.
@@ -23,7 +27,7 @@ from repro_torch.core.analog import AnalogConfig, analog_linear_init  # noqa: E4
 from repro_torch.core.noise import NoiseConfig  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.analog_mvm import (  # noqa: E402
-    analog_mvm_cuda, analog_mvm_split_cuda)
+    analog_mvm_cuda, analog_mvm_split_codes_cuda, analog_mvm_split_cuda)
 from repro_torch.core.device import to_device  # noqa: E402
 from repro_torch.exec.lower import lower_block, lower_stack  # noqa: E402
 from repro_torch.kernels.analog_plan import (  # noqa: E402
@@ -62,6 +66,26 @@ def test_maxmin_pool(cuda):
     assert torch.equal(maxmin_pool_cuda(x), ref.maxmin_pool_ref(x))
 
 
+# B=1 and B=500 ECG records (2 channels each), ragged row counts and
+# lengths, and the other window widths the kernel takes
+@pytest.mark.parametrize("rows,t,window", [
+    (2, 4032, 32), (1000, 4032, 32), (1, 32, 32), (7, 96, 32), (3, 4064, 32),
+    (333, 4032, 32), (5, 64, 4), (9, 640, 128), (4, 256, 16)])
+def test_maxmin_pool_sizes(cuda, rows, t, window):
+    x = torch.from_numpy(np.random.default_rng(rows + t).standard_normal(
+        (rows, t)).astype(np.float32)).to(cuda)
+    ops.reset_launch_counts()
+    got = maxmin_pool_cuda(x, window=window)
+    assert ops.launch_counts()["maxmin_pool"] == 1
+    assert torch.equal(got, ref.maxmin_pool_ref(x, window=window))
+
+
+def test_maxmin_pool_refuses_unaligned_rows(cuda):
+    x = torch.zeros((2 * 4032 + 1,), device=cuda)[1:].view(2, 4032)
+    with pytest.raises(ValueError, match="16-byte"):
+        maxmin_pool_cuda(x)
+
+
 @pytest.mark.parametrize("m,k,n", MVM_SHAPES)
 @pytest.mark.parametrize("faithful", [True, False])
 def test_analog_mvm(cuda, m, k, n, faithful):
@@ -73,7 +97,8 @@ def test_analog_mvm(cuda, m, k, n, faithful):
         assert torch.equal(got, want)
 
 
-# the split kernel's two tile heights (M <= 16 and M > 16) and ragged N
+# M on both sides of the split kernel's row tilings (8, 16, 24, 48 rows),
+# ragged N
 SPLIT_SHAPES = [(4, 128, 1), (16, 256, 129), (17, 384, 70), (48, 128, 200)]
 
 
@@ -103,6 +128,116 @@ def test_analog_mvm_split(cuda, m, k, n, faithful):
         # the dispatching wrapper launches the same kernel
         assert torch.equal(ops.analog_mvm_split(*t, faithful=faithful,
                                                 epilogue=epi), got)
+
+
+# the split kernel's row tilings (one, two, three and six m16 tiles per
+# CTA; one and two row groups) and, per (K, N): one chunk, five chunks
+# cut into ranges of 2, 2 and 1 (the split factor does not divide them),
+# and ragged N (no multiple of 16: the operands are staged without
+# cp.async)
+SPLIT_M = [1, 4, 16, 20, 48, 64, 65]
+SPLIT_KN = [(128, 1), (640, 300), (384, 70), (256, 512)]
+
+
+def _split_codes_inputs(m, k, n, device, rank1, blocks=None):
+    """Codes, gain tables and activations of a split layer: integer
+    effective weights (no gain tables, dyadic gain and offsets: every
+    partial sum exact) or rank-1 gains (one row-gain vector per column
+    block)."""
+    rng = np.random.default_rng(m * 1000 + k + n + rank1)
+    a_pos = rng.integers(0, 32, (m, k)).astype(np.float32)
+    a_neg = rng.integers(0, 32, (m, k)).astype(np.float32)
+    a_neg[a_pos > 15] = 0.0
+    codes = rng.integers(-63, 64, (k, n)).astype(np.int8)
+    col = row = None
+    if rank1:
+        col = (1 + 0.014 * rng.standard_normal(n)).astype(np.float32)
+        row = (1 + 0.014 * rng.standard_normal(
+            (1 if blocks is None else len(blocks), k))).astype(np.float32)
+    gain = np.full((n,), 1 / 64, np.float32)
+    off = (rng.integers(-16, 17, (k // 128, n)) / 8).astype(np.float32)
+    return [None if v is None else torch.from_numpy(v).to(device)
+            for v in (a_pos, a_neg, codes, col, row, gain, off)]
+
+
+def _assert_split(got, want, exact, n_chunks):
+    if exact:
+        assert torch.equal(got, want)
+        return
+    diff = (got - want).abs()
+    assert float(diff.max()) <= n_chunks
+    assert float((diff != 0).float().mean()) <= 0.01
+
+
+@pytest.mark.parametrize("m", SPLIT_M)
+@pytest.mark.parametrize("k,n", SPLIT_KN)
+@pytest.mark.parametrize("faithful", [True, False])
+def test_analog_mvm_split_operand_forms(cuda, m, k, n, faithful):
+    """Both weight operands against the plain version of the code operand
+    (the rebuilt w_eff through the two-pass split), with and without the
+    epilogue; the two operands bit-identical to each other."""
+    for rank1 in (False, True):
+        a_pos, a_neg, codes, col, row, gain, off = _split_codes_inputs(
+            m, k, n, cuda, rank1)
+        w_eff = ref.rebuild_w_eff_ref(codes, col, row)
+        for epi in (None, ("relu_shift", 2)):
+            want = ref.adc_epilogue_ref(ref.analog_mvm_split_codes_ref(
+                a_pos, a_neg, codes, col, row, gain, off,
+                faithful=faithful), epi)
+            got = analog_mvm_split_codes_cuda(
+                a_pos, a_neg, codes, col, row, gain, off, faithful=faithful,
+                epilogue=epi)
+            _assert_split(got, want, not rank1, k // 128)
+            assert torch.equal(analog_mvm_split_cuda(
+                a_pos, a_neg, w_eff, gain, off, faithful=faithful,
+                epilogue=epi), got)
+
+
+@pytest.mark.parametrize("m", [4, 48])
+@pytest.mark.parametrize("faithful", [True, False])
+def test_analog_mvm_split_fused_qkv_blocks(cuda, m, faithful):
+    """A column_concat store of three members (q, k, v widths as in a
+    GQA attention) with one row-gain vector per member."""
+    blocks = (192, 64, 64)
+    a_pos, a_neg, codes, col, row, gain, off = _split_codes_inputs(
+        m, 384, sum(blocks), cuda, True, blocks)
+    want = ref.analog_mvm_split_codes_ref(
+        a_pos, a_neg, codes, col, row, gain, off, col_blocks=blocks,
+        faithful=faithful)
+    got = analog_mvm_split_codes_cuda(a_pos, a_neg, codes, col, row, gain,
+                                      off, col_blocks=blocks,
+                                      faithful=faithful)
+    _assert_split(got, want, False, 3)
+    w_eff = ref.rebuild_w_eff_ref(codes, col, row, blocks)
+    assert torch.equal(analog_mvm_split_cuda(a_pos, a_neg, w_eff, gain, off,
+                                             faithful=faithful), got)
+
+
+def test_split_dispatch_reads_the_store(cuda):
+    """``ops.analog_mvm_split`` with a rank-1 store launches the code
+    operand (one launch), equal to the fp32 operand on the store's
+    w_eff; a store with a full gain map takes the fp32 operand."""
+    from repro_torch.exec.plan import WeightStore
+
+    a_pos, a_neg, codes, col, row, gain, off = _split_codes_inputs(
+        4, 256, 96, cuda, True)
+    store = WeightStore(  # verify: allow-packed-weights
+        codes=codes, w_scale=torch.ones((1, 96), device=cuda),
+        gain=torch.tensor(1.0, device=cuda), col_gain=col, row_gain=row)
+    ops.reset_launch_counts()
+    got = ops.analog_mvm_split(a_pos, a_neg, store.w_eff, gain, off,
+                               store=store)
+    assert ops.launch_counts()["analog_mvm_split"] == 1
+    assert torch.equal(got, analog_mvm_split_cuda(a_pos, a_neg, store.w_eff,
+                                                  gain, off))
+    full = WeightStore(  # verify: allow-packed-weights
+        codes=codes, w_scale=torch.ones((1, 96), device=cuda),
+        gain=torch.tensor(1.0, device=cuda),
+        gain_map=1 + 0.01 * torch.randn((256, 96), device=cuda))
+    assert torch.equal(
+        ops.analog_mvm_split(a_pos, a_neg, full.w_eff, gain, off,
+                             store=full),
+        analog_mvm_split_cuda(a_pos, a_neg, full.w_eff, gain, off))
 
 
 def _ecg_model(device, **run_kw):
