@@ -63,14 +63,22 @@ exits non-zero without printing a result):
    prefill through ``lm_apply`` issues exactly 32 ``analog_plan_block``
    launches and 1 ``analog_mvm_split`` launch; its logits against the
    per-layer static path's (225 split launches); peak device memory;
-11. the block kernel stage by stage at M = 48, each stage's plain version
-   fed the kernel's own stage input from its scratch region: VMM stages
-   bit-exact on integer effective weights and within 1 LSB on rank-1
-   gains, glue stages within GLUE_TOL; the whole block against the plain
-   version (relative max diff, share of flipped 5-bit codes);
-12. block timings: per launch beside its bound and its plain version,
-   the per-layer routes of the same block, prefill host and device time
-   of the block and the per-layer route;
+11. the block kernel stage by stage at M = 48, through both weight
+   operands (the stores' int8 codes and gain tables, and fp32 w_eff),
+   each stage's plain version fed the kernel's own stage input from its
+   scratch region: VMM stages bit-exact against the split kernel fed the
+   block's own code regions, and against the plain version bit-exact on
+   integer effective weights; on rank-1 gains within 1 LSB per element
+   in fast mode, and in faithful mode every ADC readout (chunk by chunk,
+   pass by pass) within 1 LSB and only at a rounding tie of the two fp32
+   sums, on <= 1 % of the readouts and elements; the 5-bit code regions,
+   res2 and the output bit-exact, glue stages within GLUE_TOL, the two
+   operands bit-identical; the whole block against the plain version
+   (relative max diff, share of flipped 5-bit codes);
+12. block timings: per launch beside its bound (int8 code operand, bf16
+   tensor-core peak) and its plain version, the fp32 operand beside its
+   own bounds, the per-layer routes of the same block, prefill host and
+   device time of the block and the per-layer route;
 13. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 """
@@ -94,6 +102,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12  # dense tensor-core peak
 # share of elements that may differ by <= 1 LSB per chunk with float gains
+# (phase 11: also the share of ADC readouts that may differ by 1 LSB)
 TIE_SHARE = 0.01
 TPU_KERNELS = {
     "maxmin_pool": ("src/repro_torch/csrc/maxmin_pool.cu",
@@ -157,6 +166,7 @@ torch = _setup()
 
 from repro_torch import api  # noqa: E402
 from repro_torch.core.analog import AnalogConfig  # noqa: E402
+from repro_torch.core.hw import BSS2  # noqa: E402
 from repro_torch.core.noise import NoiseConfig  # noqa: E402
 from repro_torch.data.ecg_synth import ECGDatasetConfig, make_dataset  # noqa: E402
 from repro_torch.data.preprocess import preprocess  # noqa: E402
@@ -171,7 +181,7 @@ from repro_torch.core.quant import quantize_act  # noqa: E402
 from repro_torch.exec import run as trun  # noqa: E402
 from repro_torch.exec.lower import lower_block  # noqa: E402
 from repro_torch.kernels.analog_plan import (  # noqa: E402
-    BLOCK_STAGES, analog_plan_block_cuda, analog_plan_cuda)
+    BLOCK_STAGES, analog_plan_block_cuda, analog_plan_cuda, block_operand)
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.kernels.preproc import maxmin_pool_cuda  # noqa: E402
@@ -180,6 +190,9 @@ from repro_torch.models.ecg import (  # noqa: E402
 
 DEV = torch.device("cuda")
 MAX_ERR = {name: 0.0 for name in TPU_KERNELS}
+# profiler traces taken, those short of whole calls, the records they
+# missed, and traces no device time could be read from
+TRACES = {"traces": 0, "short": 0, "records_missing": 0, "unusable": 0}
 
 
 # --------------------------------------------------------------- phase 1
@@ -396,22 +409,48 @@ def time_ms(fn, iters=50, reps=7) -> float:
 
 def device_trace(fn, iters=20):
     """(device ms, device activities) per call of ``fn``, from a
-    ``torch.profiler`` trace of ``iters`` calls: the summed device time
-    of every kernel and copy it ran, and how many there were.  The time
-    is None when the trace holds no device time."""
-    from torch.profiler import ProfilerActivity, profile
+    ``torch.profiler`` trace of ``iters`` calls: for each kernel or copy
+    the trace holds, its mean device time times the number of times a
+    call runs it (its count over ``iters``, rounded).  Taken so because a
+    trace can come back a few records short at its end (about one call's
+    activities, e.g. 9 of 10 block-kernel launches; TRACES counts them),
+    which would bias a plain sum; one call also runs in the profiler's
+    warm-up step first (traced, then discarded), without which the
+    losses were larger.  None when an activity has fewer records than
+    half the calls, or when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    saved = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: saved.append(p.key_averages())
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
+        prof.step()
+    events = [e for e in (saved[0] if saved else [])
               if getattr(e, "self_device_time_total", 0.0) > 0]
-    total_us = sum(e.self_device_time_total for e in events)
-    per_call = sum(e.count for e in events) / iters
-    return (total_us / iters / 1e3 if total_us > 0 else None), per_call
+    per_call_us = per_call = off = 0
+    for e in events:
+        m = round(e.count / iters)
+        if m == 0:
+            TRACES["unusable"] += 1
+            return None, 0.0
+        per_call_us += e.self_device_time_total / e.count * m
+        per_call += m
+        off += abs(m * iters - e.count)
+    if not events:
+        return None, 0.0
+    TRACES["traces"] += 1
+    TRACES["short"] += off > 0
+    TRACES["records_missing"] += off
+    return per_call_us / 1e3, per_call
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -961,50 +1000,210 @@ def _int_block(cfg):
                        seq=LM_SEQ, rope_theta=cfg.rope_theta)
 
 
-def _block_args(bp):
+def _block_args(bp, operand="stores"):
+    """A block plan's kernel operands: the stores (the main path's int8
+    code operand) or the fp32 w_eff tensors."""
     m = bp.mega
-    return (m.weights, m.gain, m.off), dict(schedule=m.schedule,
-                                            block=m.block, extras=m.extras)
+    weights = m.stores if operand == "stores" else m.weights
+    return (weights, m.gain, m.off), dict(schedule=m.schedule,
+                                          block=m.block, extras=m.extras)
 
 
 def _rel(got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
+def _stage_operand(tensors, li, meta):
+    """Layer ``li``'s split-kernel operands as the block kernel reads
+    them: (weight operand, its fp32 effective weights, gain, offsets)."""
+    weights, gain_all, off_cat = tensors
+    op = block_operand(weights[li], meta.k_pad, meta.n, gain_all.device)
+    w = op.w if op.form == 1 else ref.rebuild_w_eff_ref(
+        op.w, op.col_gain, op.row_gain, _col_blocks(op))
+    gain = gain_all[li, :meta.n].contiguous()
+    off = off_cat[meta.c0:meta.c0 + meta.n_chunks, :meta.n].contiguous()
+    return op, w, gain, off
+
+
+def _col_blocks(op):
+    ends = (0,) + tuple(op.block_ends)
+    return tuple(b - a for a, b in zip(ends, ends[1:]))
+
+
+def _split_on_card(op, a_pos, a_neg, gain, off, faithful, rows=None):
+    """The split kernel (the block's VMM tile in its own launch) on the
+    operand ``op``, or on its K rows ``rows`` (a slice; the activations
+    are then that slice's)."""
+    if op.form == 1:
+        w = op.w if rows is None else op.w[rows]
+        return analog_mvm_split_cuda(a_pos, a_neg, w, gain, off,
+                                     faithful=faithful)
+    codes, row = op.w, op.row_gain
+    if rows is not None:
+        codes = codes[rows]
+        row = None if row is None else row[:, rows].contiguous()
+    return analog_mvm_split_codes_cuda(
+        a_pos, a_neg, codes, op.col_gain, row, gain, off,
+        col_blocks=_col_blocks(op) if row is not None else None,
+        faithful=faithful)
+
+
+def check_readouts(op, w, gain, off, a_pos, a_neg, chunk_rows, what):
+    """Every ADC readout of a faithful split VMM, chunk by chunk and pass
+    by pass: the split kernel's tile on one chunk (the other pass fed
+    code 0, whose readout is the offset's own, exactly) against the plain
+    version's readout.  Each may differ by 1 LSB, and only at a rounding
+    tie: the plain version's pre-rounding value ``v`` lies within the two
+    sums' fp32 error of a half-integer (plain: 128 products in any order;
+    tile: 3 x 128 exact bf16-piece products, each add rounding at most
+    2 ulp; then the gain multiply and the offset add).  At most TIE_SHARE
+    of the readouts may differ.  Returns the per-element sum of the
+    readout differences and a summary."""
+    u = 2.0 ** -24
+    n_chunks = a_pos.shape[1] // chunk_rows
+    zero = torch.zeros((a_pos.shape[0], chunk_rows), device=DEV)
+    total = torch.zeros((a_pos.shape[0], w.shape[1]), device=DEV)
+    differ = count = 0
+    worst = 0.0  # largest distance to a half-integer / tolerance
+    for c in range(n_chunks):
+        rows = slice(c * chunk_rows, (c + 1) * chunk_rows)
+        r0 = torch.clamp(torch.round(off[c]), BSS2.adc_min, BSS2.adc_max)
+        for sign, a in ((1.0, a_pos), (-1.0, a_neg)):
+            a_c = a[:, rows].contiguous()
+            card = _split_on_card(op, a_c, zero, gain, off[c:c + 1],
+                                  True, rows)
+            # the plain version's expression (ref._chunk_adc), on views of
+            # the same layout
+            v = torch.matmul(a[:, rows], w[rows]) * gain + off[c]
+            plain = torch.clamp(torch.round(v), BSS2.adc_min,
+                                BSS2.adc_max) - r0
+            diff = card - plain
+            total += sign * diff
+            if float(diff.abs().max()) > 1:
+                raise AssertionError(f"{what} chunk {c}: a readout differs "
+                                     f"by {float(diff.abs().max())} LSB")
+            flip = diff != 0
+            count += diff.numel()
+            if bool(flip.any()):
+                differ += int(flip.sum())
+                s = torch.matmul(a_c.abs(), w[rows].abs())
+                tol = (896 * u * s * gain.abs()
+                       + 4 * u * (v.abs() + off[c].abs()))
+                dist = (v - (torch.floor(v) + 0.5)).abs()
+                ratio = float((dist / tol)[flip].max())
+                worst = max(worst, ratio)
+                if ratio > 1:
+                    raise AssertionError(
+                        f"{what} chunk {c}: a readout differs by 1 LSB "
+                        f"{ratio:.3g} x its fp32 error bound away from a "
+                        "rounding tie")
+    if differ / count > TIE_SHARE:
+        raise AssertionError(f"{what}: {differ} of {count} readouts differ "
+                             f"(limit share {TIE_SHARE})")
+    return total, {"readouts": count, "readouts_differing": differ,
+                   "max_tie_distance_over_bound": worst}
+
+
+def check_vmm_stage(bp, tensors, stages, li, name, want, *, exact,
+                    faithful, what):
+    """One VMM stage of the block kernel (``stages[name]``, accumulated
+    ADC codes):
+    - bit-exact against the split kernel fed the block's own code regions
+      and the same weight operand (the same tile; integer partial totals
+      add exactly in any cut of the chunks);
+    - on integer effective weights, bit-exact against the plain version;
+    - on rank-1 gains in fast mode, within 1 LSB of it per element (one
+      rounding per element), on at most TIE_SHARE of the elements;
+    - on rank-1 gains in faithful mode, every ADC readout within 1 LSB of
+      the plain version's and only at a rounding tie (check_readouts),
+      the element's difference being exactly the sum of its readouts'."""
+    meta = bp.mega.schedule[li]
+    src = {"acc_qkv": "n1", "acc_o": "attn", "acc_ug": "n2",
+           "acc_dn": "sw"}[name]
+    if meta.encode != "split":
+        raise AssertionError(f"{what}: the check takes split layers, got "
+                             f"{meta.encode!r}")
+    got = stages[name]
+    a_pos, a_neg = stages[f"{src}_pos"], stages[f"{src}_neg"]
+    op, w, gain, off = _stage_operand(tensors, li, meta)
+    card = _split_on_card(op, a_pos, a_neg, gain, off, faithful)
+    torch.cuda.synchronize()
+    if not torch.equal(got, card):
+        raise AssertionError(
+            f"{what}: differs from the split kernel on the same code "
+            f"operands by {float((got - card).abs().max())}")
+    if exact or not faithful:
+        return _compare("analog_plan_block", got, want, exact=exact,
+                        what=what)
+    diff = got - want
+    err = float(diff.abs().max())
+    share = float((diff != 0).float().mean())
+    MAX_ERR["analog_plan_block"] = max(MAX_ERR["analog_plan_block"], err)
+    total, summary = check_readouts(op, w, gain, off, a_pos, a_neg,
+                                    meta.k_pad // meta.n_chunks, what)
+    if not torch.equal(total, diff):
+        raise AssertionError(f"{what}: the element differences are not the "
+                             "sums of their readouts' differences")
+    if share > TIE_SHARE:
+        raise AssertionError(f"{what}: share {share} of the elements differ "
+                             f"(limit {TIE_SHARE})")
+    return {"what": what, "max_abs_err": err, "share_differing": share,
+            **summary}
+
+
 def check_block_kernel(cfg, bp_rank1, x):
-    """Phase 11: the block kernel stage by stage at full width, M = 48:
-    each stage's plain version fed the kernel's own stage input (read
-    back from its scratch region); VMM stages bit-exact on integer w_eff
-    and within 1 ADC LSB on the rank-1 gains, res2 and the output
-    bit-exact, glue stages within GLUE_TOL.  Then the whole block against
-    the plain version: the output's relative max diff and the share of
-    flipped 5-bit codes at the four encodes."""
+    """Phase 11: the block kernel stage by stage at full width, M = 48,
+    through both weight operands (the stores' int8 codes and gain tables,
+    and the fp32 w_eff): each stage's plain version fed the kernel's own
+    stage input (read back from its scratch region); VMM stages as
+    check_vmm_stage holds them (bit-exact against the split kernel on the
+    block's own code regions; against the plain version bit-exact on
+    integer w_eff, and on the rank-1 gains every ADC readout within 1 LSB,
+    only at a rounding tie), the code
+    regions, res2 and the output bit-exact, glue stages within GLUE_TOL;
+    the two operands bit-identical in every region.  Then the whole block
+    against the plain version: the output's relative max diff and the
+    share of flipped 5-bit codes at the four encodes."""
     results, whole = [], []
     for kind, bp, exact in (("integer w_eff", _int_block(cfg), True),
                             ("rank-1", bp_rank1, False)):
-        tensors, kw = _block_args(bp)
         for faithful in (True, False):
-            out, stages, grid = analog_plan_block_cuda(
-                x, *tensors, faithful=faithful, **kw)
-            want = ref.block_stages_ref(
-                x, stages, *tensors, kw["schedule"], kw["block"],
-                kw["extras"], faithful=faithful)
-            glue = {}
-            for name in [n for n, _, _ in BLOCK_STAGES] + ["out"]:
-                got = out if name == "out" else stages[name]
-                what = f"{kind} faithful={faithful} stage {name}"
-                if name.startswith("acc_"):
-                    results.append(_compare("analog_plan_block", got,
-                                            want[name], exact=exact,
-                                            what=what))
-                elif name in ("res2", "out"):
-                    if not torch.equal(got, want[name]):
-                        raise AssertionError(f"{what}: not bit-exact")
-                else:
-                    glue[name] = _rel(got, want[name])
-                    if glue[name] > GLUE_TOL:
-                        raise AssertionError(f"{what}: rel diff "
-                                             f"{glue[name]} > {GLUE_TOL}")
+            runs = {}
+            for operand in ("stores", "w_eff"):
+                tensors, kw = _block_args(bp, operand)
+                out, stages, grid = analog_plan_block_cuda(
+                    x, *tensors, faithful=faithful, **kw)
+                want = ref.block_stages_ref(
+                    x, stages, *tensors, kw["schedule"], kw["block"],
+                    kw["extras"], faithful=faithful)
+                glue = {}
+                for name, li, _ in list(BLOCK_STAGES) + [("out", 3, "n")]:
+                    got = out if name == "out" else stages[name]
+                    what = (f"{kind} {operand} faithful={faithful} stage "
+                            f"{name}")
+                    if name.startswith("acc_"):
+                        results.append(check_vmm_stage(
+                            bp, tensors, stages, li, name, want[name],
+                            exact=exact, faithful=faithful, what=what))
+                    elif name in ("res2", "out") or name.endswith(
+                            ("_pos", "_neg")):
+                        if not torch.equal(got, want[name]):
+                            raise AssertionError(f"{what}: not bit-exact")
+                    else:
+                        glue[name] = _rel(got, want[name])
+                        if glue[name] > GLUE_TOL:
+                            raise AssertionError(f"{what}: rel diff "
+                                                 f"{glue[name]} > {GLUE_TOL}")
+                runs[operand] = (out, stages, grid, glue)
+            (out, stages, grid, glue), other = runs["stores"], runs["w_eff"]
+            for name in stages:
+                if not torch.equal(stages[name], other[1][name]):
+                    raise AssertionError(f"{kind} faithful={faithful}: the "
+                                         f"two operands differ at {name}")
+            if not torch.equal(out, other[0]):
+                raise AssertionError(f"{kind} faithful={faithful}: the two "
+                                     "operands differ at the output")
+            tensors, kw = _block_args(bp)
             trace = []
             y_plain = ref.analog_plan_ref(
                 x, *tensors, kw["schedule"], faithful=faithful,
@@ -1023,43 +1222,56 @@ def check_block_kernel(cfg, bp_rank1, x):
             rel = _rel(out, y_plain)
             whole.append({"kind": kind, "faithful": faithful, "grid": grid,
                           "glue_rel_diff": glue,
+                          "operands_bit_identical": True,
                           "block_rel_max_diff_vs_plain": rel,
                           "flipped_code_share": flips / total})
             if rel > BLOCK_REL_TOL or flips / total > BLOCK_CODE_SHARE:
                 raise AssertionError(f"{kind} faithful={faithful}: whole "
                                      f"block rel diff {rel}, flipped codes "
                                      f"{flips / total}")
-        del tensors, kw, bp
+            del runs, other, tensors, kw
+        del bp
     return results, whole
 
 
 def block_work(bp, rows):
-    """(bytes, operations) of one block launch: the residual stream in and
-    out, each layer's real weights, gains, offsets and dequant/bias/encode
-    rows, the ln rows and the RoPE table, once each, in fp32; a split
-    layer does its dot twice; attention's two products per (row, key)."""
+    """(bytes with the int8 code operand, bytes with the fp32 operand,
+    operations) of one block launch: the residual stream in and out, each
+    layer's weights (int8 codes and their rank-1 gain tables, or fp32
+    w_eff), gains, offsets and dequant/bias/encode rows, the ln rows and
+    the RoPE table, once each; a split layer does its products twice;
+    attention's two products per (row, key)."""
     m, blk = bp.mega, bp.mega.block
     d = m.schedule[0].k
-    floats = 2 * rows * d + 2 * d + blk.seq * blk.head_dim
+    common = 4 * (2 * rows * d + 2 * d + blk.seq * blk.head_dim)
+    w8 = w32 = 0
     nops = 0
-    for s in m.schedule:
-        floats += s.k * s.n + s.n_chunks * s.n + 3 * s.n + 1
+    for s, st in zip(m.schedule, m.stores):
+        common += 4 * (s.n_chunks * s.n + 3 * s.n + 1)
+        w8 += s.k * s.n + sum(4 * t.numel() for t in (st.col_gain,
+                                                      st.row_gain)
+                              if t is not None)
+        w32 += 4 * s.k * s.n
         nops += (2 if s.encode == "split" else 1) * 2 * rows * s.k * s.n
     nops += 2 * 2 * rows * blk.seq * blk.n_heads * blk.head_dim
-    return 4 * floats, nops
+    return common + w8, common + w32, nops
 
 
 def time_block(cfg, tree, p_block, toks, x):
     """Phase 12: the block kernel per launch beside its bound and its
-    plain version; the per-layer routes of the same block (the model's
+    plain version, through the main path's int8 code operand and through
+    the fp32 w_eff; the per-layer routes of the same block (the model's
     static path, 7 split launches, and the block plan's 4-launch
     fallback); prefill host and device time of both routes."""
     acfg, run = _block_run()
     bp = p_block["layers"]["l0"]["_block_plan"][0]
     tensors, kw = _block_args(bp)
-    nbytes, nops = block_work(bp, x.shape[0])
-    b_ms, b_by = bound(nbytes, nops)
+    tensors_w, _ = _block_args(bp, "w_eff")
+    b8, b32, nops = block_work(bp, x.shape[0])
+    b_ms, b_by = bound(b8, nops, BF16_OPS_PER_S)
     kern = lambda: analog_plan_block_cuda(x, *tensors, **kw)[0]  # noqa: E731
+    kern_w = lambda: analog_plan_block_cuda(  # noqa: E731
+        x, *tensors_w, **kw)[0]
     plain = lambda: ref.analog_plan_ref(  # noqa: E731
         x, *tensors, kw["schedule"], extras=kw["extras"], block=kw["block"])
     x3 = x.reshape(LM_BATCH, LM_SEQ, cfg.d_model)
@@ -1075,9 +1287,14 @@ def time_block(cfg, tree, p_block, toks, x):
         "ms": time_ms(kern, iters=10, reps=5),
         "plain_ms": time_ms(plain, iters=3, reps=3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "bytes": nbytes, "operations": nops,
+        "operand": "int8 codes + rank-1 gain tables",
+        "bytes": b8, "operations": nops,
         "device_ms": device_trace(kern, iters=10)[0],
         "plain_device_ms": device_trace(plain, iters=3)[0],
+        "fp32_operand_ms": time_ms(kern_w, iters=10, reps=5),
+        "fp32_operand_device_ms": device_trace(kern_w, iters=10)[0],
+        "fp32_operand_bound_ms": bound(b32, nops, BF16_OPS_PER_S)[0],
+        "fp32_operand_fp32_ops_bound_ms": bound(b32, nops)[0],
         "per_layer_model_path_ms": time_ms(model_path, iters=3, reps=3),
         "per_layer_model_path_device_ms": device_trace(model_path, 3)[0],
         "fallback_4_launch_ms": time_ms(fallback, iters=3, reps=3),
@@ -1098,7 +1315,7 @@ def time_block(cfg, tree, p_block, toks, x):
             call()
             torch.cuda.synchronize()
             host.append(time.perf_counter() - t0)
-        dev_ms, n_act = device_trace(call, iters=2)
+        dev_ms, n_act = device_trace(call, iters=4)
         prefill[name] = {
             "host_ms_median": statistics.median(host) * 1e3,
             "host_ms_all": [t * 1e3 for t in host],
@@ -1200,9 +1417,11 @@ def main() -> None:
         "n": len(checks), "max_abs_err": MAX_ERR["analog_plan_block"],
         "worst": max(checks, key=lambda c: c["max_abs_err"]),
         "max_share_differing": max(c["share_differing"] for c in checks),
+        "readout_checks": [c for c in checks if "readouts" in c],
         "whole_block": whole,
     })
     block_row = time_block(cfg, tree, p_block, toks, x)
+    emit("profiler_traces", TRACES)
 
     kernels = []
     big = max(BATCHES)

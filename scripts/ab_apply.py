@@ -4,6 +4,7 @@ two checkouts of the port, on one CUDA device, in one call:
 
     python3 scripts/ab_apply.py BEFORE_ROOT AFTER_ROOT [--rounds 2]
     python3 scripts/ab_apply.py BEFORE_ROOT AFTER_ROOT --lm [--rounds 2]
+    python3 scripts/ab_apply.py BEFORE_ROOT AFTER_ROOT --chain [--rounds 2]
 
 Each root is a checkout of the repository (``BEFORE_ROOT/src/repro_torch``
 must exist).  The sides run in the order before, after, after, before per
@@ -26,10 +27,18 @@ the host time per call of one small split layer (``run_layer`` on a
 4 x 256 x 256 rank-1 layer, 400 calls back to back per sample), where
 the device work is too small to hide the dispatch path.
 
+With ``--chain`` each process instead times the chain kernel's wrapper
+``analog_plan_cuda`` alone on the ECG megakernel packs (the relu_shift
+code chain, stage a, and the static float chain, stage b; seed 0, the
+``make_dataset`` records) at batch 1 and 500: ``--calls`` calls back to
+back per sample, 7 samples, on the host clock, synchronized at the end
+of each sample.
+
 Prints one JSON line per process, then a summary line (each side's
 median over its processes of the per-process median and quartiles, in µs
 per call), and writes all of it to ``chiprun_out/ab_apply.json`` (with
-``--lm``: ``chiprun_out/ab_serve.json``) under the current directory.
+``--lm``: ``chiprun_out/ab_serve.json``; with ``--chain``:
+``chiprun_out/ab_chain.json``) under the current directory.
 """
 from __future__ import annotations
 
@@ -131,7 +140,43 @@ def one_side_lm(root: pathlib.Path, calls: int) -> dict:
     }
 
 
-def one_side(root: pathlib.Path, calls: int, lm: bool = False) -> dict:
+def one_side_chain(calls: int, model, fmodel, raw) -> dict:
+    """Time the chain wrapper alone, back to back, on both ECG packs."""
+    import torch
+    from repro_torch.data.preprocess import preprocess
+    from repro_torch.kernels.analog_plan import analog_plan_cuda
+    from repro_torch.models.ecg import _im2col
+
+    out = {}
+    for b in BATCHES:
+        cols = _im2col(preprocess(raw[:b]), 64, 2).reshape(-1, 128)
+        cols = cols.contiguous()
+        for stage, m in (("a code chain", model), ("b float chain", fmodel)):
+            mega = m.lower().mega
+
+            def call(mega=mega):
+                return analog_plan_cuda(cols, mega.w_cat, mega.gain,
+                                        mega.off, schedule=mega.schedule,
+                                        extras=mega.extras)
+
+            for _ in range(50):
+                y = call()
+            torch.cuda.synchronize()
+            us = []
+            for _ in range(7):
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    call()
+                torch.cuda.synchronize()
+                us.append((time.perf_counter() - t0) / calls * 1e6)
+            out[f"B={b} stage {stage}"] = {
+                "us_q1_median_q3": _quartiles(us),
+                "logits_sum": float(y.double().sum())}
+    return out
+
+
+def one_side(root: pathlib.Path, calls: int, lm: bool = False,
+             chain: bool = False) -> dict:
     """Time one checkout in this process (the ``--one`` mode)."""
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -156,6 +201,12 @@ def one_side(root: pathlib.Path, calls: int, lm: bool = False) -> dict:
                         ecg_init(torch.Generator().manual_seed(0), cfg),
                         AnalogConfig(fused_epilogue=True))
     out = {"root": str(root)}
+    if chain:
+        fmodel = api.compile(ecg_module_spec(cfg, epilogue="none"),
+                             ecg_init(torch.Generator().manual_seed(0), cfg),
+                             AnalogConfig(act_calib="static",
+                                          fused_epilogue=True))
+        return {**out, **one_side_chain(calls, model, fmodel, raw)}
     for b in BATCHES:
         x = preprocess(raw[:b])
         for mk in (True, False):
@@ -211,10 +262,12 @@ def main() -> None:
     ap.add_argument("--calls", type=int, default=200)
     ap.add_argument("--lm", action="store_true",
                     help="time phi4-mini serving steps, not the ECG apply")
+    ap.add_argument("--chain", action="store_true",
+                    help="time the ECG chain kernel's wrapper alone")
     args = ap.parse_args()
     if args.one is not None:
-        print(json.dumps(one_side(args.one.resolve(), args.calls, args.lm)),
-              flush=True)
+        print(json.dumps(one_side(args.one.resolve(), args.calls, args.lm,
+                                  args.chain)), flush=True)
         return
     if len(args.roots) != 2:
         ap.error("give two checkout roots: BEFORE_ROOT AFTER_ROOT")
@@ -229,7 +282,8 @@ def main() -> None:
             res = subprocess.run(
                 [sys.executable, str(pathlib.Path(__file__).resolve()),
                  "--one", str(sides[side]), "--calls", str(args.calls)]
-                + (["--lm"] if args.lm else []),
+                + (["--lm"] if args.lm else [])
+                + (["--chain"] if args.chain else []),
                 capture_output=True, text=True, timeout=600,
                 cwd=sides[side])
             if res.returncode != 0:
@@ -243,7 +297,9 @@ def main() -> None:
     print(json.dumps({"summary": summary}), flush=True)
     out = pathlib.Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / ("ab_serve.json" if args.lm else "ab_apply.json")).write_text(
+    name = ("ab_serve.json" if args.lm else "ab_chain.json" if args.chain
+            else "ab_apply.json")
+    (out / name).write_text(
         json.dumps({"runs": runs, "summary": summary}, indent=1))
 
 

@@ -15,27 +15,17 @@
 // batch x prompt length (prefill), a few to a few dozen rows, against
 // K x N weights of up to 3072 x 200064: the weights dominate the bytes.
 // Decode is bytes-bound; prefill, at fp32 on the CUDA cores, was
-// operations-bound.  The design attacks both:
+// operations-bound.  The design attacks both.  The CTA work item - the
+// int8 code operand rebuilt into fp32 weights, three exact bf16 pieces per
+// weight on mma.sync with both passes stacked in one m16 tile, the
+// cp.async ring and the per-chunk ADC readout - is analog_split_tile.cuh's
+// split_tile(), shared with the transformer-block kernel.  A CTA holds 1,
+// 2, 3 or 6 m16 tiles (8 to 48 activation rows, chosen from M by the
+// wrapper), so a 4 x 12 prefill rebuilds each weight once.  With integer
+// w_eff the kernel is bit-exact against the plain version; with float
+// gains only the order of the fp32 sums differs (within 1 LSB at an ADC
+// rounding tie).  This file adds:
 //
-// * Weight operand.  Form 0 reads the plan's int8 6-bit codes (1 byte per
-//   weight instead of 4) and rebuilds each effective weight in registers
-//   as (code * col_gain[n]) * row_gain[block(n)][k] with two __fmul_rn
-//   (an absent factor is 1.0f, exact): bit for bit the fp32 w_eff of the
-//   plan's WeightStore.  Form 1 reads an fp32 w_eff (stores with a full
-//   gain map).
-// * Tensor cores.  The activation codes are integers 0..31, exact in
-//   bf16.  Each rebuilt fp32 weight is cut into three bf16 pieces by
-//   truncation, w = w1 + w2 + w3 exactly (24 significand bits = 3 x 8), so
-//   every product a * wi is exact and mma.sync m16n8k16 sums them in fp32.
-//   Each m16 tile stacks 8 activation rows of the positive pass over the
-//   same 8 rows of the negative pass, so both passes share every B
-//   fragment and a thread holds the pos and neg sums of one (row, column)
-//   pair.  A CTA holds 1, 2, 3 or 6 m16 tiles (8 to 48 activation rows,
-//   chosen from M by the wrapper), so a 4 x 12 prefill rebuilds each
-//   weight once.  With integer w_eff every chunk sum is an integer below
-//   2^24, exact in any order: the kernel is then bit-exact against the
-//   plain version.  With float gains only the order of the fp32 sums
-//   differs (within 1 LSB at an ADC rounding tie).
 // * Split-K over chunks (faithful mode).  After the ADC readout each
 //   chunk adds an integer in [-255, 255] to pos - neg, so partial totals
 //   over any range of chunks combine exactly in any order.  The grid is
@@ -47,111 +37,14 @@
 //   slots and runs the epilogue.  One launch per call.  Fast mode sums
 //   floats before its single rounding, so one CTA walks all of K in
 //   ascending chunk order, as the plain version's arithmetic needs.
-// * Asynchronous loads.  A ring of 3-4 shared-memory stages of kBK weight
-//   rows each (plus the activation and row-gain slices of those rows and
-//   each chunk's offsets) is fed with 16-byte cp.async, one stage fewer
-//   than the ring ahead.  Operands whose rows are not 16-byte aligned
-//   (N % 16 != 0 for codes) are staged with plain loads instead (same
-//   stages, no overlap).  Each thread's running totals live in shared
-//   memory (read and written once per chunk), leaving the registers to
-//   the accumulators.
-//
-// CTA: 4 warps, kBN = 128 output columns (32 per warp).  Lane (g, t) =
-// (lane / 4, lane % 4) builds the B fragment of column 4g + j of its warp
-// for n8 tile j, so one 32-bit shared load gives it the codes of its four
-// tiles at one weight row; output column q of n8 tile j is 4q + j.
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "analog_split_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kMaxBlocks = 4;
-constexpr int kActStride = kBK + 8;  // floats per staged activation row
-
-struct Params {
-  const float* ap;        // [m, k] codes of max(x, 0)
-  const float* an;        // [m, k] codes of max(-x, 0)
-  const void* w;          // form 0: int8 codes [k, n]; form 1: fp32 [k, n]
-  const float* col_gain;  // [n] or null (form 0)
-  const float* row_gain;  // [n_blocks, k] or null (form 0)
-  const float* gain;      // [n]
-  const float* off;       // [k / chunk_rows, n]
-  float* out;             // [m, n]
-  float* part;            // [n_splits, m, n] partial totals (n_splits > 1)
-  int* counters;          // [row groups * column tiles], zeroed
-  int m, k, n, chunk_rows, chunks_per_cta, n_splits;
-  int n_blocks;
-  int block_end[kMaxBlocks];  // cumulative column-block ends
-  int faithful, shift, vec;
-};
-
-// pipeline depth: 3 stages for the 48-row tile (its activations are the
-// largest slice), 4 otherwise
-__host__ __device__ constexpr int n_stages(int mt) { return mt == 6 ? 3 : 4; }
-__host__ __device__ constexpr int w_row_bytes(int form) {
-  return form == 0 ? kBN + 16 : kBN * 4 + 16;
-}
-__host__ __device__ constexpr int act_bytes(int mt) {
-  return 2 * 8 * mt * kActStride * 4;
-}
-__host__ __device__ constexpr int stage_bytes(int form, int mt) {
-  return kBK * w_row_bytes(form) + act_bytes(mt) +
-         (form == 0 ? kMaxBlocks * kBK * 4 : 0);
-}
-// after the ring: the tile's gains, a ring of n_stages chunks' offsets (a
-// slot is refilled n_stages chunks later, after its readout), then each
-// thread's running totals (2 per accumulator pair faithful, 4 fast)
-__host__ __device__ constexpr int tot_offset(int form, int mt) {
-  return n_stages(mt) * stage_bytes(form, mt) + (1 + n_stages(mt)) * kBN * 4;
-}
-__host__ __device__ constexpr int smem_bytes(int form, int mt, int faithful) {
-  return tot_offset(form, mt) + mt * 4 * (faithful ? 2 : 4) * kThreads * 4;
-}
-
-__device__ __forceinline__ float adc_clip(float v, float lo, float hi) {
-  return fminf(fmaxf(rintf(v), lo), hi);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// two fp32 values -> one bf16x2 register of their high halves (the first
-// in the low half): exact for values whose low 16 bits are zero
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
-}
-__device__ __forceinline__ float trunc_bf16(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xffff0000u);
-}
-// signed byte j of a word whose bytes were biased by 0x80, as a float:
-// the bits 0x4B0000bb are 2^23 + bb, exactly
-__device__ __forceinline__ float code_to_float(uint32_t biased, int j) {
-  return __fsub_rn(
-      __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7540 + j)),
-      8388736.0f);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using namespace analog_split;
 
 // FORM 0: int8 codes + gain tables; FORM 1: fp32 w_eff.
 // MT: m16 tiles per CTA, each 8 activation rows x {pos, neg}.
@@ -159,274 +52,16 @@ template <int FORM, int MT>
 __global__ void __launch_bounds__(kThreads, MT == 1 ? 4 : MT == 2 ? 3 : 2)
 split_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kStages = n_stages(MT);
-  constexpr int kE = FORM == 0 ? 1 : 4;  // bytes per weight
-  constexpr int kWRow = w_row_bytes(FORM);
-  constexpr int kWBytes = kBK * kWRow;
-  constexpr int kRows = 8 * MT;  // activation rows per CTA
-  constexpr int kStage = stage_bytes(FORM, MT);
-  // 16-byte pieces of one stage's weight and activation slices
-  constexpr int kWPieceRow = kBN * kE / 16;
-  constexpr int kWPer = kBK * kWPieceRow / kThreads;
-  constexpr int kAPer = 2 * kRows * (kBK / 4) / kThreads;
-  static_assert(kWPer * kThreads == kBK * kWPieceRow, "weight pieces");
-  static_assert(kAPer * kThreads == 2 * kRows * (kBK / 4), "act pieces");
   __shared__ int s_last;
-
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int col0 = blockIdx.x * kBN;
-  const int row0 = blockIdx.z * kRows;
+  const int row0 = blockIdx.z * 8 * MT;
+  const int wcol = blockIdx.x * kBN + warp * 32;
   const int n_chunks = p.k / p.chunk_rows;
-  const int c_begin = blockIdx.y * p.chunks_per_cta;
-  const int c_end = min(n_chunks, c_begin + p.chunks_per_cta);
-  const int spc = p.chunk_rows / kBK;
-  const int n_st = (c_end - c_begin) * spc;
-  const int k_begin = c_begin * p.chunk_rows;
-  const int wcol = col0 + warp * 32;  // the warp's first column
   const int n_tot = p.faithful ? 2 : 4;
-
-  float* s_gain = reinterpret_cast<float*>(smem + kStages * kStage);
-  float* s_off = s_gain + kBN;  // [kStages][kBN]
-  float* s_tot = reinterpret_cast<float*>(smem + tot_offset(FORM, MT)) + tid;
-  for (int e = tid; e < kBN; e += kThreads)
-    s_gain[e] = col0 + e < p.n ? p.gain[col0 + e] : 0.f;
-  for (int e = 0; e < MT * 4 * n_tot; ++e) s_tot[e * kThreads] = 0.f;
-  // the B fragment columns of this lane: 4g + j
-  const int bcol = wcol + 4 * g;
-  const bool has_row = FORM == 0 && p.row_gain != nullptr;
-  float cg[4];  // an absent gain factor is 1.0f: x * 1.0f is exact
-  int blk = 0;
-  if constexpr (FORM == 0) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      cg[j] = (p.col_gain != nullptr && bcol + j < p.n)
-                  ? p.col_gain[bcol + j] : 1.f;
-    for (int b = 0; b + 1 < p.n_blocks; ++b) blk += p.block_end[b] <= bcol;
-  }
-
-  // the next stage to load: its first weight row, chunk, place in the
-  // chunk and ring slot (running counters: no division in the loop)
-  int ld_kr = k_begin, ld_chunk = c_begin, ld_sub = 0, ld_buf = 0;
-  auto load_next = [&]() {
-    unsigned char* base = smem + ld_buf * kStage;
-    float* act = reinterpret_cast<float*>(base + kWBytes);
-    float* rg = reinterpret_cast<float*>(base + kWBytes + act_bytes(MT));
-    const int kr = ld_kr;
-    const bool first = ld_sub == 0;  // the chunk's offsets come with it
-    const int chunk = ld_chunk;
-    ld_kr += kBK;
-    if (++ld_sub == spc) {
-      ld_sub = 0;
-      ++ld_chunk;
-    }
-    ld_buf = ld_buf + 1 == kStages ? 0 : ld_buf + 1;
-    float* so = s_off + (chunk % kStages) * kBN;
-    const float* osrc = p.off + static_cast<long long>(chunk) * p.n;
-    if (p.vec) {
-      // n * kE is a multiple of 16: a piece is wholly in or out of range
-      const unsigned char* w = static_cast<const unsigned char*>(p.w);
-#pragma unroll
-      for (int q = 0; q < kWPer; ++q) {
-        const int e = tid + q * kThreads;
-        const int r = e / kWPieceRow, cb = (e % kWPieceRow) * 16;
-        const bool in = (col0 * kE + cb) < p.n * kE;
-        cp_async16(base + r * kWRow + cb,
-                   in ? w + (static_cast<long long>(kr + r) * p.n + col0) * kE
-                            + cb : w,
-                   in ? 16 : 0);
-      }
-#pragma unroll
-      for (int q = 0; q < kAPer; ++q) {
-        const int e = tid + q * kThreads;
-        const int pr = e / (kBK / 4), cc = (e % (kBK / 4)) * 4;
-        const int r = row0 + pr % kRows;
-        const float* src = pr < kRows ? p.ap : p.an;
-        cp_async16(act + pr * kActStride + cc,
-                   r < p.m ? src + static_cast<long long>(r) * p.k + kr + cc
-                           : p.ap,
-                   r < p.m ? 16 : 0);
-      }
-      if (first && tid < kBN / 4) {
-        const int gc = col0 + 4 * tid;
-        cp_async16(so + 4 * tid, gc < p.n ? osrc + gc : p.off,
-                   gc < p.n ? 16 : 0);
-      }
-      if (has_row && tid < p.n_blocks * (kBK / 4)) {
-        const int b = tid / (kBK / 4), cc = (tid % (kBK / 4)) * 4;
-        cp_async16(rg + b * kBK + cc,
-                   p.row_gain + static_cast<long long>(b) * p.k + kr + cc, 16);
-      }
-      return;
-    }
-    // rows that are not 16-byte aligned: plain loads
-    for (int e = tid; e < kBK * kBN; e += kThreads) {
-      const int r = e / kBN, c = e % kBN;
-      const long long idx = static_cast<long long>(kr + r) * p.n + col0 + c;
-      const bool in = col0 + c < p.n;
-      if constexpr (FORM == 0) {
-        base[r * kWRow + c] =
-            in ? static_cast<const unsigned char*>(p.w)[idx] : 0;
-      } else {
-        reinterpret_cast<float*>(base + r * kWRow)[c] =
-            in ? static_cast<const float*>(p.w)[idx] : 0.f;
-      }
-    }
-    for (int e = tid; e < 2 * kRows * kBK; e += kThreads) {
-      const int pr = e / kBK, c = e % kBK;
-      const int r = row0 + pr % kRows;
-      const float* src = pr < kRows ? p.ap : p.an;
-      act[pr * kActStride + c] =
-          r < p.m ? src[static_cast<long long>(r) * p.k + kr + c] : 0.f;
-    }
-    if (first)
-      for (int e = tid; e < kBN; e += kThreads)
-        so[e] = col0 + e < p.n ? osrc[col0 + e] : 0.f;
-    if (has_row)
-      for (int e = tid; e < p.n_blocks * kBK; e += kThreads) {
-        const int b = e / kBK, c = e % kBK;
-        rg[b * kBK + c] = p.row_gain[static_cast<long long>(b) * p.k + kr + c];
-      }
-  };
-
-  float acc[MT][4][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_st) load_next();
-    cp_async_commit();
-  }
-
-  // the stage computed now: its chunk, place in the chunk and ring slot
-  int chunk = c_begin, sub = 0, buf = 0;
-  for (int s = 0; s < n_st; ++s) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage s landed; stage s - 1's buffer is free
-    if (s + kStages - 1 < n_st) load_next();
-    cp_async_commit();
-    const unsigned char* base = smem + buf * kStage;
-    buf = buf + 1 == kStages ? 0 : buf + 1;
-    const float* act = reinterpret_cast<const float*>(base + kWBytes);
-    const float* rg =
-        reinterpret_cast<const float*>(base + kWBytes + act_bytes(MT)) +
-        blk * kBK;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      const int kk = ks * 16 + 2 * t;  // rows kk, kk + 1, kk + 8, kk + 9
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const float* pr = act + (8 * i + g) * kActStride + kk;
-        const float* nr = pr + kRows * kActStride;
-        const float2 p0 = *reinterpret_cast<const float2*>(pr);
-        const float2 p8 = *reinterpret_cast<const float2*>(pr + 8);
-        const float2 n0 = *reinterpret_cast<const float2*>(nr);
-        const float2 n8 = *reinterpret_cast<const float2*>(nr + 8);
-        a[i][0] = pack_bf16(p0.x, p0.y);
-        a[i][1] = pack_bf16(n0.x, n0.y);
-        a[i][2] = pack_bf16(p8.x, p8.y);
-        a[i][3] = pack_bf16(n8.x, n8.y);
-      }
-      const int rows[4] = {kk, kk + 1, kk + 8, kk + 9};
-      uint32_t wd[4];
-      float4 wf[4];
-      float rgv[4] = {1.f, 1.f, 1.f, 1.f};
-      if (has_row) {
-        const float2 r0 = *reinterpret_cast<const float2*>(rg + kk);
-        const float2 r8 = *reinterpret_cast<const float2*>(rg + kk + 8);
-        rgv[0] = r0.x;
-        rgv[1] = r0.y;
-        rgv[2] = r8.x;
-        rgv[3] = r8.y;
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        if constexpr (FORM == 0) {
-          wd[r] = *reinterpret_cast<const uint32_t*>(
-                      base + rows[r] * kWRow + warp * 32 + 4 * g) ^
-                  0x80808080u;
-        } else {
-          wf[r] = *reinterpret_cast<const float4*>(
-              base + rows[r] * kWRow + (warp * 32 + 4 * g) * 4);
-        }
-      }
-      uint32_t bfr[3][4][2];  // [piece lo, mid, hi][n8 tile][register]
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float w[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          if constexpr (FORM == 0) {
-            w[r] = __fmul_rn(__fmul_rn(code_to_float(wd[r], j), cg[j]),
-                             rgv[r]);
-          } else {
-            w[r] = j == 0 ? wf[r].x : j == 1 ? wf[r].y : j == 2 ? wf[r].z
-                                                                : wf[r].w;
-          }
-        }
-        // w = hi + mid + lo, each exactly a bf16 value
-        float hi[4], mid[4], lo[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          hi[r] = trunc_bf16(w[r]);
-          const float r1 = __fsub_rn(w[r], hi[r]);
-          mid[r] = trunc_bf16(r1);
-          lo[r] = __fsub_rn(r1, mid[r]);
-        }
-        bfr[0][j][0] = pack_bf16(lo[0], lo[1]);
-        bfr[0][j][1] = pack_bf16(lo[2], lo[3]);
-        bfr[1][j][0] = pack_bf16(mid[0], mid[1]);
-        bfr[1][j][1] = pack_bf16(mid[2], mid[3]);
-        bfr[2][j][0] = pack_bf16(w[0], w[1]);
-        bfr[2][j][1] = pack_bf16(w[2], w[3]);
-      }
-      // pieces outermost: consecutive MMAs feed different accumulators
-#pragma unroll
-      for (int pc = 0; pc < 3; ++pc)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < MT; ++i)
-            mma_bf16(acc[i][j], a[i], bfr[pc][j][0], bfr[pc][j][1]);
-    }
-
-    if (++sub == spc) {  // the chunk's ADC readout
-      sub = 0;
-      const float* so = s_off + (chunk % kStages) * kBN;
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int cl = warp * 32 + 8 * t + 4 * h + j;
-            const float gv = s_gain[cl], ov = so[cl];
-            const float vp = __fadd_rn(__fmul_rn(acc[i][j][h], gv), ov);
-            const float vn = __fadd_rn(__fmul_rn(acc[i][j][2 + h], gv), ov);
-            const int e = (i * 4 + j) * n_tot + h;
-            if (p.faithful) {
-              s_tot[e * kThreads] = __fadd_rn(
-                  s_tot[e * kThreads],
-                  __fsub_rn(adc_clip(vp, -128.f, 127.f),
-                            adc_clip(vn, -128.f, 127.f)));
-            } else {
-              s_tot[e * kThreads] = __fadd_rn(s_tot[e * kThreads], vp);
-              s_tot[(e + 2) * kThreads] =
-                  __fadd_rn(s_tot[(e + 2) * kThreads], vn);
-            }
-            acc[i][j][h] = acc[i][j][2 + h] = 0.f;
-          }
-      ++chunk;
-    }
-  }
-  cp_async_wait<0>();
+  float* s_tot =
+      split_tile<FORM, MT>(p, blockIdx.x, blockIdx.y, blockIdx.z, smem);
 
   if (p.n_splits > 1) {  // faithful split-K: the last CTA of the tile ends it
     const long long mn = static_cast<long long>(p.m) * p.n;
@@ -439,7 +74,7 @@ split_kernel(const Params p) {
           const int r = row0 + 8 * i + g, c = wcol + 8 * t + 4 * h + j;
           if (r < p.m && c < p.n)
             part[static_cast<long long>(r) * p.n + c] =
-                s_tot[((i * 4 + j) * 2 + h) * kThreads];
+                s_tot[tot_index(i, j, h, 2) * kThreads];
         }
     __threadfence();
     __syncthreads();
@@ -462,7 +97,7 @@ split_kernel(const Params p) {
           float sum = 0.f;
           for (int sp = 0; sp < p.n_splits; ++sp)
             sum = __fadd_rn(sum, __ldcg(src + sp * mn));
-          s_tot[((i * 4 + j) * 2 + h) * kThreads] = sum;
+          s_tot[tot_index(i, j, h, 2) * kThreads] = sum;
         }
   }
 
@@ -476,7 +111,7 @@ split_kernel(const Params p) {
       for (int h = 0; h < 2; ++h) {
         const int r = row0 + 8 * i + g, c = wcol + 8 * t + 4 * h + j;
         if (r >= p.m || c >= p.n) continue;
-        const int e = (i * 4 + j) * n_tot + h;
+        const int e = tot_index(i, j, h, n_tot);
         float y = p.faithful
                       ? s_tot[e * kThreads]
                       : __fsub_rn(adc_clip(s_tot[e * kThreads], lo, hi),
@@ -567,7 +202,7 @@ extern "C" int analog_mvm_split_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{ap, an, w, col_gain, row_gain, gain, off, out, part, counters,
            m, k, n, chunk_rows, chunks_per_cta, n_splits, n_blocks, {},
-           faithful, shift, vec};
+           faithful, shift, vec, n, 1};
   for (int b = 0; b < kMaxBlocks; ++b)
     p.block_end[b] = b < n_blocks ? block_ends[b] : n;
   const long long groups = (m + 8LL * mt - 1) / (8LL * mt);

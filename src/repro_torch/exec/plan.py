@@ -231,7 +231,8 @@ class MegakernelPack:
                 zero-padded to the common lane width, row-concatenated)
                 once, at construction; a block does not (at phi4-mini
                 width that copy would be 1.14 GB per block): its kernel
-                reads each store's ``w_eff`` in place.
+                reads each store in place, the int8 codes and gain tables
+                (or ``w_eff`` for a store with a full gain map).
       gain:     [L, n_max] per-layer analog gains (broadcast + padded).
       off:      [sum(n_chunks), n_max] chunk offsets (zeros where a layer
                 has none), chunk-concatenated.
@@ -268,8 +269,10 @@ class MegakernelPack:
 
     @property
     def weights(self):
-        """What the whole-plan kernel reads: a chain's ``w_cat``, a
-        block's per-layer ``w_eff`` tuple."""
+        """The effective weights of the whole-plan dispatch: a chain's
+        ``w_cat`` (what its kernel reads), a block's per-layer ``w_eff``
+        tuple (its plain version's operand; the block kernel reads
+        :attr:`stores`)."""
         if self.w_cat is not None:
             return self.w_cat
         return tuple(s.w_eff for s in self.stores)

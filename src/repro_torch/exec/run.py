@@ -295,7 +295,7 @@ def _run_block(plan: AnalogPlan, x: torch.Tensor, *,
                  else analog_plan_ref)
     _count()
     y = run_block(
-        x.to(torch.float32).reshape(b * s, d), mega.weights, mega.gain,
+        x.to(torch.float32).reshape(b * s, d), mega.stores, mega.gain,
         mega.off, schedule=mega.schedule, chunk_rows=mega.chunk_rows,
         faithful=cfg.mode != "analog_fast", extras=mega.extras,
         block=mega.block,

@@ -3,9 +3,10 @@
 Each source is compiled on its own by ``nvcc`` into a shared library with
 a plain C interface, at first use, into ``build/kernels/`` at the root of
 the checkout, and loaded with ``ctypes``.  The file name carries a hash of
-the source and the flags, so an edited source rebuilds and an unchanged
-one is reused.  :func:`build` starts one ``nvcc`` per missing source, all
-at once, and waits for them.
+the source, of every shared header (``csrc/*.cuh``) and of the flags, so
+an edited source or header rebuilds and an unchanged one is reused.
+:func:`build` starts one ``nvcc`` per missing source, all at once, and
+waits for them.
 
 Every launch goes through :func:`launch`: it calls the C entry point on
 PyTorch's current stream, raises when the entry point returns a CUDA
@@ -65,8 +66,12 @@ def library_path(name: str) -> pathlib.Path:
     """Where the shared library of kernel ``name`` is (or will be) built."""
     if name not in KERNELS:
         raise KeyError(f"unknown kernel {name!r}; known: {KERNELS}")
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    # the shared headers too: an edited header rebuilds what includes it
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

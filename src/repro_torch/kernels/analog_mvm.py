@@ -141,6 +141,19 @@ def split_plan(m: int, n: int, n_chunks: int, faithful: bool,
     return SplitPlan(mt, row_groups, col_tiles, cps, -(-n_chunks // cps))
 
 
+def split_items(plan: SplitPlan, n_chunks: int):
+    """The work items of a launch cut by ``plan``, in the order the
+    block kernel's VMM stages walk them (item ``i`` on CTA ``i % grid``):
+    ``(column tile, row group, first chunk, end chunk)``.  The split
+    kernel launches the same items as its grid."""
+    for item in range(plan.col_tiles * plan.n_splits * plan.row_groups):
+        tile = item % plan.col_tiles
+        split = item // plan.col_tiles % plan.n_splits
+        group = item // (plan.col_tiles * plan.n_splits)
+        c0 = split * plan.chunks_per_cta
+        yield tile, group, c0, min(n_chunks, c0 + plan.chunks_per_cta)
+
+
 @functools.lru_cache(maxsize=None)
 def _slots(index: int, form: int, mt: int, faithful: bool) -> int:
     """SMs x resident CTAs per SM of one kernel instantiation."""
@@ -213,6 +226,39 @@ def _on_card(name, a_pos):
         raise ValueError(f"{name} needs CUDA tensors, got {a_pos.device}")
 
 
+def code_operand_ends(codes, col_gain, row_gain, col_blocks, k: int,
+                      dev: torch.device) -> tuple:
+    """Check the int8 code operand of the split tile (``codes [K, N]``,
+    ``col_gain [N]`` or None, ``row_gain [G, K]`` or None, ``col_blocks``
+    the widths of a column_concat fusion's members, row ``b`` of
+    ``row_gain`` serving block ``b``) and return the cumulative ends of its
+    column blocks, each but the last a multiple of 4 columns."""
+    if codes.dtype != torch.int8 or codes.device != dev or \
+            not codes.is_contiguous() or codes.shape[0] != k:
+        raise ValueError(f"codes must be contiguous int8 [K={k}, N] on "
+                         f"{dev}, got {codes.dtype} {tuple(codes.shape)} on "
+                         f"{codes.device}")
+    n = codes.shape[1]
+    if col_gain is not None:
+        _build.check_operand("col_gain", col_gain, dev, (n,))
+    blocks = (n,)
+    if row_gain is not None:
+        if col_blocks is not None:
+            blocks = tuple(col_blocks)
+            if sum(blocks) != n or len(blocks) > SPLIT_MAX_BLOCKS or any(
+                    b % 4 for b in blocks[:-1]):
+                raise ValueError(
+                    f"col_blocks {blocks} must sum to N={n}, hold at most "
+                    f"{SPLIT_MAX_BLOCKS} blocks, and end each but the last "
+                    "on a multiple of 4 columns")
+        _build.check_operand("row_gain", row_gain, dev, (len(blocks), k))
+    ends, acc = [], 0
+    for b in blocks:
+        acc += b
+        ends.append(acc)
+    return tuple(ends)
+
+
 def analog_mvm_split_cuda(
     a_pos: torch.Tensor,                   # [M, K] codes of max(x, 0)
     a_neg: torch.Tensor,                   # [M, K] codes of max(-x, 0)
@@ -256,30 +302,7 @@ def analog_mvm_split_codes_cuda(
     column_concat fusion's members (row ``b`` of ``row_gain`` serves block
     ``b``); each block boundary is a multiple of 4 columns."""
     _on_card("analog_mvm_split_codes_cuda", a_pos)
-    dev = a_pos.device
-    k, n = codes.shape
-    if codes.dtype != torch.int8 or codes.device != dev or \
-            not codes.is_contiguous() or k != a_pos.shape[1]:
-        raise ValueError(f"codes must be contiguous int8 [K={a_pos.shape[1]}"
-                         f", N] on {dev}, got {codes.dtype} "
-                         f"{tuple(codes.shape)} on {codes.device}")
-    if col_gain is not None:
-        _build.check_operand("col_gain", col_gain, dev, (n,))
-    blocks = (n,)
-    if row_gain is not None:
-        if col_blocks is not None:
-            blocks = tuple(col_blocks)
-            if sum(blocks) != n or len(blocks) > SPLIT_MAX_BLOCKS or any(
-                    b % 4 for b in blocks[:-1]):
-                raise ValueError(
-                    f"col_blocks {blocks} must sum to N={n}, hold at most "
-                    f"{SPLIT_MAX_BLOCKS} blocks, and end each but the last "
-                    "on a multiple of 4 columns")
-        _build.check_operand("row_gain", row_gain, dev, (len(blocks), k))
-    ends, acc = [], 0
-    for b in blocks:
-        acc += b
-        ends.append(acc)
-    return _split_launch(0, a_pos, a_neg, codes, col_gain, row_gain,
-                         tuple(ends), gain, chunk_offset, chunk_rows,
-                         faithful, epilogue)
+    ends = code_operand_ends(codes, col_gain, row_gain, col_blocks,
+                             a_pos.shape[1], a_pos.device)
+    return _split_launch(0, a_pos, a_neg, codes, col_gain, row_gain, ends,
+                         gain, chunk_offset, chunk_rows, faithful, epilogue)

@@ -18,8 +18,10 @@ they run:
   right-shift requantization at the ADC), ``"relu"`` (in-kernel dequant
   + bias + ReLU, re-encoded by the next layer), both with the ``flatten``
   im2col merge, and the final ``"raw"`` (accumulated ADC codes out).
-  The packed weights (512 KiB for the ECG chain) exceed a block's 227 KB
-  of shared memory, so they are read from global memory (L2-resident).
+  Each layer's input block is encoded once into shared memory, and every
+  layer's real weight columns (134 KB for the ECG chain, of its 512 KiB
+  lane-padded ``w_cat``) are staged there with ``cp.async`` at the start,
+  a later layer's landing while the earlier ones compute.
 - ``csrc/analog_plan_block.cu`` (:func:`analog_plan_block_cuda`): one
   attention+MLP block (hand-offs ``attn``, ``res_ln``, ``swiglu``,
   ``res_out``) as ONE cooperative launch.  At phi4-mini width one row of
@@ -27,8 +29,12 @@ they run:
   batch-parallel design cannot carry over: every stage is spread over the
   whole grid, the stages are separated by grid-wide barriers, and the
   activations between them live in a global scratch (one region per
-  stage, L2-resident).  Each layer's ``w_eff`` is read in place through a
-  per-layer pointer (block plans hold no column-padded ``w_cat``).
+  stage, L2-resident).  The VMM stages run the split kernel's CTA work
+  item (``csrc/analog_split_tile.cuh``) on each layer's
+  :class:`~repro_torch.exec.plan.WeightStore` in place - its int8 codes
+  and gain tables, or ``w_eff`` for a store with a full gain map
+  (:func:`block_operand`) - with the chunks of each column tile cut over
+  the grid (:func:`block_plans`).
 
 The plain version of both is :func:`repro_torch.kernels.ref.analog_plan_ref`.
 """
@@ -37,12 +43,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.hw import BSS2
 from repro_torch.kernels import _build
+from repro_torch.kernels.analog_mvm import (SplitPlan, code_operand_ends,
+                                            split_plan, split_tile_rows)
 
 MAX_LAYERS = 8
 MAX_PER_BLOCK = 4
@@ -53,29 +61,37 @@ BLOCK_HANDOFFS = ("attn", "res_ln", "swiglu", "res_out")
 # the stage regions of the block kernel's scratch, in execution order:
 # (name, layer whose width sets the row length, "k" input or "n" output)
 BLOCK_STAGES = (
-    ("n1", 0, "k"),        # RMSNorm(ln1) of the residual stream
-    ("acc_qkv", 0, "n"),   # fused QKV: accumulated ADC codes
-    ("attn", 1, "k"),      # dequant + RoPE + causal attention
-    ("acc_o", 1, "n"),     # o: accumulated ADC codes
-    ("res2", 1, "n"),      # residual + dequantized o
-    ("n2", 2, "k"),        # RMSNorm(ln2) of res2
-    ("acc_ug", 2, "n"),    # fused up|gate: accumulated ADC codes
-    ("sw", 3, "k"),        # dequant + SwiGLU
-    ("acc_dn", 3, "n"),    # down: accumulated ADC codes
+    ("n1", 0, "k"),          # RMSNorm(ln1) of the residual stream
+    ("n1_pos", 0, "k_pad"),  # its 5-bit codes, and those of -n1: the
+    ("n1_neg", 0, "k_pad"),  # QKV VMM's code operands (chunk-padded)
+    ("acc_qkv", 0, "n"),     # fused QKV: accumulated ADC codes
+    ("attn", 1, "k"),        # dequant + RoPE + causal attention
+    ("attn_pos", 1, "k_pad"),
+    ("attn_neg", 1, "k_pad"),
+    ("acc_o", 1, "n"),       # o: accumulated ADC codes
+    ("res2", 1, "n"),        # residual + dequantized o
+    ("n2", 2, "k"),          # RMSNorm(ln2) of res2
+    ("n2_pos", 2, "k_pad"),
+    ("n2_neg", 2, "k_pad"),
+    ("acc_ug", 2, "n"),      # fused up|gate: accumulated ADC codes
+    ("sw", 3, "k"),          # dequant + SwiGLU
+    ("sw_pos", 3, "k_pad"),
+    ("sw_neg", 3, "k_pad"),
+    ("acc_dn", 3, "n"),      # down: accumulated ADC codes
 )
+# per-layer ints of the block kernel's schedule (csrc/analog_plan_block.cu)
+_BLOCK_FIELDS = 15
 _build.declare("analog_plan", (
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
 ))
+_P, _I = ctypes.c_void_p, ctypes.c_int
 _build.declare("analog_plan_block", (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    ctypes.c_float, ctypes.c_float, _P,
 ))
 
 
@@ -134,10 +150,11 @@ def needs_extras(schedule: Sequence[MegaLayerMeta]) -> bool:
 
 
 def default_per_block(batch: int, device: torch.device) -> int:
-    """Records per block: enough blocks to cover every SM first, then up
-    to :data:`MAX_PER_BLOCK` records each."""
+    """Records per block: as few as keep every block in one wave of one
+    block per SM, at most :data:`MAX_PER_BLOCK` (the kernel takes fewer
+    when its shared memory asks for it)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(MAX_PER_BLOCK, batch // sms))
+    return max(1, min(MAX_PER_BLOCK, -(-batch // sms)))
 
 
 def _check_extras(extras, dev, n_layers, n_max, *, block: bool):
@@ -217,15 +234,14 @@ def analog_plan_cuda(
     if needs_extras(schedule):
         deq, bias, enc, _ = _check_extras(extras, dev, n_layers, n_max,
                                           block=False)
+    if n_max % 4 or chunk_rows % 4 or any(
+            t is not None and t.data_ptr() % 16
+            for t in (w_cat, gain_all, off_cat, deq, bias)):
+        raise ValueError("the chain kernel reads 16-byte rows: n_max and "
+                         "chunk_rows must be multiples of 4, and w_cat, "
+                         "gain_all, off_cat, deq and bias 16-byte aligned")
     pb = default_per_block(batch, dev)
-    buf = max((pb * m.m_mult * m.k_pad for m in schedule[1:]), default=1)
-    if 2 * 4 * buf > _SMEM_LIMIT:
-        raise ValueError(f"{pb} records per block need {8 * buf} bytes of "
-                         f"shared memory, over the {_SMEM_LIMIT} a block has")
-    sched = (ctypes.c_int * (11 * n_layers))(*[
-        v for m, h in zip(schedule, hand)
-        for v in (m.row0, m.c0, m.k, m.k_pad, m.n, m.n_chunks, m.shift,
-                  m.flatten, m.m_mult, ENCODES[m.encode], h)])
+    sched = _chain_schedule(schedule, hand)
     out = torch.empty((batch * lastm.m_mult, lastm.n), dtype=torch.float32,
                       device=dev)
 
@@ -237,6 +253,39 @@ def analog_plan_cuda(
         int(faithful), pb,
     )
     return out
+
+
+def _chain_schedule(schedule, hand):
+    """The chain kernel's schedule: 11 C ints per layer."""
+    return (ctypes.c_int * (11 * len(schedule)))(*[
+        v for m, h in zip(schedule, hand)
+        for v in (m.row0, m.c0, m.k, m.k_pad, m.n, m.n_chunks, m.shift,
+                  m.flatten, m.m_mult, ENCODES[m.encode], h)])
+
+
+def chain_layout(schedule, batch: int, x_cols: int, n_max: int,
+                 device: torch.device, *,
+                 chunk_rows: int = BSS2.signed_rows
+                 ) -> Tuple[int, Tuple[bool, ...]]:
+    """The shared-memory layout :func:`analog_plan_cuda` launches with for
+    ``batch`` records: (records per block, whether each layer's weights
+    are staged in shared memory or read in place), from the kernel
+    library's own choice."""
+    last = len(schedule) - 1
+    hand = [CHAIN_HANDOFFS[layer_handoff(m, i == last)]
+            for i, m in enumerate(schedule)]
+    query = _build.function("analog_plan", "analog_plan_layout",
+                            (ctypes.c_void_p,) + (ctypes.c_int,) * 6
+                            + (ctypes.c_void_p,))
+    out = (ctypes.c_int * (1 + len(schedule)))()
+    rc = query(ctypes.cast(_chain_schedule(schedule, hand), ctypes.c_void_p),
+               len(schedule), chunk_rows, x_cols, n_max,
+               int(needs_extras(schedule)),
+               default_per_block(batch, device), ctypes.addressof(out))
+    if rc != 0:
+        raise ValueError(f"the chain kernel takes no layout for {schedule} "
+                         f"(CUDA error {rc})")
+    return out[0], tuple(bool(v) for v in out[1:])
 
 
 @functools.lru_cache(maxsize=16)
@@ -293,9 +342,71 @@ def _check_block(schedule, block: BlockMeta, x_in: torch.Tensor,
                          "has")
 
 
+class BlockOperand(NamedTuple):
+    """One block layer's weight operand for the split tile: ``form`` 0 is
+    a store's int8 ``codes`` with its gain tables (``block_ends`` the
+    cumulative ends of the column blocks that pick a row-gain vector),
+    form 1 an fp32 ``w_eff``."""
+
+    form: int
+    w: torch.Tensor
+    col_gain: Optional[torch.Tensor]
+    row_gain: Optional[torch.Tensor]
+    block_ends: Tuple[int, ...]
+
+
+def block_operand(weight, k_pad: int, n: int,
+                  dev: torch.device) -> BlockOperand:
+    """The operand a block layer's VMM stage reads, by the rule of
+    ``exec/run.py``'s split branch: a
+    :class:`~repro_torch.exec.plan.WeightStore` without a full gain map
+    gives its int8 codes and rank-1 gain tables, any other store its
+    ``w_eff``; a tensor is taken as the fp32 effective weights."""
+    if getattr(weight, "codes", None) is not None:
+        if weight.gain_map is None:
+            ends = code_operand_ends(weight.codes, weight.col_gain,
+                                     weight.row_gain, weight.col_blocks,
+                                     k_pad, dev)
+            if weight.codes.shape[1] != n:
+                raise ValueError(f"store of {weight.codes.shape[1]} columns "
+                                 f"for a layer of {n}")
+            return BlockOperand(0, weight.codes, weight.col_gain,
+                                weight.row_gain, ends)
+        weight = weight.w_eff
+    _build.check_operand("weights", weight, dev, (k_pad, n))
+    return BlockOperand(1, weight, None, None, (n,))
+
+
+@functools.lru_cache(maxsize=None)
+def _block_grid(index: int, mt: int, faithful: bool, forms: int, seq: int,
+                head_dim: int) -> int:
+    """The cooperative grid of one block-kernel geometry (SMs x resident
+    CTAs), from the kernel's own occupancy query."""
+    query = _build.function("analog_plan_block", "analog_plan_block_grid",
+                            (ctypes.c_int,) * 5 + (ctypes.c_void_p,))
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = query(mt, int(faithful), forms, seq, head_dim,
+                   ctypes.addressof(grid))
+    if rc != 0 or grid.value < 1:
+        raise RuntimeError(f"analog_plan_block grid query failed: CUDA error "
+                           f"{rc}, grid {grid.value}")
+    return grid.value
+
+
+def block_plans(rows: int, schedule, faithful: bool,
+                grid: int) -> Tuple[SplitPlan, ...]:
+    """How each VMM stage of a block cuts its work over a cooperative grid
+    of ``grid`` CTAs: :func:`split_plan`'s rule with the grid as the
+    resident slots (faithful mode cuts each column tile's chunks into
+    ranges, fast mode walks them all in one item)."""
+    return tuple(split_plan(rows, m.n, m.n_chunks, faithful, grid)
+                 for m in schedule)
+
+
 def analog_plan_block_cuda(
     x_in: torch.Tensor,                  # [B * seq, d_model] residual stream
-    weights: Sequence[torch.Tensor],     # 4 x [k_pad, n] effective weights
+    weights: Sequence,                   # 4 WeightStores or [k_pad, n] w_eff
     gain_all: torch.Tensor,              # [4, n_max]
     off_cat: torch.Tensor,               # [sum(n_chunks), n_max]
     *,
@@ -305,7 +416,10 @@ def analog_plan_block_cuda(
     chunk_rows: int = BSS2.signed_rows,
     faithful: bool = True,
 ):
-    """One transformer block in ONE cooperative launch.  Returns the block
+    """One transformer block in ONE cooperative launch.  Each layer's
+    weights are its :class:`~repro_torch.exec.plan.WeightStore` (the int8
+    codes and gain tables, or ``w_eff`` for a store with a full gain map:
+    :func:`block_operand`) or an fp32 ``w_eff`` tensor.  Returns the block
     output ``[B * seq, d_model]``, the stage regions of the scratch (a
     dict of ``[rows, width]`` views, :data:`BLOCK_STAGES`, for checking
     each stage on its own) and the grid size the launch used."""
@@ -318,9 +432,10 @@ def analog_plan_block_cuda(
     rows = x_in.shape[0]
     _build.check_operand("x_in", x_in, dev, tuple(x_in.shape))
     if len(weights) != 4:
-        raise ValueError(f"a block takes 4 weight tensors, got {len(weights)}")
-    for i, (w, m) in enumerate(zip(weights, schedule)):
-        _build.check_operand(f"weights[{i}]", w, dev, (m.k_pad, m.n))
+        raise ValueError(f"a block takes 4 weight operands, got "
+                         f"{len(weights)}")
+    operands = [block_operand(w, m.k_pad, m.n, dev)
+                for w, m in zip(weights, schedule)]
     _build.check_operand("gain_all", gain_all, dev, (4, n_max))
     _build.check_operand("off_cat", off_cat, dev,
                          (sum(m.n_chunks for m in schedule), n_max))
@@ -328,27 +443,48 @@ def analog_plan_block_cuda(
     if max(m.n for m in schedule) > n_max:
         raise ValueError(f"n_max {n_max} is narrower than a layer")
     rope = rope_table(block.seq, block.head_dim, float(block.rope_theta), dev)
+    mt = split_tile_rows(rows)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    forms = sum(1 << f for f in {op.form for op in operands})
+    grid = _block_grid(index, mt, bool(faithful), forms, block.seq,
+                       block.head_dim)
+    plans = block_plans(rows, schedule, faithful, grid)
+    # the stage regions back to back, each starting on a 16-byte boundary
+    # (the VMM stages stage the code regions with 16-byte cp.async)
     widths = [getattr(schedule[li], kind) for _, li, kind in BLOCK_STAGES]
-    scratch = torch.empty((rows * sum(widths),), dtype=torch.float32,
-                          device=dev)
-    stages = {name: t.view(rows, w) for (name, _, _), t, w in zip(
-        BLOCK_STAGES, torch.split(scratch, [rows * w for w in widths]),
-        widths)}
+    sizes = [-(-rows * w // 4) * 4 for w in widths]
+    scratch = torch.empty((sum(sizes),), dtype=torch.float32, device=dev)
+    stages = {name: t[:rows * w].view(rows, w) for (name, _, _), t, w in zip(
+        BLOCK_STAGES, torch.split(scratch, sizes), widths)}
+    work = torch.empty((max(p.n_splits * rows * m.n
+                            for p, m in zip(plans, schedule)),),
+                       dtype=torch.float32, device=dev)
     out = torch.empty((rows, schedule[0].k), dtype=torch.float32, device=dev)
-    wptrs = (ctypes.c_void_p * 4)(*[w.data_ptr() for w in weights])
-    sched = (ctypes.c_int * 24)(*[
-        v for m in schedule
-        for v in (m.c0, m.k, m.k_pad, m.n, m.n_chunks,
-                  int(m.encode == "split"))])
-    grid = ctypes.c_int(0)
+    wptrs = (ctypes.c_void_p * 12)(*[
+        _build.ptr(t) for op in operands
+        for t in (op.w, op.col_gain, op.row_gain)])
+    regions = (ctypes.c_void_p * len(BLOCK_STAGES))(*[
+        stages[name].data_ptr() for name, _, _ in BLOCK_STAGES])
+    sched = []
+    for m, op, p in zip(schedule, operands, plans):
+        ends = tuple(op.block_ends) + (m.n,) * (4 - len(op.block_ends))
+        vec = (all(t.data_ptr() % 16 == 0 for t in (op.w, op.row_gain)
+                   if t is not None)
+               and (m.n * op.w.element_size()) % 16 == 0)
+        sched += [m.c0, m.k, m.k_pad, m.n, m.n_chunks,
+                  int(m.encode == "split"), op.form, len(op.block_ends),
+                  *ends, p.chunks_per_cta, p.n_splits, int(vec)]
+    sched = (ctypes.c_int * (_BLOCK_FIELDS * 4))(*sched)
+    used = ctypes.c_int(0)
     _build.launch(
         "analog_plan_block", dev, x_in.data_ptr(),
         ctypes.cast(wptrs, ctypes.c_void_p), gain_all.data_ptr(),
         off_cat.data_ptr(), deq.data_ptr(), bias.data_ptr(), enc.data_ptr(),
-        ln.data_ptr(), rope.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        ln.data_ptr(), rope.data_ptr(), out.data_ptr(),
+        ctypes.cast(regions, ctypes.c_void_p), work.data_ptr(),
         ctypes.cast(sched, ctypes.c_void_p), rows, n_max, chunk_rows,
-        int(faithful), block.n_heads, block.n_kv_heads, block.head_dim,
+        int(faithful), mt, block.n_heads, block.n_kv_heads, block.head_dim,
         block.seq, block.d_ff, float(block.eps),
-        1.0 / math.sqrt(block.head_dim), ctypes.addressof(grid),
+        1.0 / math.sqrt(block.head_dim), ctypes.addressof(used),
     )
-    return out, stages, grid.value
+    return out, stages, used.value

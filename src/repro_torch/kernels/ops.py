@@ -146,7 +146,10 @@ def analog_plan_codes(
 ) -> torch.Tensor:
     """Whole-plan dispatch: ONE kernel launch for a packed layer chain
     (``weights`` is its ``w_cat``) or for one attention+MLP block
-    (``block`` set; ``weights`` is the per-layer ``w_eff`` tuple).
+    (``block`` set; ``weights`` holds the four layers'
+    :class:`~repro_torch.exec.plan.WeightStore` records, whose int8 codes
+    the kernel reads unless a store holds a full gain map, or their fp32
+    ``w_eff`` tensors).
     ``extras`` carries the packed float-glue rows ``(deq, bias, enc,
     ln)``.  Returns the final layer's raw accumulated ADC codes
     ``[B * m_last, n_last]``, or the block output."""
@@ -156,7 +159,7 @@ def analog_plan_codes(
             extras = tuple(_contiguous(t) for t in extras)
         if block is not None:
             return analog_plan_block_cuda(
-                args[0], tuple(w.contiguous() for w in weights), *args[1:],
+                args[0], tuple(weights), *args[1:],
                 schedule=schedule, block=block, extras=extras,
                 chunk_rows=chunk_rows, faithful=faithful)[0]
         return analog_plan_cuda(args[0], weights.contiguous(), *args[1:],

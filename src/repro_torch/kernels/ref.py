@@ -142,10 +142,13 @@ def adc_epilogue_ref(y_int: torch.Tensor, epilogue) -> torch.Tensor:
 
 def _layer_weights(weights, schedule):
     """Per-layer ``[k_pad, n]`` weights: slices of a packed ``w_cat`` (a
-    chain's pack) or the given per-layer tensors (a block's)."""
+    chain's pack), or a block's per-layer tensors or
+    :class:`~repro_torch.exec.plan.WeightStore` records (a store stands
+    for its ``w_eff``, which its int8 codes and gain tables rebuild bit for
+    bit: :func:`rebuild_w_eff_ref`)."""
     if isinstance(weights, torch.Tensor):
         return [weights[m.row0:m.row0 + m.k_pad, :m.n] for m in schedule]
-    return list(weights)
+    return [getattr(w, "w_eff", w) for w in weights]
 
 
 def _chunk_adc(a, w_l, gain, offs, n_chunks, chunk_rows, faithful):
@@ -309,14 +312,17 @@ def block_stages_ref(x_in, stages, weights, gain_all, off_cat, schedule,
                      faithful: bool = True) -> dict:
     """Every stage of the block kernel by the plain version, each fed the
     kernel's OWN input to that stage: ``stages`` is the dict of stage
-    regions :func:`repro_torch.kernels.analog_plan.analog_plan_block_stages`
+    regions :func:`repro_torch.kernels.analog_plan.analog_plan_block_cuda`
     returns.  Returns a dict of the same names plus ``"out"`` (the block
     output from the kernel's ``res2`` and ``acc_dn``), so that each stage
-    can be held against its plain version on its own."""
+    can be held against its plain version on its own; the code regions
+    (``*_pos``, ``*_neg``) are the encodes of the kernel's own float
+    regions."""
     from repro_torch.models.layers import norm_apply
 
     deq, bias, enc, ln = extras
     d = schedule[0].k
+    weights = _layer_weights(weights, schedule)
 
     def dq(acc, li):
         n = schedule[li].n
@@ -329,7 +335,22 @@ def block_stages_ref(x_in, stages, weights, gain_all, off_cat, schedule,
                               enc[li, 0], chunk_rows=chunk_rows,
                               faithful=faithful)
 
+    def codes(li, name):
+        # a VMM's code operands: the codes of its float input and of the
+        # negated input (zeros for an unsigned layer), chunk-padded
+        from repro_torch.core.quant import quantize_act
+
+        m = schedule[li]
+        h = stages[name][:, :m.k]
+        pad = (0, m.k_pad - m.k)
+        pos = torch.nn.functional.pad(quantize_act(h, enc[li, 0]), pad)
+        neg = (torch.nn.functional.pad(quantize_act(-h, enc[li, 0]), pad)
+               if m.encode == "split" else torch.zeros_like(pos))
+        return {f"{name}_pos": pos, f"{name}_neg": neg}
+
     want = {"n1": norm_apply({"scale": ln[0, :d]}, x_in, eps=block.eps)}
+    for li, name in enumerate(("n1", "attn", "n2", "sw")):
+        want.update(codes(li, name))
     want["acc_qkv"] = mvm(0, stages["n1"])
     want["attn"] = block_glue_ref("attn", dq(stages["acc_qkv"], 0), None,
                                   None, block)[0]

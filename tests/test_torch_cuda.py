@@ -11,11 +11,14 @@ for the smoke LM served on the card and on the CPU.  The split kernel with
 rank-1 float gains sums each chunk's products in another order (tensor
 cores) than the plain version: each element within 1 ADC LSB per chunk,
 at most 1 % of the elements differing (the reference's contract at ADC
-rounding ties); its two weight operands agree bit for bit.  The block kernel's
+rounding ties); its two weight operands agree bit for bit, in the split
+kernel and in the block kernel's VMM stages.  The block kernel's
 glue stages (RMSNorm, attention, SwiGLU) reduce and take transcendentals
 in another order than PyTorch: each is held within 1e-6 of its stage's
 max |value| when fed the kernel's own stage input.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -31,7 +34,8 @@ from repro_torch.kernels.analog_mvm import (  # noqa: E402
 from repro_torch.core.device import to_device  # noqa: E402
 from repro_torch.exec.lower import lower_block, lower_stack  # noqa: E402
 from repro_torch.kernels.analog_plan import (  # noqa: E402
-    BLOCK_STAGES, analog_plan_block_cuda, analog_plan_cuda)
+    BLOCK_STAGES, analog_plan_block_cuda, analog_plan_cuda, chain_layout,
+    default_per_block)
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.kernels.preproc import maxmin_pool_cuda  # noqa: E402
@@ -349,6 +353,95 @@ def test_analog_plan_float_chain(cuda, encode, faithful):
         assert torch.equal(got, want)
 
 
+# layer 0's encode -> (input domain, signed input of the float layers)
+CHAIN_ENCODES = {"codes": ("codes", "split"), "unsigned": ("float", "none"),
+                 "split": ("float", "split")}
+# inter-layer hand-off -> the epilogue of the first two layers
+CHAIN_HANDOFFS = {"codes": "relu_shift", "relu": "none"}
+
+
+def _chain(device, dims, encode, handoff, seed):
+    """A chain of fc layers ``dims`` (k, n) with integer w_eff, entered by
+    ``encode`` (CHAIN_ENCODES) and handing off by ``handoff``."""
+    entry, signed = CHAIN_ENCODES[encode]
+    g = torch.Generator().manual_seed(seed)
+    layers = [to_device(analog_linear_init(g, k, n, noise=INT_NOISE,
+                                           device="cpu"), device)
+              for k, n in dims]
+    acfg = AnalogConfig(act_calib="static", signed_input=signed,
+                        fused_epilogue=True)
+    epi = CHAIN_HANDOFFS[handoff]
+    mega = lower_stack(layers, acfg, input_domain=entry,
+                       epilogues=[epi] * (len(dims) - 1) + ["none"]).mega
+    assert mega.schedule[0].encode == encode
+    assert [m.handoff for m in mega.schedule] == \
+        [handoff] * (len(dims) - 1) + ["raw"]
+    return mega
+
+
+def _chain_input(mega, b, device):
+    gx = torch.Generator().manual_seed(b)
+    first = mega.schedule[0]
+    if first.encode == "codes":
+        x = torch.randint(0, 32, (b, first.k), generator=gx).float()
+        x = torch.nn.functional.pad(x, (0, first.k_pad - first.k))
+    else:
+        x = torch.randn((b, first.k), generator=gx)
+    return x.to(device)
+
+
+def _assert_chain_exact(mega, x, faithful):
+    args = (x, mega.w_cat, mega.gain, mega.off)
+    got = analog_plan_cuda(*args, schedule=mega.schedule, faithful=faithful,
+                           extras=mega.extras)
+    want = ref.analog_plan_ref(*args, mega.schedule, faithful=faithful,
+                               extras=mega.extras)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 2, 133, 500])
+@pytest.mark.parametrize("encode", list(CHAIN_ENCODES))
+@pytest.mark.parametrize("handoff", list(CHAIN_HANDOFFS))
+@pytest.mark.parametrize("faithful", [True, False])
+def test_analog_plan_chain_sweep(cuda, b, encode, handoff, faithful):
+    """The chain kernel bit-exact against its plain version at batch 1 (a
+    dot's chunks cut over threads in faithful mode), 2, 133 and 500 (two
+    to four records per block), every layer-0 encode, both hand-offs."""
+    mega = _chain(cuda, ((100, 70), (70, 300), (300, 9)), encode, handoff,
+                  seed=5)
+    _assert_chain_exact(mega, _chain_input(mega, b, cuda), faithful)
+
+
+@pytest.mark.parametrize("b", [1, 133])
+@pytest.mark.parametrize("encode", list(CHAIN_ENCODES))
+@pytest.mark.parametrize("handoff", list(CHAIN_HANDOFFS))
+@pytest.mark.parametrize("faithful", [True, False])
+def test_analog_plan_chain_unstaged(cuda, b, encode, handoff, faithful):
+    """Layers whose weights exceed a block's shared memory (fc 100 -> 1024
+    is 512 KiB, 1024 -> 256 is 1 MiB) are read in place, the small last
+    layer staged; bit-exact against the plain version."""
+    mega = _chain(cuda, ((100, 1024), (1024, 256), (256, 9)), encode,
+                  handoff, seed=7)
+    x = _chain_input(mega, b, cuda)
+    assert chain_layout(mega.schedule, b, x.shape[1], mega.w_cat.shape[1],
+                        cuda) == (1, (False, False, True))
+    _assert_chain_exact(mega, x, faithful)
+
+
+@pytest.mark.parametrize("faithful", [True, False])
+def test_analog_plan_chain_fewer_per_block(cuda, faithful):
+    """A split float chain whose weights (100 -> 384 -> 9, 221 KiB with its
+    tables) fit beside one record's activations but not beside two: at
+    B = 133 (two records per block by default) the kernel takes one record
+    per block and stages every layer; bit-exact."""
+    mega = _chain(cuda, ((100, 384), (384, 9)), "split", "relu", seed=7)
+    assert default_per_block(133, cuda) == 2
+    x = _chain_input(mega, 133, cuda)
+    assert chain_layout(mega.schedule, 133, x.shape[1], mega.w_cat.shape[1],
+                        cuda) == (1, (True, True))
+    _assert_chain_exact(mega, x, faithful)
+
+
 def test_ecg_float_chain_routes_agree(cuda):
     cfg = ECGConfig(noise=NoiseConfig(gain_std=0.0, mode="full"))
     params = ecg_init(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -366,20 +459,29 @@ def test_ecg_float_chain_routes_agree(cuda):
 
 
 # (d_model, heads, kv heads, head_dim, d_ff, batch, seq): GQA, ragged
-# widths, and M = 15, 48 and 84 rows (every row-tile height, two row tiles)
+# widths, and M = 15, 48 and 84 rows (every row-tile height, two row tiles);
+# the last has ragged N (o and down 68 columns, up|gate 200: no multiple of
+# 16, so the int8 operand is staged with plain loads) and a ragged K (d_ff
+# 100 of a 128-row chunk)
 BLOCK_GEOMS = [(96, 6, 2, 16, 192, 3, 5), (128, 4, 2, 32, 160, 4, 12),
-               (64, 2, 2, 32, 96, 7, 12)]
+               (64, 2, 2, 32, 96, 7, 12), (68, 4, 2, 16, 100, 2, 12)]
+def _with_gain_map(mega):
+    """The same pack with a full gain map of exactly 1 in every store
+    (integer w_eff still; the stores then give the fp32 w_eff operand)."""
+    return dataclasses.replace(mega, stores=tuple(
+        dataclasses.replace(s, gain_map=torch.ones_like(s.w_eff))
+        for s in mega.stores))
 
 
-def _block_plan(device, geom, faithful, seed=0):
+def _block_plan(device, geom, faithful, seed=0, noise=INT_NOISE):
     d, h, kvh, hd, dff, _, seq = geom
     g = torch.Generator().manual_seed(seed)
     params = {
         "ln1": {"scale": 1 + 0.1 * torch.randn((d,), generator=g)},
-        "attn": A.attention_init(g, d, h, kvh, hd, noise=INT_NOISE,
+        "attn": A.attention_init(g, d, h, kvh, hd, noise=noise,
                                  device="cpu"),
         "ln2": {"scale": 1 + 0.1 * torch.randn((d,), generator=g)},
-        "mlp": L.mlp_init(g, d, dff, noise=INT_NOISE, device="cpu"),
+        "mlp": L.mlp_init(g, d, dff, noise=noise, device="cpu"),
     }
     acfg = AnalogConfig(mode="analog_faithful" if faithful else "analog_fast",
                         act_calib="static")
@@ -394,31 +496,50 @@ def _rel(got, want):
 
 @pytest.mark.parametrize("geom", BLOCK_GEOMS)
 @pytest.mark.parametrize("faithful", [True, False])
-def test_analog_plan_block_stages(cuda, geom, faithful):
+@pytest.mark.parametrize("store", ["codes", "gain_map"])
+def test_analog_plan_block_stages(cuda, geom, faithful, store):
+    """Every stage of the block kernel against its plain version fed the
+    kernel's own stage input, through the stores (the int8 code operand
+    where a store has no gain map) and through the fp32 w_eff tensors:
+    VMM stages, code regions, res2 and the output bit-exact, glue within
+    GLUE_TOL; the two operands bit-identical."""
     mega = _block_plan(cuda, geom, faithful).mega
+    if store == "gain_map":
+        mega = _with_gain_map(mega)
     assert mega.w_cat is None
+    assert all((s.gain_map is None) == (store == "codes")
+               for s in mega.stores)
     d, batch, seq = geom[0], geom[5], geom[6]
     x = torch.randn((batch * seq, d), generator=torch.Generator(
     ).manual_seed(9)).to(cuda)
-    args = (x, mega.weights, mega.gain, mega.off)
-    out, stages, grid = analog_plan_block_cuda(
-        *args, schedule=mega.schedule, block=mega.block, extras=mega.extras,
-        faithful=faithful)
-    assert grid >= torch.cuda.get_device_properties(cuda).multi_processor_count
-    want = ref.block_stages_ref(x, stages, *args[1:], mega.schedule,
-                                mega.block, mega.extras, faithful=faithful)
+    outs = []
+    for weights in (mega.stores, mega.weights):
+        args = (x, weights, mega.gain, mega.off)
+        out, stages, grid = analog_plan_block_cuda(
+            *args, schedule=mega.schedule, block=mega.block,
+            extras=mega.extras, faithful=faithful)
+        assert grid >= torch.cuda.get_device_properties(
+            cuda).multi_processor_count
+        want = ref.block_stages_ref(x, stages, *args[1:], mega.schedule,
+                                    mega.block, mega.extras,
+                                    faithful=faithful)
+        for name, _, _ in BLOCK_STAGES:
+            if name.startswith("acc_") or name == "res2" or \
+                    name.endswith(("_pos", "_neg")):
+                assert torch.equal(stages[name], want[name]), name
+            else:
+                assert _rel(stages[name], want[name]) <= GLUE_TOL, name
+        assert torch.equal(out, want["out"])
+        outs.append((out, stages))
+    assert torch.equal(outs[0][0], outs[1][0])
     for name, _, _ in BLOCK_STAGES:
-        if name.startswith("acc_") or name == "res2":
-            assert torch.equal(stages[name], want[name]), name
-        else:
-            assert _rel(stages[name], want[name]) <= GLUE_TOL, name
-    assert torch.equal(out, want["out"])
+        assert torch.equal(outs[0][1][name], outs[1][1][name]), name
     ops.reset_launch_counts()
-    again = ops.analog_plan_codes(*args, schedule=mega.schedule,
-                                  faithful=faithful, extras=mega.extras,
-                                  block=mega.block)
+    again = ops.analog_plan_codes(x, mega.stores, mega.gain, mega.off,
+                                  schedule=mega.schedule, faithful=faithful,
+                                  extras=mega.extras, block=mega.block)
     assert ops.launch_counts()["analog_plan_block"] == 1
-    assert torch.equal(again, out)
+    assert torch.equal(again, outs[0][0])
 
 
 def test_lm_block_route_on_card(cuda):
