@@ -28,7 +28,8 @@ exits non-zero without printing a result):
    the analog VMM and the whole-plan chain (code chain, and the float
    chain's unsigned encodes and relu hand-offs) bit-exact with integer
    effective weights, and within the ADC contract (<= 1 LSB per chunk on
-   <= 1% of the elements) with the full gain map;
+   <= 1% of the elements) with the full gain map; the analog VMM also at
+   every column tile width of its launch plan and each staging branch;
 4. the ECG main paths: ``make_dataset`` records, ``preprocess`` on the
    card, ``ecg_init``, ``api.compile`` of the relu_shift chain, then of
    the float chain, each ``apply``-ed at batch 1 and 500 through
@@ -174,7 +175,8 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.kernels.analog_mvm import (  # noqa: E402
-    analog_mvm_cuda, analog_mvm_split_codes_cuda, analog_mvm_split_cuda)
+    MVM_SMEM_LIMIT, analog_mvm_cuda, analog_mvm_cuda_with_plan,
+    analog_mvm_split_codes_cuda, analog_mvm_split_cuda, mvm_geometry)
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.core.quant import quantize_act  # noqa: E402
@@ -282,8 +284,14 @@ def check_kernels(raw, model, int_model, codes, fmodel, int_fmodel):
                         what=f"{kind} B={b} {tuple(args[0].shape)}x"
                              f"{tuple(args[1].shape)} epi={epi} "
                              f"faithful={faithful}"))
+    # ragged shapes and each branch of the plan (mvm_plan): M = 1 with
+    # 4-column tiles and two chunks side by side (fc1 at B=1, 4-byte
+    # loads), 16-byte loads with > 48 KB of shared memory (conv at
+    # B=500), 2 and 3 chunks side by side, 3 chunks in series through 3
+    # staging buffers
     for (m, k, n) in ((1, 128, 1), (17, 256, 129), (100, 384, 700),
-                      (33, 128, 70)):
+                      (33, 128, 70), (1, 256, 123), (16000, 128, 8),
+                      (500, 256, 124), (64, 384, 256), (1000, 384, 200)):
         a = torch.randint(0, 32, (m, k), generator=g).float()
         w = torch.randint(-63, 64, (k, n), generator=g).float()
         wf = w * (1 + 0.02 * torch.randn((k, n), generator=g))
@@ -302,6 +310,8 @@ def check_kernels(raw, model, int_model, codes, fmodel, int_fmodel):
                         n_chunks=k // 128,
                         what=f"ragged {(m, k, n)} exact={exact} "
                              f"faithful={faithful} epi={epi}"))
+
+    results += check_mvm_tile_widths(g)
 
     for m_, exact in ((model, False), (int_model, True)):
         mega = m_.lower().mega
@@ -335,6 +345,51 @@ def check_kernels(raw, model, int_model, codes, fmodel, int_fmodel):
                     "analog_plan", got, want, exact=exact,
                     what=f"ECG float chain B={b} exact={exact} "
                          f"faithful={faithful}"))
+    return results
+
+
+def check_mvm_tile_widths(g):
+    """The analog_mvm kernel at every column tile width (4 to 128), cut by
+    plans the ECG shapes do not take: a ragged N (4-byte loads) with 2
+    chunks side by side, 7 chunks in 4 steps through 2 buffers refilled
+    in flight; N a multiple of 4 (16-byte loads) with 1 chunk per step
+    through 4 buffers.  Integer w_eff, dyadic gain and offsets (every
+    partial sum exact), bit-exact in both modes, with and without the
+    epilogue; and 32-row chunks."""
+    results = []
+    m, k = 19, 7 * 128
+    for tn in range(4, 129, 4):
+        for n, ways, stages in ((2 * tn - 1, 2, 2), (2 * tn, 1, 4)):
+            tm = max(1, min(7, 256 // (tn // 4 * ways)))
+            plan = mvm_geometry(m, n, tm, tn, ways, stages, 128)
+            while plan.smem > MVM_SMEM_LIMIT:
+                plan = mvm_geometry(m, n, tm, tn, ways, plan.stages - 1, 128)
+            args = [t.to(DEV) for t in (
+                torch.randint(0, 32, (m, k), generator=g).float(),
+                torch.randint(-63, 64, (k, n), generator=g).float(),
+                torch.full((n,), 1 / 64),
+                torch.randint(-16, 17, (k // 128, n), generator=g) / 8)]
+            for faithful in (True, False):
+                for epi in (None, ("relu_shift", 3)):
+                    got = analog_mvm_cuda_with_plan(
+                        *args, plan, faithful=faithful, epilogue=epi)
+                    want = ref.adc_epilogue_ref(
+                        ref.analog_mvm_ref(*args, faithful=faithful), epi)
+                    results.append(_compare(
+                        "analog_mvm", got, want, exact=True,
+                        what=f"plan {tuple(plan)} {(m, k, n)} "
+                             f"faithful={faithful} epi={epi}"))
+    # chunks of 32 rows: the instantiation that reads the length at run time
+    args = [t.to(DEV) for t in (
+        torch.randint(0, 32, (9, 128), generator=g).float(),
+        torch.randint(-63, 64, (128, 37), generator=g).float(),
+        torch.full((37,), 1 / 64),
+        torch.randint(-16, 17, (4, 37), generator=g) / 8)]
+    for faithful in (True, False):
+        got = analog_mvm_cuda(*args, chunk_rows=32, faithful=faithful)
+        want = ref.analog_mvm_ref(*args, chunk_rows=32, faithful=faithful)
+        results.append(_compare("analog_mvm", got, want, exact=True,
+                                what=f"chunk_rows=32 faithful={faithful}"))
     return results
 
 

@@ -5,6 +5,7 @@ two checkouts of the port, on one CUDA device, in one call:
     python3 scripts/ab_apply.py BEFORE_ROOT AFTER_ROOT [--rounds 2]
     python3 scripts/ab_apply.py BEFORE_ROOT AFTER_ROOT --lm [--rounds 2]
     python3 scripts/ab_apply.py BEFORE_ROOT AFTER_ROOT --chain [--rounds 2]
+    python3 scripts/ab_apply.py BEFORE_ROOT AFTER_ROOT --mvm [--rounds 2]
 
 Each root is a checkout of the repository (``BEFORE_ROOT/src/repro_torch``
 must exist).  The sides run in the order before, after, after, before per
@@ -13,9 +14,10 @@ its own root, builds its own kernels there, compiles the ECG relu_shift
 chain at the published width (``ECGConfig()``, seed 0, the records of
 ``make_dataset``) and times ``apply`` at batch 1 and 500 through both
 routes: ``--calls`` synchronized calls each, after a warm-up, on the host
-clock.  It also counts the device activities of one ``apply`` in a
-``torch.profiler`` trace and keeps a checksum of the logits, so the two
-sides can be seen to compute the same thing.
+clock.  It also reads the device time and the device activities per
+``apply`` from a ``torch.profiler`` trace of 20 calls (each activity's
+mean time times its count per call) and keeps a checksum of the logits,
+so the two sides can be seen to compute the same thing.
 
 With ``--lm`` each process instead builds phi4-mini-3.8b at its published
 width (random weights, seed 0), compiles a ``ServeEngine`` (batch 4,
@@ -34,11 +36,19 @@ code chain, stage a, and the static float chain, stage b; seed 0, the
 back per sample, 7 samples, on the host clock, synchronized at the end
 of each sample.
 
+With ``--mvm`` each process instead reads the device time per launch of
+the ``analog_mvm`` kernel (``analog_mvm_cuda``) at the six ECG layer
+shapes (conv, fc1, fc2 at batch 1 and 500) from a profiler trace of 50
+launches, on the relu_shift chain's own operands (its lowered weights,
+gains and offsets, and each layer's input codes), with the layer's
+epilogue; each shape's output is checksummed.
+
 Prints one JSON line per process, then a summary line (each side's
 median over its processes of the per-process median and quartiles, in µs
 per call), and writes all of it to ``chiprun_out/ab_apply.json`` (with
 ``--lm``: ``chiprun_out/ab_serve.json``; with ``--chain``:
-``chiprun_out/ab_chain.json``) under the current directory.
+``chiprun_out/ab_chain.json``; with ``--mvm``: ``chiprun_out/ab_mvm.json``)
+under the current directory.
 """
 from __future__ import annotations
 
@@ -56,6 +66,69 @@ BATCHES = (1, 500)
 def _quartiles(us):
     q = statistics.quantiles(us, n=4)
     return [q[0], q[1], q[2]]
+
+
+def device_per_call(fn, iters=20):
+    """(device µs, device activities) per call of ``fn`` from one
+    ``torch.profiler`` trace of ``iters`` calls, after one traced warm-up
+    call that is discarded: each activity's mean time times its count
+    per call (a trace may drop its last records)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    saved = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: saved.append(p.key_averages())
+                 ) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    us = acts = 0
+    for e in saved[0] if saved else []:
+        if getattr(e, "self_device_time_total", 0.0) <= 0:
+            continue
+        per = round(e.count / iters)
+        us += e.self_device_time_total / e.count * per
+        acts += per
+    return (us if acts else None), acts
+
+
+def one_side_mvm(model, raw) -> dict:
+    """Device µs per analog_mvm launch at the ECG layer shapes."""
+    import torch
+    from repro_torch.data.preprocess import preprocess
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.analog_mvm import analog_mvm_cuda
+    from repro_torch.models.ecg import _im2col
+
+    plan = model.lower()
+    out = {}
+    for b in BATCHES:
+        h = _im2col(preprocess(raw[:b]), 64, 2)
+        for name, lp in zip(("conv", "fc1", "fc2"), plan.layers):
+            a = torch.nn.functional.pad(h.reshape(-1, h.shape[-1]),
+                                        (0, lp.k_pad - h.shape[-1]))
+            args = (a.contiguous(), lp.w_eff.contiguous(),
+                    torch.broadcast_to(lp.gain, (lp.n,)).contiguous(),
+                    lp.chunk_offset.contiguous())
+            epi = ("relu_shift", lp.shift) \
+                if lp.epilogue == "relu_shift" else None
+            us, acts = device_per_call(
+                lambda: analog_mvm_cuda(*args, epilogue=epi), iters=50)
+            y = analog_mvm_cuda(*args, epilogue=epi)
+            out[f"B={b} {name} {tuple(args[0].shape)}x{lp.n}"] = {
+                "device_us": us, "device_activities": acts,
+                "logits_sum": float(y.double().sum())}
+            y = ref.adc_epilogue_ref(ref.analog_mvm_ref(*args), epi)
+            h = y.reshape(b, -1) if lp.flatten_out else y
+    return out
 
 
 def one_side_lm(root: pathlib.Path, calls: int) -> dict:
@@ -176,7 +249,7 @@ def one_side_chain(calls: int, model, fmodel, raw) -> dict:
 
 
 def one_side(root: pathlib.Path, calls: int, lm: bool = False,
-             chain: bool = False) -> dict:
+             chain: bool = False, mvm: bool = False) -> dict:
     """Time one checkout in this process (the ``--one`` mode)."""
     sys.path.insert(0, str(root / "src"))
     import torch
@@ -186,7 +259,6 @@ def one_side(root: pathlib.Path, calls: int, lm: bool = False,
     from repro_torch.data.ecg_synth import ECGDatasetConfig, make_dataset
     from repro_torch.data.preprocess import preprocess
     from repro_torch.models.ecg import ECGConfig, ecg_init, ecg_module_spec
-    from torch.profiler import ProfilerActivity, profile
 
     src = pathlib.Path(repro_torch.__file__).resolve()
     if not src.is_relative_to((root / "src").resolve()):
@@ -201,6 +273,8 @@ def one_side(root: pathlib.Path, calls: int, lm: bool = False,
                         ecg_init(torch.Generator().manual_seed(0), cfg),
                         AnalogConfig(fused_epilogue=True))
     out = {"root": str(root)}
+    if mvm:
+        return {**out, **one_side_mvm(model, raw)}
     if chain:
         fmodel = api.compile(ecg_module_spec(cfg, epilogue="none"),
                              ecg_init(torch.Generator().manual_seed(0), cfg),
@@ -219,14 +293,12 @@ def one_side(root: pathlib.Path, calls: int, lm: bool = False,
                 model.apply(x, megakernel=mk)
                 torch.cuda.synchronize()
                 us.append((time.perf_counter() - t0) * 1e6)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                model.apply(x, megakernel=mk)
-                torch.cuda.synchronize()
-            acts = sum(e.count for e in prof.key_averages()
-                       if getattr(e, "self_device_time_total", 0.0) > 0)
+            dev_us, acts = device_per_call(
+                lambda x=x, mk=mk: model.apply(x, megakernel=mk))
             route = "megakernel" if mk else "per_layer"
             out[f"B={b} {route}"] = {
                 "us_q1_median_q3": _quartiles(us),
+                "device_us": dev_us,
                 "device_activities": acts,
                 "logits_sum": float(y.double().sum()),
             }
@@ -240,14 +312,19 @@ def _summary(runs: list) -> dict:
         for key in mine[0]:
             if not isinstance(mine[0][key], dict):
                 continue
-            meds = [r[key]["us_q1_median_q3"] for r in mine]
-            summary[f"{side} {key}"] = {
+            meds = [r[key].get("us_q1_median_q3") for r in mine]
+            host = {} if None in meds else {
                 "median_of_medians_us":
                     statistics.median(m[1] for m in meds),
                 "median_of_q1_us": statistics.median(m[0] for m in meds),
-                "median_of_q3_us": statistics.median(m[2] for m in meds),
+                "median_of_q3_us": statistics.median(m[2] for m in meds)}
+            summary[f"{side} {key}"] = {
+                **host,
                 "device_activities": mine[0][key].get("device_activities"),
                 "device_us": [r[key].get("device_us") for r in mine],
+                "median_device_us": statistics.median(
+                    [d for r in mine if (d := r[key].get("device_us"))
+                     is not None] or [float("nan")]),
                 "logits_sums": sorted({r[key].get("logits_sum")
                                        for r in mine} - {None}),
             }
@@ -264,10 +341,13 @@ def main() -> None:
                     help="time phi4-mini serving steps, not the ECG apply")
     ap.add_argument("--chain", action="store_true",
                     help="time the ECG chain kernel's wrapper alone")
+    ap.add_argument("--mvm", action="store_true",
+                    help="device time per analog_mvm launch at the ECG "
+                         "shapes")
     args = ap.parse_args()
     if args.one is not None:
         print(json.dumps(one_side(args.one.resolve(), args.calls, args.lm,
-                                  args.chain)), flush=True)
+                                  args.chain, args.mvm)), flush=True)
         return
     if len(args.roots) != 2:
         ap.error("give two checkout roots: BEFORE_ROOT AFTER_ROOT")
@@ -283,7 +363,8 @@ def main() -> None:
                 [sys.executable, str(pathlib.Path(__file__).resolve()),
                  "--one", str(sides[side]), "--calls", str(args.calls)]
                 + (["--lm"] if args.lm else [])
-                + (["--chain"] if args.chain else []),
+                + (["--chain"] if args.chain else [])
+                + (["--mvm"] if args.mvm else []),
                 capture_output=True, text=True, timeout=600,
                 cwd=sides[side])
             if res.returncode != 0:
@@ -298,7 +379,7 @@ def main() -> None:
     out = pathlib.Path("chiprun_out")
     out.mkdir(exist_ok=True)
     name = ("ab_serve.json" if args.lm else "ab_chain.json" if args.chain
-            else "ab_apply.json")
+            else "ab_mvm.json" if args.mvm else "ab_apply.json")
     (out / name).write_text(
         json.dumps({"runs": runs, "summary": summary}, indent=1))
 

@@ -46,6 +46,8 @@ namespace {
 
 using namespace analog_split;
 
+constexpr int kMaxDevices = 64;
+
 // FORM 0: int8 codes + gain tables; FORM 1: fp32 w_eff.
 // MT: m16 tiles per CTA, each 8 activation rows x {pos, neg}.
 template <int FORM, int MT>
@@ -124,16 +126,20 @@ split_kernel(const Params p) {
       }
 }
 
+// The tile takes more than 48 KB of dynamic shared memory: allow it once
+// per device (the attribute is a property of the kernel on one device).
 template <int FORM, int MT>
 int configure() {
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        split_kernel<FORM, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes(FORM, MT, 0));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
+  static bool configured[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < kMaxDevices && configured[dev]) return 0;
+  e = cudaFuncSetAttribute(split_kernel<FORM, MT>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes(FORM, MT, 0));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev < kMaxDevices) configured[dev] = true;
   return 0;
 }
 

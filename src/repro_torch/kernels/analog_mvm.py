@@ -5,10 +5,12 @@ linear layer reduces to chunked saturating ``[M, K] x [K, N]`` matmuls.
 ``repro/kernels/analog_mvm.py::analog_mvm_pallas``: per 128-row chunk a
 dot, the analog gain and the fixed-pattern offset, an 8-bit ADC
 round/clip (faithful) and the digital accumulation, with the optional
-``relu_shift`` epilogue fused into the store.  The chunk loop runs inside
-each output-tile block (the TPU's sequential grid axis has no Hopper
-counterpart: blocks run in parallel and share nothing).  fp32 operands
-and accumulation; M and N are masked, not padded.  The plain version is
+``relu_shift`` epilogue fused into the store.  The launch geometry comes
+from the shapes (:func:`mvm_plan`): a column tile that fits N, rows per
+CTA and chunks computed side by side so that one wave of CTAs fills the
+card; each CTA stages its operands once with ``cp.async`` and sums the
+chunks' readouts in ascending chunk order.  fp32 operands and
+accumulation; M and N are masked, not padded.  The plain version is
 :func:`repro_torch.kernels.ref.analog_mvm_ref` (+ ``adc_epilogue_ref``).
 
 ``csrc/analog_mvm_split.cu`` replaces ``analog_mvm_split_pallas``: the
@@ -33,12 +35,8 @@ import torch
 from repro_torch.core.hw import BSS2
 from repro_torch.kernels import _build
 
-_build.declare("analog_mvm", (
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_int,
-))
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_build.declare("analog_mvm", (_P,) * 5 + (_I,) * 12)
 _build.declare("analog_mvm_split", (
     _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -61,6 +59,104 @@ def _chunk_offsets(chunk_offset, n_chunks, n, dev):
     return chunk_offset
 
 
+# the analog_mvm kernel's geometry (csrc/analog_mvm.cu)
+MVM_THREADS = 256       # per CTA: one per (row, 4 columns, chunk)
+MVM_MAX_TN = 128        # columns per CTA
+MVM_MAX_STAGES = 4      # staging buffers (steps in flight)
+MVM_SMEM_LIMIT = 227 * 1024
+
+
+class MvmPlan(NamedTuple):
+    """How one ``analog_mvm`` launch cuts its work: ``tm`` rows and ``tn``
+    columns (a multiple of 4) per CTA, ``row_groups`` x ``col_tiles``
+    CTAs; each step computes ``ways`` consecutive chunks side by side,
+    ``stages`` steps staged at once; ``smem`` bytes of dynamic shared
+    memory."""
+
+    tm: int
+    tn: int
+    ways: int
+    stages: int
+    row_groups: int
+    col_tiles: int
+    smem: int
+
+
+def mvm_smem_bytes(tm: int, tn: int, ways: int, stages: int,
+                   chunk_rows: int) -> int:
+    """The kernel's shared memory: the gain row, the per-chunk slots
+    (``ways > 1``) and ``stages`` buffers, each holding, per chunk of a
+    step, its offset row, the CTA's ``a`` rows (4 floats of padding per
+    row) and its weight rows."""
+    part = tn + tm * (chunk_rows + 4) + chunk_rows * tn
+    return 4 * (tn + (ways * tm * tn if ways > 1 else 0)
+                + stages * ways * part)
+
+
+def mvm_geometry(m: int, n: int, tm: int, tn: int, ways: int, stages: int,
+                 chunk_rows: int) -> MvmPlan:
+    """The plan of ``tm`` x ``tn`` tiles with ``ways`` chunks side by side
+    and ``stages`` buffers: its grid and shared memory."""
+    return MvmPlan(tm, tn, ways, stages, -(-m // tm), -(-n // tn),
+                   mvm_smem_bytes(tm, tn, ways, stages, chunk_rows))
+
+
+@functools.lru_cache(maxsize=4096)
+def mvm_plan(m: int, n: int, n_chunks: int, chunk_rows: int,
+             sms: int) -> MvmPlan:
+    """The launch geometry, fixed by the shapes and the card's SM count.
+
+    For each column tile ``tn`` (4, 8, ... up to N rounded to 4, at most
+    128) it takes the fewest rows per CTA that keep the CTAs within one
+    wave of ``sms`` and as many chunks side by side as the CTA's threads
+    allow (fewer buffers, then fewer chunks side by side, then fewer rows
+    where the shared memory does not hold them), and keeps the candidate
+    with the fewest waves, then the fewest steps (the chunks one thread
+    walks in series), then the fewest bytes staged per CTA, then the
+    fewest CTAs.  The mode does not enter: the slots are summed in chunk
+    order in both modes."""
+    best = key = None
+    chunks = max(1, n_chunks)
+    k = n_chunks * chunk_rows
+    for tn in range(4, min(MVM_MAX_TN, -(-n // 4) * 4) + 1, 4):
+        groups = tn // 4
+        col_tiles = -(-n // tn)
+        tm = min(MVM_THREADS // groups,
+                 -(-m // max(1, sms // col_tiles)))
+        ways = min(chunks, MVM_THREADS // (tm * groups))
+        while True:  # shrink stages, then ways, then tm until it fits
+            steps = -(-chunks // ways)
+            stages = min(steps, MVM_MAX_STAGES)
+            while stages > 1 and mvm_smem_bytes(
+                    tm, tn, ways, stages, chunk_rows) > MVM_SMEM_LIMIT:
+                stages -= 1
+            plan = mvm_geometry(m, n, tm, tn, ways, stages, chunk_rows)
+            if plan.smem <= MVM_SMEM_LIMIT:
+                break
+            if ways > 1:
+                ways //= 2
+            elif tm > 1:
+                tm //= 2
+                ways = min(chunks, MVM_THREADS // (tm * groups))
+            else:
+                break
+        if plan.smem > MVM_SMEM_LIMIT:
+            continue
+        ctas = plan.row_groups * col_tiles
+        cand = (-(-ctas // sms), steps, tm * k + k * tn, ctas)
+        if key is None or cand < key:
+            best, key = plan, cand
+    if best is None:
+        raise ValueError(f"chunk_rows={chunk_rows} is too long for one "
+                         "chunk of the analog_mvm kernel's shared memory")
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def analog_mvm_cuda(
     a_code: torch.Tensor,                  # [M, K]
     w_eff: torch.Tensor,                   # [K, N]
@@ -71,7 +167,20 @@ def analog_mvm_cuda(
     faithful: bool = True,
     epilogue=None,                         # None | ("relu_shift", shift)
 ) -> torch.Tensor:
-    """Launch the chunked saturating analog VMM on the CUDA device."""
+    """Launch the chunked saturating analog VMM on the CUDA device, cut
+    as :func:`mvm_plan` says."""
+    return analog_mvm_cuda_with_plan(a_code, w_eff, gain, chunk_offset,
+                                     None, chunk_rows=chunk_rows,
+                                     faithful=faithful, epilogue=epilogue)
+
+
+def analog_mvm_cuda_with_plan(a_code, w_eff, gain, chunk_offset,
+                              plan: Optional[MvmPlan], *,
+                              chunk_rows: int = BSS2.signed_rows,
+                              faithful: bool = True, epilogue=None):
+    """:func:`analog_mvm_cuda` cut by ``plan`` (None: :func:`mvm_plan`'s;
+    the card checks pass others, from :func:`mvm_geometry`, to reach
+    every tile width and staging branch)."""
     dev = a_code.device
     if dev.type != "cuda":
         raise ValueError(f"analog_mvm_cuda needs CUDA tensors, got {dev}")
@@ -88,9 +197,19 @@ def analog_mvm_cuda(
                            ("chunk_offset", chunk_offset, (n_chunks, n))):
         _build.check_operand(name, t, dev, shape)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0:
+        return out
+    if plan is None:
+        index = dev.index if dev.index is not None \
+            else torch.cuda.current_device()
+        plan = mvm_plan(m, n, n_chunks, chunk_rows, _sms(index))
+    vec_w = int(n % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                   for t in (w_eff, gain, chunk_offset)))
     _build.launch("analog_mvm", dev, a_code.data_ptr(), w_eff.data_ptr(),
                   gain.data_ptr(), chunk_offset.data_ptr(), out.data_ptr(),
-                  m, k, n, chunk_rows, int(faithful), shift)
+                  m, k, n, chunk_rows, int(faithful), shift, plan.tm,
+                  plan.tn, plan.ways, plan.stages,
+                  int(a_code.data_ptr() % 16 == 0), vec_w)
     return out
 
 

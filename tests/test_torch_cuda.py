@@ -30,7 +30,8 @@ from repro_torch.core.analog import AnalogConfig, analog_linear_init  # noqa: E4
 from repro_torch.core.noise import NoiseConfig  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.analog_mvm import (  # noqa: E402
-    analog_mvm_cuda, analog_mvm_split_codes_cuda, analog_mvm_split_cuda)
+    MVM_SMEM_LIMIT, analog_mvm_cuda, analog_mvm_cuda_with_plan,
+    analog_mvm_split_codes_cuda, analog_mvm_split_cuda, mvm_geometry)
 from repro_torch.core.device import to_device  # noqa: E402
 from repro_torch.exec.lower import lower_block, lower_stack  # noqa: E402
 from repro_torch.kernels.analog_plan import (  # noqa: E402
@@ -43,8 +44,15 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.ecg import ECGConfig, ecg_init, ecg_module_spec  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 
-# M and N are no multiple of a tile; K covers 1, 2 and 3 chunks
-MVM_SHAPES = [(1, 128, 1), (17, 256, 129), (33, 384, 70), (100, 128, 10)]
+# M and N are no multiple of a tile; K covers 1, 2 and 3 chunks.  The
+# plan (mvm_plan) takes: M = 1 with 4-column tiles (fc1 at batch 1: two
+# chunks side by side, 4-byte loads), the conv layer at batch 500 (16-byte
+# loads, > 48 KB of shared memory), 2 and 3 chunks side by side in one
+# CTA with 16-byte loads, and 3 chunks walked in series with 3 staging
+# buffers in flight (2 waves)
+MVM_SHAPES = [(1, 128, 1), (17, 256, 129), (33, 384, 70), (100, 128, 10),
+              (1, 256, 123), (16000, 128, 8), (500, 256, 124),
+              (64, 384, 256), (1000, 384, 200)]
 
 
 @pytest.fixture
@@ -99,6 +107,94 @@ def test_analog_mvm(cuda, m, k, n, faithful):
         want = ref.adc_epilogue_ref(ref.analog_mvm_ref(*t, faithful=faithful),
                                     epi)
         assert torch.equal(got, want)
+
+
+def _exact_mvm_inputs(m, k, n, device, seed):
+    """Integer w_eff with a dyadic gain and offsets: every partial sum is
+    exact in fp32, so any chunk count sums to the plain version's value
+    bit for bit (its sum over more than 4 chunks runs in another order)."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 32, (m, k)).astype(np.float32)
+    w = rng.integers(-63, 64, (k, n)).astype(np.float32)
+    gain = np.full((n,), 1 / 64, np.float32)
+    off = (rng.integers(-16, 17, (k // 128, n)) / 8).astype(np.float32)
+    return [torch.from_numpy(v).to(device) for v in (a, w, gain, off)]
+
+
+def _forced_plans(tn):
+    """(M, K, N, plan) cuts of the analog_mvm kernel beyond what the ECG
+    shapes take, at column tile ``tn``: N ragged (4-byte loads) and a
+    multiple of 4 (16-byte loads, two tiles); 2 chunks side by side with
+    7 chunks walked in 4 steps through 2 buffers refilled in flight
+    (slots and refills), and 1 chunk per step through 4 buffers."""
+    out = []
+    for n, ways, stages in ((2 * tn - 1, 2, 2), (2 * tn, 1, 4)):
+        tm = max(1, min(7, 256 // (tn // 4 * ways)))
+        plan = mvm_geometry(19, n, tm, tn, ways, stages, 128)
+        while plan.smem > MVM_SMEM_LIMIT:
+            plan = mvm_geometry(19, n, tm, tn, ways, plan.stages - 1, 128)
+        out.append((19, 7 * 128, n, plan))
+    return out
+
+
+def test_analog_mvm_every_tile_width(cuda):
+    """Every column tile width (4 to 128) and staging branch of the
+    kernel, bit-exact against the plain version in both modes, with and
+    without the epilogue."""
+    ops.reset_launch_counts()
+    launches = 0
+    for tn in range(4, 129, 4):
+        for m, k, n, plan in _forced_plans(tn):
+            t = _exact_mvm_inputs(m, k, n, cuda, tn + n)
+            for faithful in (True, False):
+                for epi in (None, ("relu_shift", 3)):
+                    got = analog_mvm_cuda_with_plan(
+                        *t, plan, faithful=faithful, epilogue=epi)
+                    want = ref.adc_epilogue_ref(
+                        ref.analog_mvm_ref(*t, faithful=faithful), epi)
+                    assert torch.equal(got, want), (tn, n, plan, faithful,
+                                                    epi)
+                    launches += 1
+    assert ops.launch_counts()["analog_mvm"] == launches
+
+
+@pytest.mark.parametrize("chunk_rows", [32, 256])
+@pytest.mark.parametrize("faithful", [True, False])
+def test_analog_mvm_other_chunk_rows(cuda, chunk_rows, faithful):
+    """Chunks of another length than the datapath's 128 rows (the kernel's
+    instantiation that reads the length at run time)."""
+    m, k, n = 9, 4 * chunk_rows, 37
+    rng = np.random.default_rng(chunk_rows)
+    a, w, gain, off = (torch.from_numpy(v).to(cuda) for v in (
+        rng.integers(0, 32, (m, k)).astype(np.float32),
+        rng.integers(-63, 64, (k, n)).astype(np.float32),
+        np.full((n,), 1 / 64, np.float32),
+        (rng.integers(-16, 17, (4, n)) / 8).astype(np.float32)))
+    for epi in (None, ("relu_shift", 3)):
+        got = analog_mvm_cuda(a, w, gain, off, chunk_rows=chunk_rows,
+                              faithful=faithful, epilogue=epi)
+        want = ref.adc_epilogue_ref(ref.analog_mvm_ref(
+            a, w, gain, off, chunk_rows=chunk_rows, faithful=faithful), epi)
+        assert torch.equal(got, want)
+
+
+def test_kernels_on_every_device(cuda):
+    """The split kernel and analog_mvm on each visible card, each against
+    its plain version: their > 48 KB shared-memory attribute is set once
+    per device, so a second card launches as the first does."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"needs two CUDA devices, found {count}")
+    for index in range(count):
+        dev = torch.device("cuda", index)
+        t = _mvm_inputs(16000, 128, 8, dev)  # > 48 KB of shared memory
+        got = analog_mvm_cuda(*t)
+        assert got.device == dev
+        assert torch.equal(got, ref.analog_mvm_ref(*t))
+        t = _split_inputs(48, 384, 200, dev)
+        got = analog_mvm_split_cuda(*t)
+        assert got.device == dev
+        assert torch.equal(got, ref.analog_mvm_split_ref(*t))
 
 
 # M on both sides of the split kernel's row tilings (8, 16, 24, 48 rows),
