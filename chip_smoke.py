@@ -28,7 +28,8 @@ exits non-zero without printing a result):
    the analog VMM and the whole-plan chain (code chain, and the float
    chain's unsigned encodes and relu hand-offs) bit-exact with integer
    effective weights, and within the ADC contract (<= 1 LSB per chunk on
-   <= 1% of the elements) with the full gain map; the analog VMM also at
+   <= 1% of the elements) with the full gain map, at the serving batches
+   (1, 500) and the training path's (64, 125, 300); the analog VMM also at
    every column tile width of its launch plan and each staging branch;
 4. the ECG main paths: ``make_dataset`` records, ``preprocess`` on the
    card, ``ecg_init``, ``api.compile`` of the relu_shift chain, then of
@@ -80,12 +81,30 @@ exits non-zero without printing a result):
    tensor-core peak) and its plain version, the fp32 operand beside its
    own bounds, the per-layer routes of the same block, prefill host and
    device time of the block and the per-layer route;
-13. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+13. ECG hardware-in-the-loop training: the fp32 matmul precision is
+   "highest" (no TF32 in a training product); one noisy train step at
+   batch 64 on the card against the same step on the CPU with the same
+   injected readout noise (drawn on the CPU), integer effective weights
+   (logits bit-exact) and the full gain map: logits, loss, every leaf's
+   gradient (elementwise atol = rtol = 1e-5; a layer's w_scale, gain and
+   a_scale within LAYER_SUM_TOL of their max |grad|), the global norm,
+   the parameters after AdamW and
+   the master clip; one deterministic step through the code chain (its
+   forward logits from one ``analog_plan`` launch, three ``analog_mvm``
+   launches in the backward's replay) against the CPU's; the per-epoch
+   eval's plan replay at the validation and test batches (125, 300),
+   both chains, against the CPU's;
+   then the accuracy loop at its ``--fast`` preset for both chains and
+   the digital baseline, each analog chain held to the JAX package's
+   accuracy at that preset minus 0.05; ms per train step (host, device,
+   activities, idle share) per chain;
+14. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 """
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import pathlib
 import statistics
@@ -98,6 +117,11 @@ import numpy as np
 ROOT = pathlib.Path(__file__).resolve().parent
 SEED = 0
 BATCHES = (1, 500)
+# the ECG batches of the training path (phase 13): the train step, and
+# the --fast preset's validation split (n_train // 8) and test set, which
+# every epoch's eval replays the plan on
+TRAIN_B = 64
+TRAIN_BATCHES = (TRAIN_B, 125, 300)
 # H100 SXM published peaks (NVIDIA data sheet) at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -135,6 +159,29 @@ GLUE_TOL = 1e-6
 # and the output within 5 % of its max |value|.
 BLOCK_CODE_SHARE = 0.01
 BLOCK_REL_TOL = 0.05
+# ECG training (phase 13).  Test accuracy floor per chain: the JAX
+# package's own result at the --fast preset (benchmarks.ecg_accuracy.run,
+# n_train=1000, n_test=300, epochs=20, lr=3e-3, seed 0, on a CPU: 0.96
+# float glue, 0.97 code domain, 0.99 digital) minus 0.05; the port draws
+# its own random numbers, so it is held to a margin, not bit for bit.
+MIN_ACCURACY = {"none": 0.91, "relu_shift": 0.92}
+# card vs CPU, one train step.  Every gradient leaf elementwise within
+# GRAD_ATOL + GRAD_RTOL * |CPU's| (the CPU tests' integer-w_eff
+# tolerance, tests/test_torch_train.py), but a layer's calibration
+# scalars and column scales (LAYER_SUMS: w_scale, gain, a_scale): their
+# gradient sums over a whole column or layer, terms that cancel, and the
+# card sums them in another order.  They are held to LAYER_SUM_TOL of
+# their max |grad|, set from the readings of the first card runs (worst:
+# w_scale 1.1e-5, gain 5.0e-5 of max |grad|; PERF.md 6).
+# The parameters after one AdamW step within PARAM_RTOL / PARAM_ATOL;
+# logits bit-exact on integer effective weights; on the full map at
+# least 1 - TIE_SHARE of the rows within LOGIT_RTOL of the largest
+# |logit|, and of the argmax equal
+GRAD_RTOL = GRAD_ATOL = 1e-5
+LAYER_SUMS = ("w_scale", "gain", "a_scale")
+LAYER_SUM_TOL = 2e-4
+LOGIT_RTOL = 1e-5
+PARAM_RTOL, PARAM_ATOL = 1e-6, 1e-7
 
 
 def emit(tag: str, payload) -> None:
@@ -188,7 +235,9 @@ from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.kernels.preproc import maxmin_pool_cuda  # noqa: E402
 from repro_torch.models.ecg import (  # noqa: E402
-    ECGConfig, _im2col, ecg_init, ecg_module_spec)
+    ECGConfig, _im2col, ecg_apply, ecg_apply_plan, ecg_init, ecg_module_spec)
+from repro_torch.train import ecg_accuracy as tacc  # noqa: E402
+from repro_torch.train import optimizer as O  # noqa: E402
 
 DEV = torch.device("cuda")
 MAX_ERR = {name: 0.0 for name in TPU_KERNELS}
@@ -269,20 +318,23 @@ def check_kernels(raw, model, int_model, codes, fmodel, int_fmodel):
                                 ref.maxmin_pool_ref(r), exact=True,
                                 what=f"ragged {shape}"))
 
+    # the serving batches and the training path's (a raw output: the
+    # float chain's eval and the chain backward's replay)
     for m_, exact in ((model, False), (int_model, True)):
         kind = "integer w_eff" if exact else "full gain map"
-        for b in BATCHES:
+        for b in BATCHES + TRAIN_BATCHES:
             for lp, args, epi in layer_inputs(m_, codes[:b]):
-                for faithful in (True, False):
+                for faithful, e in itertools.product(
+                        (True, False), dict.fromkeys((epi, None))):
                     got = analog_mvm_cuda(*args, faithful=faithful,
-                                          epilogue=epi)
+                                          epilogue=e)
                     want = ref.adc_epilogue_ref(
-                        ref.analog_mvm_ref(*args, faithful=faithful), epi)
+                        ref.analog_mvm_ref(*args, faithful=faithful), e)
                     results.append(_compare(
                         "analog_mvm", got, want, exact=exact,
                         n_chunks=lp.n_chunks,
                         what=f"{kind} B={b} {tuple(args[0].shape)}x"
-                             f"{tuple(args[1].shape)} epi={epi} "
+                             f"{tuple(args[1].shape)} epi={e} "
                              f"faithful={faithful}"))
     # ragged shapes and each branch of the plan (mvm_plan): M = 1 with
     # 4-column tiles and two chunks side by side (fc1 at B=1, 4-byte
@@ -315,7 +367,7 @@ def check_kernels(raw, model, int_model, codes, fmodel, int_fmodel):
 
     for m_, exact in ((model, False), (int_model, True)):
         mega = m_.lower().mega
-        for b in (1, 3, 133, 500):
+        for b in (1, 3, 133, 500) + TRAIN_BATCHES:
             cols = _im2col(codes[:b], 64, 2).reshape(-1, 128).contiguous()
             for faithful in (True, False):
                 args = (cols, mega.w_cat, mega.gain, mega.off)
@@ -332,7 +384,7 @@ def check_kernels(raw, model, int_model, codes, fmodel, int_fmodel):
     # hand-offs with the im2col flatten, raw out), float inputs
     for m_, exact in ((fmodel, False), (int_fmodel, True)):
         mega = m_.lower().mega
-        for b in (1, 3, 133, 500):
+        for b in (1, 3, 133, 500) + TRAIN_BATCHES:
             cols = _im2col(codes[:b], 64, 2).reshape(-1, 128).contiguous()
             for faithful in (True, False):
                 args = (cols, mega.w_cat, mega.gain, mega.off)
@@ -1382,6 +1434,294 @@ def time_block(cfg, tree, p_block, toks, x):
     return row
 
 
+# -------------------------------------------------------------- phase 13
+def _named(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {p: leaf for k, v in tree.items()
+                for p, leaf in _named(v, f"{prefix}{k}.").items()}
+    return {prefix[:-1]: tree}
+
+
+def _train_batch():
+    raw, y = make_dataset(ECGDatasetConfig(n_train=TRAIN_B), "train")
+    return preprocess(raw), torch.as_tensor(y, dtype=torch.int64,
+                                            device=DEV)
+
+
+def _step(params, x, y, acfg, epilogue, noise):
+    """loss, aux, grads, and the parameters after AdamW + master clip,
+    on the tensors' device."""
+    ocfg = O.AdamWConfig(lr=3e-3, warmup_steps=20, weight_decay=0.01,
+                         total_steps=260)
+    loss, aux, grads = tacc.loss_and_grads(params, x, y, acfg, ECGConfig(),
+                                           noise=noise, epilogue=epilogue)
+    with torch.no_grad():
+        new, _, om = O.adamw_update(params, grads,
+                                    O.adamw_init(params, ocfg), ocfg)
+        new = tacc._clip_masters(new)
+    return loss, aux, grads, new, om
+
+
+def _logits_vs_cpu(what, y, y_cpu, exact):
+    """Logits on the card against the CPU's: bit-exact on integer
+    effective weights.  On the full map an ADC tie may move a readout by
+    1 LSB, and the float glue may round differently: at least 1 -
+    TIE_SHARE of the rows within LOGIT_RTOL of the largest |logit| (the
+    rest moved by a readout), and of the argmax equal."""
+    y = y.detach().cpu()
+    if tuple(y.shape) != tuple(y_cpu.shape) or not bool(
+            torch.isfinite(y).all()):
+        raise AssertionError(f"{what}: logits {tuple(y.shape)} not finite "
+                             f"of the CPU's shape {tuple(y_cpu.shape)}")
+    d = (y - y_cpu).abs()
+    diff = float(d.max())
+    bad = []
+    if exact and diff != 0.0:
+        bad.append(f"{what}: logits not bit-exact, max |diff| {diff}")
+    lim = LOGIT_RTOL * float(y_cpu.abs().max())
+    same_rows = float((d <= lim).all(dim=-1).float().mean())
+    same_argmax = float((y.argmax(-1) == y_cpu.argmax(-1)).float().mean())
+    if same_rows < 1 - TIE_SHARE or same_argmax < 1 - TIE_SHARE:
+        bad.append(f"{what}: {same_rows:.4f} of the rows within {lim}, "
+                   f"{same_argmax:.4f} argmax agreement (max |diff| {diff})")
+    return {"logits_max_abs_diff": diff, "rows_within_rtol": same_rows,
+            "argmax_agreement": same_argmax}, bad
+
+
+def _card_vs_cpu(what, card, cpu):
+    """Hold one train step on the card against the same step on the CPU:
+    loss, every leaf's gradient, the global norm, the updated params.
+    Returns the report and the list of what is out of tolerance.
+    Reports, per leaf, max |diff| over its elementwise limit (``elem``)
+    and over its max |grad| (``of_max``)."""
+    loss, aux, grads, new, om = card
+    c_loss, c_aux, c_grads, c_new, c_om = cpu
+    bad = []
+    rel = abs(float(loss) - float(c_loss)) / max(abs(float(c_loss)), 1e-30)
+    if rel > 1e-5:
+        bad.append(f"loss {float(loss)} vs CPU {float(c_loss)}")
+    leaves = {}
+    c_named = _named(c_grads)
+    for path, g in _named(grads).items():
+        want, got = c_named[path], g.cpu()
+        d = (got - want).abs()
+        scale = float(want.abs().max())
+        elem = float((d / (GRAD_ATOL + GRAD_RTOL * want.abs())).max())
+        of_max = float(d.max()) / max(scale, 1e-30)
+        leaves[path] = {"elem": elem, "of_max": of_max}
+        if path.split(".", 1)[1] in LAYER_SUMS:
+            if of_max > LAYER_SUM_TOL:
+                bad.append(f"gradient {path}: max |diff| {float(d.max())} > "
+                           f"{LAYER_SUM_TOL} x max |grad| {scale}")
+        elif elem > 1.0:
+            bad.append(f"gradient {path}: max |diff| {float(d.max())} "
+                       f"beyond atol {GRAD_ATOL} + rtol {GRAD_RTOL} (max "
+                       f"|diff| / limit {elem})")
+    gn, c_gn = float(om["grad_norm"]), float(c_om["grad_norm"])
+    if abs(gn - c_gn) > 1e-5 * c_gn:
+        bad.append(f"global norm {gn} vs CPU {c_gn}")
+    c_new = _named(c_new)
+    for path, p in _named(new).items():
+        got, want = p.cpu(), c_new[path]
+        off = (got - want).abs() > PARAM_ATOL + PARAM_RTOL * want.abs()
+        if bool(off.any()):
+            bad.append(f"updated {path}: {int(off.sum())} of {off.numel()} "
+                       f"elements off, max |diff| "
+                       f"{float((got - want).abs().max())}")
+    return {"what": what, "loss": float(loss), "loss_rel_diff": rel,
+            "global_norm": gn, "grad_leaves": leaves,
+            "acc_equal": float(aux["acc"]) == float(c_aux["acc"])}, [
+                f"{what}: {b}" for b in bad]
+
+
+def _counted(fn):
+    """``fn()`` and the launch counts of that call alone."""
+    ops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, ops.launch_counts()
+
+
+def _launches(**nonzero):
+    return {name: nonzero.get(name, 0) for name in TPU_KERNELS}
+
+
+def check_eval_shapes(p_card, p_cpu, kind, bad):
+    """The per-epoch eval at the --fast preset's shapes (validation 125,
+    test 300 records): lowered once under no_grad, the plan replayed, on
+    the card (the code chain through one ``analog_plan`` launch, the
+    float chain through three ``analog_mvm``) against the CPU's."""
+    raw, _ = make_dataset(ECGDatasetConfig(n_test=TRAIN_BATCHES[-1]), "test")
+    x = preprocess(raw)
+    x_cpu = x.cpu()
+    rows = []
+    for epilogue in ("none", "relu_shift"):
+        spec = ecg_module_spec(ECGConfig(), epilogue=epilogue)
+        acfg = AnalogConfig(mode="analog_faithful", deterministic=True)
+        with torch.no_grad():
+            plan = api.compile(spec, p_card, acfg, device=DEV).lower()
+            c_plan = api.compile(spec, p_cpu, acfg, device="cpu").lower()
+            for b in TRAIN_BATCHES[1:]:
+                what = f"eval B={b}, {kind} w_eff, epilogue {epilogue}"
+                y, counts = _counted(
+                    lambda: ecg_apply_plan(plan, x[:b], ECGConfig()))
+                want = (_launches(analog_mvm=3) if epilogue == "none"
+                        else _launches(analog_plan=1))
+                if counts != want:
+                    raise AssertionError(f"{what}: launch counts {counts} "
+                                         f"!= {want}")
+                row, b_ = _logits_vs_cpu(what, y, ecg_apply_plan(
+                    c_plan, x_cpu[:b], ECGConfig()), kind == "int")
+                rows.append({"what": what, **row})
+                bad += b_
+    return rows
+
+
+def check_train_steps():
+    """Phase 13, steps: the noisy step and the deterministic code-chain
+    step, card against CPU (the latter's forward logits too, and the
+    launch counts of its forward and of the whole step); the per-epoch
+    eval at its shapes, card against CPU.  Every case runs; then, if any
+    is out of tolerance, the readings are printed and the phase fails
+    listing each."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("fp32 matmul precision is "
+                             f"{torch.get_float32_matmul_precision()!r}: "
+                             "TF32 would enter the training products")
+    x, y = _train_batch()
+    x_cpu, y_cpu = x.cpu(), y.cpu()
+    out, bad = [], []
+    cases = (("int", ECGConfig(noise=NoiseConfig(gain_std=0.0,
+                                                  mode="full"))),
+             ("full", ECGConfig()))
+    for kind, cfg in cases:
+        exact = kind == "int"
+        p_cpu = ecg_init(torch.Generator().manual_seed(SEED + 2), cfg,
+                         device="cpu")
+        p_card = O.tree_map(lambda t: t.to(DEV), p_cpu)
+        g = torch.Generator().manual_seed(SEED + 3)
+        draws = [0.7 * torch.randn(s, generator=g) for s in (
+            (TRAIN_B, 32, 1, 8), (TRAIN_B, 2, 123), (TRAIN_B, 1, 10))]
+        noisy = AnalogConfig(deterministic=False, noise=cfg.noise)
+        for epilogue in ("none", "relu_shift"):
+            what = f"noisy step, {kind} w_eff, epilogue {epilogue}"
+            with torch.no_grad():
+                logits = ecg_apply(p_card, x, noisy, train=True,
+                                   noise=[d.to(DEV) for d in draws],
+                                   epilogue=epilogue)
+                c_logits = ecg_apply(p_cpu, x_cpu, noisy, train=True,
+                                     noise=draws, epilogue=epilogue)
+            fwd, b_fwd = _logits_vs_cpu(what, logits, c_logits, exact)
+            card = _step(p_card, x, y, noisy, epilogue,
+                         [d.to(DEV) for d in draws])
+            row, b_step = _card_vs_cpu(what, card, _step(
+                p_cpu, x_cpu, y_cpu, noisy, epilogue, draws))
+            out.append({**row, **fwd})
+            bad += b_fwd + b_step
+        det = AnalogConfig(fused_epilogue=True, noise=cfg.noise)
+        what = f"deterministic code-chain step, {kind} w_eff"
+        # the step's own forward: leaves that require grad, so the
+        # differentiable chain (one analog_plan launch) computes it
+        leaves = O.tree_map(lambda t: t.detach().requires_grad_(True),
+                            p_card)
+        logits, counts = _counted(lambda: ecg_apply(
+            leaves, x, det, train=True, epilogue="relu_shift"))
+        if counts != _launches(analog_plan=1):
+            raise AssertionError(f"{what}: forward launch counts {counts} "
+                                 "!= one analog_plan")
+        with torch.no_grad():
+            c_logits = ecg_apply(p_cpu, x_cpu, det, train=True,
+                                 epilogue="relu_shift")
+        fwd, b_fwd = _logits_vs_cpu(what, logits, c_logits, exact)
+        card, counts = _counted(
+            lambda: _step(p_card, x, y, det, "relu_shift", None))
+        if counts != _launches(analog_plan=1, analog_mvm=3):
+            raise AssertionError(f"{what}: launch counts {counts} (one "
+                                 "analog_plan forward, three analog_mvm in "
+                                 "the backward's replay)")
+        row, b_step = _card_vs_cpu(what, card, _step(
+            p_cpu, x_cpu, y_cpu, det, "relu_shift", None))
+        out.append({**row, **fwd, "launches": counts})
+        bad += b_fwd + b_step
+        out += check_eval_shapes(p_card, p_cpu, kind, bad)
+    if bad:
+        emit("train_step_checks", out)
+        raise AssertionError("; ".join(bad))
+    return out
+
+
+def _step_timing(result, acfg, epilogue):
+    """Host ms per train step at batch 64 (median of 20, synchronized),
+    and the device ms and activities per step from a profiler trace."""
+    x, y = _train_batch()
+    params = result["params"]
+    ocfg = O.AdamWConfig(lr=3e-3, warmup_steps=20, weight_decay=0.01,
+                         total_steps=260)
+    opt = O.adamw_init(params, ocfg)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+
+    def step():
+        return tacc.train_step(params, opt, x, y, acfg=acfg,
+                               mcfg=ECGConfig(), ocfg=ocfg, noise=gen,
+                               epilogue=epilogue)
+
+    step()
+    host = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host.append(time.perf_counter() - t0)
+    dev_ms, n_act = device_trace(step, iters=10)
+    host_ms = statistics.median(host) * 1e3
+    return {"host_ms_per_step": host_ms,
+            "host_ms_quartiles": [q * 1e3 for q in
+                                  statistics.quantiles(host, n=4)[::2]],
+            "device_ms_per_step": dev_ms,
+            "device_activities_per_step": n_act,
+            "device_idle_share": None if dev_ms is None
+            else 1 - dev_ms / host_ms}
+
+
+def train_main_path():
+    """Phase 13, the loop: ``ecg_accuracy.run`` at the --fast preset for
+    both analog chains and the digital baseline, on the card, with the
+    launch counts of that run alone."""
+    ops.reset_launch_counts()
+    results = {}
+    for mode, epilogue in (("analog_faithful", "none"),
+                           ("analog_faithful", "relu_shift"),
+                           ("digital", "none")):
+        r = tacc.run(mode=mode, epilogue=epilogue, verbose=False, seed=SEED,
+                     **tacc.FAST)
+        results[(mode, epilogue)] = r
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name in ("maxmin_pool", "analog_mvm", "analog_plan"):
+        if counts[name] == 0:
+            raise AssertionError(f"the training loop launched no {name}")
+    report = {"launches": counts}
+    for (mode, epilogue), r in results.items():
+        label = "digital" if mode == "digital" else epilogue
+        row = {k: r[k] for k in ("detection_rate", "false_positive_rate",
+                                 "accuracy", "epochs_run", "steps",
+                                 "train_s")}
+        acfg = (AnalogConfig(mode="digital") if mode == "digital"
+                else AnalogConfig(deterministic=False))
+        row.update(_step_timing(r, acfg, epilogue))
+        report[label] = row
+        emit("train_chain", {label: row})
+    for epilogue, floor in MIN_ACCURACY.items():
+        acc = results[("analog_faithful", epilogue)]["accuracy"]
+        if acc < floor:
+            raise AssertionError(
+                f"epilogue {epilogue!r}: test accuracy {acc:.4f} below "
+                f"{floor} (the JAX package's --fast result minus 0.05)")
+    report["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return report
+
+
 def main() -> None:
     print(card_line(), flush=True)
 
@@ -1476,6 +1816,16 @@ def main() -> None:
         "whole_block": whole,
     })
     block_row = time_block(cfg, tree, p_block, toks, x)
+    del tree, p_block, params, x
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit("train_step_checks", check_train_steps())
+    torch.cuda.reset_peak_memory_stats()
+    treport = train_main_path()
+    emit("train_main_path", treport)
+    for name, n in treport["launches"].items():
+        counts[name] += n
     emit("profiler_traces", TRACES)
 
     kernels = []

@@ -15,9 +15,12 @@
   attention+MLP transformer block into a 4-layer plan that replays as ONE
   kernel launch (:func:`~repro_torch.exec.lower.lower_block`).
 
+- digital mode of a stack lowers nothing: ``apply`` runs the float
+  reference chain (``x @ w (+ b)``, ReLU between layers), the software
+  baseline of the ECG accuracy loop.
+
 Everything is lowered once, on the target device.  Not ported yet: the
-static verify step, measured calibration (``calibration=``), and digital
-mode for stacks.
+static verify step and measured calibration (``calibration=``).
 """
 from __future__ import annotations
 
@@ -318,9 +321,7 @@ def compile(spec: ModuleSpec, params, run_cfg, *,  # noqa: A001
             )
         lowered = _compile_block(spec, params, acfg)
     elif acfg.mode == "digital":
-        raise NotImplementedError(
-            f"spec {spec.name!r}: digital mode of a stack is not ported yet"
-        )
+        lowered = None
     else:
         assert spec.kind == STACK, spec.kind
         lowered = lower_stack(

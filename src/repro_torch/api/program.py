@@ -52,32 +52,54 @@ class CompiledModel:
     spec: Any                      # ModuleSpec
     params: Any                    # the float master parameters
     run_cfg: Any                   # RunConfig or AnalogConfig
-    lowered: Any                   # AnalogPlan (stack) | lowered tree
+    lowered: Any                   # AnalogPlan | lowered tree | None (digital)
     device: torch.device
+
+    @property
+    def acfg(self) -> AnalogConfig:
+        return getattr(self.run_cfg, "analog", self.run_cfg)
 
     def apply(self, *args, **kw):
         """Run the compiled program: the spec's host program
         (``spec.apply_fn(model, *args, **kw)``) when it declares one, else
-        the layer chain (``(x, *, megakernel="auto")``); a block spec
-        takes ``x [batch, seq, d_model]`` and replays the whole block -
-        one launch on the megakernel route, 4 dispatches per layer with
-        ``megakernel=False``."""
+        the layer chain (``(x, *, noise=None, megakernel="auto")``); a
+        block spec takes ``x [batch, seq, d_model]`` and replays the whole
+        block - one launch on the megakernel route, 4 dispatches per layer
+        with ``megakernel=False``."""
         if self.spec.apply_fn is not None:
             return self.spec.apply_fn(self, *args, **kw)
         if self.spec.kind not in ("stack", "block"):
             raise ValueError(f"spec {self.spec.name!r} declares no apply_fn")
         return self.run_stack(*args, **kw)
 
-    def run_stack(self, x: torch.Tensor, *, megakernel="auto"
+    def run_stack(self, x: torch.Tensor, *, noise=None, megakernel="auto"
                   ) -> torch.Tensor:
         """Replay the layer chain or block (megakernel-routed when
-        eligible)."""
-        return run_plan(self.lowered, x, megakernel=megakernel)
+        eligible; ``noise`` as in :func:`repro_torch.exec.run.run`), or in
+        digital mode run the float reference chain: ``x @ w (+ b)`` per
+        layer, ReLU between layers, the same flatten."""
+        if self.lowered is not None:
+            return run_plan(self.lowered, x, noise=noise,
+                            megakernel=megakernel)
+        if megakernel is True:
+            raise ValueError(
+                "megakernel=True, but: digital mode compiles no analog "
+                "plan to megakernel")
+        h = x
+        n = len(self.spec.layers)
+        for i, layer in enumerate(self.spec.layers):
+            p = self.params.get(layer.name, self.params)
+            h = apply_linear(p, h, self.acfg)
+            if i < n - 1:
+                h = torch.relu(h)
+            if layer.flatten_out:
+                h = h.reshape(h.shape[:-2] + (-1,))
+        return h
 
     def lower(self):
-        """The compiled artifact: the stack's AnalogPlan, or the
-        pre-lowered params tree (tree kind; the raw params in digital
-        mode)."""
+        """The compiled artifact: the stack's AnalogPlan (None in digital
+        mode), or the pre-lowered params tree (tree kind; the raw params
+        in digital mode)."""
         return self.lowered
 
     def group_plan(self, name: str) -> Optional[Any]:

@@ -14,7 +14,11 @@ Faithful dataflow (paper Fig. 4 + §II-A + hxtorch row-split semantics):
 
 ``analog_faithful`` runs exactly the above; ``analog_fast`` accumulates
 all chunks in fp32 and applies one saturating conversion at the end
-(range scaled by the number of chunks).
+(range scaled by the number of chunks).  In hardware-in-the-loop
+training (paper §III-B) ``v_c`` also carries temporal readout noise, and
+every round and clip passes a straight-through gradient: the forward
+runs the noisy, saturating model, the backward its linearization onto
+the float master weights.
 """
 from __future__ import annotations
 
@@ -89,14 +93,26 @@ def analog_matmul(
     gain: torch.Tensor,
     chunk_offset,
     cfg: AnalogConfig,
+    *,
+    noise=None,
 ) -> torch.Tensor:
-    """Chunked saturating analog VMM (deterministic readout).  Returns
-    integer-valued float [..., N] (the digitally accumulated ADC codes).
+    """Chunked saturating analog VMM.  Returns integer-valued float
+    [..., N] (the digitally accumulated ADC codes).
 
     a_code: [..., K] integer-valued float in [0, 31]
     w_eff:  [K, N] effective analog weights (quantized codes x fp gain)
     gain:   scalar or [N] analog gain (code domain)
     chunk_offset: [C, N] fixed-pattern ADC offsets or None
+    noise:  temporal readout noise: None (deterministic readout), a
+            ``torch.Generator`` on ``a_code``'s device to draw it from,
+            or an injected draw (:func:`repro_torch.core.noise.readout_noise`)
+            of shape ``[..., C, N]`` (faithful) or ``[..., N]`` (fast).
+
+    Routes (the reference's): the kernels when ``cfg.use_kernels`` and
+    the readout is deterministic or noiseless; else fast mode's one
+    matmul, or faithful mode's chunk scan (:class:`_FaithfulMM`,
+    deterministic) or per-chunk noisy readout.  Every route carries the
+    hardware-in-the-loop gradient (paper §III-B).
     """
     check_route(cfg, a_code)
     a_code, w_eff, n_chunks = _pad_to_chunks(a_code, w_eff, cfg.chunk_rows)
@@ -104,7 +120,7 @@ def analog_matmul(
     batch_shape = a_code.shape[:-1]
     gain = torch.as_tensor(gain, dtype=torch.float32, device=w_eff.device)
 
-    if cfg.use_kernels:
+    if cfg.use_kernels and (cfg.deterministic or noise is None):
         from repro_torch.kernels import ops as kernel_ops
 
         y2 = kernel_ops.analog_mvm(
@@ -114,28 +130,68 @@ def analog_matmul(
         )
         return y2.reshape(batch_shape + (n,))
 
+    dev = a_code.device
     if cfg.mode == "analog_fast":
         # one matmul over all chunks, a single final saturation with the
         # accumulated range (C * [-128, 127])
         v = torch.matmul(a_code, w_eff) * gain
         if chunk_offset is not None:
             v = v + chunk_offset.sum(dim=0)
+        rn = noise_lib.readout_noise(noise, batch_shape + (n,), cfg.noise,
+                                     device=dev)
+        if rn is not None:
+            v = v + rn * math.sqrt(float(n_chunks))
         lo = float(BSS2.adc_min) * n_chunks
         hi = float(BSS2.adc_max) * n_chunks
-        return torch.clamp(torch.round(v), lo, hi)
+        return quant._clip_ste(quant._round_ste(v), lo, hi)
 
-    # faithful: per-chunk ADC before the digital accumulation, chunk by
-    # chunk with an O([..., N]) live set (the reference's chunk scan)
+    rn = noise_lib.readout_noise(noise, batch_shape + (n_chunks, n),
+                                 cfg.noise, device=dev)
+    if rn is None:
+        return _FaithfulMM.apply(a_code, w_eff, gain, chunk_offset,
+                                 cfg.chunk_rows)
+    # noisy faithful readout: every chunk's partial sum digitized on its
+    # own, with its own noise draw, before the digital sum
     cr = cfg.chunk_rows
-    acc = torch.zeros(batch_shape + (n,), dtype=torch.float32,
-                      device=a_code.device)
-    for c in range(n_chunks):
-        v = torch.matmul(a_code[..., c * cr:(c + 1) * cr],
-                         w_eff[c * cr:(c + 1) * cr]) * gain
-        if chunk_offset is not None:
-            v = v + chunk_offset[c]
-        acc = acc + quant.adc_readout(v)
-    return acc
+    a_c = a_code.reshape(-1, n_chunks, cr).transpose(0, 1)     # [C, M, cr]
+    v = torch.matmul(a_c, w_eff.reshape(n_chunks, cr, n))      # [C, M, N]
+    v = v.transpose(0, 1).reshape(batch_shape + (n_chunks, n)) * gain
+    if chunk_offset is not None:
+        v = v + chunk_offset
+    adc = quant.adc_readout(v + rn)
+    return adc.sum(dim=-2)
+
+
+class _FaithfulMM(torch.autograd.Function):
+    """Deterministic faithful VMM, chunk by chunk with an O([..., N]) live
+    set (the reference's chunk scan, ``_faithful_mm``), whose backward is
+    the HIL linearization ``y ~= gain * (a @ w_eff)``: rounding and
+    saturation are not differentiated, gain and offsets are frozen
+    calibration state (zero gradient)."""
+
+    @staticmethod
+    def forward(ctx, a_code, w_eff, gain, chunk_offset, chunk_rows):
+        ctx.save_for_backward(a_code, w_eff, gain)
+        n = w_eff.shape[-1]
+        acc = torch.zeros(a_code.shape[:-1] + (n,), dtype=torch.float32,
+                          device=a_code.device)
+        for c in range(a_code.shape[-1] // chunk_rows):
+            rows = slice(c * chunk_rows, (c + 1) * chunk_rows)
+            v = torch.matmul(a_code[..., rows], w_eff[rows]) * gain
+            if chunk_offset is not None:
+                v = v + chunk_offset[c]
+            acc = acc + quant.adc_readout(v)
+        return acc
+
+    @staticmethod
+    def backward(ctx, g):
+        a_code, w_eff, gain = ctx.saved_tensors
+        gg = (g * gain).to(torch.float32)
+        da = torch.matmul(gg, w_eff.t())
+        dw = torch.matmul(a_code.reshape(-1, a_code.shape[-1]).t(),
+                          gg.reshape(-1, gg.shape[-1]))
+        return (da.to(a_code.dtype), dw.to(w_eff.dtype),
+                torch.zeros_like(gain), None, None)
 
 
 def analog_linear_init(

@@ -7,16 +7,21 @@ fixed pattern; see ``repro.core.noise`` for the physics and defaults).
 2. **fixed-pattern column offset** - per-(row-chunk, neuron) additive ADC
    offset, frozen per chip.
 
-Temporal readout noise is not on the deterministic serve path and is not
-ported yet.  Draws come from an explicit ``torch.Generator``; they cannot
-reproduce ``jax.random``, so parity tests carry the JAX draws across
-(:func:`repro_torch.convert.params_from_numpy`).
+3. **temporal readout noise** - per-analog-pass additive noise on the
+   digitized membrane voltage (:func:`readout_noise`), drawn in the
+   hardware-in-the-loop training forward; the deterministic serve path
+   runs without it.
+
+Draws come from an explicit ``torch.Generator``; they cannot reproduce
+``jax.random``, so parity tests carry the JAX draws across: the fixed
+pattern with the parameters (:func:`repro_torch.convert.params_from_numpy`),
+the readout noise as injected tensors (:func:`readout_noise`).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -88,3 +93,29 @@ def chunk_offsets(fpn: dict, n_chunks: int,
             f"({n_chunks}, {n}) chunk grid"
         )
     return off
+
+
+def readout_noise(
+    noise: Union[None, torch.Generator, torch.Tensor],
+    shape: tuple,
+    cfg: NoiseConfig,
+    *,
+    device: torch.device,
+) -> Optional[torch.Tensor]:
+    """Temporal readout noise for one batch of analog passes:
+    ``readout_std * N(0, 1)`` of ``shape``, drawn from the generator
+    ``noise`` on ``device`` (the generator must live there), or ``noise``
+    itself when it is a tensor - a draw made elsewhere and injected (the
+    parity tests pass the reference's draws so).  None when there is no
+    noise source (deterministic, standalone mode), when
+    ``cfg.readout_std == 0`` or when ``cfg.mode == "none"``."""
+    if noise is None or cfg.readout_std == 0.0 or cfg.mode == "none":
+        return None
+    if isinstance(noise, torch.Tensor):
+        if tuple(noise.shape) != tuple(shape):
+            raise ValueError(
+                f"injected readout noise has shape {tuple(noise.shape)}, "
+                f"the analog passes need {tuple(shape)}")
+        return noise.to(device=device, dtype=torch.float32)
+    return cfg.readout_std * torch.randn(shape, generator=noise,
+                                         dtype=torch.float32, device=device)

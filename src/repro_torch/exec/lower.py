@@ -9,7 +9,14 @@ weights, the chunk-offset table, the column-concatenated plan of a
 fusion group (:func:`lower_fused`), the fused attention+MLP block
 (:func:`lower_block`) and, for eligible chains, the whole-plan
 megakernel packing.  Per-call quantities (the dynamic
-activation scale) stay in :mod:`repro_torch.exec.run`.
+activation scale, the readout noise) stay in :mod:`repro_torch.exec.run`.
+
+Lowering is differentiable: the weight quantizer is the STE one and no
+parameter is detached, so a gradient through ``lower`` + ``run``
+reaches the float masters, and ``w_scale``, the analog gain and the
+fixed-pattern tables get theirs too (hardware-in-the-loop training
+re-lowers every step; serve and eval lower once under ``no_grad`` and
+replay).
 """
 from __future__ import annotations
 
@@ -81,8 +88,14 @@ def lower_layer(
         if "row_gain" in fpn:
             row_gain = F.pad(fpn["row_gain"].to(torch.float32), (0, pad),
                              value=1.0)[None, :]
+    codes = F.pad(w_code, (0, 0, 0, pad))
+    if not codes.requires_grad:
+        # pack to int8; codes that require grad stay fp32, since the cast
+        # would cut the straight-through gradient to the float masters
+        # (HIL training re-lowers inside every step)
+        codes = codes.to(torch.int8)
     store = WeightStore(  # verify: allow-packed-weights
-        codes=F.pad(w_code, (0, 0, 0, pad)).to(torch.int8),
+        codes=codes,
         w_scale=w_scale,
         gain=torch.as_tensor(params["gain"], dtype=torch.float32),
         col_gain=col_gain,

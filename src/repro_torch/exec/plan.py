@@ -66,7 +66,10 @@ class WeightStore:
     """Packed weight state of one lowered analog layer.
 
       codes:      [K_pad, N] int8 6-bit weight codes, rows zero-padded to
-                  a whole number of chunks.
+                  a whole number of chunks; fp32 STE codes when they
+                  require grad (hardware-in-the-loop training re-lowers
+                  inside every step, and an int8 cast would cut the
+                  straight-through gradient to the float masters).
       w_scale:    [1, N] per-column weight LSB.
       gain:       scalar calibrated analog gain (NOT folded into w_eff).
       col_gain:   optional [N] per-column fixed-pattern gain (rank-1).
@@ -90,7 +93,8 @@ class WeightStore:
     replay would otherwise rebuild them on every call; the reference's
     jit folds that work into its compiled program):
 
-      w_eff:      [K_pad, N] fp32 effective weights.
+      w_eff:      [K_pad, N] fp32 effective weights, a differentiable view
+                  of the codes and the gain tables.
       gain_row:   [N] the gain broadcast over the columns, contiguous.
     """
 

@@ -1,5 +1,5 @@
 """Plan execution: ``run(plan, x)`` replays a pre-lowered analog program
-(port of the stack part of ``repro.exec.run``, deterministic readout).
+(port of the stack part of ``repro.exec.run``).
 
 Left to run time (everything else was baked by
 :mod:`repro_torch.exec.lower`):
@@ -14,8 +14,12 @@ Left to run time (everything else was baked by
   ``cfg.use_kernels``), and the column split of a fused group
   (:func:`run_group`),
 - the inter-layer ADC epilogue: ReLU + right-shift requantization to
-  5-bit codes (paper §II-A), fused into the kernel when
-  ``cfg.fused_epilogue`` and ``cfg.use_kernels``,
+  5-bit codes (paper §II-A), as elementwise STE ops, or fused into the
+  kernel when ``cfg.fused_epilogue`` and ``cfg.use_kernels`` on the
+  deterministic inference path (never under autograd),
+- temporal readout noise (hardware-in-the-loop training): a
+  ``torch.Generator`` or one injected draw per layer, ignored when
+  ``cfg.deterministic``; a noisy call replays layer by layer,
 - megakernel routing: an eligible plan - a code-domain chain, or a
   static-calibration chain with float hand-offs - replays as ONE
   dispatch (the ``analog_plan`` kernel, or its plain version when
@@ -43,6 +47,7 @@ from repro_torch.exec.plan import (
     GroupPlan,
     LayerPlan,
 )
+from repro_torch.kernels.ops import needs_grad
 
 _DISPATCHES = 0
 
@@ -74,17 +79,22 @@ def run_layer(
     x: torch.Tensor,
     cfg: AnalogConfig,
     *,
+    noise=None,
     x_is_codes: bool = False,
 ) -> torch.Tensor:
     """Execute one lowered layer: x [..., K] -> y [..., N].
 
     ``x_is_codes=True`` means ``x`` already holds unsigned 5-bit event
-    codes (LSB 1.0), so quantization is skipped.  Output: float
-    activations when ``lp.epilogue == "none"`` (dequantized, bias
-    applied), else 5-bit codes for the next stacked layer.
+    codes (LSB 1.0), so quantization is skipped.  ``noise`` is this
+    layer's readout-noise source (a ``torch.Generator`` or an injected
+    draw, :func:`repro_torch.core.analog.analog_matmul`), ignored when
+    ``cfg.deterministic``.  Output: float activations when
+    ``lp.epilogue == "none"`` (dequantized, bias applied), else 5-bit
+    codes for the next stacked layer.
     """
     in_dtype = x.dtype
     x = x.to(torch.float32)
+    rn = None if cfg.deterministic else noise
     if x_is_codes:
         a_scale = 1.0       # codes have LSB 1 (x * 1.0 is exact)
     elif cfg.act_calib == "dynamic":
@@ -99,12 +109,12 @@ def run_layer(
         a_code = _pad_codes(a_code, lp.k_pad)
         _count()
         y_int = analog_matmul(a_code, lp.w_eff, lp.gain_row,
-                              lp.chunk_offset, cfg)
+                              lp.chunk_offset, cfg, noise=rn)
     elif signed == "split":
-        if not cfg.fused_split:
+        if not cfg.fused_split or rn is not None:
             raise NotImplementedError(
-                "signed_input 'split' with fused_split=False (the two-pass "
-                "route of noisy readout keys) is not ported yet (ROADMAP "
+                "signed_input 'split' with fused_split=False or readout "
+                "noise (the two-pass route) is not ported yet (ROADMAP "
                 "queue 1, item 6)")
         # ONE dispatch over shared weight tiles for both passes
         from repro_torch.kernels import ops as kernel_ops
@@ -128,8 +138,11 @@ def run_layer(
         raise ValueError(f"unknown signed_input {signed!r}")
 
     if lp.epilogue == EPILOGUE_RELU_SHIFT:
-        # inter-layer ADC epilogue: output is 5-bit codes, not floats
-        return quant.requantize_5bit(torch.clamp_min(y_int, 0.0), lp.shift)
+        # inter-layer ADC epilogue: output is 5-bit codes, not floats.
+        # Straight-through gradients (max(., 0) with jnp.maximum's tie
+        # rule, then the floor shift), value-identical to the in-kernel
+        # epilogue
+        return quant.requantize_5bit(quant._maximum0(y_int), lp.shift)
     y = y_int * (a_scale * lp.w_scale.reshape(-1) / lp.gain)
     if lp.bias is not None:
         y = y + lp.bias
@@ -149,7 +162,8 @@ def run_group(gp: GroupPlan, x: torch.Tensor, cfg: AnalogConfig):
 def _run_layer_fused_infer(lp: LayerPlan, codes: torch.Tensor,
                            cfg: AnalogConfig) -> torch.Tensor:
     """Deterministic code-domain layer with the epilogue fused into the
-    ``analog_mvm`` kernel (inference only)."""
+    ``analog_mvm`` kernel (inference only: ``run`` never takes it under
+    autograd)."""
     from repro_torch.kernels import ops as kernel_ops
 
     a = _pad_codes(codes.to(torch.float32), lp.k_pad)
@@ -218,7 +232,8 @@ def _run_megakernel(plan: AnalogPlan, x: torch.Tensor,
     return y
 
 
-def _megakernel_route(plan: AnalogPlan, x: torch.Tensor, x_is_codes: bool):
+def _megakernel_route(plan: AnalogPlan, x: torch.Tensor, x_is_codes: bool,
+                      noise=None):
     """The output batch-shape tuple when this call can take the megakernel
     route, else the reason string it cannot."""
     if plan.mega is None:
@@ -236,6 +251,8 @@ def _megakernel_route(plan: AnalogPlan, x: torch.Tensor, x_is_codes: bool):
             "input is codes but the packed chain encodes float "
             f"activations in-kernel (layer 0 encode {entry!r})"
         )
+    if noise is not None and not plan.cfg.deterministic:
+        return "noisy replay (readout-noise keys) is layer-by-layer"
     return _megakernel_batch_shape(plan, x)
 
 
@@ -303,10 +320,23 @@ def _run_block(plan: AnalogPlan, x: torch.Tensor, *,
     return y.reshape(b, s, d).to(x.dtype)
 
 
+def _layer_noise(noise, n: int) -> list:
+    """One readout-noise source per layer: the generator for every layer
+    (it draws in sequence), or the per-layer injected draws (they stand in
+    for the reference's ``jax.random.split(key, n)``)."""
+    if noise is None or isinstance(noise, torch.Generator):
+        return [noise] * n
+    noise = list(noise)
+    if len(noise) != n:
+        raise ValueError(f"{len(noise)} readout-noise draws for {n} layers")
+    return noise
+
+
 def run(
     plan: AnalogPlan,
     x: torch.Tensor,
     *,
+    noise=None,
     megakernel="auto",
 ) -> torch.Tensor:
     """Execute a whole lowered stack.
@@ -314,6 +344,11 @@ def run(
     Layers whose predecessor emitted a ``relu_shift`` epilogue consume
     5-bit codes directly; the plan's baked ``input_domain`` states
     whether the initial input already is codes.
+
+    ``noise``: temporal readout noise, a ``torch.Generator`` on ``x``'s
+    device or a sequence of one injected draw per layer
+    (:func:`repro_torch.core.analog.analog_matmul`); ignored when
+    ``plan.cfg.deterministic``.  A noisy call replays layer by layer.
 
     ``megakernel``: ``"auto"`` (default) takes the whole-plan route
     whenever the plan and the call are eligible, ``False`` forces the
@@ -331,26 +366,32 @@ def run(
         raise ValueError(f"megakernel must be 'auto'|True|False, "
                          f"got {megakernel!r}")
     if plan.block is not None:
+        if noise is not None and not cfg.deterministic:
+            raise NotImplementedError(
+                "noisy replay of a block plan is not ported yet (ROADMAP "
+                "queue 1, item 6)")
         return _run_block(plan, x, megakernel=megakernel)
     x_is_codes = plan.expects_codes
     if megakernel is True or megakernel == "auto":
-        route = _megakernel_route(plan, x, x_is_codes)
+        route = _megakernel_route(plan, x, x_is_codes, noise)
         if not isinstance(route, str):
             return _run_megakernel(plan, x, route)
         if megakernel is True:
             raise ValueError(f"megakernel=True, but: {route}")
     is_codes = x_is_codes
     h = x
-    for i, lp in enumerate(plan.layers):
+    for i, (lp, nz) in enumerate(zip(plan.layers, _layer_noise(noise, n))):
         fuse_in_kernel = (
             cfg.fused_epilogue and cfg.use_kernels and is_codes
             and lp.signed_input == "none"
             and lp.epilogue == EPILOGUE_RELU_SHIFT
+            and (nz is None or cfg.deterministic)
+            and not needs_grad(h, lp.w_eff)
         )
         if fuse_in_kernel:
             h = _run_layer_fused_infer(lp, h, cfg)
         else:
-            h = run_layer(lp, h, cfg, x_is_codes=is_codes)
+            h = run_layer(lp, h, cfg, noise=nz, x_is_codes=is_codes)
         if lp.epilogue == EPILOGUE_NONE and i < n - 1:
             # float hand-off between layers: ReLU in the float domain,
             # the next layer re-quantizes

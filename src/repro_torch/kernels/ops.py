@@ -1,5 +1,5 @@
 """Public kernel wrappers with device dispatch (port of
-``repro.kernels.ops``, forward only).
+``repro.kernels.ops``).
 
 Each wrapper launches its hand-written CUDA kernel when the tensors lie
 on a CUDA device and runs the plain PyTorch version of
@@ -8,6 +8,15 @@ There is no fallback: a CUDA tensor whose kernel fails to build or to
 launch raises.  Each kernel counts its launches
 (:func:`launch_counts`, :func:`reset_launch_counts`), so a run can show
 that its main path went through the kernels.
+
+Hardware-in-the-loop training (paper §III-B) differentiates through
+:func:`analog_mvm` and the chain form of :func:`analog_plan_codes`: their
+forward is the kernel (the hardware), their backward the straight-through
+linearization ``y ~= gain * (a @ w_eff)`` with frozen gain and offsets,
+as plain tensor ops and ``torch.matmul`` (the reference's backwards are
+plain products outside any Pallas kernel too).  The split VMM and the
+block plan have no HIL backward yet (ROADMAP queue 1, item 6): under
+autograd they raise.
 """
 from __future__ import annotations
 
@@ -41,6 +50,53 @@ def _contiguous(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if t is None else t.contiguous()
 
 
+def needs_grad(*tensors) -> bool:
+    """Does autograd record a call on these tensors?"""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _no_hil_backward(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} has no hardware-in-the-loop backward yet (ROADMAP queue "
+        "1, item 6: LM training); call it under torch.no_grad() or with "
+        "inputs that do not require grad")
+
+
+def _mvm(a_code, w_eff, gain, chunk_offset, *, chunk_rows, faithful,
+         epilogue=None):
+    """One ``analog_mvm`` call: the kernel on the card, the plain version
+    on the CPU."""
+    if _on_cuda(a_code):
+        return analog_mvm_cuda(a_code.contiguous(), w_eff.contiguous(),
+                               gain.contiguous(), _contiguous(chunk_offset),
+                               chunk_rows=chunk_rows, faithful=faithful,
+                               epilogue=epilogue)
+    y = ref_lib.analog_mvm_ref(a_code, w_eff, gain, chunk_offset,
+                               chunk_rows=chunk_rows, faithful=faithful)
+    return ref_lib.adc_epilogue_ref(y, epilogue)
+
+
+class _AnalogMVM(torch.autograd.Function):
+    """``analog_mvm`` with the HIL backward of the reference's
+    ``_analog_mvm_bwd``: ``da = (g * gain) @ w_eff^T``, ``dw = a^T @ (g *
+    gain)``, zero gradient for the gain and the chunk offsets."""
+
+    @staticmethod
+    def forward(ctx, a_code, w_eff, gain, chunk_offset, chunk_rows,
+                faithful):
+        ctx.save_for_backward(a_code, w_eff, gain)
+        return _mvm(a_code, w_eff, gain, chunk_offset,
+                    chunk_rows=chunk_rows, faithful=faithful)
+
+    @staticmethod
+    def backward(ctx, g):
+        a_code, w_eff, gain = ctx.saved_tensors
+        gg = g * gain
+        return (torch.matmul(gg, w_eff.t()), torch.matmul(a_code.t(), gg),
+                torch.zeros_like(gain), None, None, None)
+
+
 def analog_mvm(
     a_code: torch.Tensor,
     w_eff: torch.Tensor,
@@ -53,15 +109,17 @@ def analog_mvm(
 ) -> torch.Tensor:
     """[M, K] x [K, N] chunked saturating analog VMM: raw ADC codes, or
     5-bit codes when ``epilogue=("relu_shift", shift)`` is fused into the
-    kernel (the per-layer hot path of the plan executor)."""
-    if _on_cuda(a_code):
-        return analog_mvm_cuda(a_code.contiguous(), w_eff.contiguous(),
-                               gain.contiguous(), _contiguous(chunk_offset),
-                               chunk_rows=chunk_rows, faithful=faithful,
-                               epilogue=epilogue)
-    y = ref_lib.analog_mvm_ref(a_code, w_eff, gain, chunk_offset,
-                               chunk_rows=chunk_rows, faithful=faithful)
-    return ref_lib.adc_epilogue_ref(y, epilogue)
+    kernel (the per-layer hot path of the plan executor; inference only).
+    Differentiable without an epilogue (HIL backward, :class:`_AnalogMVM`)."""
+    if not needs_grad(a_code, w_eff):
+        return _mvm(a_code, w_eff, gain, chunk_offset, chunk_rows=chunk_rows,
+                    faithful=faithful, epilogue=epilogue)
+    if epilogue is not None:
+        raise ValueError(
+            "the fused in-kernel epilogue is inference-only; the "
+            "differentiable path applies it as elementwise STE ops")
+    return _AnalogMVM.apply(a_code, w_eff, gain, chunk_offset, chunk_rows,
+                            faithful)
 
 
 def _mvm_split_chunk_scan(a_pos, a_neg, w_eff, gain, chunk_offset,
@@ -108,7 +166,9 @@ def analog_mvm_split(
     other store, or none, the fp32 ``w_eff`` operand.  On the CPU: the
     faithful chunk scan, or for fast mode the stacked ``[2M, K]`` plain
     version (pre-round sums are order-sensitive, so fast mode keeps the
-    oracle's arithmetic)."""
+    oracle's arithmetic).  Inference only: under autograd it raises."""
+    if needs_grad(a_pos, a_neg, w_eff):
+        raise _no_hil_backward("analog_mvm_split")
     if _on_cuda(a_pos):
         if store is not None and store.gain_map is None:
             return analog_mvm_split_codes_cuda(
@@ -132,6 +192,27 @@ def analog_mvm_split(
     return ref_lib.adc_epilogue_ref(y, epilogue)
 
 
+def _plan_forward(x_in, weights, gain_all, off_cat, *, schedule, chunk_rows,
+                  faithful, extras, block):
+    """One whole-plan call: the kernel on the card, the plain version on
+    the CPU."""
+    if _on_cuda(x_in):
+        args = (x_in.contiguous(), gain_all.contiguous(), off_cat.contiguous())
+        if extras is not None:
+            extras = tuple(_contiguous(t) for t in extras)
+        if block is not None:
+            return analog_plan_block_cuda(
+                args[0], tuple(weights), *args[1:],
+                schedule=schedule, block=block, extras=extras,
+                chunk_rows=chunk_rows, faithful=faithful)[0]
+        return analog_plan_cuda(args[0], weights.contiguous(), *args[1:],
+                                schedule=schedule, chunk_rows=chunk_rows,
+                                faithful=faithful, extras=extras)
+    return ref_lib.analog_plan_ref(x_in, weights, gain_all, off_cat, schedule,
+                                   chunk_rows=chunk_rows, faithful=faithful,
+                                   extras=extras, block=block)
+
+
 def analog_plan_codes(
     x_in: torch.Tensor,
     weights,
@@ -152,22 +233,74 @@ def analog_plan_codes(
     ``w_eff`` tensors).
     ``extras`` carries the packed float-glue rows ``(deq, bias, enc,
     ln)``.  Returns the final layer's raw accumulated ADC codes
-    ``[B * m_last, n_last]``, or the block output."""
-    if _on_cuda(x_in):
-        args = (x_in.contiguous(), gain_all.contiguous(), off_cat.contiguous())
-        if extras is not None:
-            extras = tuple(_contiguous(t) for t in extras)
-        if block is not None:
-            return analog_plan_block_cuda(
-                args[0], tuple(weights), *args[1:],
-                schedule=schedule, block=block, extras=extras,
-                chunk_rows=chunk_rows, faithful=faithful)[0]
-        return analog_plan_cuda(args[0], weights.contiguous(), *args[1:],
-                                schedule=schedule, chunk_rows=chunk_rows,
-                                faithful=faithful, extras=extras)
-    return ref_lib.analog_plan_ref(x_in, weights, gain_all, off_cat, schedule,
-                                   chunk_rows=chunk_rows, faithful=faithful,
-                                   extras=extras, block=block)
+    ``[B * m_last, n_last]``, or the block output.
+
+    A chain is differentiable (:class:`_PlanChain`: the forward is still
+    the one launch, the backward the STE/HIL chain rule of the
+    reference's ``_plan_codes``); a block under autograd raises."""
+    kw = dict(schedule=schedule, chunk_rows=chunk_rows, faithful=faithful,
+              extras=extras, block=block)
+    operands = list(extras or ())
+    if block is None:
+        operands.append(weights)
+    else:
+        operands.extend(getattr(w, "w_eff", w) for w in weights)
+    if not needs_grad(x_in, *operands):
+        return _plan_forward(x_in, weights, gain_all, off_cat, **kw)
+    if block is not None:
+        raise _no_hil_backward("analog_plan_codes of a block plan")
+    deq = bias = enc = None
+    if extras is not None:
+        deq, bias, enc, _ = extras
+    return _PlanChain.apply(x_in, weights, gain_all, off_cat, deq, bias, enc,
+                            schedule, chunk_rows, faithful)
+
+
+class _PlanChain(torch.autograd.Function):
+    """A packed layer chain with the HIL backward of the reference's
+    ``_plan_codes`` (the VJP of its STE reference chain): the forward is
+    the ``analog_plan`` launch; the backward replays the chain's walk
+    (:func:`repro_torch.kernels.ref.analog_plan_ref`) with each layer's
+    VMM through :func:`analog_mvm` - the ``analog_mvm`` kernel on the
+    card, bit-identical to the chain kernel, whose HIL backward is the
+    linearization - and differentiates it.  Gain and offsets are frozen
+    (zero gradient); the float-glue rows (dequant, bias, encode LSB) get
+    real gradients, as through the per-layer dequantization."""
+
+    @staticmethod
+    def forward(ctx, x_in, w_cat, gain_all, off_cat, deq, bias, enc,
+                schedule, chunk_rows, faithful):
+        ctx.save_for_backward(x_in, w_cat, gain_all, off_cat, deq, bias, enc)
+        ctx.static = (schedule, chunk_rows, faithful)
+        extras = None if deq is None else (deq, bias, enc, None)
+        return _plan_forward(x_in, w_cat, gain_all, off_cat,
+                             schedule=schedule, chunk_rows=chunk_rows,
+                             faithful=faithful, extras=extras, block=None)
+
+    @staticmethod
+    def backward(ctx, g):
+        schedule, chunk_rows, faithful = ctx.static
+        # gain_all and off_cat (positions 2, 3) stay frozen
+        need = [n and i not in (2, 3)
+                for i, n in enumerate(ctx.needs_input_grad[:7])]
+        with torch.enable_grad():
+            args = [None if t is None else t.detach().requires_grad_(n)
+                    for t, n in zip(ctx.saved_tensors, need)]
+            x_in, w_cat, gain_all, off_cat, deq, bias, enc = args
+            extras = None if deq is None else (deq, bias, enc, None)
+
+            def vmm(a, w_l, gain, offs):
+                return analog_mvm(a, w_l, gain, offs, chunk_rows=chunk_rows,
+                                  faithful=faithful)
+
+            y = ref_lib.analog_plan_ref(
+                x_in, w_cat, gain_all, off_cat, schedule,
+                chunk_rows=chunk_rows, faithful=faithful, extras=extras,
+                vmm=vmm)
+            wrt = [t for t, n in zip(args, need) if n]
+            got = iter(torch.autograd.grad(y, wrt, g, allow_unused=True))
+        grads = tuple(next(got) if n else None for n in need)
+        return grads + (None, None, None)
 
 
 def maxmin_pool(x: torch.Tensor, window: int = 32) -> torch.Tensor:

@@ -2,7 +2,10 @@
 
 Each is the forward reference semantics of one CUDA kernel: the wrappers
 in :mod:`repro_torch.kernels.ops` run them for CPU tensors, and the chip
-smoke test holds every kernel against them on the card.
+smoke test holds every kernel against them on the card.  The chain
+(:func:`analog_plan_ref`) is also differentiable with the reference's
+straight-through contract; ``analog_mvm_ref`` and ``adc_epilogue_ref``
+are inference-only, like the reference's.
 """
 from __future__ import annotations
 
@@ -151,36 +154,51 @@ def _layer_weights(weights, schedule):
     return [getattr(w, "w_eff", w) for w in weights]
 
 
+def _adc_ste(v, lo, hi):
+    """``clip(round(v), lo, hi)`` as a pure straight-through term (``v +
+    (adc - v).detach()``, the same value bit for bit): the HIL readout of
+    the chain, whose gradient is the linearization, unmasked."""
+    adc = torch.clamp(torch.round(v), lo, hi)
+    return v + (adc - v).detach() if v.requires_grad else adc
+
+
 def _chunk_adc(a, w_l, gain, offs, n_chunks, chunk_rows, faithful):
     """The chunked saturating analog VMM of one pass, chunk by chunk in
-    ascending order (the order the CUDA kernels sum in)."""
+    ascending order (the order the CUDA kernels sum in), with the HIL
+    gradient: straight through every readout, gain and offsets frozen."""
+    gain = gain.detach()
     acc = torch.zeros((a.shape[0], w_l.shape[1]), dtype=torch.float32,
                       device=a.device)
     for c in range(n_chunks):
         v = torch.matmul(a[:, c * chunk_rows:(c + 1) * chunk_rows],
                          w_l[c * chunk_rows:(c + 1) * chunk_rows])
-        v = v * gain + offs[c]
+        v = v * gain + offs[c].detach()
         if faithful:
-            v = torch.clamp(torch.round(v), BSS2.adc_min, BSS2.adc_max)
+            v = _adc_ste(v, BSS2.adc_min, BSS2.adc_max)
         acc = acc + v
     if not faithful:
         lo = float(BSS2.adc_min) * n_chunks
         hi = float(BSS2.adc_max) * n_chunks
-        acc = torch.clamp(torch.round(acc), lo, hi)
+        acc = _adc_ste(acc, lo, hi)
     return acc
 
 
 def plan_layer_ref(h, w_l, gain, offs, meta, scale, *,
                    chunk_rows: int = BSS2.signed_rows,
-                   faithful: bool = True) -> torch.Tensor:
+                   faithful: bool = True, vmm=None) -> torch.Tensor:
     """One scheduled layer: ``h`` holds 5-bit codes padded to ``k_pad``
     (encode ``"codes"``) or float features whose first ``k`` columns are
     quantized at ``scale`` and then padded (``"unsigned"``; ``"split"``
     runs the positive and the negative part as two passes and subtracts
-    them).  Returns the accumulated ADC codes ``[rows, n]``."""
+    them).  Returns the accumulated ADC codes ``[rows, n]``.  ``vmm(a,
+    w_l, gain, offs)``, when given, computes each pass in place of the
+    chunk scan here (the chain's HIL backward passes the ``analog_mvm``
+    wrapper)."""
     from repro_torch.core.quant import quantize_act
 
     def mvm(a):
+        if vmm is not None:
+            return vmm(a, w_l, gain, offs)
         return _chunk_adc(a, w_l, gain, offs, meta.n_chunks, chunk_rows,
                           faithful)
 
@@ -241,6 +259,7 @@ def analog_plan_ref(
                                 #  ln [2,n_max] | None)
     block=None,                 # BlockMeta | None (transformer glue)
     trace: Optional[list] = None,
+    vmm=None,                   # per-pass VMM of plan_layer_ref | None
 ) -> torch.Tensor:
     """A whole packed layer chain - code-domain hand-offs, float-domain
     hand-offs, or one attention+MLP block - with the per-layer route's
@@ -252,7 +271,18 @@ def analog_plan_ref(
     features.  Returns the last layer's raw accumulated ADC codes
     ``[B * m_mult_last, n_last]`` (``"raw"``) or the block output
     (``"res_out"``).  ``trace``, when a list, receives each layer's
-    ``(input, accumulated ADC codes)``.  Forward only."""
+    ``(input, accumulated ADC codes)``; ``vmm`` replaces each layer's
+    chunk scan (:func:`plan_layer_ref`).
+
+    Differentiable with the HIL contract of the reference's oracle: each
+    readout is a pure straight-through term, gain and offsets are frozen,
+    the ``codes`` hand-off carries ``_maximum0``'s, the floor's and
+    ``_clip_ste``'s straight-through gradients, the ``relu`` hand-off
+    ``relu``'s, the float encodes ``quantize_act``'s; gradients reach the
+    weights and the float-glue rows.  The forward values do not change.
+    The chain's HIL backward (``kernels.ops._PlanChain``) differentiates
+    this walk with ``vmm`` set to the ``analog_mvm`` wrapper."""
+    from repro_torch.core.quant import _maximum0, requantize_5bit
     from repro_torch.kernels.analog_plan import layer_handoff, needs_extras
 
     deq = bias = enc = ln = None
@@ -278,7 +308,7 @@ def analog_plan_ref(
             h, ws[li], gain_all[li, :meta.n],
             off_cat[meta.c0:meta.c0 + meta.n_chunks, :meta.n], meta,
             None if meta.encode == "codes" else enc[li, 0],
-            chunk_rows=chunk_rows, faithful=faithful)
+            chunk_rows=chunk_rows, faithful=faithful, vmm=vmm)
         if trace is not None:
             trace.append((h, acc))
         handoff = layer_handoff(meta, li == last)
@@ -289,9 +319,8 @@ def analog_plan_ref(
                 raise ValueError(f"unknown final hand-off {handoff!r}")
             return acc
         if handoff == "codes":
-            nxt = torch.clamp_min(acc, 0.0)
-            nxt = torch.clamp(torch.floor(nxt / float(1 << meta.shift)), 0.0,
-                              float(BSS2.a_max))
+            # the ADC epilogue with STE gradients (exec.run's relu_shift)
+            nxt = requantize_5bit(_maximum0(acc), meta.shift)
         else:
             y = acc * deq[li, :meta.n] + bias[li, :meta.n]
             ln_row = None if ln is None else ln[1, :meta.n]

@@ -101,9 +101,10 @@ def ecg_module_spec(cfg: ECGConfig = ECGConfig(), *,
     """
     from repro_torch import api
 
-    def _apply(model, x, *, train: bool = False, megakernel="auto"):
+    def _apply(model, x, *, train: bool = False, noise=None,
+               megakernel="auto"):
         cols = _im2col(x, cfg.conv_taps, cfg.conv_stride)
-        out = model.run_stack(cols, megakernel=megakernel)
+        out = model.run_stack(cols, noise=noise, megakernel=megakernel)
         return _pool_class_copies(out, cfg, train)
 
     return api.ModuleSpec(
@@ -122,3 +123,47 @@ def ecg_module_spec(cfg: ECGConfig = ECGConfig(), *,
                           signed_input="none"),
         ),
     )
+
+
+def ecg_apply_plan(plan, x: torch.Tensor,
+                   cfg: ECGConfig = ECGConfig()) -> torch.Tensor:
+    """Run a lowered ECG plan: x [B, C, T] codes -> inference logits [B,
+    classes] (average pooling).  Lower once per weight update, replay for
+    every batch - the eval hot path."""
+    from repro_torch.exec.run import run as run_plan
+
+    cols = _im2col(x, cfg.conv_taps, cfg.conv_stride)
+    return _pool_class_copies(run_plan(plan, cols), cfg, False)
+
+
+def ecg_apply(params: dict, x: torch.Tensor, acfg,
+              cfg: ECGConfig = ECGConfig(), *, train: bool = False,
+              noise=None, epilogue: str = "none") -> torch.Tensor:
+    """x: [B, C, T] preprocessed 5-bit activations (integer-valued float)
+    -> logits [B, classes], on ``x``'s device.
+
+    Compiles through the front door on every call: hardware-in-the-loop
+    training re-lowers inside every differentiated step, so the gradient
+    reaches the float masters (inference call sites compile once and
+    replay ``CompiledModel.apply``).  ``noise`` is the readout noise
+    (:func:`repro_torch.exec.run.run`); ``epilogue`` selects the chain
+    (:func:`ecg_module_spec`)."""
+    from repro_torch import api
+
+    model = api.compile(ecg_module_spec(cfg, epilogue=epilogue), params,
+                        acfg, device=x.device)
+    return model.apply(x, train=train, noise=noise)
+
+
+def ecg_loss(params: dict, x: torch.Tensor, labels: torch.Tensor, acfg,
+             cfg: ECGConfig = ECGConfig(), noise=None, *,
+             epilogue: str = "none"):
+    """Mean negative log-likelihood of the training-mode logits (max
+    pooling over the class copies) and the batch accuracy:
+    ``(nll, {"acc": acc})``."""
+    logits = ecg_apply(params, x, acfg, cfg, train=True, noise=noise,
+                       epilogue=epilogue)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels[:, None]).mean()
+    acc = (logits.argmax(-1) == labels).to(torch.float32).mean()
+    return nll, {"acc": acc}

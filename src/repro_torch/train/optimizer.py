@@ -1,0 +1,143 @@
+"""AdamW written out (port of ``repro.train.optimizer``; not
+``torch.optim``, so that every step is the reference's arithmetic): a
+cosine schedule with linear warmup, global-norm clipping, and a
+trainable mask that freezes the analog calibration buffers (fpn, scales,
+gain) - those are hardware properties, not weights (paper §III-B trains
+only the synaptic weights through the HIL loop).
+
+Parameters, gradients and the moment slots are nested dicts of tensors
+with the same keys.  Frozen leaves keep scalar moment slots and are not
+updated, but their gradients count in the global norm, as the
+reference's ``jax.value_and_grad`` returns them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+FROZEN_KEYS = ("fpn", "a_scale", "w_scale", "gain")
+
+
+def trainable_mask(params) -> dict:
+    """True for leaves that receive optimizer updates."""
+
+    def walk(tree, frozen):
+        if isinstance(tree, dict):
+            return {k: walk(v, frozen or k in FROZEN_KEYS)
+                    for k, v in tree.items()}
+        return not frozen
+
+    return walk(params, False)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts with the same keys."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, in insertion order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_frac: float = 0.1
+    state_dtype: str = "float32"     # "bfloat16" halves optimizer memory
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Learning rate at ``step`` (a tensor): linear warmup times a cosine
+    decay to ``min_lr_frac``, in fp32."""
+    step = step.to(torch.float32)
+    warm = torch.clamp_max(step / max(cfg.warmup_steps, 1), 1.0)
+    prog = torch.clamp(
+        (step - cfg.warmup_steps)
+        / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1 + torch.cos(math.pi * prog))
+    frac = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos
+    return cfg.lr * warm * frac
+
+
+def adamw_init(params, cfg: AdamWConfig) -> dict:
+    """Zero moments for trainable leaves, scalar slots for frozen ones,
+    and the step counter, on the parameters' device."""
+    dt = torch.bfloat16 if cfg.state_dtype == "bfloat16" else torch.float32
+    mask = trainable_mask(params)
+
+    def zeros(p, m):
+        if m:
+            return torch.zeros(p.shape, dtype=dt, device=p.device)
+        return torch.zeros((), dtype=torch.float32, device=p.device)
+
+    dev = tree_leaves(params)[0].device
+    return {
+        "step": torch.zeros((), dtype=torch.int32, device=dev),
+        "m": tree_map(zeros, params, mask),
+        "v": tree_map(zeros, params, mask),
+    }
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, in fp32."""
+    leaves = [torch.sum(torch.square(x.to(torch.float32)))
+              for x in tree_leaves(tree)]
+    return torch.sqrt(sum(leaves))
+
+
+def adamw_update(params, grads, state, cfg: AdamWConfig):
+    """One AdamW step with global-norm clipping: returns ``(new_params,
+    new_state, {"grad_norm", "lr"})``.  Runs on the parameters' device
+    and reads nothing back to the host."""
+    mask = trainable_mask(params)
+    step = state["step"] + 1
+    lr = schedule(cfg, step)
+
+    gnorm = global_norm(grads)
+    scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
+
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.to(torch.float32)
+    bc1 = 1 - torch.pow(b1, stepf)
+    bc2 = 1 - torch.pow(b2, stepf)
+
+    def upd(p, g, m, v, trainable):
+        if not trainable:
+            return p, m, v
+        g = g.to(torch.float32) * scale
+        m32 = m.to(torch.float32)
+        v32 = v.to(torch.float32)
+        m_new = b1 * m32 + (1 - b1) * g
+        v_new = b2 * v32 + (1 - b2) * g * g
+        mhat = m_new / bc1
+        vhat = v_new / bc2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+        p32 = p.to(torch.float32)
+        p_new = p32 - lr * (delta + cfg.weight_decay * p32)
+        return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+
+    # ``out`` holds upd's (param, m, v) tuple at every leaf
+    out = tree_map(upd, params, grads, state["m"], state["v"], mask)
+    new_state = {"step": step, "m": _unzip(out, 1), "v": _unzip(out, 2)}
+    return _unzip(out, 0), new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _unzip(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _unzip(v, i) for k, v in tree.items()}
+    return tree[i]
