@@ -12,7 +12,9 @@ with random weights from a seed, on one NVIDIA GPU:
   published width (32 layers, d_model 3072, 24/8 heads, d_ff 8192,
   vocab 200064), every parameter matmul a split-encoded analog layer;
 - the same model's static-calibration prefill with one launch per
-  transformer block (``attach_block_plans`` + ``lm_apply``).
+  transformer block (``attach_block_plans`` + ``lm_apply``);
+- the paper's deployment loop for the ECG classifier: blind calibration
+  of its chips, the measured bake, the plan store, the energy account.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -53,7 +55,9 @@ exits non-zero without printing a result):
    bit-identical to each other;
 7. the LM main path: ``ServeEngine`` (compile once) serves 8 requests at
    batch 4 with 8 new tokens each; exactly 161 ``analog_mvm_split``
-   launches (32 layers x 5 + lm_head) per prefill or decode call;
+   launches (32 layers x 5 + lm_head) per prefill or decode call; the
+   engine's own telemetry of that serve (host ms per prefill and per
+   decode step, spans and histograms on);
 8. the smoke config served on the card and on the CPU at fp32
    activations: equal greedy tokens, and the max |logit diff|;
 9. LM timings: the split kernel per launch at each shape, as the main
@@ -96,9 +100,29 @@ exits non-zero without printing a result):
    both chains, against the CPU's;
    then the accuracy loop at its ``--fast`` preset for both chains and
    the digital baseline, each analog chain held to the JAX package's
-   accuracy at that preset minus 0.05; ms per train step (host, device,
-   activities, idle share) per chain;
-14. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+   accuracy at that preset minus 0.05, and its calibrated bake (blind
+   calibration of the trained chips) within CAL_ACC_GAP of its own ideal
+   bake; ms per train step (host, device, activities, idle share) per
+   chain;
+14. (run after phase 5) blind calibration of the seed-0 ECG chips on the
+   card (``calib.calibrate_model``: wall time, ``measure`` calls, peak
+   device memory, the fit against the chips' hidden truth), then
+   ``api.compile(calibration=)`` of both chains; their main path (both
+   routes, B = 1 and 500, the launch counts of that run alone), routes
+   bit-identical on the card, card against CPU (the same snapshot moved
+   there) within the ADC contract, ``analog_mvm`` and chain stages a and
+   b on the calibrated stores against their plain versions at B = 1, 64
+   and 500, and a drift episode: ``apply_drift``,
+   ``DriftMonitor.maybe_refresh``, ``with_calibration`` with no lowering
+   and equal to a fresh compile;
+15. the plan store: the calibrated plans saved (``repro-plan-v1``) and
+   loaded back onto the card, no lowering, logits of both routes
+   bit-identical, the file sizes, the launch counts of the replay;
+16. (after phase 7, and at the end) the energy account of the ECG plan
+   (276.0 us, 192 uJ on the ASIC) and of the phi4-mini tree; the whole
+   run's telemetry (``obs.collect``): the counts of its records, written
+   to ``build/chip_smoke_obs.jsonl``;
+17. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 """
 from __future__ import annotations
@@ -106,10 +130,12 @@ from __future__ import annotations
 import gc
 import itertools
 import json
+import os
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -165,6 +191,16 @@ BLOCK_REL_TOL = 0.05
 # float glue, 0.97 code domain, 0.99 digital) minus 0.05; the port draws
 # its own random numbers, so it is held to a margin, not bit for bit.
 MIN_ACCURACY = {"none": 0.91, "relu_shift": 0.92}
+# each analog chain's calibrated bake within this much test accuracy of
+# its own ideal bake in the same run (the JAX package's gap at seed 0 of
+# the --fast preset: 0.000 on both chains)
+CAL_ACC_GAP = 0.03
+# phase 14: the batches the calibrated stores are checked at
+CAL_BATCHES = (1, TRAIN_B, 500)
+# blind calibration against the chips' hidden truth: the bounds the JAX
+# package's own sub-LSB recovery test holds (tests/test_calib.py)
+CAL_OFFSET_LSB = 0.5
+CAL_GAIN_REL = 0.03
 # card vs CPU, one train step.  Every gradient leaf elementwise within
 # GRAD_ATOL + GRAD_RTOL * |CPU's| (the CPU tests' integer-w_eff
 # tolerance, tests/test_torch_train.py), but a layer's calibration
@@ -212,7 +248,7 @@ def _setup():
 
 torch = _setup()
 
-from repro_torch import api  # noqa: E402
+from repro_torch import api, calib, obs  # noqa: E402
 from repro_torch.core.analog import AnalogConfig  # noqa: E402
 from repro_torch.core.hw import BSS2  # noqa: E402
 from repro_torch.core.noise import NoiseConfig  # noqa: E402
@@ -228,7 +264,8 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.core.quant import quantize_act  # noqa: E402
 from repro_torch.exec import run as trun  # noqa: E402
-from repro_torch.exec.lower import lower_block  # noqa: E402
+from repro_torch.exec.lower import lower_block, lowering_count  # noqa: E402
+from repro_torch.exec.store import load_plan, save_plan  # noqa: E402
 from repro_torch.kernels.analog_plan import (  # noqa: E402
     BLOCK_STAGES, analog_plan_block_cuda, analog_plan_cuda, block_operand)
 from repro_torch.models import attention as A  # noqa: E402
@@ -820,12 +857,24 @@ def lm_main_path():
     del params
     calls = _counting(engine)
     reqs = _lm_requests(cfg)
+    hists = {h: obs.histogram(h) for h in ("serve.prefill_us",
+                                           "serve.decode_us")}
+    seen = {h: len(x.samples) for h, x in hists.items()}
     ops.reset_launch_counts()
     t0 = time.monotonic()
     done = engine.serve(reqs)
     torch.cuda.synchronize()
     t_serve = time.monotonic() - t0
     counts = ops.launch_counts()
+    # the engine's own telemetry of this serve: host ms per prefill and
+    # per decode step, each up to the host read of its sampled tokens
+    telemetry = {}
+    for h, x in hists.items():
+        ms = [v / 1e3 for v in x.samples[seen[h]:]]
+        telemetry[h.replace("_us", "_ms")] = {
+            "n": len(ms), "median": statistics.median(ms),
+            "quartiles": statistics.quantiles(ms, n=4)[::2]
+            if len(ms) > 1 else ms}
     n_calls = calls["prefill"] + calls["decode"]
     per_call = 5 * cfg.n_layers + 1
     expected = {"maxmin_pool": 0, "analog_mvm": 0, "analog_plan": 0,
@@ -842,6 +891,7 @@ def lm_main_path():
         "arch": cfg.name, "launches": counts, "calls": calls,
         "launches_per_call": per_call,
         "init_s": t_init, "compile_s": t_compile, "serve_s": t_serve,
+        "engine_telemetry": telemetry,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "tokens": {r.uid: r.output.tolist() for r in done},
         "prompt_lens": [len(r.prompt) for r in done],
@@ -1434,6 +1484,289 @@ def time_block(cfg, tree, p_block, toks, x):
     return row
 
 
+# -------------------------------------------------------------- phase 14
+def _calibrated_models(params, snap, device):
+    """Both ECG chains compiled on the measured snapshot (the code chain,
+    and the static float chain)."""
+    cfg = ECGConfig()
+    return {
+        "relu_shift": api.compile(
+            ecg_module_spec(cfg, epilogue="relu_shift"), params,
+            AnalogConfig(fused_epilogue=True), calibration=snap,
+            device=device),
+        "none": api.compile(
+            ecg_module_spec(cfg, epilogue="none"), params,
+            AnalogConfig(act_calib="static", fused_epilogue=True),
+            calibration=snap, device=device),
+    }
+
+
+def _card_vs_cpu_rows(what, y, y_cpu):
+    y = y.cpu()
+    same_rows = float((y == y_cpu).all(dim=-1).float().mean())
+    same_argmax = float((y.argmax(-1) == y_cpu.argmax(-1)).float().mean())
+    if same_rows < 1 - TIE_SHARE or same_argmax < 1 - TIE_SHARE:
+        raise AssertionError(
+            f"{what}: card vs CPU: {same_rows:.4f} of the rows identical, "
+            f"{same_argmax:.4f} argmax agreement")
+    return {"rows_identical_to_cpu": same_rows,
+            "argmax_agreement_with_cpu": same_argmax,
+            "max_abs_diff_vs_cpu": float((y - y_cpu).abs().max())}
+
+
+def check_calibrated_kernels(models, codes):
+    """Phase 14, kernels: analog_mvm and the chain kernel's stages a and b
+    on the calibrated stores (fp32 w_eff from measured chunk gains)
+    against their plain versions, within the ADC contract (<= 1 LSB per
+    chunk on <= TIE_SHARE of the elements)."""
+    results = []
+    model, fmodel = models["relu_shift"], models["none"]
+    for b in CAL_BATCHES:
+        for lp, args, epi in layer_inputs(model, codes[:b]):
+            for faithful, e in itertools.product(
+                    (True, False), dict.fromkeys((epi, None))):
+                got = analog_mvm_cuda(*args, faithful=faithful, epilogue=e)
+                want = ref.adc_epilogue_ref(
+                    ref.analog_mvm_ref(*args, faithful=faithful), e)
+                results.append(_compare(
+                    "analog_mvm", got, want, exact=False,
+                    n_chunks=lp.n_chunks,
+                    what=f"calibrated B={b} {tuple(args[0].shape)}x"
+                         f"{tuple(args[1].shape)} epi={e} "
+                         f"faithful={faithful}"))
+        cols = _im2col(codes[:b], 64, 2).reshape(-1, 128).contiguous()
+        for stage, m_ in (("a", model), ("b", fmodel)):
+            mega = m_.lower().mega
+            args = (cols, mega.w_cat, mega.gain, mega.off)
+            for faithful in (True, False):
+                got = analog_plan_cuda(*args, schedule=mega.schedule,
+                                       faithful=faithful, extras=mega.extras)
+                want = ref.analog_plan_ref(*args, mega.schedule,
+                                           faithful=faithful,
+                                           extras=mega.extras)
+                results.append(_compare(
+                    "analog_plan", got, want, exact=False,
+                    what=f"calibrated stage {stage} B={b} "
+                         f"faithful={faithful}"))
+    return results
+
+
+def calibration_path(raw):
+    """Phase 14: blind calibration of the seed-0 ECG chips on the card,
+    the measured bake of both chains, its main path (both routes, B = 1
+    and 500) with the launch counts of that run alone, card against CPU,
+    the kernels on the calibrated stores, and a drift refresh hot-swapped
+    without lowering.  Returns the report, the models and the snapshot."""
+    cfg = ECGConfig()
+    params = ecg_init(torch.Generator().manual_seed(SEED), cfg)
+    spec = ecg_module_spec(cfg, epilogue="relu_shift")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    chips = calib.model_chips(spec, params, gen)
+    snap = calib.calibrate_model(spec, params, gen, chips=chips)
+    torch.cuda.synchronize()
+    report = {
+        "calibrate_wall_s": time.perf_counter() - t0,
+        "measure_calls": {n: c.measurements for n, c in chips.items()},
+        "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+        # above what was allocated when the calibration started
+        "peak_increment_gib": (torch.cuda.max_memory_allocated() - live)
+        / 2**30,
+        "tables_on": str(snap.layer("conv").gain_table.device),
+    }
+    recovery = {}
+    for name, chip in chips.items():
+        truth, rec = chip.oracle(), snap.layer(name)
+        off = float((rec.chunk_offset - truth["chunk_offset"]).abs().max())
+        gain = float(((rec.gain_table - truth["gain_table"])
+                      / truth["gain_table"]).abs().max())
+        recovery[name] = {"offset_max_abs_lsb": off, "gain_max_rel": gain}
+        if off >= CAL_OFFSET_LSB or gain >= CAL_GAIN_REL:
+            raise AssertionError(f"{name}: blind calibration off the hidden "
+                                 f"truth by {off} LSB / {gain} relative")
+    report["recovery_vs_hidden_truth"] = recovery
+
+    ops.reset_launch_counts()
+    models = _calibrated_models(params, snap, DEV)
+    outs = {}
+    for b in BATCHES:
+        x = preprocess(raw[:b])
+        for ep, m in models.items():
+            outs[(ep, b)] = {mk: m.apply(x, megakernel=mk)
+                             for mk in (True, False)}
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    n = len(BATCHES) * len(models)
+    expected = {"maxmin_pool": len(BATCHES), "analog_plan": n,
+                "analog_mvm": 3 * n, "analog_mvm_split": 0,
+                "analog_plan_block": 0}
+    if counts != expected:
+        raise AssertionError(f"calibrated launch counts {counts} != "
+                             f"{expected}")
+    report["launches"] = counts
+    for ep, m in models.items():
+        if m.lower().layers[0].store.chunk_gain is None:
+            raise AssertionError(f"{ep}: the plan was not baked from the "
+                                 "measured gain tables")
+
+    cpu_models = _calibrated_models(params, snap.to("cpu"), "cpu")
+    for (ep, b), ys in outs.items():
+        what = f"calibrated {ep} B={b}"
+        y_mk, y_pl = ys[True], ys[False]
+        if tuple(y_mk.shape) != (b, 2) or not bool(
+                torch.isfinite(y_mk).all()):
+            raise AssertionError(f"{what}: logits {tuple(y_mk.shape)} not "
+                                 "finite of shape (B, 2)")
+        if not torch.equal(y_mk, y_pl):
+            raise AssertionError(f"{what}: megakernel and per-layer routes "
+                                 "disagree on the card")
+        y_cpu = cpu_models[ep].apply(preprocess(raw[:b], device="cpu"))
+        report[what] = {"routes_bit_identical": True,
+                        **_card_vs_cpu_rows(what, y_mk, y_cpu)}
+
+    checks = check_calibrated_kernels(models, preprocess(raw))
+    report["kernel_checks"] = {
+        "n": len(checks),
+        "worst": max(checks, key=lambda c: c["max_abs_err"]),
+        "max_share_differing": max(c["share_differing"] for c in checks),
+    }
+
+    # drift: perturb the hidden offsets, let the monitor re-null them,
+    # hot-swap the refreshed snapshot: no lowering, the packs' w_cat kept
+    for i, chip in enumerate(chips.values()):
+        chip.apply_drift(torch.Generator(device=DEV).manual_seed(70 + i),
+                         2.0)
+    mon = calib.DriftMonitor(chips, snap)
+    fresh = mon.maybe_refresh()
+    if fresh is None:
+        raise AssertionError("2 LSB of offset drift went undetected")
+    before = lowering_count()
+    swapped = {ep: m.with_calibration(fresh) for ep, m in models.items()}
+    if lowering_count() != before:
+        raise AssertionError("with_calibration lowered a layer")
+    x = preprocess(raw)
+    for ep, m in swapped.items():
+        if m.lower().mega.w_cat is not models[ep].lower().mega.w_cat:
+            raise AssertionError(f"{ep}: the offset swap rebuilt w_cat")
+        fresh_model = _calibrated_models(params, fresh, DEV)[ep]
+        for mk in (True, False):
+            if not torch.equal(m.apply(x, megakernel=mk),
+                               fresh_model.apply(x, megakernel=mk)):
+                raise AssertionError(f"{ep}: hot-swapped plan differs from "
+                                     f"a fresh compile (megakernel={mk})")
+    report["drift"] = {"drift_lsb_after_refresh": mon.drift_lsb(),
+                       "refreshes": mon.refreshes,
+                       "lowerings_in_swap": 0}
+    return report, models
+
+
+# -------------------------------------------------------------- phase 15
+def store_path(raw, models):
+    """Phase 15: the calibrated ECG plans saved (``repro-plan-v1``) and
+    loaded back onto the card, replayed through both routes, with the
+    launch counts of that run alone: logits bit-identical, no lowering."""
+    report = {}
+    loaded = {}
+    with tempfile.TemporaryDirectory() as td:
+        for ep, m in models.items():
+            path = os.path.join(td, f"ecg_{ep}.npz")
+            save_plan(path, m.lower())
+            before = lowering_count()
+            plan = load_plan(path)
+            if lowering_count() != before:
+                raise AssertionError(f"{ep}: loading the plan lowered")
+            if plan.mega is None or plan.layers[0].store.codes.dtype != \
+                    torch.int8:
+                raise AssertionError(f"{ep}: loaded plan lost its pack or "
+                                     "its int8 codes")
+            loaded[ep] = api.CompiledModel(
+                spec=m.spec, params=m.params, run_cfg=m.run_cfg,
+                lowered=plan, device=DEV, calibration=m.calibration)
+            report[ep] = {"file_bytes": os.path.getsize(path)}
+    ops.reset_launch_counts()
+    outs = {}
+    for b in BATCHES:
+        x = preprocess(raw[:b])
+        for ep, m in loaded.items():
+            outs[(ep, b)] = (x, {mk: m.apply(x, megakernel=mk)
+                                 for mk in (True, False)})
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for name in ("maxmin_pool", "analog_mvm", "analog_plan"):
+        if counts[name] == 0:
+            raise AssertionError(f"the loaded plans launched no {name}")
+    report["launches"] = counts
+    for (ep, b), (x, ys) in outs.items():
+        for mk, y in ys.items():
+            if not torch.equal(y, models[ep].apply(x, megakernel=mk)):
+                raise AssertionError(f"{ep} B={b} megakernel={mk}: the "
+                                     "loaded plan's logits differ")
+    report["logits_bit_identical"] = True
+    report["lowerings_in_load"] = 0
+    return report
+
+
+# -------------------------------------------------------------- phase 16
+def energy_line(ecg_model, lm_model):
+    """Phase 16a: the analytical energy account of the ECG plan (the
+    ASIC's 276 us and 192 uJ per inference) and of the phi4-mini tree."""
+    ecg = obs.energy_report(ecg_model)
+    if round(ecg["us_per_sample"], 1) != 276.0 or ecg[
+            "paper_uj_per_sample"] != 192.0:
+        raise AssertionError(f"ECG energy report {ecg}")
+    lm = obs.energy_report(lm_model)
+    if lm["layers"] == 0:
+        raise AssertionError("the phi4-mini tree has no analog work")
+    print(obs.energy.format_report(ecg, title="energy ECG"), flush=True)
+    print(obs.energy.format_report(lm, title=f"energy {LM_ARCH}"),
+          flush=True)
+    return {"ecg": ecg, LM_ARCH: lm}
+
+
+def obs_line(tr):
+    """Phase 16b: what the run's telemetry collected (the engine's decode
+    host time per step with it on is in phase 7's line)."""
+    recs = obs.report.records_of(tr, obs.registry())
+    kinds = {}
+    for r in recs:
+        kinds[r["rec"]] = kinds.get(r["rec"], 0) + 1
+    missing = obs.report.required_missing(
+        recs, span_paths=("serve.compile", "serve.compile/api.compile",
+                          "serve.batch", "serve.batch/serve.prefill",
+                          "serve.batch/serve.decode", "api.compile"),
+        events=("serve.refill", "serve.energy", "drift.probe",
+                "drift.hot_swap"),
+        counters=("exec.dispatches", "exec.run.megakernel",
+                  "exec.run.per_layer", "drift.hot_swap"),
+        histograms=("serve.queue_us", "serve.prefill_us", "serve.decode_us",
+                    "serve.request_us", "serve.batch_occupancy",
+                    "drift.lsb"))
+    if missing:
+        raise AssertionError(f"telemetry missing: {missing}")
+    path = ROOT / "build" / "chip_smoke_obs.jsonl"
+    path.parent.mkdir(exist_ok=True)
+    obs.report.dump_run(str(path), tr, obs.registry())
+    # what one span plus one histogram sample costs on the host with a
+    # collector open (the engine records 1 span + 1 sample per decode
+    # step), after the dump, under a throwaway collector
+    with obs.collect("overhead"):
+        t0 = time.perf_counter()
+        for _ in range(10000):
+            with obs.span("overhead.probe"):
+                obs.histogram("overhead.probe_us").record(1.0)
+        per_us = (time.perf_counter() - t0) / 10000 * 1e6
+    return {"span_plus_sample_us": per_us,
+            "records": kinds, "spans": len(tr.spans()),
+            "counters": {r["name"]: r["value"] for r in recs
+                         if r["rec"] == "counter"},
+            "histogram_samples": {r["name"]: r["summary"]["count"]
+                                  for r in recs if r["rec"] == "histogram"},
+            "jsonl": str(path.relative_to(ROOT))}
+
+
 # -------------------------------------------------------------- phase 13
 def _named(tree, prefix=""):
     if isinstance(tree, dict):
@@ -1706,24 +2039,37 @@ def train_main_path():
         label = "digital" if mode == "digital" else epilogue
         row = {k: r[k] for k in ("detection_rate", "false_positive_rate",
                                  "accuracy", "epochs_run", "steps",
-                                 "train_s")}
+                                 "train_s", "calibrated_detection_rate",
+                                 "calibrated_false_positive_rate",
+                                 "calibrated_accuracy", "calibrate_s")
+               if k in r}
         acfg = (AnalogConfig(mode="digital") if mode == "digital"
                 else AnalogConfig(deterministic=False))
         row.update(_step_timing(r, acfg, epilogue))
         report[label] = row
         emit("train_chain", {label: row})
     for epilogue, floor in MIN_ACCURACY.items():
-        acc = results[("analog_faithful", epilogue)]["accuracy"]
+        r = results[("analog_faithful", epilogue)]
+        acc = r["accuracy"]
         if acc < floor:
             raise AssertionError(
                 f"epilogue {epilogue!r}: test accuracy {acc:.4f} below "
                 f"{floor} (the JAX package's --fast result minus 0.05)")
+        gap = acc - r["calibrated_accuracy"]
+        if abs(gap) > CAL_ACC_GAP:
+            raise AssertionError(
+                f"epilogue {epilogue!r}: the calibrated bake's test "
+                f"accuracy {r['calibrated_accuracy']:.4f} is {gap:+.4f} "
+                f"off the ideal bake's {acc:.4f} (limit {CAL_ACC_GAP})")
     report["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return report
 
 
 def main() -> None:
     print(card_line(), flush=True)
+    # the whole run under one telemetry collector (phase 16b reads it)
+    tr = obs.trace.begin("chip_smoke")
+    obs.reset_metrics()
 
     t0 = time.monotonic()
     secs = _build.build()
@@ -1769,6 +2115,15 @@ def main() -> None:
     emit("end_to_end_float_chain", time_end_to_end(raw, fmodel))
     del model, cpu_model, int_model, fmodel, cpu_fmodel, int_fmodel, codes
 
+    creport, cal_models = calibration_path(raw)
+    emit("calibration", creport)
+    for name, n in creport["launches"].items():
+        counts[name] += n
+    sreport = store_path(raw, cal_models)
+    emit("plan_store", sreport)
+    for name, n in sreport["launches"].items():
+        counts[name] += n
+
     cfg = configs.get_arch(LM_ARCH)
     checks = check_split_kernel(cfg)
     emit("split_kernel_checks", {
@@ -1781,6 +2136,7 @@ def main() -> None:
 
     engine, lm_report = lm_main_path()
     emit("lm_main_path", lm_report)
+    emit("energy", energy_line(cal_models["relu_shift"], engine.model))
     counts["analog_mvm_split"] = lm_report["launches"]["analog_mvm_split"]
     emit("lm_card_vs_cpu", lm_card_vs_cpu())
     split_rows = time_split(engine)
@@ -1827,6 +2183,8 @@ def main() -> None:
     for name, n in treport["launches"].items():
         counts[name] += n
     emit("profiler_traces", TRACES)
+    obs.trace.end(tr)
+    emit("telemetry", obs_line(tr))
 
     kernels = []
     big = max(BATCHES)

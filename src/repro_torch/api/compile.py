@@ -19,11 +19,26 @@
   reference chain (``x @ w (+ b)``, ReLU between layers), the software
   baseline of the ECG accuracy loop.
 
-Everything is lowered once, on the target device.  Not ported yet: the
-static verify step and measured calibration (``calibration=``).
+``calibration=`` selects the bake source: None keeps the oracle
+``params["fpn"]`` bake (simulation-only ground truth); a
+:class:`repro_torch.calib.snapshot.CalibrationSnapshot` bakes MEASURED
+per-(chunk, column) gain/offset tables and static activation scales
+instead - the only bake real hardware supports.  Snapshot entries are
+looked up by spec layer name (stacks) / dotted params path (trees);
+layers without an entry keep the oracle bake.  A tree's column_concat
+group fuses under static activation calibration when the snapshot gave
+all its members one shared input LSB (``a_scale_in``).
+:meth:`~repro_torch.api.program.CompiledModel.with_calibration` hot-swaps
+a refreshed snapshot's tables without lowering.
+
+Everything is lowered once, on the target device, inside an
+``api.compile`` span of :mod:`repro_torch.obs.trace` that records the
+:func:`~repro_torch.exec.lower.lowering_count` it took.  Not ported yet:
+the static verify step, and ``compile_block(calibration=)``.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Iterator, Optional, Sequence, Tuple
 
 from repro_torch.api.module import (
@@ -38,9 +53,11 @@ from repro_torch.api.module import (
 from repro_torch.api.program import CompiledModel
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.device import DeviceLike, resolve_device, to_device
-from repro_torch.exec.lower import (lower_block, lower_fused, lower_layer,
-                                    lower_stack)
+from repro_torch.exec.lower import (layer_with_tables, lower_block,
+                                    lower_fused, lower_layer, lower_stack,
+                                    lowering_count)
 from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, GroupPlan, PlanStack
+from repro_torch.obs import trace as _trace
 
 _PLAN = "_plan"
 _GROUPS = "_groups"
@@ -69,13 +86,35 @@ def _slice(node, i: int):
     return node[i]
 
 
-def _lower_leaf(node: dict, acfg: AnalogConfig):
+def _lower_leaf(node: dict, acfg: AnalogConfig, calib=None):
     """Lower one analog layer dict; a scan-stacked one slice by slice (the
-    reference vmaps over the stack axis)."""
+    reference vmaps over the stack axis).  A measured record applies to a
+    plain 2-D layer (a scan-stacked layer has no single chip)."""
     if node["w"].ndim == 3:
         return PlanStack(lower_layer(_slice(node, i), acfg)
                          for i in range(node["w"].shape[0]))
-    return lower_layer(node, acfg)
+    return lower_layer(node, acfg, calib=calib)
+
+
+def _member_calibs(calibration, parent: str, locals_: Sequence[str]):
+    """The group members' calibration records (member order) when the
+    snapshot covers ALL of them, else None.  A partial snapshot must not
+    change how a group lowers."""
+    if calibration is None:
+        return None
+    calibs = [calibration.layer(f"{parent}.{m}" if parent else m)
+              for m in locals_]
+    if any(c is None for c in calibs):
+        return None
+    return calibs
+
+
+def _static_fusable(calibs) -> bool:
+    """column_concat under static activation calibration needs the
+    group's shared input LSB (``a_scale_in``) on every member -
+    produced by :func:`repro_torch.calib.routines.share_group_input_scale`."""
+    return calibs is not None and all(c.a_scale_in is not None
+                                      for c in calibs)
 
 
 def _derive_groups(params) -> Tuple[GroupSpec, ...]:
@@ -103,36 +142,44 @@ def _derive_groups(params) -> Tuple[GroupSpec, ...]:
 
 
 def _lower_group(g: GroupSpec, locals_: Sequence[str], node: dict,
-                 acfg: AnalogConfig):
+                 acfg: AnalogConfig, calibration=None, parent: str = ""):
     """Lower one declared fusion group at its parent node, or None when it
-    cannot fuse under this config (column_concat needs dynamic activation
-    calibration: the group shares one input encoding; the members then
-    keep their per-layer plans).  Scan-stacked members give a
+    cannot fuse under this config (column_concat shares one input
+    encoding: always under dynamic activation calibration, under static
+    only when the snapshot calibrated the group together; otherwise the
+    members keep their per-layer plans).  Scan-stacked members give a
     :class:`PlanStack` of per-slice group plans."""
-    if acfg.act_calib != "dynamic":
-        return None
     members = [node[m] for m in locals_]
+    stacked = members[0]["w"].ndim == 3
+    calibs = None if stacked else _member_calibs(calibration, parent,
+                                                 locals_)
+    if acfg.act_calib != "dynamic" and not _static_fusable(calibs):
+        return None
     member_ns = tuple(int(m["w"].shape[-1]) for m in members)
 
     def group(ms):
-        return GroupPlan(kind=g.kind, fused=lower_fused(ms, acfg),
+        return GroupPlan(kind=g.kind,
+                         fused=lower_fused(ms, acfg, calibs=calibs),
                          member_names=tuple(locals_), member_ns=member_ns)
 
-    if members[0]["w"].ndim == 3:
+    if stacked:
         return PlanStack(group([_slice(m, i) for m in members])
                          for i in range(members[0]["w"].shape[0]))
     return group(members)
 
 
 def lower_tree(params, run_cfg, *,
-               groups: Optional[Sequence[GroupSpec]] = None):
+               groups: Optional[Sequence[GroupSpec]] = None,
+               calibration=None):
     """Pre-lower every analog layer in a params tree: each analog-layer
     dict gains a ``"_plan"`` entry, every fusion group a
     :class:`~repro_torch.exec.plan.GroupPlan` in its parent node's
     ``"_groups"`` dict (fused members get no per-layer plan).  ``groups``
     is the fusion declaration (``spec.groups`` when called through
-    :func:`compile`); None derives it from the params structure.  Returns
-    the params tree unchanged in digital mode."""
+    :func:`compile`); None derives it from the params structure.
+    ``calibration`` (a snapshot keyed by dotted params path) bakes
+    measured tables where it has an entry.  Returns the params tree
+    unchanged in digital mode."""
     acfg = _acfg(run_cfg)
     if acfg.mode == "digital":
         return params
@@ -144,11 +191,13 @@ def lower_tree(params, run_cfg, *,
         by_parent.setdefault(parent, []).append((g, locals_))
 
     def walk(node, path):
+        joined = ".".join(path)
         if _is_analog_layer(node):
-            return {**node, _PLAN: _lower_leaf(node, acfg)}
+            calib = (calibration.layer(joined) if calibration is not None
+                     else None)
+            return {**node, _PLAN: _lower_leaf(node, acfg, calib)}
         if not isinstance(node, dict):
             return node
-        joined = ".".join(path)
         gplans: dict = {}
         fused: set = set()
         for g, locals_ in by_parent.get(joined, ()):
@@ -158,7 +207,7 @@ def lower_tree(params, run_cfg, *,
                     f"group {g.name!r}: members {missing} not found under "
                     f"params node {joined or '<root>'!r}"
                 )
-            gp = _lower_group(g, locals_, node, acfg)
+            gp = _lower_group(g, locals_, node, acfg, calibration, joined)
             if gp is not None:
                 gplans[g.local_name] = gp
                 fused.update(locals_)
@@ -258,6 +307,62 @@ def block_spec(name: str, *, d_model: int, d_ff: int, n_heads: int,
     )
 
 
+def swap_calibration(lowered, snapshot, *, path: str = ""):
+    """Hot-swap a refreshed snapshot's measured tables into a pre-lowered
+    params tree: every plain ``"_plan"`` entry and every column_concat
+    ``"_groups"`` plan the snapshot covers gets its ``chunk_offset``
+    replaced - and its ``chunk_gain`` when the plan baked a measured gain
+    table of matching shape
+    (:func:`~repro_torch.exec.lower.layer_with_tables`).  Nothing is
+    lowered; scan-stacked plans (no single chip), layers the snapshot
+    does not cover and tables that do not match the plan's shape are
+    kept."""
+    import torch
+
+    def swap(lp, off, gain):
+        if (off is None or lp.chunk_offset is None
+                or tuple(off.shape) != tuple(lp.chunk_offset.shape)):
+            return lp
+        cg = lp.store.chunk_gain
+        if (gain is None or cg is None or lp.colsum is not None
+                or tuple(gain.shape) != tuple(cg.shape)):
+            gain = None
+        return layer_with_tables(lp, chunk_offset=off, chunk_gain=gain)
+
+    def swap_group(gp, p: str):
+        if isinstance(gp, PlanStack) or gp.kind != GROUP_COLUMN_CONCAT:
+            return gp
+        recs = _member_calibs(snapshot, p, gp.member_names)
+        if recs is None or any(r.chunk_offset is None for r in recs):
+            return gp
+        dev = gp.fused.store.codes.device
+
+        def cat(ts):
+            return torch.cat([t.to(dev, torch.float32) for t in ts], dim=-1)
+
+        gains = [r.gain_table for r in recs]
+        gain = None if any(g is None for g in gains) else cat(gains)
+        return dataclasses.replace(gp, fused=swap(
+            gp.fused, cat([r.chunk_offset for r in recs]), gain))
+
+    def walk(node, p: str):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            if k == _PLAN:
+                rec = snapshot.layer(p)
+                out[k] = v if rec is None or isinstance(v, PlanStack) \
+                    else swap(v, rec.chunk_offset, rec.gain_table)
+            elif k == _GROUPS:
+                out[k] = {name: swap_group(gp, p) for name, gp in v.items()}
+            else:
+                out[k] = walk(v, f"{p}.{k}" if p else k)
+        return out
+
+    return walk(lowered, path)
+
+
 def _compile_block(spec: ModuleSpec, params, acfg: AnalogConfig):
     g = spec.block_geom
     return lower_block(
@@ -286,8 +391,10 @@ def compile_block(block_params, run_cfg, *, n_heads: int, n_kv_heads: int,
     """
     if calibration is not None:
         raise NotImplementedError(
-            "compile_block(calibration=...): measured calibration is not "
-            "ported yet (ROADMAP)")
+            "compile_block(calibration=...) is not ported yet: a measured "
+            "block bake needs the split tile's int8 code operand to carry "
+            "a chunk_gain table; it comes with the next slice, the LM "
+            "half of the calibration hooks (ROADMAP.md, queue 1)")
     attn, mlp = block_params["attn"], block_params["mlp"]
     spec = block_spec(
         name,
@@ -300,36 +407,51 @@ def compile_block(block_params, run_cfg, *, n_heads: int, n_kv_heads: int,
 
 
 def compile(spec: ModuleSpec, params, run_cfg, *,  # noqa: A001
-            device: DeviceLike = None) -> CompiledModel:
+            calibration=None, device: DeviceLike = None) -> CompiledModel:
     """Compile a declared model against concrete parameters on ``device``
     (``None`` = the CUDA device; raises when there is none).  The
     parameters are moved there first, then every analog layer is lowered
     once: a stack into one AnalogPlan, a tree into plan entries beside the
     params (fusion groups planned from ``spec.groups``), a block into one
-    block plan."""
+    block plan.  ``calibration`` (a CalibrationSnapshot) bakes measured
+    tables in place of the oracle fixed pattern (module docstring)."""
     dev = resolve_device(device)
     acfg = _acfg(run_cfg)
     params = to_device(params, dev)
-    if spec.kind == TREE:
-        lowered = lower_tree(params, acfg, groups=spec.groups)
-    elif spec.kind == BLOCK:
-        if acfg.mode == "digital":
-            raise ValueError(
-                f"spec {spec.name!r}: digital mode compiles no analog "
-                "block; run the transformer model path instead "
-                "(models.transformer)"
+    with _trace.span("api.compile", spec=spec.name, kind=spec.kind,
+                     mode=acfg.mode) as sp:
+        before = lowering_count()
+        if spec.kind == TREE:
+            lowered = lower_tree(params, acfg, groups=spec.groups,
+                                 calibration=calibration)
+        elif spec.kind == BLOCK:
+            if acfg.mode == "digital":
+                raise ValueError(
+                    f"spec {spec.name!r}: digital mode compiles no analog "
+                    "block; run the transformer model path instead "
+                    "(models.transformer)"
+                )
+            if calibration is not None:
+                raise NotImplementedError(
+                    "compile(calibration=...) of a block spec: see "
+                    "compile_block")
+            lowered = _compile_block(spec, params, acfg)
+        elif acfg.mode == "digital":
+            lowered = None
+        else:
+            assert spec.kind == STACK, spec.kind
+            calibs = None
+            if calibration is not None:
+                calibs = [calibration.layer(l.name) for l in spec.layers]
+            lowered = lower_stack(
+                _stack_params(spec, params), acfg,
+                signed_inputs=[l.signed_input for l in spec.layers],
+                epilogues=[l.epilogue for l in spec.layers],
+                flatten_outs=[l.flatten_out for l in spec.layers],
+                input_domain=spec.input_domain,
+                calibs=calibs,
             )
-        lowered = _compile_block(spec, params, acfg)
-    elif acfg.mode == "digital":
-        lowered = None
-    else:
-        assert spec.kind == STACK, spec.kind
-        lowered = lower_stack(
-            _stack_params(spec, params), acfg,
-            signed_inputs=[l.signed_input for l in spec.layers],
-            epilogues=[l.epilogue for l in spec.layers],
-            flatten_outs=[l.flatten_out for l in spec.layers],
-            input_domain=spec.input_domain,
-        )
+        sp.add(lowerings=lowering_count() - before)
     return CompiledModel(spec=spec, params=params, run_cfg=run_cfg,
-                         lowered=lowered, device=dev)
+                         lowered=lowered, device=dev,
+                         calibration=calibration)

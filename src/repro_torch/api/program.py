@@ -5,6 +5,7 @@ function every model matmul routes through.
     model = api.compile(spec, params, run_cfg)   # on the CUDA device
     y     = model.apply(x)                       # run the compiled program
     plan  = model.lower()                        # AnalogPlan / lowered tree
+    model = model.with_calibration(snapshot)     # drift hot-swap, no lowering
 
 Serving compiles once and replays the baked plans for every request.
 """
@@ -47,13 +48,15 @@ def apply_linear(params: dict, x: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class CompiledModel:
     """An executable analog model: declaration + params + the baked plans,
-    all on ``device``."""
+    all on ``device``, and the calibration snapshot they were baked from
+    (None: the oracle bake)."""
 
     spec: Any                      # ModuleSpec
     params: Any                    # the float master parameters
     run_cfg: Any                   # RunConfig or AnalogConfig
     lowered: Any                   # AnalogPlan | lowered tree | None (digital)
     device: torch.device
+    calibration: Any = None        # CalibrationSnapshot | None
 
     @property
     def acfg(self) -> AnalogConfig:
@@ -101,6 +104,43 @@ class CompiledModel:
         mode), or the pre-lowered params tree (tree kind; the raw params
         in digital mode)."""
         return self.lowered
+
+    def with_calibration(self, snapshot) -> "CompiledModel":
+        """Hot-swap a refreshed calibration snapshot's measured tables into
+        the baked plans (the drift refresh): the ``chunk_offset`` tables,
+        and where a plan baked a measured gain table (``store.chunk_gain``)
+        and the snapshot has one of its shape, that table.  Nothing is
+        lowered (:func:`~repro_torch.exec.lower.lowering_count` does not
+        move); an offset-only swap keeps every weight store and the
+        megakernel's ``w_cat``, a changed gain table re-derives the
+        affected stores' ``w_eff`` from their codes.  Stack plans swap by
+        spec layer name, tree plans by dotted path."""
+        from repro_torch.api.compile import swap_calibration
+        from repro_torch.exec.lower import plan_with_tables
+        from repro_torch.exec.plan import AnalogPlan
+
+        if self.lowered is None:
+            return dataclasses.replace(self, calibration=snapshot)
+        if isinstance(self.lowered, AnalogPlan):
+            if self.lowered.block is not None:
+                raise NotImplementedError(
+                    "with_calibration of a block plan comes with "
+                    "compile_block(calibration=) (ROADMAP.md, queue 1)")
+            offs, gains = [], []
+            for layer, lp in zip(self.spec.layers, self.lowered.layers):
+                rec = snapshot.layer(layer.name)
+                offs.append(None if rec is None else rec.chunk_offset)
+                g = None if rec is None else rec.gain_table
+                cg = lp.store.chunk_gain
+                if (g is None or cg is None or lp.colsum is not None
+                        or tuple(g.shape) != tuple(cg.shape)):
+                    g = None
+                gains.append(g)
+            lowered = plan_with_tables(self.lowered, offs, gains)
+        else:
+            lowered = swap_calibration(self.lowered, snapshot)
+        return dataclasses.replace(self, lowered=lowered,
+                                   calibration=snapshot)
 
     def group_plan(self, name: str) -> Optional[Any]:
         """The lowered :class:`~repro_torch.exec.plan.GroupPlan` (a

@@ -82,6 +82,35 @@ def init_fixed_pattern(
     return out
 
 
+def effective_weight(w_code: torch.Tensor, fpn: dict) -> torch.Tensor:
+    """Apply the fixed-pattern gain to weight codes -> the effective
+    analog weight (the reference's products, in its order)."""
+    if "gain" in fpn:
+        return w_code * fpn["gain"]
+    w = w_code
+    if "col_gain" in fpn:
+        w = w * fpn["col_gain"][None, :]
+    if "row_gain" in fpn:
+        w = w * fpn["row_gain"][:, None]
+    return w
+
+
+def offset_drift(noise: Union[torch.Generator, torch.Tensor], shape: tuple,
+                 std_lsb: float, *, device: torch.device) -> torch.Tensor:
+    """One thermal-drift step of the per-(chunk, column) ADC offsets:
+    ``std_lsb * N(0, 1)`` of ``shape``, drawn from the generator ``noise``
+    on ``device``, or ``noise`` itself when it is a tensor - a step drawn
+    elsewhere and injected (the reference's, in a parity test).  Offsets
+    drift on deployment timescales; gains are stable."""
+    if isinstance(noise, torch.Tensor):
+        if tuple(noise.shape) != tuple(shape):
+            raise ValueError(f"injected drift step has shape "
+                             f"{tuple(noise.shape)}, want {tuple(shape)}")
+        return noise.to(device=device, dtype=torch.float32)
+    return std_lsb * torch.randn(shape, generator=noise,
+                                 dtype=torch.float32, device=device)
+
+
 def chunk_offsets(fpn: dict, n_chunks: int,
                   n: int) -> Optional[torch.Tensor]:
     off = fpn.get("chunk_offset")

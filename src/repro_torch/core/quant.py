@@ -123,6 +123,14 @@ def act_scale_from_max(max_abs: torch.Tensor) -> torch.Tensor:
     return _div_exact(torch.clamp_min(max_abs, 1e-8), float(BSS2.a_max))
 
 
+def calibrate_act_scale(x: torch.Tensor, pct: float = 99.9) -> torch.Tensor:
+    """Percentile-calibrated activation scale (robust against outliers;
+    linear interpolation between order statistics, as ``jnp.percentile``)."""
+    hi = torch.quantile(x.detach().abs().reshape(-1).to(torch.float32),
+                        pct / 100.0)
+    return act_scale_from_max(hi)
+
+
 def weight_scale_from_max(max_abs: torch.Tensor) -> torch.Tensor:
     """LSB so that ``max_abs`` maps to the top weight code."""
     return _div_exact(torch.clamp_min(max_abs, 1e-8), float(BSS2.w_max))

@@ -3,13 +3,26 @@
 
 The compile step of the compile-once/run-many split: everything that
 depends only on the master weights and the frozen calibration state is
-computed here, once - 6-bit weight quantization, the fixed-pattern gain
-tables (the oracle bake from ``params["fpn"]``), chunk padding of the
-weights, the chunk-offset table, the column-concatenated plan of a
-fusion group (:func:`lower_fused`), the fused attention+MLP block
-(:func:`lower_block`) and, for eligible chains, the whole-plan
+computed here, once - 6-bit weight quantization, the gain tables, chunk
+padding of the weights, the chunk-offset table, the column-concatenated
+plan of a fusion group (:func:`lower_fused`), the fused attention+MLP
+block (:func:`lower_block`) and, for eligible chains, the whole-plan
 megakernel packing.  Per-call quantities (the dynamic
 activation scale, the readout noise) stay in :mod:`repro_torch.exec.run`.
+
+Calibration state comes from one of two sources, selected per layer:
+
+- **oracle bake** (default): the frozen fixed-pattern dict in
+  ``params["fpn"]`` - ground-truth deviations, known only in simulation;
+- **measured bake**: a ``calib`` record (canonically a
+  :class:`repro_torch.calib.snapshot.LayerCalibration`) from blind
+  measurement of a device: its per-(chunk, column) ``gain_table`` and
+  ``chunk_offset`` replace ``params["fpn"]``, an optional static
+  ``a_scale`` / shared-group ``a_scale_in`` the params scale.  Fields
+  the record did not measure (None) keep the oracle bake.
+
+Every :func:`lower_layer` call adds one to :func:`lowering_count`, so a
+caller can show that a hot-swap or a plan-store load lowered nothing.
 
 Lowering is differentiable: the weight quantizer is the STE one and no
 parameter is detached, so a gradient through ``lower`` + ``run``
@@ -42,6 +55,26 @@ from repro_torch.exec.plan import (
     default_shift,
 )
 
+# Lowering accounting (the reference's ``LOWERINGS``): the port is eager,
+# so this counts every lower_layer call.
+_LOWERINGS = 0
+
+
+def reset_lowering_count() -> None:
+    global _LOWERINGS
+    _LOWERINGS = 0
+
+
+def lowering_count() -> int:
+    """:func:`lower_layer` calls since the last
+    :func:`reset_lowering_count`."""
+    return _LOWERINGS
+
+
+def _table(x, dev: torch.device) -> torch.Tensor:
+    """A measured calibration table as an fp32 tensor on ``dev``."""
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
 
 def lower_layer(
     params: Params,
@@ -50,14 +83,20 @@ def lower_layer(
     signed_input: Optional[str] = None,
     epilogue: str = EPILOGUE_NONE,
     flatten_out: bool = False,
+    calib=None,
 ) -> LayerPlan:
     """Lower ONE analog linear layer's parameters to a :class:`LayerPlan`
     (on the device the parameters live on).
 
     ``signed_input`` overrides ``cfg.signed_input`` per layer;
     ``epilogue`` selects the inter-layer ADC treatment, whose right shift
-    is the range-matched one for this layer's chunk count.
+    is the range-matched one for this layer's chunk count.  ``calib`` (a
+    measured :class:`repro_torch.calib.snapshot.LayerCalibration`)
+    replaces the oracle ``params["fpn"]`` bake with measured tables; its
+    tables are moved to the parameters' device.
     """
+    global _LOWERINGS
+    _LOWERINGS += 1
     if epilogue not in (EPILOGUE_NONE, EPILOGUE_RELU_SHIFT):
         raise ValueError(f"unknown epilogue {epilogue!r}")
     if epilogue == EPILOGUE_RELU_SHIFT and params.get("b") is not None:
@@ -74,20 +113,51 @@ def lower_layer(
     n_chunks = -(-k // cfg.chunk_rows)
     pad = n_chunks * cfg.chunk_rows - k
     fpn = params.get("fpn", {})  # verify: allow-fpn-access
-    chunk_off = noise_lib.chunk_offsets(fpn, n_chunks, n)
+    dev = w.device
+    a_scale = torch.as_tensor(params["a_scale"], dtype=torch.float32)
+    a_scale_in = None
     # packed bake: the plan stores the 6-bit codes plus the gain TABLES;
     # the fp32 w_eff product is a derived view (same elementwise multiply
     # order as the reference, pad entries exact 1.0)
-    col_gain = row_gain = gain_map = None
-    if "gain" in fpn:
-        gain_map = F.pad(fpn["gain"].to(torch.float32), (0, 0, 0, pad),
-                         value=1.0)
+    col_gain = row_gain = chunk_gain = gain_map = None
+    gt = None if calib is None else calib.gain_table
+    chunk_off = None if calib is None else calib.chunk_offset
+    if gt is not None:
+        # measured bake: the per-(chunk, column) tables of blind device
+        # measurement stand in for the ground-truth fixed pattern
+        if tuple(gt.shape) != (n_chunks, n):
+            raise ValueError(
+                f"gain_table shape {tuple(gt.shape)} does not match the "
+                f"({n_chunks}, {n}) chunk grid of a {k}x{n} layer"
+            )
+        chunk_gain = _table(gt, dev)
+    if chunk_off is not None:
+        if tuple(chunk_off.shape) != (n_chunks, n):
+            raise ValueError(
+                f"chunk_offset shape {tuple(chunk_off.shape)} does not "
+                f"match the ({n_chunks}, {n}) chunk grid of a "
+                f"{k}x{n} layer"
+            )
+        chunk_off = _table(chunk_off, dev)
     else:
-        if "col_gain" in fpn:
-            col_gain = fpn["col_gain"].to(torch.float32)
-        if "row_gain" in fpn:
-            row_gain = F.pad(fpn["row_gain"].to(torch.float32), (0, pad),
-                             value=1.0)[None, :]
+        # a record without offsets keeps the oracle's: a scales-only
+        # record must not silently model an ideal chip
+        chunk_off = noise_lib.chunk_offsets(fpn, n_chunks, n)
+    if calib is not None:
+        if calib.a_scale is not None:
+            a_scale = _table(calib.a_scale, dev)
+        if calib.a_scale_in is not None:
+            a_scale_in = _table(calib.a_scale_in, dev)
+    if gt is None:
+        if "gain" in fpn:
+            gain_map = F.pad(fpn["gain"].to(torch.float32), (0, 0, 0, pad),
+                             value=1.0)
+        else:
+            if "col_gain" in fpn:
+                col_gain = fpn["col_gain"].to(torch.float32)
+            if "row_gain" in fpn:
+                row_gain = F.pad(fpn["row_gain"].to(torch.float32),
+                                 (0, pad), value=1.0)[None, :]
     codes = F.pad(w_code, (0, 0, 0, pad))
     if not codes.requires_grad:
         # pack to int8; codes that require grad stay fp32, since the cast
@@ -100,12 +170,14 @@ def lower_layer(
         gain=torch.as_tensor(params["gain"], dtype=torch.float32),
         col_gain=col_gain,
         row_gain=row_gain,
+        chunk_gain=chunk_gain,
         gain_map=gain_map,
         chunk_rows=cfg.chunk_rows,
     )
     return LayerPlan(
         store=store,
-        a_scale=torch.as_tensor(params["a_scale"], dtype=torch.float32),
+        a_scale=a_scale,
+        a_scale_in=a_scale_in,
         chunk_offset=chunk_off,
         bias=params.get("b"),
         k=k,
@@ -124,6 +196,7 @@ def lower_fused(
     cfg: AnalogConfig,
     *,
     signed_input: Optional[str] = None,
+    calibs: Optional[Sequence] = None,
 ) -> LayerPlan:
     """Lower N same-input layers into ONE dispatch: their output columns
     concatenate into a single ``[K_pad, sum(N_i)]`` plan, so the executor
@@ -136,10 +209,14 @@ def lower_fused(
     per-layer ones whenever the layers share the input encoding - always
     under dynamic activation calibration (the scale is recomputed from
     the shared input per call).  Under static calibration the group bakes
-    ONE input LSB, so differing per-layer ``a_scale`` raise.
+    ONE input LSB: when every ``calibs[i]`` carries the group's shared
+    ``a_scale_in`` (:func:`repro_torch.calib.routines.
+    share_group_input_scale`), the fused plan encodes and dequantizes at
+    it; otherwise differing per-layer ``a_scale`` raise.
     """
-    plans = [lower_layer(p, cfg, signed_input=signed_input)
-             for p in layer_params]
+    cs = list(calibs) if calibs is not None else [None] * len(layer_params)
+    plans = [lower_layer(p, cfg, signed_input=signed_input, calib=c)
+             for p, c in zip(layer_params, cs)]
     p0 = plans[0]
     for lp in plans:
         if lp.k != p0.k or lp.chunk_rows != p0.chunk_rows:
@@ -147,14 +224,29 @@ def lower_fused(
                 "fused layers must share the input dim and chunk geometry: "
                 f"{[(p.k, p.chunk_rows) for p in plans]}"
             )
+    a_scale, a_scale_in = p0.a_scale, None
     if cfg.act_calib == "static":
-        scales = [float(lp.a_scale) for lp in plans]
-        if any(sc != scales[0] for sc in scales):
-            raise ValueError(
-                "lower_fused with act_calib='static' requires identical "
-                f"a_scale across the fused layers, got {scales}; lower them "
-                "per layer or recalibrate to a shared scale"
-            )
+        if all(lp.a_scale_in is not None for lp in plans):
+            # snapshot-calibrated group: encode AND dequantize the whole
+            # group at the shared input LSB
+            ins = [float(lp.a_scale_in) for lp in plans]
+            if any(sc != ins[0] for sc in ins):
+                raise ValueError(
+                    "fused layers carry differing shared input scales "
+                    f"a_scale_in={ins}; calibrate the group together "
+                    "(repro_torch.calib.routines.share_group_input_scale)"
+                )
+            a_scale = a_scale_in = p0.a_scale_in
+        else:
+            scales = [float(lp.a_scale) for lp in plans]
+            if any(sc != scales[0] for sc in scales):
+                raise ValueError(
+                    "lower_fused with act_calib='static' requires "
+                    f"identical a_scale across the fused layers, got "
+                    f"{scales}; lower them per-layer, recalibrate to a "
+                    "shared scale, or calibrate the group "
+                    "(repro_torch.calib.routines.share_group_input_scale)"
+                )
 
     def cat(parts):
         return torch.cat(parts, dim=-1)
@@ -185,6 +277,8 @@ def lower_fused(
         col_gain=cat_or_fill([s.col_gain for s in stores],
                              lambda lp: torch.ones((lp.n,), **f32)),
         row_gain=row_gain,
+        chunk_gain=cat_or_fill([s.chunk_gain for s in stores],
+                               lambda lp: torch.ones((c, lp.n), **f32)),
         gain_map=cat_or_fill([s.gain_map for s in stores],
                              lambda lp: torch.ones((k_pad, lp.n), **f32)),
         chunk_rows=p0.chunk_rows,
@@ -192,7 +286,8 @@ def lower_fused(
     )
     return LayerPlan(
         store=store,
-        a_scale=p0.a_scale,
+        a_scale=a_scale,
+        a_scale_in=a_scale_in,
         chunk_offset=cat_or_fill([lp.chunk_offset for lp in plans],
                                  lambda lp: torch.zeros((c, lp.n), **f32)),
         bias=cat_or_fill([lp.bias for lp in plans],
@@ -227,24 +322,29 @@ def lower_stack(
     epilogues: Optional[Sequence[str]] = None,
     flatten_outs: Optional[Sequence[bool]] = None,
     input_domain: Optional[str] = None,
+    calibs: Optional[Sequence] = None,
 ) -> AnalogPlan:
     """Lower an ordered stack of layers into one :class:`AnalogPlan`.
 
     ``epilogues[i]`` is the ADC epilogue BETWEEN layer i and i+1; the last
     layer's epilogue is forced to "none" (final outputs dequantize to
-    float).  Eligible chains also get the megakernel packing baked
-    (:func:`pack_megakernel`).
+    float).  ``calibs[i]`` (optional) is layer i's measured
+    :class:`~repro_torch.calib.snapshot.LayerCalibration`
+    (:func:`lower_layer`).  Eligible chains also get the megakernel
+    packing baked (:func:`pack_megakernel`), from the calibrated stores.
     """
     n = len(layer_params)
     signed_inputs = signed_inputs or [None] * n
     epilogues = list(epilogues or [EPILOGUE_NONE] * n)
     flatten_outs = flatten_outs or [False] * n
+    calibs = calibs or [None] * n
     if n:
         epilogues[-1] = EPILOGUE_NONE
     layers = tuple(
-        lower_layer(p, cfg, signed_input=s, epilogue=e, flatten_out=f)
-        for p, s, e, f in zip(layer_params, signed_inputs, epilogues,
-                              flatten_outs)
+        lower_layer(p, cfg, signed_input=s, epilogue=e, flatten_out=f,
+                    calib=c)
+        for p, s, e, f, c in zip(layer_params, signed_inputs, epilogues,
+                                 flatten_outs, calibs)
     )
     plan = AnalogPlan(layers=layers, cfg=cfg,
                       input_domain=_resolve_input_domain(layers, input_domain))
@@ -346,6 +446,17 @@ def lower_block(
     return dataclasses.replace(plan, mega=pack_megakernel(plan))
 
 
+def _packed_offsets(layers, n_max: int) -> torch.Tensor:
+    """The chunk-offset tables of a pack: each layer's [C, N] table (zeros
+    where it has none) column-padded to ``n_max``, chunk-concatenated."""
+    dev = layers[0].store.codes.device
+    return torch.cat([
+        F.pad(lp.chunk_offset if lp.chunk_offset is not None
+              else torch.zeros((lp.n_chunks, lp.n), dtype=torch.float32,
+                               device=dev), (0, n_max - lp.n))
+        for lp in layers], dim=0)
+
+
 def pack_megakernel(plan: AnalogPlan) -> Optional[MegakernelPack]:
     """Pack an eligible :class:`AnalogPlan` into the stacked operands and
     static schedule of the whole-plan kernels, or None when the plan is
@@ -401,24 +512,21 @@ def pack_megakernel(plan: AnalogPlan) -> Optional[MegakernelPack]:
         h not in ("codes", "raw") for h in handoffs
     )
     dev = layers[0].store.codes.device
-    schedule, gain_rows, off_blocks = [], [], []
+    schedule, gain_rows = [], []
     deq_rows, bias_rows, enc_rows = [], [], []
     row0 = c0 = 0
     for i, lp in enumerate(layers):
         gain_b = torch.broadcast_to(
             torch.as_tensor(lp.gain, dtype=torch.float32), (lp.n,))
         gain_rows.append(F.pad(gain_b, (0, n_max - lp.n)))
-        off = (lp.chunk_offset if lp.chunk_offset is not None
-               else torch.zeros((lp.n_chunks, lp.n), dtype=torch.float32,
-                                device=dev))
-        off_blocks.append(F.pad(off, (0, n_max - lp.n)))
         if needs_extras:
             # the static input LSB this layer encodes (and therefore
-            # dequantizes) with; 1.0 for raw code inputs
+            # dequantizes) with: the group's shared a_scale_in when
+            # calibrated together, else its own; 1.0 for raw code inputs
             if encodes[i] == "codes":
                 in_scale = torch.tensor(1.0, dtype=torch.float32, device=dev)
             else:
-                in_scale = lp.a_scale.reshape(())
+                in_scale = lp.in_scale.reshape(())
             enc_rows.append(in_scale[None])
             # per-column dequant row: EXACTLY run_layer's expression
             # (product first, then the gain divide) for bit-exactness
@@ -453,9 +561,72 @@ def pack_megakernel(plan: AnalogPlan) -> Optional[MegakernelPack]:
     return MegakernelPack(
         stores=tuple(lp.store for lp in layers),
         gain=torch.stack(gain_rows, dim=0),
-        off=torch.cat(off_blocks, dim=0),
+        off=_packed_offsets(layers, n_max),
         schedule=tuple(schedule),
         n_max=n_max,
         chunk_rows=layers[0].chunk_rows,
         **extras,
     )
+
+
+def layer_with_tables(lp: LayerPlan, *, chunk_offset=None,
+                      chunk_gain=None) -> LayerPlan:
+    """Swap ONE lowered layer's measured tables (the drift hot-swap);
+    ``None`` keeps a table.  An offset swap replaces the ``chunk_offset``
+    tensor only (the store, and its derived ``w_eff``, are shared); a gain
+    swap that changes the store's ``chunk_gain`` rebuilds the store's
+    derived weights from its codes.  Neither lowers anything.  Raises when
+    the plan was lowered without the table (re-lower instead) or the
+    shapes differ."""
+    if chunk_offset is not None:
+        if lp.chunk_offset is None:
+            raise ValueError(
+                "cannot hot-swap offsets into a plan lowered without an "
+                "offset table; re-lower the layer")
+        chunk_offset = _table(chunk_offset, lp.chunk_offset.device)
+        if chunk_offset.shape != lp.chunk_offset.shape:
+            raise ValueError(
+                f"offset table shape {tuple(chunk_offset.shape)} != baked "
+                f"{tuple(lp.chunk_offset.shape)}")
+        lp = dataclasses.replace(lp, chunk_offset=chunk_offset)
+    if chunk_gain is not None:
+        cg = lp.store.chunk_gain
+        if cg is None:
+            raise ValueError(
+                "cannot hot-swap a gain table into a plan lowered without "
+                "one; re-lower the layer")
+        if lp.colsum is not None:
+            raise ValueError(
+                "cannot hot-swap gains under an offset-encoding column "
+                "sum (colsum folds the baked gains); re-lower the layer")
+        chunk_gain = _table(chunk_gain, cg.device)
+        if chunk_gain.shape != cg.shape:
+            raise ValueError(f"gain table shape {tuple(chunk_gain.shape)} "
+                             f"!= baked {tuple(cg.shape)}")
+        if not torch.equal(chunk_gain, cg):
+            lp = dataclasses.replace(lp, store=dataclasses.replace(
+                lp.store, chunk_gain=chunk_gain))
+    return lp
+
+
+def plan_with_tables(plan: AnalogPlan, offsets: Sequence, gains=None
+                     ) -> AnalogPlan:
+    """Swap per-layer offset and gain tables of a lowered stack
+    (:func:`layer_with_tables` per layer; ``None`` entries keep a table).
+    When only offsets changed, the megakernel pack keeps its stores and
+    ``w_cat`` and takes the new offset table; a changed gain table
+    re-packs from the swapped stores.  Nothing is lowered."""
+    n = len(plan.layers)
+    gains = list(gains) if gains is not None else [None] * n
+    if len(offsets) != n or len(gains) != n:
+        raise ValueError(f"{len(offsets)} offset / {len(gains)} gain "
+                         f"tables for {n} layers")
+    layers = tuple(layer_with_tables(lp, chunk_offset=off, chunk_gain=g)
+                   for lp, off, g in zip(plan.layers, offsets, gains))
+    out = dataclasses.replace(plan, layers=layers)
+    if plan.mega is None:
+        return out
+    if all(a.store is b.store for a, b in zip(layers, plan.layers)):
+        return dataclasses.replace(out, mega=plan.mega.with_off(
+            _packed_offsets(layers, plan.mega.n_max)))
+    return dataclasses.replace(out, mega=pack_megakernel(out))

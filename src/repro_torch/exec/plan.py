@@ -22,6 +22,7 @@ schedule.  The plans are frozen dataclasses holding tensors:
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Optional, Tuple
 
@@ -45,7 +46,8 @@ INPUT_FLOAT = "float"
 # Fusion-group kinds.  "column_concat": layers with the same input and
 # concatenated output columns (attention QKV) run as one [K, sum(N_i)]
 # pass.  The reference's "batch_concat" (RWKV) and "expert_stack" (MoE)
-# kinds are not ported yet.
+# groups load from a plan store as data (a leading member axis on every
+# leaf); they do not run until those families are ported.
 GROUP_COLUMN_CONCAT = "column_concat"
 GROUP_KINDS = (GROUP_COLUMN_CONCAT,)
 
@@ -77,6 +79,8 @@ class WeightStore:
                   row vector per column block (G = 1 for a solo layer, one
                   per member of a column_concat fusion, split by
                   ``col_blocks``); pad rows hold exact 1.0.
+      chunk_gain: optional [C, N] measured per-(chunk, column) gain table
+                  (the calibrated bake, :mod:`repro_torch.calib`).
       gain_map:   optional [K_pad, N] full per-synapse gain map; pad rows
                   hold exact 1.0.
 
@@ -84,10 +88,12 @@ class WeightStore:
     column_concat fusion, summing to N, or None for one block).
 
     Dequantization contract (:attr:`w_eff`): multiply the codes by
-    col_gain, then the per-block row_gain, then gain_map - elementwise in
-    exactly the reference's order, which reproduces its effective weights
-    bit for bit (``x * 1.0`` is exact).  The reference's measured ``chunk_gain``
-    table comes with the calibration subsystem, not ported yet.
+    col_gain, then the per-block row_gain, then the chunk-repeated
+    chunk_gain, then gain_map - elementwise in exactly the reference's
+    order, which reproduces its effective weights bit for bit (``x * 1.0``
+    is exact).  Every table indexes from the right, so a store loaded
+    with a leading member axis (a batch_concat or expert_stack group)
+    derives its ``w_eff`` the same way.
 
     Derived once, at construction, and kept beside the tables (an eager
     replay would otherwise rebuild them on every call; the reference's
@@ -103,6 +109,7 @@ class WeightStore:
     gain: torch.Tensor
     col_gain: Optional[torch.Tensor] = None
     row_gain: Optional[torch.Tensor] = None
+    chunk_gain: Optional[torch.Tensor] = None
     gain_map: Optional[torch.Tensor] = None
     chunk_rows: int = BSS2.signed_rows
     col_blocks: Optional[Tuple[int, ...]] = None
@@ -114,22 +121,39 @@ class WeightStore:
     def __post_init__(self):
         w = self.codes.to(torch.float32)
         if self.col_gain is not None:
-            w = w * self.col_gain[None, :]
+            w = w * self.col_gain[..., None, :]
         if self.row_gain is not None:
             if self.col_blocks is None:
-                w = w * self.row_gain[0, :, None]
+                w = w * self.row_gain[..., 0, :, None]
             else:
                 parts, c0 = [], 0
                 for gi, nb in enumerate(self.col_blocks):
-                    parts.append(w[:, c0:c0 + nb]
-                                 * self.row_gain[gi, :, None])
+                    parts.append(w[..., c0:c0 + nb]
+                                 * self.row_gain[..., gi, :, None])
                     c0 += nb
                 w = torch.cat(parts, dim=-1)
+        if self.chunk_gain is not None:
+            w = w * torch.repeat_interleave(self.chunk_gain,
+                                            self.chunk_rows, dim=-2)
         if self.gain_map is not None:
             w = w * self.gain_map
         object.__setattr__(self, "w_eff", w)
-        object.__setattr__(self, "gain_row", torch.broadcast_to(
-            self.gain, (self.codes.shape[-1],)).contiguous())
+        gain = self.gain
+        if self.codes.ndim == 2:
+            gain = torch.broadcast_to(gain, (self.codes.shape[-1],))
+        object.__setattr__(self, "gain_row", gain.contiguous())
+
+    @property
+    def code_operand(self) -> bool:
+        """Can a kernel read this store as int8 codes plus its rank-1 gain
+        tables (``col_gain``, ``row_gain``)?  Not with a full gain map
+        or a measured ``chunk_gain``: those stores give the kernels
+        their fp32 ``w_eff``."""
+        return self.gain_map is None and self.chunk_gain is None
+
+    @property
+    def k_pad(self) -> int:
+        return self.codes.shape[-2]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,7 +162,13 @@ class LayerPlan:
 
     Tensors: ``store`` (the :class:`WeightStore`), ``a_scale`` (scalar
     static activation LSB), ``chunk_offset`` ([C, N] fixed-pattern ADC
-    offsets or None), ``bias`` ([N] or None).  Static attributes: ``k``
+    offsets or None), ``colsum`` ([N] column sums of ``w_eff``, the
+    offset encoding's correction term; None until ``signed_input=
+    "offset"`` is ported, kept so that plan stores match the
+    reference's), ``bias`` ([N] or None), ``a_scale_in`` (the shared
+    static input LSB of a snapshot-calibrated fusion group, or None:
+    static encoding, and the matching dequantization, then use it
+    instead of ``a_scale``).  Static attributes: ``k``
     (logical input width), ``n`` (output width), ``chunk_rows``,
     ``signed_input``, ``epilogue``, ``shift`` (relu_shift right shift) and
     ``flatten_out`` (merge the position axis into features before the
@@ -156,6 +186,15 @@ class LayerPlan:
     epilogue: str = EPILOGUE_NONE
     shift: int = 0
     flatten_out: bool = False
+    colsum: Optional[torch.Tensor] = None
+    a_scale_in: Optional[torch.Tensor] = None
+
+    @property
+    def in_scale(self) -> torch.Tensor:
+        """The static LSB this layer encodes float inputs with (and
+        dequantizes its output at): the group's shared ``a_scale_in``
+        when calibrated together, else its own ``a_scale``."""
+        return self.a_scale if self.a_scale_in is None else self.a_scale_in
 
     @property
     def w_eff(self) -> torch.Tensor:
@@ -179,7 +218,7 @@ class LayerPlan:
 
     @property
     def n_chunks(self) -> int:
-        return self.store.codes.shape[0] // self.chunk_rows
+        return self.store.codes.shape[-2] // self.chunk_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,6 +300,17 @@ class MegakernelPack:
     block: Optional[tuple] = None
     w_cat: Optional[torch.Tensor] = dataclasses.field(
         init=False, repr=False, compare=False)
+
+    def with_off(self, off: torch.Tensor) -> "MegakernelPack":
+        """This pack with another chunk-offset table (the drift hot-swap):
+        the stores, ``w_cat`` and every other operand are shared, nothing
+        is re-derived."""
+        if tuple(off.shape) != tuple(self.off.shape):
+            raise ValueError(f"offset table shape {tuple(off.shape)} != "
+                             f"packed {tuple(self.off.shape)}")
+        out = copy.copy(self)
+        object.__setattr__(out, "off", off)
+        return out
 
     def __post_init__(self):
         w_cat = None

@@ -30,8 +30,13 @@ Left to run time (everything else was baked by
   kernel), or the 4-dispatch per-layer fallback.
 
 Every analog dispatch the executor issues adds one to
-:func:`dispatch_count` (on every device: the kernels' own launch counts,
+:func:`dispatch_count` and to the ``exec.dispatches`` counter of
+:mod:`repro_torch.obs.metrics`, and every :func:`run` call to
+``exec.run.megakernel`` or ``exec.run.per_layer`` by the route it took
+(on every device: the kernels' own launch counts,
 :func:`repro_torch.kernels.ops.launch_counts`, move only on the card).
+The reference counts these at trace time, once per compiled program;
+the port is eager and counts every call.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ from repro_torch.exec.plan import (
     LayerPlan,
 )
 from repro_torch.kernels.ops import needs_grad
+from repro_torch.obs import metrics as _obs_metrics
 
 _DISPATCHES = 0
 
@@ -65,6 +71,7 @@ def dispatch_count() -> int:
 def _count() -> None:
     global _DISPATCHES
     _DISPATCHES += 1
+    _obs_metrics.counter("exec.dispatches").inc()
 
 
 def _pad_codes(a: torch.Tensor, k_pad: int) -> torch.Tensor:
@@ -102,7 +109,9 @@ def run_layer(
         # preprocessing / SIMD-CPU right-shift choice on hardware)
         a_scale = quant.act_scale_from_max(x.detach().abs().max() + 1e-9)
     else:
-        a_scale = lp.a_scale
+        # static: a member of a snapshot-calibrated fused group encodes at
+        # the group's shared LSB; dequantization below uses the same
+        a_scale = lp.in_scale
     signed = "none" if x_is_codes else lp.signed_input
     if signed == "none":
         a_code = x if x_is_codes else quant.quantize_act(x, a_scale)
@@ -116,7 +125,10 @@ def run_layer(
                 "signed_input 'split' with fused_split=False or readout "
                 "noise (the two-pass route) is not ported yet (ROADMAP "
                 "queue 1, item 6)")
-        # ONE dispatch over shared weight tiles for both passes
+        # ONE dispatch over shared weight tiles for both passes.  The
+        # store picks the kernel's operand: int8 codes + rank-1 gain
+        # tables, or fp32 w_eff for a full gain map or a measured
+        # chunk_gain (the code operand has no per-(chunk, column) table)
         from repro_torch.kernels import ops as kernel_ops
 
         check_route(cfg, x)
@@ -223,7 +235,7 @@ def _run_megakernel(plan: AnalogPlan, x: torch.Tensor,
     y_int = y_int.reshape(lead + (lp.n,))
     # run_layer's dequantization at the LSB the last layer's input was
     # encoded at: 1.0 for raw codes, the baked static scale for floats
-    a_scale = 1.0 if mega.schedule[-1].encode == "codes" else lp.a_scale
+    a_scale = 1.0 if mega.schedule[-1].encode == "codes" else lp.in_scale
     y = y_int * (a_scale * lp.w_scale.reshape(-1) / lp.gain)
     if lp.bias is not None:
         y = y + lp.bias
@@ -306,7 +318,9 @@ def _run_block(plan: AnalogPlan, x: torch.Tensor, *,
             "length (the in-kernel attention bakes its positions)"
         )
     if megakernel is False:
+        _obs_metrics.counter("exec.run.per_layer").inc()
         return _run_block_fallback(plan, x)
+    _obs_metrics.counter("exec.run.megakernel").inc()
     b, s, d = x.shape
     run_block = (kernel_ops.analog_plan_codes if cfg.use_kernels
                  else analog_plan_ref)
@@ -375,9 +389,11 @@ def run(
     if megakernel is True or megakernel == "auto":
         route = _megakernel_route(plan, x, x_is_codes, noise)
         if not isinstance(route, str):
+            _obs_metrics.counter("exec.run.megakernel").inc()
             return _run_megakernel(plan, x, route)
         if megakernel is True:
             raise ValueError(f"megakernel=True, but: {route}")
+    _obs_metrics.counter("exec.run.per_layer").inc()
     is_codes = x_is_codes
     h = x
     for i, (lp, nz) in enumerate(zip(plan.layers, _layer_noise(noise, n))):

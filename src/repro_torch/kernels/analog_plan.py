@@ -359,11 +359,12 @@ def block_operand(weight, k_pad: int, n: int,
                   dev: torch.device) -> BlockOperand:
     """The operand a block layer's VMM stage reads, by the rule of
     ``exec/run.py``'s split branch: a
-    :class:`~repro_torch.exec.plan.WeightStore` without a full gain map
-    gives its int8 codes and rank-1 gain tables, any other store its
+    :class:`~repro_torch.exec.plan.WeightStore` with only rank-1 gain
+    tables (``code_operand``) gives its int8 codes and those tables, any
+    other store (a full gain map, a measured ``chunk_gain``) its
     ``w_eff``; a tensor is taken as the fp32 effective weights."""
     if getattr(weight, "codes", None) is not None:
-        if weight.gain_map is None:
+        if weight.code_operand:
             ends = code_operand_ends(weight.codes, weight.col_gain,
                                      weight.row_gain, weight.col_blocks,
                                      k_pad, dev)

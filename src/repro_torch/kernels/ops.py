@@ -162,15 +162,17 @@ def analog_mvm_split(
     (the per-layer hot path of LM plans), with the optional fused
     ``relu_shift`` epilogue.  On the card, a ``store`` (the layer's
     :class:`~repro_torch.exec.plan.WeightStore`, whose ``w_eff`` this is)
-    without a full gain map selects the kernel's int8 code operand; any
-    other store, or none, the fp32 ``w_eff`` operand.  On the CPU: the
+    with only rank-1 gain tables (:attr:`WeightStore.code_operand`)
+    selects the kernel's int8 code operand; any other store - a full gain
+    map, or a measured ``chunk_gain``, which the code operand has no
+    table for - or none, the fp32 ``w_eff`` operand.  On the CPU: the
     faithful chunk scan, or for fast mode the stacked ``[2M, K]`` plain
     version (pre-round sums are order-sensitive, so fast mode keeps the
     oracle's arithmetic).  Inference only: under autograd it raises."""
     if needs_grad(a_pos, a_neg, w_eff):
         raise _no_hil_backward("analog_mvm_split")
     if _on_cuda(a_pos):
-        if store is not None and store.gain_map is None:
+        if store is not None and store.code_operand:
             return analog_mvm_split_codes_cuda(
                 a_pos.contiguous(), a_neg.contiguous(), store.codes,
                 store.col_gain, store.row_gain, gain.contiguous(),

@@ -3,9 +3,20 @@
 stopping.  Requests are grouped into fixed decode slots of
 ``batch_size``.
 
-Not ported yet (ROADMAP): measured calibration, the drift monitor, the
-fleet hot-swap, the plan cache and the ``obs`` telemetry; passing any of
-``calibration``, ``drift_monitor``, ``plan_cache`` or ``fleet`` raises.
+Telemetry (:mod:`repro_torch.obs`, host side, the reference's names): a
+``serve.compile`` span around the compile (``api.compile`` nests under
+it) and a ``serve.energy`` event with the plans' energy report; per
+batch a ``serve.refill`` event and a ``serve.batch`` span nesting
+``serve.prefill`` and ``serve.decode``; histograms ``serve.queue_us``,
+``serve.prefill_us``, ``serve.decode_us`` (per step),
+``serve.request_us`` and ``serve.batch_occupancy``.  Each step's
+sampled tokens are read on the host once, as the loop needs them anyway;
+the telemetry adds no synchronization.
+
+Not ported yet (ROADMAP.md, queue 1: the LM half of the calibration
+hooks, the next slice): the engine's ``calibration``, ``drift_monitor``
+and ``plan_cache`` hooks, and ``fleet`` (queue 1, item 7); passing any
+of them raises.
 """
 from __future__ import annotations
 
@@ -19,6 +30,9 @@ from repro_torch import api
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.device import DeviceLike, resolve_device, to_device
 from repro_torch.models import transformer as T
+from repro_torch.obs import energy as obs_energy
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.serve_step import make_serve_steps
 
 
@@ -30,6 +44,8 @@ class Request:
     eos_id: Optional[int] = None
     # filled by the engine:
     output: Optional[np.ndarray] = None
+    # stamped by serve() on admission; feeds the serve.queue_us histogram
+    t_enqueue_us: Optional[float] = None
 
 
 class ServeEngine:
@@ -43,8 +59,10 @@ class ServeEngine:
         given = [k for k, v in hooks.items() if v is not None]
         if given:
             raise NotImplementedError(
-                f"ServeEngine({', '.join(given)}=...) is not ported yet "
-                "(ROADMAP)")
+                f"ServeEngine({', '.join(given)}=...) is not ported yet: "
+                "the engine's calibration, drift_monitor and plan_cache "
+                "hooks come with the next slice (the LM half of the "
+                "calibration work), fleet after it (ROADMAP.md, queue 1)")
         self.cfg, self.run = cfg, run
         self.device = resolve_device(device)
         # Serving is inference against frozen weights: compile the model
@@ -54,8 +72,12 @@ class ServeEngine:
         # split-encoded float layers: one fused-split dispatch per layer.
         self.model = None
         if run.analog.mode != "digital":
-            self.model = api.compile(T.lm_module_spec(cfg, params), params,
-                                     run, device=self.device)
+            with obs_trace.span("serve.compile", model=cfg.name) as sp:
+                self.model = api.compile(T.lm_module_spec(cfg, params),
+                                         params, run, device=self.device)
+                sp.add(route="lower")
+                # static per-inference cost of the plans this engine serves
+                obs_energy.record(self.model, prefix="serve.energy")
             params = self.model.lower()
         else:
             params = to_device(params, self.device)
@@ -73,45 +95,85 @@ class ServeEngine:
         return torch.multinomial(probs, 1, generator=self.generator)[:, 0]
 
     def run_batch(self, requests: list) -> list:
-        """Serve one group of <= batch_size requests to completion."""
+        """Serve one group of <= batch_size requests to completion.
+
+        Telemetry: a ``serve.batch`` span nests ``serve.prefill`` and
+        ``serve.decode``; each span closes after the host read of the
+        step's sampled tokens (the read the loop needs), so a prefill or
+        decode time includes its device work."""
         if len(requests) > self.batch_size:
             raise ValueError(f"{len(requests)} requests > batch_size "
                              f"{self.batch_size}")
         b = len(requests)
+        t_start = obs_trace.clock_us()
+        for r in requests:
+            if r.t_enqueue_us is not None:
+                obs_metrics.histogram("serve.queue_us").record(
+                    t_start - r.t_enqueue_us)
+        obs_metrics.histogram("serve.batch_occupancy").record(
+            b / self.batch_size)
         prompt_len = max(len(r.prompt) for r in requests)
-        toks = np.zeros((b, prompt_len), np.int64)
-        for i, r in enumerate(requests):
-            toks[i, prompt_len - len(r.prompt):] = r.prompt  # left-pad
-        cache = T.init_lm_cache(self.cfg, b, self.max_len,
-                                dtype=torch.float32, device=self.device)
-        logits, cache = self.prefill(
-            self.params, {"tokens": torch.as_tensor(toks, device=self.device)},
-            cache)
-        next_tok = self._sample(logits)
-        max_new = max(r.max_new_tokens for r in requests)
-        outs = [[] for _ in range(b)]
-        done = np.zeros(b, bool)
-        for _ in range(max_new):
-            host_tok = next_tok.cpu().numpy()
+        with obs_trace.span("serve.batch", batch=b,
+                            prompt_len=prompt_len) as bsp:
+            toks = np.zeros((b, prompt_len), np.int64)
             for i, r in enumerate(requests):
-                if not done[i]:
-                    tok = int(host_tok[i])
-                    outs[i].append(tok)
-                    if (r.eos_id is not None and tok == r.eos_id
-                            ) or len(outs[i]) >= r.max_new_tokens:
-                        done[i] = True
-            if done.all():
-                break
-            logits, cache = self.decode(self.params, next_tok[:, None],
-                                        cache)
-            next_tok = self._sample(logits)
+                toks[i, prompt_len - len(r.prompt):] = r.prompt  # left-pad
+            cache = T.init_lm_cache(self.cfg, b, self.max_len,
+                                    dtype=torch.float32, device=self.device)
+            with obs_trace.span("serve.prefill", batch=b,
+                                prompt_len=prompt_len) as psp:
+                logits, cache = self.prefill(
+                    self.params,
+                    {"tokens": torch.as_tensor(toks, device=self.device)},
+                    cache)
+                next_tok = self._sample(logits)
+                host_tok = next_tok.cpu().numpy()
+            obs_metrics.histogram("serve.prefill_us").record(psp.dur_us)
+            max_new = max(r.max_new_tokens for r in requests)
+            outs = [[] for _ in range(b)]
+            done = np.zeros(b, bool)
+            steps = 0
+            with obs_trace.span("serve.decode", batch=b) as dsp:
+                for _ in range(max_new):
+                    for i, r in enumerate(requests):
+                        if not done[i]:
+                            tok = int(host_tok[i])
+                            outs[i].append(tok)
+                            if (r.eos_id is not None and tok == r.eos_id
+                                    ) or len(outs[i]) >= r.max_new_tokens:
+                                done[i] = True
+                                obs_metrics.histogram(
+                                    "serve.request_us").record(
+                                    obs_trace.clock_us() - (
+                                        r.t_enqueue_us
+                                        if r.t_enqueue_us is not None
+                                        else t_start))
+                    if done.all():
+                        break
+                    t_step = obs_trace.clock_us()
+                    logits, cache = self.decode(self.params,
+                                                next_tok[:, None], cache)
+                    next_tok = self._sample(logits)
+                    host_tok = next_tok.cpu().numpy()
+                    obs_metrics.histogram("serve.decode_us").record(
+                        obs_trace.clock_us() - t_step)
+                    steps += 1
+                dsp.add(steps=steps)
+            bsp.add(tokens=int(sum(len(o) for o in outs)))
         for i, r in enumerate(requests):
             r.output = np.asarray(outs[i], np.int32)
         return requests
 
     def serve(self, requests: list) -> list:
         """Serve an arbitrary number of requests in batched groups."""
+        now = obs_trace.clock_us()
+        for r in requests:
+            if r.t_enqueue_us is None:
+                r.t_enqueue_us = now
         out = []
         for i in range(0, len(requests), self.batch_size):
-            out.extend(self.run_batch(requests[i:i + self.batch_size]))
+            group = requests[i:i + self.batch_size]
+            obs_trace.event("serve.refill", group=i // self.batch_size,
+                            size=len(group))
+            out.extend(self.run_batch(group))
         return out
