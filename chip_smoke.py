@@ -14,7 +14,11 @@ with random weights from a seed, on one NVIDIA GPU:
 - the same model's static-calibration prefill with one launch per
   transformer block (``attach_block_plans`` + ``lm_apply``);
 - the paper's deployment loop for the ECG classifier: blind calibration
-  of its chips, the measured bake, the plan store, the energy account.
+  of its chips, the measured bake, the plan store, the energy account;
+- the same loop for phi4-mini at full width: a measured snapshot served
+  through ``ServeEngine(calibration=, drift_monitor=, plan_cache=)``, a
+  chip fleet behind ``ServeEngine(fleet=)`` with a chip failure, a
+  calibrated block, and ``python -m repro_torch.obs --serve-smoke``.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -122,11 +126,48 @@ exits non-zero without printing a result):
    (276.0 us, 192 uJ on the ASIC) and of the phi4-mini tree; the whole
    run's telemetry (``obs.collect``): the counts of its records, written
    to ``build/chip_smoke_obs.jsonl``;
-17. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+17. (run after phase 6) the split tile reading a measured chunk_gain
+   table in its int8 operand ("form 0 with chunk_gain" below; the
+   kernel's own name for it is form 2, a template of its own, so that
+   the rank-1 form 0 stages and multiplies nothing more than before it
+   existed): at the six phi4-mini layer shapes
+   at M = 4 and 48, faithful and fast, form 0 bit-identical to form 1
+   (the store's fp32 w_eff), bit-exact against the plain version on
+   integer tables, and on float tables every faithful ADC readout within
+   1 LSB and only at a rounding tie (``check_readouts``); the device time
+   of form 0 with the table beside form 0 without it and form 1; the
+   block kernel's stages (phase 11's checks) on chunk_gain stores at
+   M = 48 (4 x 12) and M = 4 (1 x 4);
+18. (run after phase 9) phi4-mini served from a measured snapshot:
+   ``calib.model_chips`` + ``calibrate_model`` (wall ms, ``measure``
+   calls, the fit against the hidden truth), ``ServeEngine(calibration=,
+   drift_monitor=, plan_cache=build/...)`` serving 8 requests (161 split
+   launches per call, the lm_head read as form 0 with its chunk_gain),
+   a 2 LSB drift with exactly one hot swap and no lowering, the split
+   launches' device ms per decode step as served (form 0) and with the
+   same stores' fp32 w_eff (form 1), decode and prefill times, peak
+   memory, then a warm boot from the plan file (its bytes, save and load
+   seconds) with no lowering and the cold engine's greedy tokens;
+19. (after 18) phi4-mini on a chip fleet at full width: the memory it
+   needs, ``place_model`` / ``ChipFleet`` / ``calibrate_fleet`` /
+   ``model_snapshot`` (every layer, the scan-stacked ones as [S, C, N]
+   tables), ``ServeEngine(calibration=, fleet=FleetMonitor)``; chip 0
+   killed: exactly one remap, no lowering, the serve continuing on a twin
+   spare with the tokens and prefill logits of before, bit for bit; the
+   split launches' device ms per decode step in both operand forms;
+20. (after 12) ``compile_block(calibration=)`` of block 0 at full width
+   from a blind calibration of its seven member chips: one launch, the
+   output against the CPU's, a drift ``with_calibration`` by dispatch
+   name lowering nothing and equal to a fresh compile, device ms per
+   launch beside the uncalibrated block;
+21. ``python -m repro_torch.obs --serve-smoke`` in a subprocess on the
+   card: exit 0;
+22. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 """
 from __future__ import annotations
 
+import dataclasses
 import gc
 import itertools
 import json
@@ -201,6 +242,14 @@ CAL_BATCHES = (1, TRAIN_B, 500)
 # package's own sub-LSB recovery test holds (tests/test_calib.py)
 CAL_OFFSET_LSB = 0.5
 CAL_GAIN_REL = 0.03
+# phase 18: the phi4-mini lm_head chip's 24 x 200064 offsets.  Each is
+# the mean of 64 readouts with 0.7 LSB of readout noise and the ADC's
+# rounding: an error of about sqrt(0.7^2 + 1/12) / 8 = 0.095 LSB rms, so
+# the largest of 4.8 M reaches about 5.3 of those (0.5 LSB).  Held: the
+# rms within 0.15 LSB and every entry within 1 LSB; the gains to the
+# ECG bound (CAL_GAIN_REL).
+LM_CAL_OFFSET_RMS = 0.15
+LM_CAL_OFFSET_MAX = 1.0
 # card vs CPU, one train step.  Every gradient leaf elementwise within
 # GRAD_ATOL + GRAD_RTOL * |CPU's| (the CPU tests' integer-w_eff
 # tolerance, tests/test_torch_train.py), but a layer's calibration
@@ -248,7 +297,12 @@ def _setup():
 
 torch = _setup()
 
-from repro_torch import api, calib, obs  # noqa: E402
+from repro_torch import api, calib, fleet, obs  # noqa: E402
+from repro_torch.calib.device import VirtualChip  # noqa: E402
+from repro_torch.calib.routines import chip_generator  # noqa: E402
+from repro_torch.core.device import to_device  # noqa: E402
+from repro_torch.exec.plan import WeightStore  # noqa: E402
+from repro_torch.fleet.placement import _layer_sites  # noqa: E402
 from repro_torch.core.analog import AnalogConfig  # noqa: E402
 from repro_torch.core.hw import BSS2  # noqa: E402
 from repro_torch.core.noise import NoiseConfig  # noqa: E402
@@ -264,10 +318,12 @@ from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.core.quant import quantize_act  # noqa: E402
 from repro_torch.exec import run as trun  # noqa: E402
-from repro_torch.exec.lower import lower_block, lowering_count  # noqa: E402
+from repro_torch.exec.lower import (lower_block, lowering_count,  # noqa: E402
+                                    pack_megakernel)
 from repro_torch.exec.store import load_plan, save_plan  # noqa: E402
 from repro_torch.kernels.analog_plan import (  # noqa: E402
-    BLOCK_STAGES, analog_plan_block_cuda, analog_plan_cuda, block_operand)
+    BLOCK_STAGES, BlockOperand, analog_plan_block_cuda, analog_plan_cuda,
+    block_operand)
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.kernels.preproc import maxmin_pool_cuda  # noqa: E402
@@ -280,7 +336,8 @@ DEV = torch.device("cuda")
 MAX_ERR = {name: 0.0 for name in TPU_KERNELS}
 # profiler traces taken, those short of whole calls, the records they
 # missed, and traces no device time could be read from
-TRACES = {"traces": 0, "short": 0, "records_missing": 0, "unusable": 0}
+TRACES = {"traces": 0, "short": 0, "records_missing": 0, "unusable": 0,
+          "unusable_by": []}
 
 
 # --------------------------------------------------------------- phase 1
@@ -551,7 +608,17 @@ def time_ms(fn, iters=50, reps=7) -> float:
     return statistics.median(times)
 
 
-def device_trace(fn, iters=20):
+def device_trace(fn, iters=20, tries=3):
+    """:func:`_device_trace_once`, taken again (up to ``tries`` traces)
+    when a trace comes back unusable."""
+    for _ in range(tries):
+        out = _device_trace_once(fn, iters)
+        if out[0] is not None:
+            return out
+    return out
+
+
+def _device_trace_once(fn, iters=20):
     """(device ms, device activities) per call of ``fn``, from a
     ``torch.profiler`` trace of ``iters`` calls: for each kernel or copy
     the trace holds, its mean device time times the number of times a
@@ -585,6 +652,11 @@ def device_trace(fn, iters=20):
         m = round(e.count / iters)
         if m == 0:
             TRACES["unusable"] += 1
+            # what made it so: the activity, its records, the calls and
+            # every activity of the trace with its records
+            TRACES["unusable_by"].append({
+                "activity": e.key[:80], "records": e.count, "calls": iters,
+                "trace": {x.key[:40]: x.count for x in events}})
             return None, 0.0
         per_call_us += e.self_device_time_total / e.count * m
         per_call += m
@@ -595,6 +667,33 @@ def device_trace(fn, iters=20):
     TRACES["short"] += off > 0
     TRACES["records_missing"] += off
     return per_call_us / 1e3, per_call
+
+
+def kernel_record_ms(fn, needle: str, iters: int = 10, traces: int = 5):
+    """(mean device ms, records) of the trace records whose kernel name
+    holds ``needle``: the per-launch time of one kernel, from
+    ``torch.profiler`` traces of ``iters`` calls of ``fn`` each, taken
+    until they hold ``iters`` records of it (at most ``traces``).  A
+    trace can keep as few as 1-3 of 10 launches' records of the
+    cooperative block kernel (``TRACES["unusable_by"]``), each of them
+    whole, so their mean is the launch's time however many were kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    total_us, n = 0.0, 0
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        recs = [e for e in prof.key_averages() if needle in e.key
+                and getattr(e, "self_device_time_total", 0.0) > 0]
+        total_us += sum(e.self_device_time_total for e in recs)
+        n += sum(e.count for e in recs)
+        if n >= iters:
+            break
+    return (total_us / n / 1e3 if n else None), n
 
 
 def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
@@ -939,18 +1038,31 @@ def _layer_plans(engine):
             g0["mlp"]["down"]["_plan"], tree["lm_head"]["_plan"])
 
 
+def _table_bytes(st):
+    """Bytes of a store's gain tables the int8 code operand reads beside
+    the codes (rank-1 vectors and a measured [C, N] chunk_gain)."""
+    return sum(4 * t.numel() for t in (st.col_gain, st.row_gain,
+                                       st.chunk_gain) if t is not None)
+
+
+def _operand_label(st):
+    return "int8 codes + " + ("rank-1 gain tables" if st.chunk_gain is None
+                              else "measured chunk_gain table" if
+                              st.col_gain is None and st.row_gain is None
+                              else "rank-1 and chunk_gain tables")
+
+
 def split_work(m, k, n, st, c):
     """(bytes with the int8 code operand, bytes with the fp32 operand,
     operations) of one split launch: both passes' activation codes,
     the weights, their gain tables, the gain, the chunk offsets and the
     output, each once; both passes' products."""
     common = 4 * (2 * m * k + n + c * n + m * n)
-    tables = sum(4 * t.numel() for t in (st.col_gain, st.row_gain)
-                 if t is not None)
-    return common + k * n + tables, common + 4 * k * n, 2 * 2 * m * k * n
+    return (common + k * n + _table_bytes(st), common + 4 * k * n,
+            2 * 2 * m * k * n)
 
 
-def time_split(engine):
+def time_split(engine, light=False, phases=tuple(LM_M)):
     """Phase 9a: the split kernel at the main path's operands: the real
     lowered weights of each layer shape, codes of a random activation.
     The main path's call (the int8 code operand, through the dispatching
@@ -958,7 +1070,9 @@ def time_split(engine):
     layer, each with its bound: bytes over the memory rate, or the
     products, counted once, over the bf16 tensor-core peak (the fastest
     unit that forms them exactly); the fp32-operand bound also at the
-    fp32 CUDA-core rate, as before the tensor cores."""
+    fp32 CUDA-core rate, as before the tensor cores.  ``light``: device
+    times of the two operands only (the calibrated engines of phases 18
+    and 20)."""
     cfg = engine.cfg
     g = torch.Generator(device=DEV).manual_seed(SEED + 2)
     rows = []
@@ -970,6 +1084,8 @@ def time_split(engine):
             raise AssertionError(f"{name}: the main path's store holds a "
                                  "full gain map")
         for phase, m in LM_M.items():
+            if phase not in phases:
+                continue
             a_pos, a_neg = _split_codes(m, k, g)
             args = (a_pos, a_neg, lp.w_eff, lp.gain_row, lp.chunk_offset)
             c = k // 128
@@ -979,10 +1095,25 @@ def time_split(engine):
                 *args, store=lp.store)
             kern_w = lambda args=args: analog_mvm_split_cuda(*args)  # noqa: E731
             plain = lambda args=args: ref.analog_mvm_split_ref(*args)  # noqa: E731
+            if light:
+                row = {
+                    "kernel": "analog_mvm_split", "phase": phase,
+                    "layer": name, "what": f"{phase} {name} M={m} K={k} "
+                    f"N={n}", "operand": _operand_label(lp.store),
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "device_ms": device_trace(kern, iters=10)[0],
+                    "fp32_operand_device_ms": device_trace(kern_w,
+                                                           iters=10)[0],
+                    "fp32_operand_bound_ms": bound(b_weff, nops,
+                                                   BF16_OPS_PER_S)[0],
+                }
+                emit("timing", row)
+                rows.append(row)
+                continue
             row = {
                 "kernel": "analog_mvm_split", "phase": phase, "layer": name,
                 "what": f"{phase} {name} M={m} K={k} N={n}",
-                "operand": "int8 codes + rank-1 gain tables",
+                "operand": _operand_label(lp.store),
                 "ms": time_ms(kern, iters=10, reps=5),
                 "plain_ms": time_ms(plain, iters=5, reps=3),
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -1142,8 +1273,15 @@ def _int_block(cfg):
     """One full-width block with integer effective weights (no gain
     spread; chunk offsets kept), lowered like the main path's."""
     g = torch.Generator(device=DEV).manual_seed(SEED + 3)
-    noise = NoiseConfig(gain_std=0.0)
-    params = {
+    return lower_block(_block_params(cfg, g, NoiseConfig(gain_std=0.0)),
+                       _block_run()[0], n_heads=cfg.n_heads,
+                       n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                       seq=LM_SEQ, rope_theta=cfg.rope_theta)
+
+
+def _block_params(cfg, g, noise):
+    """One full-width block node drawn from ``g`` on the card."""
+    return {
         "ln1": {"scale": 1 + 0.1 * torch.randn((cfg.d_model,), generator=g,
                                                device=DEV)},
         "attn": A.attention_init(g, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
@@ -1152,9 +1290,6 @@ def _int_block(cfg):
                                                device=DEV)},
         "mlp": L.mlp_init(g, cfg.d_model, cfg.d_ff, noise=noise, device=DEV),
     }
-    return lower_block(params, _block_run()[0], n_heads=cfg.n_heads,
-                       n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-                       seq=LM_SEQ, rope_theta=cfg.rope_theta)
 
 
 def _block_args(bp, operand="stores"):
@@ -1175,8 +1310,8 @@ def _stage_operand(tensors, li, meta):
     them: (weight operand, its fp32 effective weights, gain, offsets)."""
     weights, gain_all, off_cat = tensors
     op = block_operand(weights[li], meta.k_pad, meta.n, gain_all.device)
-    w = op.w if op.form == 1 else ref.rebuild_w_eff_ref(
-        op.w, op.col_gain, op.row_gain, _col_blocks(op))
+    # a store's w_eff is the plain version of its code operand's rebuild
+    w = op.w if op.form == 1 else weights[li].w_eff
     gain = gain_all[li, :meta.n].contiguous()
     off = off_cat[meta.c0:meta.c0 + meta.n_chunks, :meta.n].contiguous()
     return op, w, gain, off
@@ -1195,14 +1330,19 @@ def _split_on_card(op, a_pos, a_neg, gain, off, faithful, rows=None):
         w = op.w if rows is None else op.w[rows]
         return analog_mvm_split_cuda(a_pos, a_neg, w, gain, off,
                                      faithful=faithful)
-    codes, row = op.w, op.row_gain
+    codes, row, cg = op.w, op.row_gain, op.chunk_gain
+    chunk_rows = codes.shape[0] // off.shape[0]
     if rows is not None:
         codes = codes[rows]
         row = None if row is None else row[:, rows].contiguous()
+        if cg is not None:
+            c0 = rows.start // (rows.stop - rows.start)
+            cg = cg[c0:c0 + 1].contiguous()
+        chunk_rows = rows.stop - rows.start
     return analog_mvm_split_codes_cuda(
-        a_pos, a_neg, codes, op.col_gain, row, gain, off,
+        a_pos, a_neg, codes, op.col_gain, row, gain, off, chunk_gain=cg,
         col_blocks=_col_blocks(op) if row is not None else None,
-        faithful=faithful)
+        chunk_rows=chunk_rows, faithful=faithful)
 
 
 def check_readouts(op, w, gain, off, a_pos, a_neg, chunk_rows, what):
@@ -1292,12 +1432,22 @@ def check_vmm_stage(bp, tensors, stages, li, name, want, *, exact,
     if exact or not faithful:
         return _compare("analog_plan_block", got, want, exact=exact,
                         what=what)
+    return _readout_case("analog_plan_block", op, w, gain, off, a_pos,
+                         a_neg, got, want, meta.k_pad // meta.n_chunks, what)
+
+
+def _readout_case(kernel, op, w, gain, off, a_pos, a_neg, got, want,
+                  chunk_rows, what):
+    """A faithful split VMM on float gains against its plain version:
+    every ADC readout within 1 LSB and only at a rounding tie
+    (check_readouts), each element's difference exactly the sum of its
+    readouts', at most TIE_SHARE of the elements differing."""
     diff = got - want
     err = float(diff.abs().max())
     share = float((diff != 0).float().mean())
-    MAX_ERR["analog_plan_block"] = max(MAX_ERR["analog_plan_block"], err)
+    MAX_ERR[kernel] = max(MAX_ERR[kernel], err)
     total, summary = check_readouts(op, w, gain, off, a_pos, a_neg,
-                                    meta.k_pad // meta.n_chunks, what)
+                                    chunk_rows, what)
     if not torch.equal(total, diff):
         raise AssertionError(f"{what}: the element differences are not the "
                              "sums of their readouts' differences")
@@ -1324,71 +1474,77 @@ def check_block_kernel(cfg, bp_rank1, x):
     results, whole = [], []
     for kind, bp, exact in (("integer w_eff", _int_block(cfg), True),
                             ("rank-1", bp_rank1, False)):
-        for faithful in (True, False):
-            runs = {}
-            for operand in ("stores", "w_eff"):
-                tensors, kw = _block_args(bp, operand)
-                out, stages, grid = analog_plan_block_cuda(
-                    x, *tensors, faithful=faithful, **kw)
-                want = ref.block_stages_ref(
-                    x, stages, *tensors, kw["schedule"], kw["block"],
-                    kw["extras"], faithful=faithful)
-                glue = {}
-                for name, li, _ in list(BLOCK_STAGES) + [("out", 3, "n")]:
-                    got = out if name == "out" else stages[name]
-                    what = (f"{kind} {operand} faithful={faithful} stage "
-                            f"{name}")
-                    if name.startswith("acc_"):
-                        results.append(check_vmm_stage(
-                            bp, tensors, stages, li, name, want[name],
-                            exact=exact, faithful=faithful, what=what))
-                    elif name in ("res2", "out") or name.endswith(
-                            ("_pos", "_neg")):
-                        if not torch.equal(got, want[name]):
-                            raise AssertionError(f"{what}: not bit-exact")
-                    else:
-                        glue[name] = _rel(got, want[name])
-                        if glue[name] > GLUE_TOL:
-                            raise AssertionError(f"{what}: rel diff "
-                                                 f"{glue[name]} > {GLUE_TOL}")
-                runs[operand] = (out, stages, grid, glue)
-            (out, stages, grid, glue), other = runs["stores"], runs["w_eff"]
-            for name in stages:
-                if not torch.equal(stages[name], other[1][name]):
-                    raise AssertionError(f"{kind} faithful={faithful}: the "
-                                         f"two operands differ at {name}")
-            if not torch.equal(out, other[0]):
-                raise AssertionError(f"{kind} faithful={faithful}: the two "
-                                     "operands differ at the output")
-            tensors, kw = _block_args(bp)
-            trace = []
-            y_plain = ref.analog_plan_ref(
-                x, *tensors, kw["schedule"], faithful=faithful,
-                extras=kw["extras"], block=kw["block"], trace=trace)
-            flips = total = 0
-            enc = kw["extras"][2]
-            for li, name in enumerate(("n1", "attn", "n2", "sw")):
-                meta = kw["schedule"][li]
-                for sign in (1.0, -1.0):
-                    a = quantize_act(sign * stages[name][:, :meta.k],
-                                     enc[li, 0])
-                    b = quantize_act(sign * trace[li][0][:, :meta.k],
-                                     enc[li, 0])
-                    flips += int((a != b).sum())
-                    total += a.numel()
-            rel = _rel(out, y_plain)
-            whole.append({"kind": kind, "faithful": faithful, "grid": grid,
-                          "glue_rel_diff": glue,
-                          "operands_bit_identical": True,
-                          "block_rel_max_diff_vs_plain": rel,
-                          "flipped_code_share": flips / total})
-            if rel > BLOCK_REL_TOL or flips / total > BLOCK_CODE_SHARE:
-                raise AssertionError(f"{kind} faithful={faithful}: whole "
-                                     f"block rel diff {rel}, flipped codes "
-                                     f"{flips / total}")
-            del runs, other, tensors, kw
+        _check_block_case(kind, bp, exact, x, results, whole)
         del bp
     return results, whole
+
+
+def _check_block_case(kind, bp, exact, x, results, whole):
+    """check_block_kernel's checks of one block plan, both modes and both
+    operands; appends to ``results`` (VMM stages) and ``whole``."""
+    for faithful in (True, False):
+        runs = {}
+        for operand in ("stores", "w_eff"):
+            tensors, kw = _block_args(bp, operand)
+            out, stages, grid = analog_plan_block_cuda(
+                x, *tensors, faithful=faithful, **kw)
+            want = ref.block_stages_ref(
+                x, stages, *tensors, kw["schedule"], kw["block"],
+                kw["extras"], faithful=faithful)
+            glue = {}
+            for name, li, _ in list(BLOCK_STAGES) + [("out", 3, "n")]:
+                got = out if name == "out" else stages[name]
+                what = (f"{kind} {operand} faithful={faithful} stage "
+                        f"{name}")
+                if name.startswith("acc_"):
+                    results.append(check_vmm_stage(
+                        bp, tensors, stages, li, name, want[name],
+                        exact=exact, faithful=faithful, what=what))
+                elif name in ("res2", "out") or name.endswith(
+                        ("_pos", "_neg")):
+                    if not torch.equal(got, want[name]):
+                        raise AssertionError(f"{what}: not bit-exact")
+                else:
+                    glue[name] = _rel(got, want[name])
+                    if glue[name] > GLUE_TOL:
+                        raise AssertionError(f"{what}: rel diff "
+                                             f"{glue[name]} > {GLUE_TOL}")
+            runs[operand] = (out, stages, grid, glue)
+        (out, stages, grid, glue), other = runs["stores"], runs["w_eff"]
+        for name in stages:
+            if not torch.equal(stages[name], other[1][name]):
+                raise AssertionError(f"{kind} faithful={faithful}: the "
+                                     f"two operands differ at {name}")
+        if not torch.equal(out, other[0]):
+            raise AssertionError(f"{kind} faithful={faithful}: the two "
+                                 "operands differ at the output")
+        tensors, kw = _block_args(bp)
+        trace = []
+        y_plain = ref.analog_plan_ref(
+            x, *tensors, kw["schedule"], faithful=faithful,
+            extras=kw["extras"], block=kw["block"], trace=trace)
+        flips = total = 0
+        enc = kw["extras"][2]
+        for li, name in enumerate(("n1", "attn", "n2", "sw")):
+            meta = kw["schedule"][li]
+            for sign in (1.0, -1.0):
+                a = quantize_act(sign * stages[name][:, :meta.k],
+                                 enc[li, 0])
+                b = quantize_act(sign * trace[li][0][:, :meta.k],
+                                 enc[li, 0])
+                flips += int((a != b).sum())
+                total += a.numel()
+        rel = _rel(out, y_plain)
+        whole.append({"kind": kind, "faithful": faithful, "grid": grid,
+                      "glue_rel_diff": glue,
+                      "operands_bit_identical": True,
+                      "block_rel_max_diff_vs_plain": rel,
+                      "flipped_code_share": flips / total})
+        if rel > BLOCK_REL_TOL or flips / total > BLOCK_CODE_SHARE:
+            raise AssertionError(f"{kind} faithful={faithful}: whole "
+                                 f"block rel diff {rel}, flipped codes "
+                                 f"{flips / total}")
+        del runs, other, tensors, kw
 
 
 def block_work(bp, rows):
@@ -1405,9 +1561,7 @@ def block_work(bp, rows):
     nops = 0
     for s, st in zip(m.schedule, m.stores):
         common += 4 * (s.n_chunks * s.n + 3 * s.n + 1)
-        w8 += s.k * s.n + sum(4 * t.numel() for t in (st.col_gain,
-                                                      st.row_gain)
-                              if t is not None)
+        w8 += s.k * s.n + _table_bytes(st)
         w32 += 4 * s.k * s.n
         nops += (2 if s.encode == "split" else 1) * 2 * rows * s.k * s.n
     nops += 2 * 2 * rows * blk.seq * blk.n_heads * blk.head_dim
@@ -2065,6 +2219,604 @@ def train_main_path():
     return report
 
 
+# -------------------------------------------------------------- phase 17
+def _chunk_gain_table(k, n, g, integer, chunk_rows=128):
+    """A measured-gain table of a [k, n] layer: integer-valued (1 or 2,
+    so w_eff stays integer without rank-1 tables) or a calibrated bake's
+    float table (1 +- 2 %)."""
+    c = k // chunk_rows
+    if integer:
+        return torch.randint(1, 3, (c, n), generator=g,
+                             device=DEV).float()
+    return 1 + 0.02 * torch.randn((c, n), generator=g, device=DEV)
+
+
+def _split_chunked_ref(a_pos, a_neg, w, gain, off, chunk_rows=128):
+    """The faithful split plain version, chunk by chunk as each chunk's
+    product ``check_readouts`` holds the readouts against
+    (``ref._chunk_adc``)."""
+    n_chunks = w.shape[0] // chunk_rows
+    return (ref._chunk_adc(a_pos, w, gain, off, n_chunks, chunk_rows, True)
+            - ref._chunk_adc(a_neg, w, gain, off, n_chunks, chunk_rows,
+                             True))
+
+
+def _cg_store(codes, col, row, cg):
+    n = codes.shape[1]
+    return WeightStore(  # verify: allow-packed-weights
+        codes=codes, w_scale=torch.ones((1, n), device=DEV),
+        gain=torch.ones((), device=DEV), col_gain=col, row_gain=row,
+        chunk_gain=cg)
+
+
+def _with_chunk_gain(bp, g, integer):
+    """A block plan whose four stores carry a chunk_gain table (integer:
+    in place of the rank-1 tables, so w_eff stays integer), re-packed."""
+    layers = []
+    for lp in bp.layers:
+        st = lp.store
+        cg = _chunk_gain_table(st.k_pad, st.codes.shape[1], g, integer,
+                               st.chunk_rows)
+        st = dataclasses.replace(st, chunk_gain=cg) if not integer else \
+            dataclasses.replace(st, col_gain=None, row_gain=None,
+                                chunk_gain=cg)
+        layers.append(dataclasses.replace(lp, store=st))
+    plan = dataclasses.replace(bp, layers=tuple(layers))
+    return dataclasses.replace(plan, mega=pack_megakernel(plan))
+
+
+def check_chunk_gain(cfg):
+    """Phase 17: the split tile reading a measured chunk_gain table in its
+    int8 operand (form 0), at the six phi4-mini layer shapes at M = 4 and
+    48, in the split kernel and in the block kernel's VMM stages (4 x 12
+    and 1 x 4 prefills): form 0 bit-identical to form 1 (the store's fp32
+    w_eff) and to the split kernel on the block's own code regions;
+    against the plain version bit-exact on integer tables, and on float
+    tables every faithful ADC readout within 1 LSB and only at a rounding
+    tie (fast mode: within 1 LSB per chunk on <= TIE_SHARE of the
+    elements).  Then the device time of form 0 with the table beside form
+    0 without it and form 1, on the same codes."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    results, timings = [], []
+    for name, k, n in lm_shapes(cfg):
+        for phase, m in LM_M.items():
+            a_pos, a_neg = _split_codes(m, k, g)
+            for integer in (True, False):
+                (codes, col, row), _, gain, off = _split_weights(
+                    k, n, g, not integer)
+                st = _cg_store(codes, col, row,
+                               _chunk_gain_table(k, n, g, integer))
+                w = st.w_eff
+                kind = "integer" if integer else "float"
+                for faithful in (True, False):
+                    what = (f"{name} M={m} {kind} chunk_gain "
+                            f"faithful={faithful}")
+                    got = analog_mvm_split_codes_cuda(
+                        a_pos, a_neg, codes, col, row, gain, off,
+                        chunk_gain=st.chunk_gain, faithful=faithful)
+                    if not torch.equal(got, analog_mvm_split_cuda(
+                            a_pos, a_neg, w, gain, off, faithful=faithful)):
+                        raise AssertionError(f"{what}: form 0 and form 1 "
+                                             "disagree")
+                    want = ref.analog_mvm_split_ref(a_pos, a_neg, w, gain,
+                                                    off, faithful=faithful)
+                    if not (integer or not faithful):
+                        # the readouts are held against the plain
+                        # version's per-chunk products (check_readouts),
+                        # so the element sums are too: a batched product
+                        # may round a tie otherwise
+                        want = _split_chunked_ref(a_pos, a_neg, w, gain,
+                                                  off)
+                    if integer or not faithful:
+                        results.append(_compare(
+                            "analog_mvm_split", got, want, exact=integer,
+                            n_chunks=k // 128, what=what))
+                    else:
+                        op = BlockOperand(2, codes, col, row,
+                                          st.chunk_gain, (n,))
+                        results.append(_readout_case(
+                            "analog_mvm_split", op, w, gain, off, a_pos,
+                            a_neg, got, want, 128, what))
+                if integer:
+                    continue
+                forms = {
+                    "form0_chunk_gain": lambda: analog_mvm_split_codes_cuda(
+                        a_pos, a_neg, codes, col, row, gain, off,
+                        chunk_gain=st.chunk_gain),
+                    "form0_rank1_only": lambda: analog_mvm_split_codes_cuda(
+                        a_pos, a_neg, codes, col, row, gain, off),
+                    "form1_fp32": lambda: analog_mvm_split_cuda(
+                        a_pos, a_neg, w, gain, off),
+                }
+                b8, _, nops = split_work(m, k, n, st, k // 128)
+                row_t = {"kernel": "analog_mvm_split", "layer": name,
+                         "phase": phase, "M": m, "K": k, "N": n,
+                         "bound_ms": bound(b8, nops, BF16_OPS_PER_S)[0]}
+                for label, fn in forms.items():
+                    row_t[f"{label}_device_ms"] = device_trace(fn, 10)[0]
+                row_t["form0_chunk_gain_ms"] = time_ms(
+                    forms["form0_chunk_gain"], iters=10, reps=5)
+                emit("timing_chunk_gain", row_t)
+                timings.append(row_t)
+            del codes, col, row, st, w
+    whole = []
+    acfg = _block_run()[0]
+    for seq, batch in ((LM_SEQ, LM_BATCH), (4, 1)):
+        for integer in (True, False):
+            noise = NoiseConfig(gain_std=0.0) if integer else NoiseConfig()
+            bp = lower_block(_block_params(cfg, g, noise), acfg,
+                             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                             head_dim=cfg.hd, seq=seq,
+                             rope_theta=cfg.rope_theta)
+            bp = _with_chunk_gain(bp, g, integer)
+            if not all(st.code_operand and st.chunk_gain is not None
+                       for st in bp.mega.stores):
+                raise AssertionError("a block store lost its chunk_gain")
+            x = torch.randn((batch * seq, cfg.d_model), generator=g,
+                            device=DEV)
+            kind = (f"M={batch * seq} {'integer' if integer else 'float'} "
+                    "chunk_gain")
+            _check_block_case(kind, bp, integer, x, results, whole)
+            del bp, x
+    return results, whole, timings
+
+
+def split_form_per_step(rows, n_layers):
+    """The 161 launches of one decode step from light time_split rows:
+    device ms with the stores' int8 operand (form 0) and with the same
+    stores' fp32 w_eff (form 1), beside their bounds."""
+    return {key: per_step(rows, "decode", key, n_layers) for key in (
+        "device_ms", "fp32_operand_device_ms", "bound_ms",
+        "fp32_operand_bound_ms")}
+
+
+# -------------------------------------------------------------- phase 18
+def _timed(module, name, seconds):
+    """Wrap ``module.name`` so each call adds its wall seconds to
+    ``seconds[name]`` (the engine imports the store functions at call
+    time, so the wrapper is what it calls).  Returns the original."""
+    fn = getattr(module, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return out
+
+    setattr(module, name, timed)
+    return fn
+
+
+def calibrated_serving(params, cfg):
+    """Phase 18: phi4-mini at full width served from a measured
+    snapshot: ``calib.model_chips`` + ``calibrate_model`` (the lm_head,
+    the tree's one 2-D analog layer; scan-stacked layers take a fleet's
+    per-member tables, phase 19), then ``ServeEngine(calibration=,
+    drift_monitor=, plan_cache=build/...)``: 161 split launches per call,
+    the lm_head's read as form 0 with its chunk_gain table; a 2 LSB drift
+    and exactly one hot swap, lowering nothing; the split launches'
+    device ms per decode step, form 0 beside the same stores forced to
+    form 1; a warm boot from the plan cache with no lowering and the
+    greedy tokens of the cold engine on the same requests."""
+    import repro_torch.exec.store as store_mod
+
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    spec = T.lm_module_spec(cfg, params)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    chips = calib.model_chips(spec, params, gen)
+    snap = calib.calibrate_model(spec, params, gen, chips=chips)
+    torch.cuda.synchronize()
+    cal_ms = (time.perf_counter() - t0) * 1e3
+    if list(chips) != ["lm_head"]:
+        raise AssertionError(f"model chips {list(chips)}")
+    truth = chips["lm_head"].oracle()
+    rec = snap.layer("lm_head")
+    err = rec.chunk_offset - truth["chunk_offset"]
+    fit = {"offset_max_lsb": float(err.abs().max()),
+           "offset_rms_lsb": float(err.pow(2).mean().sqrt()),
+           "gain_max_rel": float(((rec.gain_table - truth["gain_table"])
+                                  / truth["gain_table"]).abs().max())}
+    if fit["offset_max_lsb"] > LM_CAL_OFFSET_MAX or \
+            fit["offset_rms_lsb"] > LM_CAL_OFFSET_RMS or \
+            fit["gain_max_rel"] > CAL_GAIN_REL:
+        raise AssertionError(f"lm_head calibration off the hidden truth: "
+                             f"{fit}")
+    report = {"calibrate_wall_ms": cal_ms,
+              "measure_calls": {n: c.measurements for n, c in chips.items()},
+              "fit_vs_truth": fit}
+    mon = calib.DriftMonitor(chips, snap)
+    cache = ROOT / "build" / "chip_smoke_lm_plan.npz"
+    cache.parent.mkdir(exist_ok=True)
+    if cache.exists():
+        cache.unlink()
+    secs = {}
+    saved = {n: _timed(store_mod, n, secs) for n in ("save_plan",
+                                                      "load_plan")}
+    try:
+        t0 = time.perf_counter()
+        eng = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                          max_len=LM_MAX_LEN, calibration=snap,
+                          drift_monitor=mon, plan_cache=str(cache))
+        torch.cuda.synchronize()
+        report["cold_boot_s"] = time.perf_counter() - t0
+        head = eng.params["lm_head"]["_plan"].store
+        if head.chunk_gain is None or not head.code_operand:
+            raise AssertionError("the calibrated lm_head is not read as the "
+                                 "int8 operand with its chunk_gain")
+        calls = _counting(eng)
+        ops.reset_launch_counts()
+        cold = [r.output.tolist() for r in eng.serve(_lm_requests(cfg))]
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        per_call = 5 * cfg.n_layers + 1
+        want = _launches(analog_mvm_split=per_call * (calls["prefill"]
+                                                      + calls["decode"]))
+        if counts != want or mon.refreshes != 0:
+            raise AssertionError(f"calibrated serve launches {counts} != "
+                                 f"{want}, refreshes {mon.refreshes}")
+        report["launches"] = counts
+        # drift: the lm_head chip's offsets move; the monitor re-nulls
+        # them between batches and the engine swaps the tables in
+        chips["lm_head"].apply_drift(gen, 2.0)
+        before = lowering_count()
+        swaps = obs.counter("serve.hot_swap").value
+        drifted = eng.serve(_lm_requests(cfg))
+        torch.cuda.synchronize()
+        if mon.refreshes != 1 or obs.counter("serve.hot_swap").value \
+                != swaps + 1:
+            raise AssertionError(f"{mon.refreshes} refreshes, "
+                                 f"{obs.counter('serve.hot_swap').value - swaps}"
+                                 " hot swaps after a 2 LSB drift (want 1)")
+        if lowering_count() != before:
+            raise AssertionError("the drift hot swap lowered "
+                                 f"{lowering_count() - before} layers")
+        if eng.params["lm_head"]["_plan"].store.codes is not head.codes:
+            raise AssertionError("the hot swap replaced the weight codes")
+        if any(len(r.output) != LM_NEW_TOKENS for r in drifted):
+            raise AssertionError("the drifted serve lost tokens")
+        report["drift"] = {"refreshes": mon.refreshes, "hot_swaps": 1,
+                           "lowerings": 0,
+                           "residual_lsb_after": mon.drift_lsb()}
+        rows = time_split(eng, light=True, phases=("decode",))
+        report["split_per_decode_step"] = split_form_per_step(
+            rows, cfg.n_layers)
+        report["serving"] = time_serving(eng)
+        report["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        report["base_device_gib"] = base_gib
+        del eng, head, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+        # warm boot: the plan file on disk is the executable
+        before = lowering_count()
+        t0 = time.perf_counter()
+        warm = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                           max_len=LM_MAX_LEN, calibration=mon.snapshot,
+                           plan_cache=str(cache))
+        torch.cuda.synchronize()
+        report["warm_boot_s"] = time.perf_counter() - t0
+        if lowering_count() != before:
+            raise AssertionError(f"the warm boot lowered "
+                                 f"{lowering_count() - before} layers")
+        tokens = [r.output.tolist() for r in warm.serve(_lm_requests(cfg))]
+        if tokens != cold:
+            raise AssertionError(f"warm boot tokens {tokens} != the cold "
+                                 f"engine's {cold}")
+        report["warm_boot"] = {"lowerings": 0, "tokens_equal": True}
+        report["plan_file_bytes"] = cache.stat().st_size
+        report["save_s"] = secs.get("save_plan")
+        report["load_s"] = secs.get("load_plan")
+        report["tokens"] = cold
+        del warm
+    finally:
+        for n, fn in saved.items():
+            setattr(store_mod, n, fn)
+        if cache.exists():
+            cache.unlink()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return report
+
+
+# -------------------------------------------------------------- phase 19
+FLEET_SLOTS = 64       # tiles of 128 x 512 synapses per fleet chip
+FLEET_SPARES = 2
+
+
+def _stores_of(tree):
+    """Every plan's WeightStore in a lowered tree."""
+    out = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (tuple, list)) and not isinstance(
+                node, torch.Tensor):
+            for v in node:
+                walk(v)
+        elif hasattr(node, "fused"):
+            walk(node.fused)
+        elif hasattr(node, "store"):
+            out.append(node.store)
+
+    walk(tree)
+    return out
+
+
+def fleet_path(params, cfg):
+    """Phase 19: phi4-mini placed on a chip fleet at full width
+    (``place_model`` of every layer's 128 x 512 tiles, FLEET_SLOTS per
+    chip, FLEET_SPARES spares, the first spare a twin of chip 0),
+    ``calibrate_fleet`` (no readout noise: recalibration is exact),
+    ``model_snapshot`` ([S, C, N] tables for the scan-stacked layers),
+    then ``ServeEngine(calibration=, fleet=FleetMonitor)``: every layer's
+    store carries a chunk_gain and is read as form 0.  Chip 0 is killed:
+    exactly one remap follows at the next batch, lowering nothing (every
+    weight-code tensor kept), and the serve continues on the twin spare
+    with the greedy tokens and prefill logits of before the failure, bit
+    for bit.  The memory the phase needs is worked out first."""
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    spec = T.lm_module_spec(cfg, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    shapes = fleet.model_layer_shapes(spec, params)
+    sites = sum(len(_layer_sites(nm, sh, chunk_rows=BSS2.signed_rows,
+                                 cols=BSS2.n_cols)) for nm, sh in shapes)
+    serving = -(-sites // FLEET_SLOTS)
+    pl = fleet.place_model(shapes, n_chips=serving + FLEET_SPARES,
+                           spares=FLEET_SPARES, slots=FLEET_SLOTS)
+    dead, twin = 0, pl.spares[0]
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    noise = NoiseConfig(readout_std=0.0)
+    chips = [VirtualChip(chip_generator(gen, dead if i == twin else i, DEV),
+                         pl.slots * pl.chunk_rows, pl.cols, noise=noise,
+                         chunk_rows=pl.chunk_rows)
+             for i in range(pl.n_chips)]
+    chipfleet = fleet.ChipFleet(chips)
+    levels, repeats = len(calib.DEFAULT_RAMP), 1
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in _tensors(params))
+    memory = {
+        "weights_gib": weight_bytes / 2**30,
+        "plans_gib": sum(5 * int(np.prod(sh)) for _, sh in shapes) / 2**30,
+        "fleet_hidden_gib": chipfleet.hidden_bytes() / 2**30,
+        "largest_readout_gib": pl.n_chips * pl.slots * pl.cols * levels
+        * repeats * 4 / 2**30,
+        "device_gib": torch.cuda.get_device_properties(DEV).total_memory
+        / 2**30,
+    }
+    need = sum(v for k, v in memory.items() if k != "device_gib")
+    memory["needed_gib"] = need
+    if need > 0.9 * memory["device_gib"]:
+        raise AssertionError(f"the fleet phase needs {need:.1f} GiB at 32 "
+                             f"layers: {memory}")
+    report = {"tiles": sites, "chips": pl.n_chips, "slots": pl.slots,
+              "spares": list(pl.spares), "memory": memory,
+              "depth": cfg.n_layers, "depth_cut": None}
+    t0 = time.perf_counter()
+    fsnap = fleet.calibrate_fleet(chipfleet, offset_repeats=4,
+                                  gain_repeats=repeats)
+    torch.cuda.synchronize()
+    report["calibrate_fleet_s"] = time.perf_counter() - t0
+    report["fleet_measure_calls"] = chipfleet.chips[0].measurements
+    t0 = time.perf_counter()
+    snap = fleet.model_snapshot(pl, fsnap)
+    report["model_snapshot_s"] = time.perf_counter() - t0
+    mon = fleet.FleetMonitor(chipfleet, pl, fsnap, probe_repeats=4,
+                             spare_offset_repeats=4, spare_gain_repeats=1)
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                      max_len=LM_MAX_LEN, calibration=snap, fleet=mon)
+    torch.cuda.synchronize()
+    report["compile_s"] = time.perf_counter() - t0
+    stores = _stores_of(eng.params)
+    stacked = eng.params["layers"]["l0"]["mlp"]["up"]["_plan"]
+    if not all(st.chunk_gain is not None and st.code_operand
+               for st in stores) or len(stacked) != cfg.n_layers:
+        raise AssertionError("a fleet-baked store has no chunk_gain table")
+    report["stores_with_chunk_gain"] = len(stores)
+    calls = _counting(eng)
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
+
+    def prefill_logits():
+        cache = T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN,
+                                dtype=torch.float32, device=DEV)
+        return eng.prefill(eng.params, {"tokens": toks}, cache)[0]
+
+    ops.reset_launch_counts()
+    before_fail = [r.output.tolist() for r in eng.serve(_lm_requests(cfg))]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = _launches(analog_mvm_split=(5 * cfg.n_layers + 1) * (
+        calls["prefill"] + calls["decode"]))
+    if counts != want or mon.remaps != 0:
+        raise AssertionError(f"fleet serve launches {counts} != {want}, "
+                             f"remaps {mon.remaps}")
+    report["launches"] = counts
+    y0 = prefill_logits()
+    rows = time_split(eng, light=True, phases=("decode",))
+    report["split_per_decode_step"] = split_form_per_step(rows,
+                                                          cfg.n_layers)
+    chipfleet.kill(dead)
+    moved = len(pl.assignments_on(dead))
+    before = lowering_count()
+    codes = [st.codes for st in stores]
+    t0 = time.perf_counter()
+    after_fail = [r.output.tolist() for r in eng.serve(_lm_requests(cfg))]
+    torch.cuda.synchronize()
+    report["serve_with_remap_s"] = time.perf_counter() - t0
+    if mon.remaps != 1:
+        raise AssertionError(f"{mon.remaps} remaps after a chip failure "
+                             "(want 1)")
+    if lowering_count() != before:
+        raise AssertionError(f"the remap lowered {lowering_count() - before}"
+                             " layers")
+    new = _stores_of(eng.params)
+    if len(new) != len(codes) or any(a.codes is not b
+                                      for a, b in zip(new, codes)):
+        raise AssertionError("the remap replaced weight codes")
+    if mon.placement.assignments_on(dead) or \
+            len(mon.placement.assignments_on(twin)) != moved:
+        raise AssertionError("the dead chip's tiles did not move to the "
+                             "twin spare")
+    if after_fail != before_fail:
+        raise AssertionError(f"tokens after the remap onto the twin spare "
+                             f"{after_fail} != before the failure "
+                             f"{before_fail}")
+    y1 = prefill_logits()
+    if not torch.equal(y0, y1):
+        raise AssertionError("prefill logits after the remap onto the twin "
+                             "spare differ by "
+                             f"{float((y0 - y1).abs().max())}")
+    report["remap"] = {"remaps": 1, "dead": dead, "spare": twin,
+                       "tiles_moved": moved, "lowerings": 0,
+                       "codes_kept": True, "tokens_equal": True,
+                       "prefill_logits_bit_identical": True}
+    report["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del eng, stores, new, codes, y0, y1, snap, fsnap, mon, chipfleet, chips
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+# -------------------------------------------------------------- phase 20
+_BLOCK_MEMBERS = ("wq", "wk", "wv", "wo", "up", "gate", "down")
+_DISPATCHES = (("qkv", ("wq", "wk", "wv")), ("o", ("wo",)),
+               ("up_gate", ("up", "gate")), ("down", ("down",)))
+
+
+def _member_nodes(block):
+    return {"wq": block["attn"]["wq"], "wk": block["attn"]["wk"],
+            "wv": block["attn"]["wv"], "wo": block["attn"]["wo"],
+            "up": block["mlp"]["up"], "gate": block["mlp"]["gate"],
+            "down": block["mlp"]["down"]}
+
+
+def _dispatch_snapshot(member_snap):
+    """A member snapshot's tables under the block's four dispatch names
+    (column_concat members concatenated), the key space of a block
+    plan's drift refresh."""
+    out = calib.CalibrationSnapshot()
+    for name, members in _DISPATCHES:
+        recs = [member_snap.layer(m) for m in members]
+        out = out.with_layer(name, calib.LayerCalibration(
+            gain_table=torch.cat([r.gain_table for r in recs], dim=-1),
+            chunk_offset=torch.cat([r.chunk_offset for r in recs], dim=-1)))
+    return out
+
+
+def calibrated_block(params, cfg):
+    """Phase 20: ``compile_block(calibration=)`` of block 0 at full width
+    from a blind calibration of its seven member chips (one launch per
+    4 x 12 prefill, every store read as form 0 with its chunk_gain);
+    card against the same snapshot compiled on the CPU (the whole block
+    within BLOCK_REL_TOL of the CPU's, the rank-1 contract of phase 11);
+    a drift refresh through ``with_calibration`` by the four dispatch
+    names, lowering nothing, equal to a fresh compile; device ms per
+    launch beside the uncalibrated block in the same call (from a
+    whole-call trace, and from the block kernel's own records)."""
+    acfg = _block_run()[0]
+    block = T.stack_index(params["layers"]["l0"], 0)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 13)
+    chips = {m: VirtualChip.from_params(node, chip_generator(gen, i, DEV))
+             for i, (m, node) in enumerate(_member_nodes(block).items())}
+    t0 = time.perf_counter()
+    snap = calib.calibrate_model(None, None, gen, chips=chips)
+    torch.cuda.synchronize()
+    report = {"calibrate_wall_ms": (time.perf_counter() - t0) * 1e3,
+              "measure_calls": sum(c.measurements for c in chips.values())}
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.hd, seq=LM_SEQ, rope_theta=cfg.rope_theta)
+    model = api.compile_block(block, acfg, calibration=snap, **kw)
+    plan = model.lower()
+    if not all(lp.store.chunk_gain is not None and lp.store.code_operand
+               for lp in plan.layers):
+        raise AssertionError("a calibrated block store is not read as "
+                             "form 0 with its chunk_gain")
+    x = torch.randn((LM_BATCH, LM_SEQ, cfg.d_model), generator=gen,
+                    device=DEV)
+    y, counts = _counted(lambda: model.apply(x))
+    if counts != _launches(analog_plan_block=1):
+        raise AssertionError(f"calibrated block launches {counts}")
+    report["launches"] = counts
+    cpu = api.compile_block(to_device(block, torch.device("cpu")), acfg,
+                            calibration=snap.to("cpu"), device="cpu", **kw)
+    y_cpu = cpu.apply(x.cpu())
+    rel = _rel(y.cpu(), y_cpu)
+    if not bool(torch.isfinite(y).all()) or rel > BLOCK_REL_TOL:
+        raise AssertionError(f"calibrated block vs CPU: rel max diff {rel}")
+    report["rel_max_diff_vs_cpu"] = rel
+    del cpu, y_cpu
+    # drift: the seven chips' offsets move, the monitor re-nulls them,
+    # the refreshed tables are swapped in by dispatch name
+    for c in chips.values():
+        c.apply_drift(gen, 2.0)
+    mon = calib.DriftMonitor(chips, snap)
+    fresh = mon.maybe_refresh()
+    if fresh is None:
+        raise AssertionError("no refresh after a 2 LSB drift")
+    before = lowering_count()
+    swapped = model.with_calibration(_dispatch_snapshot(fresh))
+    if lowering_count() != before or any(
+            a.store.codes is not b.store.codes
+            for a, b in zip(swapped.lower().layers, plan.layers)):
+        raise AssertionError("the block drift swap lowered or replaced codes")
+    y2 = swapped.apply(x)
+    full = api.compile_block(block, acfg, calibration=fresh, **kw)
+    if not torch.equal(y2, full.apply(x)) or torch.equal(y2, y):
+        raise AssertionError("the swapped block differs from a fresh "
+                             "compile, or the drift did not take effect")
+    report["drift_swap"] = {"lowerings": 0, "equal_to_fresh_compile": True}
+    del full, swapped
+    # device ms per launch: calibrated, and the same block uncalibrated
+    x2 = x.reshape(-1, cfg.d_model).contiguous()
+    bare = api.compile_block(block, acfg, **kw).lower()
+    for label, bp in (("calibrated", plan), ("uncalibrated", bare)):
+        tensors, kwb = _block_args(bp)
+        b8, _, nops = block_work(bp, x2.shape[0])
+        fn = lambda tensors=tensors, kwb=kwb: analog_plan_block_cuda(  # noqa: E731
+            x2, *tensors, **kwb)[0]
+        rec_ms, n_rec = kernel_record_ms(fn, "analog_plan_block_kernel")
+        report[label] = {"ms": time_ms(fn, iters=10, reps=5),
+                         "device_ms": device_trace(fn, iters=10)[0],
+                         "kernel_record_ms": rec_ms, "kernel_records": n_rec,
+                         "bound_ms": bound(b8, nops, BF16_OPS_PER_S)[0]}
+    return report
+
+
+# -------------------------------------------------------------- phase 21
+def serve_smoke_gate():
+    """Phase 21: ``python -m repro_torch.obs --serve-smoke`` in a
+    subprocess on the card: the telemetry gate of the deployment loop
+    (plan-cache miss and hit, one drift hot swap, one fleet remap) must
+    exit 0."""
+    out = ROOT / "build" / "serve_smoke.jsonl"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.obs", "--serve-smoke", str(out)],
+        capture_output=True, text=True, timeout=600, env=env, cwd=str(ROOT))
+    secs = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or not lines or "contract: OK" not in lines[-1]:
+        raise AssertionError(f"--serve-smoke exited {res.returncode}: "
+                             f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    return {"exit": res.returncode, "seconds": secs, "last_line": lines[-1],
+            "records": sum(1 for _ in open(out))}
+
+
 def main() -> None:
     print(card_line(), flush=True)
     # the whole run under one telemetry collector (phase 16b reads it)
@@ -2133,6 +2885,17 @@ def main() -> None:
         "max_share_differing": max(c["share_differing"] for c in checks),
     })
     torch.cuda.empty_cache()
+    checks, whole, cg_timing = check_chunk_gain(cfg)
+    emit("chunk_gain_checks", {
+        "n": len(checks), "max_abs_err": MAX_ERR,
+        "exact_cases_bit_exact": True, "form0_equals_form1": True,
+        "worst": max(checks, key=lambda c: c["max_abs_err"]),
+        "max_share_differing": max(c["share_differing"] for c in checks),
+        "readout_checks": [c for c in checks if "readouts" in c],
+        "whole_block": whole,
+    })
+    gc.collect()
+    torch.cuda.empty_cache()
 
     engine, lm_report = lm_main_path()
     emit("lm_main_path", lm_report)
@@ -2150,12 +2913,18 @@ def main() -> None:
             split_rows, "prefill", key, cfg.n_layers)
     emit("lm_serving", lm_timing)
 
-    # the block path reuses the full-width parameters; the dynamic plans
-    # of the serving phase are freed first
+    # the calibrated, fleet and block paths reuse the full-width
+    # parameters; the dynamic plans of the serving phase are freed first
     params = _strip_plans(engine.params)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    lm_cal = calibrated_serving(params, cfg)
+    emit("lm_calibrated_serving", lm_cal)
+    counts["analog_mvm_split"] += lm_cal["launches"]["analog_mvm_split"]
+    freport = fleet_path(params, cfg)
+    emit("lm_fleet", freport)
+    counts["analog_mvm_split"] += freport["launches"]["analog_mvm_split"]
     tree, p_block, toks, breport = block_main_path(params, cfg)
     emit("block_main_path", breport)
     counts["analog_plan_block"] = breport["launches"]["analog_plan_block"]
@@ -2172,9 +2941,16 @@ def main() -> None:
         "whole_block": whole,
     })
     block_row = time_block(cfg, tree, p_block, toks, x)
-    del tree, p_block, params, x
+    del tree, p_block, x
     gc.collect()
     torch.cuda.empty_cache()
+    kreport = calibrated_block(params, cfg)
+    emit("calibrated_block", kreport)
+    counts["analog_plan_block"] += kreport["launches"]["analog_plan_block"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("serve_smoke", serve_smoke_gate())
 
     emit("train_step_checks", check_train_steps())
     torch.cuda.reset_peak_memory_stats()

@@ -27,14 +27,19 @@ instead - the only bake real hardware supports.  Snapshot entries are
 looked up by spec layer name (stacks) / dotted params path (trees);
 layers without an entry keep the oracle bake.  A tree's column_concat
 group fuses under static activation calibration when the snapshot gave
-all its members one shared input LSB (``a_scale_in``).
+all its members one shared input LSB (``a_scale_in``).  A scan-stacked
+layer or group takes a per-stack-member record (``[S, C, N]`` tables,
+one measured device per member: the fleet gather,
+:func:`repro_torch.fleet.model_snapshot`): slice ``i`` bakes into member
+``i`` of its :class:`~repro_torch.exec.plan.PlanStack`.  A block bakes by
+its seven physical member names (``"wq"`` ... ``"down"``).
 :meth:`~repro_torch.api.program.CompiledModel.with_calibration` hot-swaps
 a refreshed snapshot's tables without lowering.
 
 Everything is lowered once, on the target device, inside an
 ``api.compile`` span of :mod:`repro_torch.obs.trace` that records the
 :func:`~repro_torch.exec.lower.lowering_count` it took.  Not ported yet:
-the static verify step, and ``compile_block(calibration=)``.
+the static verify step (``repro.verify``).
 """
 from __future__ import annotations
 
@@ -55,13 +60,17 @@ from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.device import DeviceLike, resolve_device, to_device
 from repro_torch.exec.lower import (layer_with_tables, lower_block,
                                     lower_fused, lower_layer, lower_stack,
-                                    lowering_count)
+                                    lowering_count, stack_calibs,
+                                    stacked_calib)
 from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, GroupPlan, PlanStack
 from repro_torch.obs import trace as _trace
 
 _PLAN = "_plan"
 _GROUPS = "_groups"
 _QKV_MEMBERS = ("wq", "wk", "wv")
+# physical devices of one transformer block, in schedule order: the
+# member-name key space of a block's bake-time calibration snapshot
+_BLOCK_MEMBERS = ("wq", "wk", "wv", "wo", "up", "gate", "down")
 
 
 def _acfg(run_cfg) -> AnalogConfig:
@@ -89,10 +98,13 @@ def _slice(node, i: int):
 def _lower_leaf(node: dict, acfg: AnalogConfig, calib=None):
     """Lower one analog layer dict; a scan-stacked one slice by slice (the
     reference vmaps over the stack axis).  A measured record applies to a
-    plain 2-D layer (a scan-stacked layer has no single chip)."""
+    plain 2-D layer, and to a scan-stacked one when it carries
+    per-stack-member tables (:func:`~repro_torch.exec.lower.
+    stacked_calib`): slice ``i`` of the record bakes member ``i``."""
     if node["w"].ndim == 3:
-        return PlanStack(lower_layer(_slice(node, i), acfg)
-                         for i in range(node["w"].shape[0]))
+        s = node["w"].shape[0]
+        return PlanStack(lower_layer(_slice(node, i), acfg, calib=c)
+                         for i, c in enumerate(stack_calibs(calib, s)))
     return lower_layer(node, acfg, calib=calib)
 
 
@@ -148,24 +160,28 @@ def _lower_group(g: GroupSpec, locals_: Sequence[str], node: dict,
     encoding: always under dynamic activation calibration, under static
     only when the snapshot calibrated the group together; otherwise the
     members keep their per-layer plans).  Scan-stacked members give a
-    :class:`PlanStack` of per-slice group plans."""
+    :class:`PlanStack` of per-slice group plans, slice ``i`` baked from
+    member ``i`` of per-stack-member records when every member of the
+    group has one (else from none)."""
     members = [node[m] for m in locals_]
-    stacked = members[0]["w"].ndim == 3
-    calibs = None if stacked else _member_calibs(calibration, parent,
-                                                 locals_)
+    calibs = _member_calibs(calibration, parent, locals_)
     if acfg.act_calib != "dynamic" and not _static_fusable(calibs):
         return None
     member_ns = tuple(int(m["w"].shape[-1]) for m in members)
 
-    def group(ms):
+    def group(ms, cs):
         return GroupPlan(kind=g.kind,
-                         fused=lower_fused(ms, acfg, calibs=calibs),
+                         fused=lower_fused(ms, acfg, calibs=cs),
                          member_names=tuple(locals_), member_ns=member_ns)
 
-    if stacked:
-        return PlanStack(group([_slice(m, i) for m in members])
-                         for i in range(members[0]["w"].shape[0]))
-    return group(members)
+    if members[0]["w"].ndim == 3:
+        s = members[0]["w"].shape[0]
+        per = [[None] * len(members)] * s
+        if calibs is not None and all(stacked_calib(c, s) for c in calibs):
+            per = list(zip(*(stack_calibs(c, s) for c in calibs)))
+        return PlanStack(group([_slice(m, i) for m in members], list(per[i]))
+                         for i in range(s))
+    return group(members, calibs)
 
 
 def lower_tree(params, run_cfg, *,
@@ -309,14 +325,15 @@ def block_spec(name: str, *, d_model: int, d_ff: int, n_heads: int,
 
 def swap_calibration(lowered, snapshot, *, path: str = ""):
     """Hot-swap a refreshed snapshot's measured tables into a pre-lowered
-    params tree: every plain ``"_plan"`` entry and every column_concat
+    params tree: every ``"_plan"`` entry and every column_concat
     ``"_groups"`` plan the snapshot covers gets its ``chunk_offset``
     replaced - and its ``chunk_gain`` when the plan baked a measured gain
     table of matching shape
-    (:func:`~repro_torch.exec.lower.layer_with_tables`).  Nothing is
-    lowered; scan-stacked plans (no single chip), layers the snapshot
-    does not cover and tables that do not match the plan's shape are
-    kept."""
+    (:func:`~repro_torch.exec.lower.layer_with_tables`).  A scan-stacked
+    plan (a :class:`PlanStack`) swaps per-stack-member ``[S, C, N]``
+    tables, member ``i`` taking slice ``i``.  Nothing is lowered; layers
+    the snapshot does not cover and tables that do not match the plan's
+    shape (a stack against plain ``[C, N]`` tables included) are kept."""
     import torch
 
     def swap(lp, off, gain):
@@ -329,21 +346,35 @@ def swap_calibration(lowered, snapshot, *, path: str = ""):
             gain = None
         return layer_with_tables(lp, chunk_offset=off, chunk_gain=gain)
 
+    def swap_any(v, off, gain, fn):
+        """``fn(member, off, gain)`` over a plan, or over each member of
+        a stack with slice ``i`` of ``[S, ...]`` tables."""
+        if not isinstance(v, PlanStack):
+            return fn(v, off, gain)
+        if off is None or off.ndim < 1 or off.shape[0] != len(v):
+            return v
+        if gain is not None and (gain.ndim < 1 or gain.shape[0] != len(v)):
+            gain = None
+        return PlanStack(fn(m, off[i], None if gain is None else gain[i])
+                         for i, m in enumerate(v))
+
     def swap_group(gp, p: str):
-        if isinstance(gp, PlanStack) or gp.kind != GROUP_COLUMN_CONCAT:
+        probe = gp[0] if isinstance(gp, PlanStack) and len(gp) else gp
+        if isinstance(probe, PlanStack) or probe.kind != GROUP_COLUMN_CONCAT:
             return gp
-        recs = _member_calibs(snapshot, p, gp.member_names)
+        recs = _member_calibs(snapshot, p, probe.member_names)
         if recs is None or any(r.chunk_offset is None for r in recs):
             return gp
-        dev = gp.fused.store.codes.device
+        dev = probe.fused.store.codes.device
 
         def cat(ts):
             return torch.cat([t.to(dev, torch.float32) for t in ts], dim=-1)
 
         gains = [r.gain_table for r in recs]
         gain = None if any(g is None for g in gains) else cat(gains)
-        return dataclasses.replace(gp, fused=swap(
-            gp.fused, cat([r.chunk_offset for r in recs]), gain))
+        return swap_any(gp, cat([r.chunk_offset for r in recs]), gain,
+                        lambda g, off, gn: dataclasses.replace(
+                            g, fused=swap(g.fused, off, gn)))
 
     def walk(node, p: str):
         if not isinstance(node, dict):
@@ -352,8 +383,8 @@ def swap_calibration(lowered, snapshot, *, path: str = ""):
         for k, v in node.items():
             if k == _PLAN:
                 rec = snapshot.layer(p)
-                out[k] = v if rec is None or isinstance(v, PlanStack) \
-                    else swap(v, rec.chunk_offset, rec.gain_table)
+                out[k] = v if rec is None else swap_any(
+                    v, rec.chunk_offset, rec.gain_table, swap)
             elif k == _GROUPS:
                 out[k] = {name: swap_group(gp, p) for name, gp in v.items()}
             else:
@@ -363,13 +394,18 @@ def swap_calibration(lowered, snapshot, *, path: str = ""):
     return walk(lowered, path)
 
 
-def _compile_block(spec: ModuleSpec, params, acfg: AnalogConfig):
+def _compile_block(spec: ModuleSpec, params, acfg: AnalogConfig,
+                   calibration=None):
     g = spec.block_geom
+    calibs = None
+    if calibration is not None:
+        calibs = {m: calibration.layer(m) for m in _BLOCK_MEMBERS}
     return lower_block(
         params, acfg,
         n_heads=g["n_heads"], n_kv_heads=g["n_kv_heads"],
         head_dim=g["head_dim"], seq=g["seq"],
         rope_theta=g["rope_theta"], eps=g.get("eps", 1e-5),
+        calibs=calibs,
     )
 
 
@@ -388,13 +424,14 @@ def compile_block(block_params, run_cfg, *, n_heads: int, n_kv_heads: int,
     4-layer block :class:`~repro_torch.exec.plan.AnalogPlan` whose
     canonical replay is ONE kernel launch.  Needs an analog mode with
     ``act_calib='static'`` and ``signed_input`` in ``('none', 'split')``.
+
+    ``calibration`` bakes measured tables by PHYSICAL member name
+    (``"wq"``, ``"wk"``, ``"wv"``, ``"wo"``, ``"up"``, ``"gate"``,
+    ``"down"``); a drift refresh through
+    :meth:`~repro_torch.api.program.CompiledModel.with_calibration` keys
+    on the four fused dispatch names instead (``"qkv"``, ``"o"``,
+    ``"up_gate"``, ``"down"``).
     """
-    if calibration is not None:
-        raise NotImplementedError(
-            "compile_block(calibration=...) is not ported yet: a measured "
-            "block bake needs the split tile's int8 code operand to carry "
-            "a chunk_gain table; it comes with the next slice, the LM "
-            "half of the calibration hooks (ROADMAP.md, queue 1)")
     attn, mlp = block_params["attn"], block_params["mlp"]
     spec = block_spec(
         name,
@@ -403,7 +440,8 @@ def compile_block(block_params, run_cfg, *, n_heads: int, n_kv_heads: int,
         n_heads=n_heads, n_kv_heads=n_kv_heads, head_dim=head_dim,
         seq=seq, rope_theta=rope_theta, eps=eps,
     )
-    return compile(spec, block_params, run_cfg, device=device)
+    return compile(spec, block_params, run_cfg, calibration=calibration,
+                   device=device)
 
 
 def compile(spec: ModuleSpec, params, run_cfg, *,  # noqa: A001
@@ -431,11 +469,7 @@ def compile(spec: ModuleSpec, params, run_cfg, *,  # noqa: A001
                     "block; run the transformer model path instead "
                     "(models.transformer)"
                 )
-            if calibration is not None:
-                raise NotImplementedError(
-                    "compile(calibration=...) of a block spec: see "
-                    "compile_block")
-            lowered = _compile_block(spec, params, acfg)
+            lowered = _compile_block(spec, params, acfg, calibration)
         elif acfg.mode == "digital":
             lowered = None
         else:

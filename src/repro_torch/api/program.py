@@ -114,7 +114,10 @@ class CompiledModel:
         move); an offset-only swap keeps every weight store and the
         megakernel's ``w_cat``, a changed gain table re-derives the
         affected stores' ``w_eff`` from their codes.  Stack plans swap by
-        spec layer name, tree plans by dotted path."""
+        spec layer name, a block plan by its four dispatch names
+        (``"qkv"``, ``"o"``, ``"up_gate"``, ``"down"``), tree plans by
+        dotted path (scan-stacked plans take per-stack-member ``[S, C,
+        N]`` tables)."""
         from repro_torch.api.compile import swap_calibration
         from repro_torch.exec.lower import plan_with_tables
         from repro_torch.exec.plan import AnalogPlan
@@ -122,10 +125,6 @@ class CompiledModel:
         if self.lowered is None:
             return dataclasses.replace(self, calibration=snapshot)
         if isinstance(self.lowered, AnalogPlan):
-            if self.lowered.block is not None:
-                raise NotImplementedError(
-                    "with_calibration of a block plan comes with "
-                    "compile_block(calibration=) (ROADMAP.md, queue 1)")
             offs, gains = [], []
             for layer, lp in zip(self.spec.layers, self.lowered.layers):
                 rec = snapshot.layer(layer.name)

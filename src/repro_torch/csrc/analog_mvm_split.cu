@@ -48,7 +48,8 @@ using namespace analog_split;
 
 constexpr int kMaxDevices = 64;
 
-// FORM 0: int8 codes + gain tables; FORM 1: fp32 w_eff.
+// FORM 0: int8 codes + rank-1 gain tables; FORM 2: the same + chunk_gain;
+// FORM 1: fp32 w_eff.
 // MT: m16 tiles per CTA, each 8 activation rows x {pos, neg}.
 template <int FORM, int MT>
 __global__ void __launch_bounds__(kThreads, MT == 1 ? 4 : MT == 2 ? 3 : 2)
@@ -185,7 +186,10 @@ int occupancy_mt(int mt, int faithful, int* blocks) {
 
 // form 0: w is int8 codes [k, n] with optional col_gain [n] and row_gain
 //         [n_blocks, k] (block b covers columns [block_ends[b-1],
-//         block_ends[b]), each end a multiple of 4); form 1: w is fp32.
+//         block_ends[b]), each end a multiple of 4); form 2: the same
+//         with chunk_gain [k / chunk_rows, n] (a measured per-(chunk,
+//         column) gain table), null in every other form; form 1: w is
+//         fp32.
 // mt: m16 tiles per CTA (8 activation rows each: 1, 2, 3 or 6); the grid is
 // (ceil(n / 128), n_splits, ceil(m / (8 mt))).  n_splits > 1 (faithful
 // only) needs part [n_splits, m, n] and zeroed counters [row groups x
@@ -193,21 +197,22 @@ int occupancy_mt(int mt, int faithful, int* blocks) {
 // on a 16-byte boundary (cp.async staging).
 extern "C" int analog_mvm_split_launch(
     const float* ap, const float* an, const void* w, int form,
-    const float* col_gain, const float* row_gain, int n_blocks,
-    const int* block_ends, const float* gain, const float* off, float* out,
+    const float* col_gain, const float* row_gain, const float* chunk_gain,
+    int n_blocks, const int* block_ends, const float* gain, const float* off, float* out,
     float* part, int* counters, int m, int k, int n, int chunk_rows,
     int chunks_per_cta, int n_splits, int mt, int faithful, int shift,
     int vec, void* stream) {
   if (m == 0 || n == 0) return 0;
   if (chunk_rows <= 0 || chunk_rows % kBK != 0 || k % chunk_rows != 0 ||
       k == 0 || n_blocks < 1 || n_blocks > kMaxBlocks ||
-      chunks_per_cta < 1 || (n_splits > 1 && (!faithful || !part || !counters)))
+      chunks_per_cta < 1 || (n_splits > 1 && (!faithful || !part || !counters)) ||
+      form < 0 || form > 2 || (form == 2) != (chunk_gain != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_chunks = k / chunk_rows;
   if ((n_chunks + chunks_per_cta - 1) / chunks_per_cta != n_splits)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{ap, an, w, col_gain, row_gain, gain, off, out, part, counters,
-           m, k, n, chunk_rows, chunks_per_cta, n_splits, n_blocks, {},
+  Params p{ap, an, w, col_gain, row_gain, chunk_gain, gain, off, out, part,
+           counters, m, k, n, chunk_rows, chunks_per_cta, n_splits, n_blocks, {},
            faithful, shift, vec, n, 1};
   for (int b = 0; b < kMaxBlocks; ++b)
     p.block_end[b] = b < n_blocks ? block_ends[b] : n;
@@ -216,15 +221,17 @@ extern "C" int analog_mvm_split_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kBN - 1) / kBN, n_splits, static_cast<unsigned>(groups));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return form == 0 ? launch_mt<0>(p, mt, grid, st)
-                   : launch_mt<1>(p, mt, grid, st);
+  return form == 0   ? launch_mt<0>(p, mt, grid, st)
+         : form == 2 ? launch_mt<2>(p, mt, grid, st)
+                     : launch_mt<1>(p, mt, grid, st);
 }
 
 // CTAs of one (form, mt, mode) instantiation resident per SM at once
 extern "C" int analog_mvm_split_occupancy(int form, int mt, int faithful,
                                           int* blocks) {
-  return form == 0 ? occupancy_mt<0>(mt, faithful, blocks)
-                   : occupancy_mt<1>(mt, faithful, blocks);
+  return form == 0   ? occupancy_mt<0>(mt, faithful, blocks)
+         : form == 2 ? occupancy_mt<2>(mt, faithful, blocks)
+                     : occupancy_mt<1>(mt, faithful, blocks);
 }
 
 extern "C" const char* analog_mvm_split_error_string(int err) {

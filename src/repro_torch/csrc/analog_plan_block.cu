@@ -37,9 +37,11 @@
 //   TPU kernel's grid over batch elements would leave most SMs idle).
 // * Each VMM stage runs analog_split_tile.cuh's split_tile(), the CTA work
 //   item of the split kernel: per layer the store's int8 codes rebuilt
-//   into fp32 weights with two __fmul_rn (form 0), or an fp32 w_eff for a
-//   store with a full gain map (form 1); three exact bf16 pieces per
-//   weight on mma.sync; a cp.async ring; the per-chunk ADC readout.
+//   into fp32 weights with one __fmul_rn per gain table - rank-1 (form
+//   0), and a calibrated bake's per-(chunk, column) table too (form 2) -
+//   or an fp32 w_eff for a store with a full gain map (form 1); three
+//   exact bf16 pieces per weight on mma.sync; a cp.async ring; the
+//   per-chunk ADC readout.
 // * Encode once: the glue stage before a VMM writes the 5-bit codes of h
 //   and of -h (the tile's fp32 code operands) once, with the same
 //   rintf(__fdiv_rn(h, scale)) and clip as the plain version.
@@ -167,8 +169,11 @@ __device__ void rmsnorm_row(const BlockArgs& p, int l, long long r,
 }
 
 // One analog layer over the grid: each work item's partial totals to its
-// workspace slot.
-template <int MT>
+// workspace slot.  CG: the launch holds a layer in form 2 (a chunk_gain
+// table), so the stage dispatches all three forms; without one it
+// compiles only forms 0 and 1, and a launch of rank-1 stores runs no
+// code (and no registers) of the third.
+template <int MT, bool CG>
 __device__ void vmm_stage(const BlockArgs& p, int l, unsigned char* smem) {
   const Params& q = p.vmm[l];
   const int tid = threadIdx.x;
@@ -184,8 +189,13 @@ __device__ void vmm_stage(const BlockArgs& p, int l, unsigned char* smem) {
     const int tile = item % col_tiles;
     const int split = (item / col_tiles) % q.n_splits;
     const int group = item / (col_tiles * q.n_splits);
-    const float* tot = p.form[l] == 0
-                           ? split_tile<0, MT>(q, tile, split, group, smem)
+    const float* tot;
+    if constexpr (CG)
+      tot = p.form[l] == 0   ? split_tile<0, MT>(q, tile, split, group, smem)
+            : p.form[l] == 2 ? split_tile<2, MT>(q, tile, split, group, smem)
+                             : split_tile<1, MT>(q, tile, split, group, smem);
+    else
+      tot = p.form[l] == 0 ? split_tile<0, MT>(q, tile, split, group, smem)
                            : split_tile<1, MT>(q, tile, split, group, smem);
     float* slot = q.part + split * mn;
     const int row0 = group * 8 * MT;
@@ -301,7 +311,7 @@ __device__ void attention_stage(const BlockArgs& p, float* smem) {
   }
 }
 
-template <int MT>
+template <int MT, bool CG>
 __global__ void __launch_bounds__(kThreads, MT == 1 ? 4 : MT == 2 ? 3 : 2)
 analog_plan_block_kernel(const __grid_constant__ BlockArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -361,7 +371,7 @@ analog_plan_block_kernel(const __grid_constant__ BlockArgs p) {
       }
     }
     grid.sync();
-    vmm_stage<MT>(p, l, smem);
+    vmm_stage<MT, CG>(p, l, smem);
     grid.sync();
   }
   // residual output
@@ -379,7 +389,7 @@ analog_plan_block_kernel(const __grid_constant__ BlockArgs p) {
 // it runs, or the attention stage's q, k, v and scores
 int smem_for(int mt, int faithful, int forms, int seq, int head_dim) {
   int bytes = 4 * (kThreads / 32);
-  for (int form = 0; form < 2; ++form)
+  for (int form = 0; form < 3; ++form)
     if (forms & (1 << form)) {
       const int b = smem_bytes(form, mt, faithful);
       if (b > bytes) bytes = b;
@@ -389,16 +399,20 @@ int smem_for(int mt, int faithful, int forms, int seq, int head_dim) {
 }
 
 template <int MT>
-const void* kernel_fn() {
-  return reinterpret_cast<const void*>(analog_plan_block_kernel<MT>);
+const void* kernel_fn(bool cg) {
+  return cg ? reinterpret_cast<const void*>(analog_plan_block_kernel<MT, true>)
+            : reinterpret_cast<const void*>(analog_plan_block_kernel<MT, false>);
 }
 
-const void* kernel_for(int mt) {
+// the kernel of a launch geometry: forms bit 2 set when a layer has a
+// chunk_gain table
+const void* kernel_for(int mt, int forms) {
+  const bool cg = (forms & 4) != 0;
   switch (mt) {
-    case 1: return kernel_fn<1>();
-    case 2: return kernel_fn<2>();
-    case 3: return kernel_fn<3>();
-    case 6: return kernel_fn<6>();
+    case 1: return kernel_fn<1>(cg);
+    case 2: return kernel_fn<2>(cg);
+    case 3: return kernel_fn<3>(cg);
+    case 6: return kernel_fn<6>(cg);
     default: return nullptr;
   }
 }
@@ -406,7 +420,7 @@ const void* kernel_for(int mt) {
 // the cooperative grid of one launch geometry: SMs x resident CTAs
 int grid_size(int mt, int faithful, int forms, int seq, int head_dim,
               int* grid) {
-  const void* fn = kernel_for(mt);
+  const void* fn = kernel_for(mt, forms);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = smem_for(mt, faithful, forms, seq, head_dim);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
@@ -432,17 +446,18 @@ int grid_size(int mt, int faithful, int forms, int seq, int head_dim,
 
 }  // namespace
 
-// The cooperative grid a launch of this geometry uses (forms: bit 0 set
-// when a layer reads int8 codes, bit 1 when one reads fp32 w_eff); the
+// The cooperative grid a launch of this geometry uses (forms: bit f set
+// when a layer reads its weights in form f: 0 int8 codes, 1 fp32 w_eff,
+// 2 int8 codes with a chunk_gain table); the
 // wrapper sizes the chunk ranges of each VMM stage from it.
 extern "C" int analog_plan_block_grid(int mt, int faithful, int forms,
                                       int seq, int head_dim, int* grid) {
   return grid_size(mt, faithful, forms, seq, head_dim, grid);
 }
 
-// wptrs: 4 x 3 device pointers (host array): per layer the weights (int8
-// codes for form 0, fp32 w_eff for form 1), col_gain and row_gain (form
-// 0, each may be null).  sched: 4 x 15 host ints per layer: c0, k, k_pad,
+// wptrs: 4 x 4 device pointers (host array): per layer the weights (int8
+// codes for forms 0 and 2, fp32 w_eff for form 1), col_gain and row_gain
+// (forms 0 and 2, each may be null) and chunk_gain (form 2 only).  sched: 4 x 15 host ints per layer: c0, k, k_pad,
 // n, n_chunks, split, form, n_blocks, block_end[4], chunks_per_cta,
 // n_splits, vec.  regions: 17 device pointers (host array), the scratch
 // regions in BLOCK_STAGES order.  work: the partial-total slots, at least
@@ -457,7 +472,7 @@ extern "C" int analog_plan_block_launch(
     int d_ff, float eps, float attn_scale, int* grid_out, void* stream) {
   if (m <= 0 || seq <= 0 || m % seq != 0 || chunk_rows <= 0 ||
       chunk_rows % kBK != 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
-      head_dim % 2 != 0 || kernel_for(mt) == nullptr)
+      head_dim % 2 != 0 || kernel_for(mt, 0) == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   BlockArgs p{};
   p.x = x;
@@ -469,15 +484,17 @@ extern "C" int analog_plan_block_launch(
     if (k_pad != n_chunks * chunk_rows || n_chunks < 1 || f[1] > k_pad ||
         n_blocks < 1 || n_blocks > kMaxBlocks || cps < 1 ||
         (n_chunks + cps - 1) / cps != n_splits ||
-        (n_splits > 1 && !faithful) || (f[6] != 0 && f[6] != 1))
+        (n_splits > 1 && !faithful) || f[6] < 0 || f[6] > 2 ||
+        (f[6] == 2) != (wptrs[4 * l + 3] != nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
-    const void* const* w = wptrs + 3 * l;
+    const void* const* w = wptrs + 4 * l;
     Params& q = p.vmm[l];
     q.ap = regions[input_region(l) + 1];
     q.an = regions[input_region(l) + 2];
     q.w = w[0];
     q.col_gain = static_cast<const float*>(w[1]);
     q.row_gain = static_cast<const float*>(w[2]);
+    q.chunk_gain = static_cast<const float*>(w[3]);
     q.gain = gain + static_cast<long long>(l) * n_max;
     q.off = off + static_cast<long long>(c0) * n_max;
     q.out = nullptr;
@@ -523,7 +540,7 @@ extern "C" int analog_plan_block_launch(
   *grid_out = grid;
   void* args[] = {&p};
   const cudaError_t e = cudaLaunchCooperativeKernel(
-      kernel_for(mt), dim3(grid), dim3(kThreads), args,
+      kernel_for(mt, forms), dim3(grid), dim3(kThreads), args,
       smem_for(mt, faithful, forms, seq, head_dim),
       static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -10,12 +10,18 @@
 // split kernel (analog_mvm_split.cu, one launch per layer) and the VMM
 // stages of the transformer-block kernel (analog_plan_block.cu).
 //
-// * Weight operand.  Form 0 reads the plan's int8 6-bit codes (1 byte per
-//   weight instead of 4) and rebuilds each effective weight in registers
-//   as (code * col_gain[n]) * row_gain[block(n)][k] with two __fmul_rn
-//   (an absent factor is 1.0f, exact): bit for bit the fp32 w_eff of the
-//   plan's WeightStore.  Form 1 reads an fp32 w_eff (stores with a full
-//   gain map).
+// * Weight operand.  Forms 0 and 2 read the plan's int8 6-bit codes (1
+//   byte per weight instead of 4) and rebuild each effective weight in
+//   registers as (code * col_gain[n]) * row_gain[block(n)][k] (form 0),
+//   times chunk_gain[c][n] (form 2), with one __fmul_rn per factor (an
+//   absent rank-1 factor is 1.0f, exact), in the order WeightStore
+//   derives its w_eff: bit for bit the fp32 w_eff of the plan's store.
+//   chunk_gain is the measured per-(chunk, column) gain table of a
+//   calibrated bake; it is constant over a chunk, so form 2 stages its
+//   kBN-column row once per chunk beside the chunk's offsets.  Form 0 is
+//   compiled without it, so the rank-1 path stages and multiplies nothing
+//   more for it.  Form 1 reads an fp32 w_eff (stores with a full gain
+//   map).
 // * Tensor cores.  The activation codes are integers 0..31, exact in
 //   bf16.  Each rebuilt fp32 weight is cut into three bf16 pieces by
 //   truncation, w = w1 + w2 + w3 exactly (24 significand bits = 3 x 8), so
@@ -61,6 +67,7 @@ struct Params {
   const void* w;          // form 0: int8 codes [k, n]; form 1: fp32 [k, n]
   const float* col_gain;  // [n] or null (form 0)
   const float* row_gain;  // [n_blocks, k] or null (form 0)
+  const float* chunk_gain;  // [k / chunk_rows, n] (form 2 only)
   const float* gain;      // [n]
   const float* off;       // [k / chunk_rows, off_stride]
   float* out;             // [m, n]
@@ -77,21 +84,28 @@ struct Params {
 // pipeline depth: 3 stages for the 48-row tile (its activations are the
 // largest slice), 4 otherwise
 __host__ __device__ constexpr int n_stages(int mt) { return mt == 6 ? 3 : 4; }
+// forms 0 and 2 read int8 codes, form 1 fp32 w_eff
+__host__ __device__ constexpr bool reads_codes(int form) { return form != 1; }
 __host__ __device__ constexpr int w_row_bytes(int form) {
-  return form == 0 ? kBN + 16 : kBN * 4 + 16;
+  return reads_codes(form) ? kBN + 16 : kBN * 4 + 16;
 }
 __host__ __device__ constexpr int act_bytes(int mt) {
   return 2 * 8 * mt * kActStride * 4;
 }
 __host__ __device__ constexpr int stage_bytes(int form, int mt) {
   return kBK * w_row_bytes(form) + act_bytes(mt) +
-         (form == 0 ? kMaxBlocks * kBK * 4 : 0);
+         (reads_codes(form) ? kMaxBlocks * kBK * 4 : 0);
 }
 // after the ring: the tile's gains, a ring of n_stages chunks' offsets (a
-// slot is refilled n_stages chunks later, after its readout), then each
-// thread's running totals (2 per accumulator pair faithful, 4 fast)
+// slot is refilled n_stages chunks later, after its readout), form 2 a
+// ring of n_stages chunks' chunk-gain rows beside it, then each thread's
+// running totals (2 per accumulator pair faithful, 4 fast)
+__host__ __device__ constexpr int chunk_rings(int form, int mt) {
+  return form == 2 ? 2 * n_stages(mt) : n_stages(mt);
+}
 __host__ __device__ constexpr int tot_offset(int form, int mt) {
-  return n_stages(mt) * stage_bytes(form, mt) + (1 + n_stages(mt)) * kBN * 4;
+  return n_stages(mt) * stage_bytes(form, mt) +
+         (1 + chunk_rings(form, mt)) * kBN * 4;
 }
 __host__ __device__ constexpr int smem_bytes(int form, int mt, int faithful) {
   return tot_offset(form, mt) + mt * 4 * (faithful ? 2 : 4) * kThreads * 4;
@@ -153,14 +167,17 @@ __device__ __forceinline__ int tot_index(int i, int j, int h, int n_tot) {
 // n_tot = faithful ? 2 : 4.  The routine begins with a barrier, so a CTA
 // may call it for one item after another on the same shared memory once
 // it has read its totals.
-// FORM 0: int8 codes + gain tables; FORM 1: fp32 w_eff.
+// FORM 0: int8 codes + rank-1 gain tables; FORM 2: the same + chunk_gain;
+// FORM 1: fp32 w_eff.
 // MT: m16 tiles per CTA, each 8 activation rows x {pos, neg}.
 template <int FORM, int MT>
 __device__ __forceinline__ float* split_tile(const Params& p, int tile,
                                              int split, int group,
                                              unsigned char* smem) {
   constexpr int kStages = n_stages(MT);
-  constexpr int kE = FORM == 0 ? 1 : 4;  // bytes per weight
+  constexpr bool kCodes = reads_codes(FORM);
+  constexpr bool kCG = FORM == 2;  // a chunk_gain table to multiply in
+  constexpr int kE = kCodes ? 1 : 4;  // bytes per weight
   constexpr int kWRow = w_row_bytes(FORM);
   constexpr int kWBytes = kBK * kWRow;
   constexpr int kRows = 8 * MT;  // activation rows per CTA
@@ -188,6 +205,7 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
 
   float* s_gain = reinterpret_cast<float*>(smem + kStages * kStage);
   float* s_off = s_gain + kBN;  // [kStages][kBN]
+  float* s_cg = s_off + kStages * kBN;  // form 2: [kStages][kBN]
   float* s_tot = reinterpret_cast<float*>(smem + tot_offset(FORM, MT)) + tid;
   __syncthreads();  // a previous item is done with the shared memory
   for (int e = tid; e < kBN; e += kThreads)
@@ -195,10 +213,10 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
   for (int e = 0; e < MT * 4 * n_tot; ++e) s_tot[e * kThreads] = 0.f;
   // the B fragment columns of this lane: 4g + j
   const int bcol = wcol + 4 * g;
-  const bool has_row = FORM == 0 && p.row_gain != nullptr;
+  const bool has_row = kCodes && p.row_gain != nullptr;
   float cg[4];  // an absent gain factor is 1.0f: x * 1.0f is exact
   int blk = 0;
-  if constexpr (FORM == 0) {
+  if constexpr (kCodes) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       cg[j] = (p.col_gain != nullptr && bcol + j < p.n)
@@ -224,6 +242,9 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
     ld_buf = ld_buf + 1 == kStages ? 0 : ld_buf + 1;
     float* so = s_off + (chunk % kStages) * kBN;
     const float* osrc = p.off + static_cast<long long>(chunk) * p.off_stride;
+    float* scg = s_cg + (chunk % kStages) * kBN;
+    const float* cgsrc =
+        kCG ? p.chunk_gain + static_cast<long long>(chunk) * p.n : nullptr;
     if (p.vec) {
       // n * kE is a multiple of 16: a piece is wholly in or out of range
       const unsigned char* w = static_cast<const unsigned char*>(p.w);
@@ -253,6 +274,11 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
         cp_async16(so + 4 * tid, gc < p.n ? osrc + gc : p.off,
                    gc < p.n ? 16 : 0);
       }
+      if (kCG && first && tid >= kBN / 4 && tid < kBN / 2) {
+        const int e = tid - kBN / 4, gc = col0 + 4 * e;
+        cp_async16(scg + 4 * e, gc < p.n ? cgsrc + gc : p.chunk_gain,
+                   gc < p.n ? 16 : 0);
+      }
       if (has_row && tid < p.n_blocks * (kBK / 4)) {
         const int b = tid / (kBK / 4), cc = (tid % (kBK / 4)) * 4;
         cp_async16(rg + b * kBK + cc,
@@ -265,7 +291,7 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
       const int r = e / kBN, c = e % kBN;
       const long long idx = static_cast<long long>(kr + r) * p.n + col0 + c;
       const bool in = col0 + c < p.n;
-      if constexpr (FORM == 0) {
+      if constexpr (kCodes) {
         base[r * kWRow + c] =
             in ? static_cast<const unsigned char*>(p.w)[idx] : 0;
       } else {
@@ -283,6 +309,9 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
     if (first)
       for (int e = tid; e < kBN; e += kThreads)
         so[e] = col0 + e < p.n ? osrc[col0 + e] : 0.f;
+    if (kCG && first)
+      for (int e = tid; e < kBN; e += kThreads)
+        scg[e] = col0 + e < p.n ? cgsrc[col0 + e] : 0.f;
     if (has_row)
       for (int e = tid; e < p.n_blocks * kBK; e += kThreads) {
         const int b = e / kBK, c = e % kBK;
@@ -317,6 +346,11 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
     const float* rg =
         reinterpret_cast<const float*>(base + kWBytes + act_bytes(MT)) +
         blk * kBK;
+    // the chunk's gain at the lane's four B fragment columns 4g + j
+    [[maybe_unused]] float4 ccg;  // form 2 only
+    if constexpr (kCG)
+      ccg = *reinterpret_cast<const float4*>(s_cg + (chunk % kStages) * kBN +
+                                             warp * 32 + 4 * g);
 #pragma unroll
     for (int ks = 0; ks < kBK / 16; ++ks) {
       const int kk = ks * 16 + 2 * t;  // rows kk, kk + 1, kk + 8, kk + 9
@@ -348,7 +382,7 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
       }
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        if constexpr (FORM == 0) {
+        if constexpr (kCodes) {
           wd[r] = *reinterpret_cast<const uint32_t*>(
                       base + rows[r] * kWRow + warp * 32 + 4 * g) ^
                   0x80808080u;
@@ -363,9 +397,12 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
         float w[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          if constexpr (FORM == 0) {
+          if constexpr (kCodes) {
             w[r] = __fmul_rn(__fmul_rn(code_to_float(wd[r], j), cg[j]),
                              rgv[r]);
+            if constexpr (kCG)
+              w[r] = __fmul_rn(w[r], j == 0 ? ccg.x : j == 1 ? ccg.y
+                                      : j == 2 ? ccg.z : ccg.w);
           } else {
             w[r] = j == 0 ? wf[r].x : j == 1 ? wf[r].y : j == 2 ? wf[r].z
                                                                 : wf[r].w;

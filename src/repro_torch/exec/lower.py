@@ -76,6 +76,38 @@ def _table(x, dev: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
 
+def _calib_tables(calib) -> dict:
+    """The measured tables a calibration record carries (its non-None
+    fields), by field name."""
+    return {f.name: getattr(calib, f.name) for f in dataclasses.fields(calib)
+            if getattr(calib, f.name) is not None}
+
+
+def stacked_calib(calib, s: int) -> bool:
+    """True when ``calib`` is a per-stack-member calibration record whose
+    every table carries a leading stack axis of length ``s`` - one
+    measured device per scan-stack member (the fleet gather's ``[S, C,
+    N]`` tables)."""
+    if calib is None:
+        return False
+    tables = _calib_tables(calib).values()
+    return bool(tables) and all(
+        getattr(v, "ndim", 0) >= 1 and v.shape[0] == s for v in tables)
+
+
+def stack_calibs(calib, s: int) -> list:
+    """The per-member records of a scan stack of ``s`` members: slice
+    ``i`` of every table of a per-stack-member record
+    (:func:`stacked_calib`) for member ``i``, else ``s`` Nones (a record
+    without a stack axis measured no single device of a stacked layer, so
+    the stack keeps the oracle bake, as in the reference)."""
+    if not stacked_calib(calib, s):
+        return [None] * s
+    tables = _calib_tables(calib)
+    return [dataclasses.replace(calib, **{k: v[i] for k, v in tables.items()})
+            for i in range(s)]
+
+
 def lower_layer(
     params: Params,
     cfg: AnalogConfig,
@@ -374,6 +406,7 @@ def lower_block(
     seq: int,
     rope_theta: float,
     eps: float = 1e-5,
+    calibs: Optional[dict] = None,
 ) -> AnalogPlan:
     """Lower ONE attention+MLP transformer block into a 4-layer
     :class:`AnalogPlan` that replays as a single whole-block dispatch.
@@ -387,6 +420,13 @@ def lower_block(
     plus a :class:`BlockGlue` record, and runs inside the kernel.  ``seq``
     is baked: the in-kernel attention needs the static prefill length
     (positions ``0..seq-1``).
+
+    ``calibs`` optionally maps the block's seven physical members
+    (``"wq"``, ``"wk"``, ``"wv"``, ``"wo"``, ``"up"``, ``"gate"``,
+    ``"down"``) to measured
+    :class:`~repro_torch.calib.snapshot.LayerCalibration` records: each
+    member bakes its own device's tables before the fusion concatenates
+    them (a member without a record keeps the oracle bake).
 
     Raises ``ValueError`` when the block cannot pack: every layer consumes
     float activations, so it needs a static input LSB (``act_calib ==
@@ -411,10 +451,13 @@ def lower_block(
             "lower_block: the block MLP has no gate projection; the "
             "fused swiglu hand-off needs act='swiglu'"
         )
-    qkv = lower_fused([attn["wq"], attn["wk"], attn["wv"]], cfg)
-    o = lower_layer(attn["wo"], cfg)
-    upgate = lower_fused([mlp["up"], mlp["gate"]], cfg)
-    down = lower_layer(mlp["down"], cfg)
+    cal = calibs or {}
+    qkv = lower_fused([attn["wq"], attn["wk"], attn["wv"]], cfg,
+                      calibs=[cal.get("wq"), cal.get("wk"), cal.get("wv")])
+    o = lower_layer(attn["wo"], cfg, calib=cal.get("wo"))
+    upgate = lower_fused([mlp["up"], mlp["gate"]], cfg,
+                         calibs=[cal.get("up"), cal.get("gate")])
+    down = lower_layer(mlp["down"], cfg, calib=cal.get("down"))
 
     d_model = qkv.k
     d_ff = mlp["up"]["w"].shape[1]

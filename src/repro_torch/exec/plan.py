@@ -145,11 +145,11 @@ class WeightStore:
 
     @property
     def code_operand(self) -> bool:
-        """Can a kernel read this store as int8 codes plus its rank-1 gain
-        tables (``col_gain``, ``row_gain``)?  Not with a full gain map
-        or a measured ``chunk_gain``: those stores give the kernels
-        their fp32 ``w_eff``."""
-        return self.gain_map is None and self.chunk_gain is None
+        """Can a kernel read this store as int8 codes plus its gain tables
+        (``col_gain``, ``row_gain``, a measured ``chunk_gain``)?  Not with
+        a full per-synapse gain map: such a store gives the kernels its
+        fp32 ``w_eff``."""
+        return self.gain_map is None
 
     @property
     def k_pad(self) -> int:

@@ -126,9 +126,9 @@ def run_layer(
                 "noise (the two-pass route) is not ported yet (ROADMAP "
                 "queue 1, item 6)")
         # ONE dispatch over shared weight tiles for both passes.  The
-        # store picks the kernel's operand: int8 codes + rank-1 gain
-        # tables, or fp32 w_eff for a full gain map or a measured
-        # chunk_gain (the code operand has no per-(chunk, column) table)
+        # store picks the kernel's operand: int8 codes + their gain
+        # tables (rank-1, and a calibrated bake's per-(chunk, column)
+        # chunk_gain), or fp32 w_eff for a full gain map
         from repro_torch.kernels import ops as kernel_ops
 
         check_route(cfg, x)

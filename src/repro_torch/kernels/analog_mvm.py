@@ -38,7 +38,7 @@ from repro_torch.kernels import _build
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _build.declare("analog_mvm", (_P,) * 5 + (_I,) * 12)
 _build.declare("analog_mvm_split", (
-    _P, _P, _P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+    _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
     _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
 ))
 
@@ -295,8 +295,9 @@ def _block_ends(ends: tuple):
     return (ctypes.c_int * SPLIT_MAX_BLOCKS)(*ends)
 
 
-def _split_launch(form, a_pos, a_neg, w, col_gain, row_gain, block_ends,
-                  gain, chunk_offset, chunk_rows, faithful, epilogue):
+def _split_launch(form, a_pos, a_neg, w, col_gain, row_gain, chunk_gain,
+                  block_ends, gain, chunk_offset, chunk_rows, faithful,
+                  epilogue):
     """Check the operands shared by both forms, cut the work
     (:func:`split_plan`) and launch once."""
     dev = a_pos.device
@@ -326,13 +327,13 @@ def _split_launch(form, a_pos, a_neg, w, col_gain, row_gain, block_ends,
         counters = torch.zeros((plan.row_groups * plan.col_tiles,),
                                dtype=torch.int32, device=dev)
     staged = [a_pos, a_neg, w, chunk_offset] + [
-        t for t in (row_gain,) if t is not None]
+        t for t in (row_gain, chunk_gain) if t is not None]
     vec = int(all(t.data_ptr() % 16 == 0 for t in staged)
               and (n * w.element_size()) % 16 == 0)
     _build.launch(
         "analog_mvm_split", dev, a_pos.data_ptr(), a_neg.data_ptr(),
         w.data_ptr(), form, _build.ptr(col_gain), _build.ptr(row_gain),
-        len(block_ends), ctypes.addressof(_block_ends(block_ends)),
+        _build.ptr(chunk_gain), len(block_ends), ctypes.addressof(_block_ends(block_ends)),
         gain.data_ptr(), chunk_offset.data_ptr(), out.data_ptr(),
         _build.ptr(part),
         _build.ptr(counters), m, k, n, chunk_rows, plan.chunks_per_cta,
@@ -346,12 +347,14 @@ def _on_card(name, a_pos):
 
 
 def code_operand_ends(codes, col_gain, row_gain, col_blocks, k: int,
-                      dev: torch.device) -> tuple:
+                      dev: torch.device, chunk_gain=None,
+                      chunk_rows: int = BSS2.signed_rows) -> tuple:
     """Check the int8 code operand of the split tile (``codes [K, N]``,
     ``col_gain [N]`` or None, ``row_gain [G, K]`` or None, ``col_blocks``
     the widths of a column_concat fusion's members, row ``b`` of
-    ``row_gain`` serving block ``b``) and return the cumulative ends of its
-    column blocks, each but the last a multiple of 4 columns."""
+    ``row_gain`` serving block ``b``, ``chunk_gain [K / chunk_rows, N]``
+    or None) and return the cumulative ends of its column blocks, each
+    but the last a multiple of 4 columns."""
     if codes.dtype != torch.int8 or codes.device != dev or \
             not codes.is_contiguous() or codes.shape[0] != k:
         raise ValueError(f"codes must be contiguous int8 [K={k}, N] on "
@@ -360,6 +363,9 @@ def code_operand_ends(codes, col_gain, row_gain, col_blocks, k: int,
     n = codes.shape[1]
     if col_gain is not None:
         _build.check_operand("col_gain", col_gain, dev, (n,))
+    if chunk_gain is not None:
+        _build.check_operand("chunk_gain", chunk_gain, dev,
+                             (k // chunk_rows, n))
     blocks = (n,)
     if row_gain is not None:
         if col_blocks is not None:
@@ -395,7 +401,7 @@ def analog_mvm_split_cuda(
     _on_card("analog_mvm_split_cuda", a_pos)
     _build.check_operand("w_eff", w_eff, a_pos.device,
                          (a_pos.shape[1], w_eff.shape[-1]))
-    return _split_launch(1, a_pos, a_neg, w_eff, None, None,
+    return _split_launch(1, a_pos, a_neg, w_eff, None, None, None,
                          (w_eff.shape[1],), gain, chunk_offset, chunk_rows,
                          faithful, epilogue)
 
@@ -409,19 +415,25 @@ def analog_mvm_split_codes_cuda(
     gain: torch.Tensor,                    # [N]
     chunk_offset: Optional[torch.Tensor],  # [C, N] or None
     *,
+    chunk_gain: Optional[torch.Tensor] = None,  # [C, N] or None
     col_blocks: Optional[Sequence[int]] = None,
     chunk_rows: int = BSS2.signed_rows,
     faithful: bool = True,
     epilogue=None,                         # None | ("relu_shift", shift)
 ) -> torch.Tensor:
     """The same VMM reading a :class:`~repro_torch.exec.plan.WeightStore`'s
-    int8 codes and rank-1 gain tables: each weight is rebuilt in registers
-    as ``(code * col_gain[n]) * row_gain[block(n), k]``, the store's own
-    ``w_eff``, bit for bit.  ``col_blocks`` are the widths of a
-    column_concat fusion's members (row ``b`` of ``row_gain`` serves block
-    ``b``); each block boundary is a multiple of 4 columns."""
+    int8 codes and gain tables: each weight is rebuilt in registers as
+    ``((code * col_gain[n]) * row_gain[block(n), k]) * chunk_gain[c, n]``,
+    the store's own ``w_eff``, bit for bit (``chunk_gain`` is the measured
+    per-(chunk, column) table of a calibrated bake).  ``col_blocks`` are
+    the widths of a column_concat fusion's members (row ``b`` of
+    ``row_gain`` serves block ``b``); each block boundary is a multiple of
+    4 columns."""
     _on_card("analog_mvm_split_codes_cuda", a_pos)
     ends = code_operand_ends(codes, col_gain, row_gain, col_blocks,
-                             a_pos.shape[1], a_pos.device)
-    return _split_launch(0, a_pos, a_neg, codes, col_gain, row_gain, ends,
-                         gain, chunk_offset, chunk_rows, faithful, epilogue)
+                             a_pos.shape[1], a_pos.device,
+                             chunk_gain=chunk_gain, chunk_rows=chunk_rows)
+    # form 2 multiplies the chunk_gain table in; form 0 has none to read
+    return _split_launch(0 if chunk_gain is None else 2, a_pos, a_neg, codes,
+                         col_gain, row_gain, chunk_gain, ends, gain,
+                         chunk_offset, chunk_rows, faithful, epilogue)

@@ -344,14 +344,16 @@ def _check_block(schedule, block: BlockMeta, x_in: torch.Tensor,
 
 class BlockOperand(NamedTuple):
     """One block layer's weight operand for the split tile: ``form`` 0 is
-    a store's int8 ``codes`` with its gain tables (``block_ends`` the
-    cumulative ends of the column blocks that pick a row-gain vector),
-    form 1 an fp32 ``w_eff``."""
+    a store's int8 ``codes`` with its rank-1 gain tables (``block_ends``
+    the cumulative ends of the column blocks that pick a row-gain vector),
+    form 2 the same with ``chunk_gain``, a calibrated bake's per-(chunk,
+    column) table, form 1 an fp32 ``w_eff``."""
 
     form: int
     w: torch.Tensor
     col_gain: Optional[torch.Tensor]
     row_gain: Optional[torch.Tensor]
+    chunk_gain: Optional[torch.Tensor]
     block_ends: Tuple[int, ...]
 
 
@@ -359,23 +361,25 @@ def block_operand(weight, k_pad: int, n: int,
                   dev: torch.device) -> BlockOperand:
     """The operand a block layer's VMM stage reads, by the rule of
     ``exec/run.py``'s split branch: a
-    :class:`~repro_torch.exec.plan.WeightStore` with only rank-1 gain
-    tables (``code_operand``) gives its int8 codes and those tables, any
-    other store (a full gain map, a measured ``chunk_gain``) its
-    ``w_eff``; a tensor is taken as the fp32 effective weights."""
+    :class:`~repro_torch.exec.plan.WeightStore` without a full gain map
+    (``code_operand``) gives its int8 codes and gain tables (rank-1 and a
+    measured ``chunk_gain``), a store with a gain map its ``w_eff``; a
+    tensor is taken as the fp32 effective weights."""
     if getattr(weight, "codes", None) is not None:
         if weight.code_operand:
             ends = code_operand_ends(weight.codes, weight.col_gain,
                                      weight.row_gain, weight.col_blocks,
-                                     k_pad, dev)
+                                     k_pad, dev, chunk_gain=weight.chunk_gain,
+                                     chunk_rows=weight.chunk_rows)
             if weight.codes.shape[1] != n:
                 raise ValueError(f"store of {weight.codes.shape[1]} columns "
                                  f"for a layer of {n}")
-            return BlockOperand(0, weight.codes, weight.col_gain,
-                                weight.row_gain, ends)
+            return BlockOperand(0 if weight.chunk_gain is None else 2,
+                                weight.codes, weight.col_gain,
+                                weight.row_gain, weight.chunk_gain, ends)
         weight = weight.w_eff
     _build.check_operand("weights", weight, dev, (k_pad, n))
-    return BlockOperand(1, weight, None, None, (n,))
+    return BlockOperand(1, weight, None, None, None, (n,))
 
 
 @functools.lru_cache(maxsize=None)
@@ -461,15 +465,16 @@ def analog_plan_block_cuda(
                             for p, m in zip(plans, schedule)),),
                        dtype=torch.float32, device=dev)
     out = torch.empty((rows, schedule[0].k), dtype=torch.float32, device=dev)
-    wptrs = (ctypes.c_void_p * 12)(*[
+    wptrs = (ctypes.c_void_p * 16)(*[
         _build.ptr(t) for op in operands
-        for t in (op.w, op.col_gain, op.row_gain)])
+        for t in (op.w, op.col_gain, op.row_gain, op.chunk_gain)])
     regions = (ctypes.c_void_p * len(BLOCK_STAGES))(*[
         stages[name].data_ptr() for name, _, _ in BLOCK_STAGES])
     sched = []
     for m, op, p in zip(schedule, operands, plans):
         ends = tuple(op.block_ends) + (m.n,) * (4 - len(op.block_ends))
-        vec = (all(t.data_ptr() % 16 == 0 for t in (op.w, op.row_gain)
+        vec = (all(t.data_ptr() % 16 == 0
+                   for t in (op.w, op.row_gain, op.chunk_gain)
                    if t is not None)
                and (m.n * op.w.element_size()) % 16 == 0)
         sched += [m.c0, m.k, m.k_pad, m.n, m.n_chunks,

@@ -162,10 +162,10 @@ def analog_mvm_split(
     (the per-layer hot path of LM plans), with the optional fused
     ``relu_shift`` epilogue.  On the card, a ``store`` (the layer's
     :class:`~repro_torch.exec.plan.WeightStore`, whose ``w_eff`` this is)
-    with only rank-1 gain tables (:attr:`WeightStore.code_operand`)
-    selects the kernel's int8 code operand; any other store - a full gain
-    map, or a measured ``chunk_gain``, which the code operand has no
-    table for - or none, the fp32 ``w_eff`` operand.  On the CPU: the
+    without a full gain map (:attr:`WeightStore.code_operand`: rank-1
+    tables and a measured ``chunk_gain``) selects the kernel's int8 code
+    operand; a store with a gain map, or none, the fp32 ``w_eff``
+    operand.  On the CPU: the
     faithful chunk scan, or for fast mode the stacked ``[2M, K]`` plain
     version (pre-round sums are order-sensitive, so fast mode keeps the
     oracle's arithmetic).  Inference only: under autograd it raises."""
@@ -176,7 +176,9 @@ def analog_mvm_split(
             return analog_mvm_split_codes_cuda(
                 a_pos.contiguous(), a_neg.contiguous(), store.codes,
                 store.col_gain, store.row_gain, gain.contiguous(),
-                _contiguous(chunk_offset), col_blocks=store.col_blocks,
+                _contiguous(chunk_offset),
+                chunk_gain=_contiguous(store.chunk_gain),
+                col_blocks=store.col_blocks,
                 chunk_rows=chunk_rows, faithful=faithful, epilogue=epilogue)
         return analog_mvm_split_cuda(
             a_pos.contiguous(), a_neg.contiguous(), w_eff.contiguous(),

@@ -13,14 +13,30 @@ batch a ``serve.refill`` event and a ``serve.batch`` span nesting
 sampled tokens are read on the host once, as the loop needs them anyway;
 the telemetry adds no synchronization.
 
-Not ported yet (ROADMAP.md, queue 1: the LM half of the calibration
-hooks, the next slice): the engine's ``calibration``, ``drift_monitor``
-and ``plan_cache`` hooks, and ``fleet`` (queue 1, item 7); passing any
-of them raises.
+The deployment hooks (the reference's):
+
+- ``calibration``: a measured
+  :class:`~repro_torch.calib.snapshot.CalibrationSnapshot` that
+  ``api.compile`` bakes in place of the oracle fixed pattern (per-stack-
+  member ``[S, C, N]`` tables for scan-stacked layers, the fleet gather);
+- ``plan_cache``: a ``.npz`` path of the lowered tree
+  (:mod:`repro_torch.exec.store`).  When the file exists the engine boots
+  from it and lowers nothing; otherwise it compiles and writes it.  The
+  counters and events ``serve.plan_cache.hit`` / ``.miss`` record which;
+- ``drift_monitor``: a :class:`~repro_torch.calib.monitor.DriftMonitor`
+  probed between batches; a refreshed snapshot is hot-swapped into the
+  served plans (``CompiledModel.with_calibration``, no lowering), a
+  ``serve.hot_swap`` span and counter;
+- ``fleet``: a :class:`~repro_torch.fleet.health.FleetMonitor` whose probe
+  runs between batches beside the drift check; a dead chip's chunks are
+  remapped onto a spare and the spare's tables hot-swapped the same way;
+- ``prelower=False`` serves the raw parameters, every analog layer
+  lowered per call (the reference's unbaked route).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -51,18 +67,10 @@ class Request:
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, run: RunConfig, params,
                  batch_size: int = 8, max_len: int = 512,
-                 greedy: bool = True, seed: int = 0, calibration=None,
-                 drift_monitor=None, plan_cache: Optional[str] = None,
-                 fleet=None, device: DeviceLike = None):
-        hooks = dict(calibration=calibration, drift_monitor=drift_monitor,
-                     plan_cache=plan_cache, fleet=fleet)
-        given = [k for k, v in hooks.items() if v is not None]
-        if given:
-            raise NotImplementedError(
-                f"ServeEngine({', '.join(given)}=...) is not ported yet: "
-                "the engine's calibration, drift_monitor and plan_cache "
-                "hooks come with the next slice (the LM half of the "
-                "calibration work), fleet after it (ROADMAP.md, queue 1)")
+                 greedy: bool = True, seed: int = 0, prelower: bool = True,
+                 calibration=None, drift_monitor=None,
+                 plan_cache: Optional[str] = None, fleet=None,
+                 device: DeviceLike = None):
         self.cfg, self.run = cfg, run
         self.device = resolve_device(device)
         # Serving is inference against frozen weights: compile the model
@@ -70,12 +78,39 @@ class ServeEngine:
         # padding, offsets, the fused QKV dispatch groups) on the device,
         # so every prefill/decode replays the baked plans.  LM plans are
         # split-encoded float layers: one fused-split dispatch per layer.
+        # A plan cache that exists IS the executable: the int8 codes and
+        # tables on disk load without lowering (it holds the bake of THESE
+        # params: after a weight update, delete it or pass a new path).
         self.model = None
-        if run.analog.mode != "digital":
+        self.drift_monitor = drift_monitor
+        self.fleet = fleet
+        if prelower and run.analog.mode != "digital":
             with obs_trace.span("serve.compile", model=cfg.name) as sp:
-                self.model = api.compile(T.lm_module_spec(cfg, params),
-                                         params, run, device=self.device)
-                sp.add(route="lower")
+                spec = T.lm_module_spec(cfg, params)
+                if plan_cache is not None and os.path.exists(plan_cache):
+                    from repro_torch.exec.store import load_plan
+
+                    obs_metrics.counter("serve.plan_cache.hit").inc()
+                    obs_trace.event("serve.plan_cache", status="hit",
+                                    path=plan_cache)
+                    self.model = api.CompiledModel(
+                        spec=spec, params=params, run_cfg=run,
+                        lowered=load_plan(plan_cache, device=self.device),
+                        device=self.device, calibration=calibration)
+                    sp.add(route="plan_cache")
+                else:
+                    if plan_cache is not None:
+                        obs_metrics.counter("serve.plan_cache.miss").inc()
+                        obs_trace.event("serve.plan_cache", status="miss",
+                                        path=plan_cache)
+                    self.model = api.compile(spec, params, run,
+                                             calibration=calibration,
+                                             device=self.device)
+                    if plan_cache is not None:
+                        from repro_torch.exec.store import save_plan
+
+                        save_plan(plan_cache, self.model.lower())
+                    sp.add(route="lower")
                 # static per-inference cost of the plans this engine serves
                 obs_energy.record(self.model, prefix="serve.energy")
             params = self.model.lower()
@@ -94,6 +129,37 @@ class ServeEngine:
         probs = torch.softmax(logits.to(torch.float32), dim=-1)
         return torch.multinomial(probs, 1, generator=self.generator)[:, 0]
 
+    def maybe_recalibrate(self) -> bool:
+        """Drift-monitor hook (called between batches): probe the devices
+        and, on drift, hot-swap the refreshed snapshot's tables into the
+        served plans.  Returns True iff a swap happened."""
+        if self.drift_monitor is None or self.model is None:
+            return False
+        snapshot = self.drift_monitor.maybe_refresh()
+        if snapshot is None:
+            return False
+        with obs_trace.span("serve.hot_swap"):
+            self.model = self.model.with_calibration(snapshot)
+            self.params = self.model.lower()
+        obs_metrics.counter("serve.hot_swap").inc()
+        return True
+
+    def maybe_remap(self) -> bool:
+        """Fleet-health hook (called between batches): probe every chip
+        and, when one died, remap its chunks onto a spare and hot-swap the
+        re-gathered tables into the served plans.  Returns True iff a
+        remap happened."""
+        if self.fleet is None or self.model is None:
+            return False
+        model = self.fleet.maybe_remap(self.model)
+        if model is None:
+            return False
+        with obs_trace.span("serve.hot_swap", reason="fleet.remap"):
+            self.model = model
+            self.params = self.model.lower()
+        obs_metrics.counter("serve.hot_swap").inc()
+        return True
+
     def run_batch(self, requests: list) -> list:
         """Serve one group of <= batch_size requests to completion.
 
@@ -104,6 +170,8 @@ class ServeEngine:
         if len(requests) > self.batch_size:
             raise ValueError(f"{len(requests)} requests > batch_size "
                              f"{self.batch_size}")
+        self.maybe_recalibrate()
+        self.maybe_remap()
         b = len(requests)
         t_start = obs_trace.clock_us()
         for r in requests:

@@ -403,6 +403,13 @@ class TestApi:
         with pytest.raises(ValueError, match="digital"):
             api.compile_block(p, AnalogConfig(mode="digital",
                                               act_calib="static"), **kw)
-        with pytest.raises(NotImplementedError, match="not ported"):
-            api.compile_block(p, AnalogConfig(act_calib="static"),
-                              calibration=object(), **kw)
+        # a snapshot that covers no member keeps the oracle bake
+        from repro_torch.calib import CalibrationSnapshot
+
+        acfg = AnalogConfig(act_calib="static")
+        x = torch.randn((1, SEQ, CFG.d_model),
+                        generator=torch.Generator().manual_seed(4))
+        assert torch.equal(
+            api.compile_block(p, acfg, calibration=CalibrationSnapshot(),
+                              **kw).apply(x),
+            api.compile_block(p, acfg, **kw).apply(x))

@@ -288,7 +288,8 @@ class TestCalibratedBake:
         jplan, plan = jm.lower(), tm.lower()
         for jl, tl in zip(jplan.layers, plan.layers):
             assert tl.store.chunk_gain is not None and tl.store.gain_map is None
-            assert not tl.store.code_operand
+            # the split tile reads a measured chunk_gain in its int8 operand
+            assert tl.store.code_operand
             np.testing.assert_array_equal(_np(tl.w_eff), _np(jl.w_eff))
             np.testing.assert_array_equal(_np(tl.chunk_offset),
                                           _np(jl.chunk_offset))

@@ -340,6 +340,85 @@ def test_split_dispatch_reads_the_store(cuda):
         analog_mvm_split_cuda(a_pos, a_neg, full.w_eff, gain, off))
 
 
+# form 0 with a measured per-(chunk, column) gain table: (M, K, N,
+# chunk_rows) at the decode and prefill row tilings, an odd N (plain
+# loads, no cp.async) and 64-row chunks (two 32-row stages per chunk)
+CHUNK_GAIN_SHAPES = [(4, 256, 129, 128), (48, 384, 96, 128),
+                     (4, 256, 160, 64), (48, 640, 300, 64)]
+
+
+def _chunk_gain_store(codes, col, row, blocks, chunk_rows, integer, seed):
+    """A WeightStore of these codes and tables plus a chunk_gain table:
+    integer-valued (1 or 2, so w_eff holds integers when there are no
+    rank-1 tables) or a float table around 1 (a calibrated bake's)."""
+    from repro_torch.exec.plan import WeightStore
+
+    k, n = codes.shape
+    rng = np.random.default_rng(seed)
+    cg = (rng.integers(1, 3, (k // chunk_rows, n)) if integer else
+          1 + 0.02 * rng.standard_normal((k // chunk_rows, n)))
+    dev = codes.device
+    return WeightStore(  # verify: allow-packed-weights
+        codes=codes, w_scale=torch.ones((1, n), device=dev),
+        gain=torch.tensor(1.0, device=dev), col_gain=col, row_gain=row,
+        chunk_gain=torch.from_numpy(cg.astype(np.float32)).to(dev),
+        chunk_rows=chunk_rows, col_blocks=blocks)
+
+
+@pytest.mark.parametrize("m,k,n,chunk_rows", CHUNK_GAIN_SHAPES)
+@pytest.mark.parametrize("faithful", [True, False])
+def test_analog_mvm_split_chunk_gain(cuda, m, k, n, chunk_rows, faithful):
+    """Form 0 reading a chunk_gain table: bit-exact against the plain
+    version on the store's w_eff with an integer table, within the ADC
+    contract with rank-1 and float tables; form 0 and form 1 (the store's
+    w_eff) bit-identical in both cases."""
+    for integer in (True, False):
+        a_pos, a_neg, codes, col, row, gain, _ = _split_codes_inputs(
+            m, k, n, cuda, not integer)
+        rng = np.random.default_rng(k + n)
+        off = torch.from_numpy((rng.integers(-16, 17, (k // chunk_rows, n))
+                                / 8).astype(np.float32)).to(cuda)
+        st = _chunk_gain_store(codes, col, row, None, chunk_rows, integer,
+                               m + k)
+        for epi in (None, ("relu_shift", 2)):
+            want = ref.adc_epilogue_ref(ref.analog_mvm_split_ref(
+                a_pos, a_neg, st.w_eff, gain, off, chunk_rows=chunk_rows,
+                faithful=faithful), epi)
+            got = analog_mvm_split_codes_cuda(
+                a_pos, a_neg, codes, col, row, gain, off,
+                chunk_gain=st.chunk_gain, chunk_rows=chunk_rows,
+                faithful=faithful, epilogue=epi)
+            _assert_split(got, want, integer, k // chunk_rows)
+            assert torch.equal(analog_mvm_split_cuda(
+                a_pos, a_neg, st.w_eff, gain, off, chunk_rows=chunk_rows,
+                faithful=faithful, epilogue=epi), got)
+            ops.reset_launch_counts()
+            assert torch.equal(ops.analog_mvm_split(
+                a_pos, a_neg, st.w_eff, gain, off, chunk_rows=chunk_rows,
+                faithful=faithful, epilogue=epi, store=st), got)
+            assert ops.launch_counts()["analog_mvm_split"] == 1
+
+
+@pytest.mark.parametrize("m", [4, 48])
+@pytest.mark.parametrize("faithful", [True, False])
+def test_analog_mvm_split_chunk_gain_qkv_blocks(cuda, m, faithful):
+    """A column_concat store (one row-gain vector per member) with a
+    float chunk_gain table: within the ADC contract of the plain version,
+    form 0 bit-identical to form 1."""
+    blocks = (192, 64, 64)
+    a_pos, a_neg, codes, col, row, gain, off = _split_codes_inputs(
+        m, 384, sum(blocks), cuda, True, blocks)
+    st = _chunk_gain_store(codes, col, row, blocks, 128, False, m)
+    want = ref.analog_mvm_split_ref(a_pos, a_neg, st.w_eff, gain, off,
+                                    faithful=faithful)
+    got = analog_mvm_split_codes_cuda(
+        a_pos, a_neg, codes, col, row, gain, off, chunk_gain=st.chunk_gain,
+        col_blocks=blocks, faithful=faithful)
+    _assert_split(got, want, False, 3)
+    assert torch.equal(analog_mvm_split_cuda(a_pos, a_neg, st.w_eff, gain,
+                                             off, faithful=faithful), got)
+
+
 def _ecg_model(device, **run_kw):
     # the parameters are drawn (and their gains reduced) on the CPU, then
     # compiled for ``device``: ecg_init on two devices gives gains that
@@ -636,6 +715,52 @@ def test_analog_plan_block_stages(cuda, geom, faithful, store):
                                   extras=mega.extras, block=mega.block)
     assert ops.launch_counts()["analog_plan_block"] == 1
     assert torch.equal(again, outs[0][0])
+
+
+@pytest.mark.parametrize("geom", [BLOCK_GEOMS[1], BLOCK_GEOMS[3]])
+@pytest.mark.parametrize("faithful", [True, False])
+def test_analog_plan_block_chunk_gain_mix(cuda, geom, faithful):
+    """A block whose stores mix the operands: qkv and up|gate with an
+    integer chunk_gain table (form 0), o with a gain map of ones (form 1),
+    down with none (form 0).  Every stage against its plain version fed
+    the kernel's own stage input (VMM stages, code regions, res2 and the
+    output bit-exact), and the same block through the fp32 w_eff tensors
+    bit-identical."""
+    mega = _block_plan(cuda, geom, faithful).mega
+    rng = np.random.default_rng(geom[0])
+    stores = []
+    for i, st in enumerate(mega.stores):
+        if i in (0, 2):
+            cg = rng.integers(1, 3, (st.k_pad // st.chunk_rows,
+                                     st.codes.shape[1]))
+            st = dataclasses.replace(st, chunk_gain=torch.from_numpy(
+                cg.astype(np.float32)).to(cuda))
+        elif i == 1:
+            st = dataclasses.replace(st, gain_map=torch.ones_like(st.w_eff))
+        stores.append(st)
+    mega = dataclasses.replace(mega, stores=tuple(stores))
+    assert [s.code_operand for s in mega.stores] == [True, False, True, True]
+    d, batch, seq = geom[0], geom[5], geom[6]
+    x = torch.randn((batch * seq, d), generator=torch.Generator(
+    ).manual_seed(9)).to(cuda)
+    outs = []
+    for weights in (mega.stores, mega.weights):
+        args = (x, weights, mega.gain, mega.off)
+        out, stages, _ = analog_plan_block_cuda(
+            *args, schedule=mega.schedule, block=mega.block,
+            extras=mega.extras, faithful=faithful)
+        want = ref.block_stages_ref(x, stages, *args[1:], mega.schedule,
+                                    mega.block, mega.extras,
+                                    faithful=faithful)
+        for name, _, _ in BLOCK_STAGES:
+            if name.startswith("acc_") or name == "res2" or \
+                    name.endswith(("_pos", "_neg")):
+                assert torch.equal(stages[name], want[name]), name
+            else:
+                assert _rel(stages[name], want[name]) <= GLUE_TOL, name
+        assert torch.equal(out, want["out"])
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_lm_block_route_on_card(cuda):

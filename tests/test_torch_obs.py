@@ -169,8 +169,11 @@ class TestRecordFormat:
         assert main([path]) == 0
         out = capsys.readouterr().out
         assert "outer/inner" in out and "h_us" in out
-        assert main(["--serve-smoke", str(tmp_path / "x.jsonl")]) != 0
-        assert "ROADMAP.md" in capsys.readouterr().err
+        # the serve gate runs on the card unless asked for the CPU
+        # (tests/test_torch_serve_hooks.py runs it there)
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError):
+                main(["--serve-smoke", str(tmp_path / "x.jsonl")])
 
     def test_timing_loops_on_the_cpu(self):
         x = torch.ones(4)
@@ -234,6 +237,9 @@ class TestInstrumentation:
     @pytest.mark.parametrize("hook", ["calibration", "drift_monitor",
                                       "plan_cache", "fleet"])
     def test_engine_hooks_still_raise(self, hook):
+        # the hooks are ported: one given an object that is no hook
+        # raises at construction or at the first batch, never ignored
         _, _, tp, cfg, run = _lm()
-        with pytest.raises(NotImplementedError, match="next slice"):
-            ServeEngine(cfg, run, tp, device="cpu", **{hook: object()})
+        with pytest.raises((AttributeError, TypeError)):
+            eng = ServeEngine(cfg, run, tp, device="cpu", **{hook: object()})
+            eng.serve([Request(0, np.arange(3), 1)])
