@@ -22,15 +22,16 @@ from repro_torch.exec.run import run as run_plan
 from repro_torch.exec.run import run_layer
 
 
-def apply_linear(params: dict, x: torch.Tensor,
-                 cfg: AnalogConfig) -> torch.Tensor:
+def apply_linear(params: dict, x: torch.Tensor, cfg: AnalogConfig, *,
+                 noise=None) -> torch.Tensor:
     """Apply one analog (or digital) linear layer: x [..., K] -> y [..., N].
 
     A pre-baked ``"_plan"`` entry (placed by
     :func:`repro_torch.api.compile.lower_tree`) is replayed directly;
     otherwise the layer is lowered for this call.  A baked plan whose
     static attributes disagree with the call-site config is ignored
-    rather than run with the wrong encoding."""
+    rather than run with the wrong encoding.  ``noise``: the layer's
+    readout-noise source (:func:`repro_torch.exec.run.run_layer`)."""
     if cfg.mode == "digital":
         y = torch.matmul(x, params["w"].to(x.dtype))
         if "b" in params:
@@ -42,7 +43,7 @@ def apply_linear(params: dict, x: torch.Tensor,
         lp = None
     if lp is None:
         lp = lower_layer(params, cfg)
-    return run_layer(lp, x, cfg)
+    return run_layer(lp, x, cfg, noise=noise)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -68,13 +68,25 @@ class ArchConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """Execution knobs orthogonal to the architecture: the two the serve
-    path reads.  The reference's optimizer, MoE, flash and distribution
-    knobs come with the code that reads them (ROADMAP)."""
+    """Execution knobs orthogonal to the architecture, with the
+    reference's defaults: the analog backend, AdamW's, flash attention's
+    blocks, the seed and int8 gradient compression.  The reference's
+    ``optimizer`` name (AdamW is the only one), its mesh knobs (``fsdp``,
+    ``seq_sp``, ``moe_dispatch``, ``attn_cp``) and ``capacity_factor``
+    come with the code that reads them (ROADMAP)."""
 
     analog: AnalogConfig = dataclasses.field(
         default_factory=lambda: AnalogConfig(
             mode="digital", noise=NoiseConfig(mode="rank1")
         )
     )
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    optim_dtype: str = "float32"     # "bfloat16" halves optimizer memory
+    flash_block_q: int = 256
+    flash_block_kv: int = 512
     activation_dtype: str = "bfloat16"
+    seed: int = 0
+    grad_compression: bool = False

@@ -6,8 +6,10 @@ leaf for leaf onto the port's: the same nested dicts (``w``, ``w_scale``,
 ``a_scale``, ``gain``, ``b`` and the ``fpn`` fixed-pattern tables) holding
 float32 tensors; an LM tree carries its scan-stacked ``layers`` (a
 leading ``[n_groups]`` axis on every leaf), ``embed`` and the norms the
-same way.  The port cannot reproduce ``jax.random`` draws, so this is
-how a parity check hands both packages the same weights.
+same way; a training state (:func:`state_from_numpy`) adds the AdamW
+moments and the error-feedback tree.  The port cannot reproduce
+``jax.random`` draws, so this is how a parity check hands both packages
+the same weights.
 """
 from __future__ import annotations
 
@@ -31,3 +33,20 @@ def params_from_numpy(tree, device: DeviceLike = None):
         return torch.tensor(arr, dtype=torch.float32, device=dev)
 
     return conv(tree)
+
+
+def state_from_numpy(state, device: DeviceLike = None):
+    """A training state of the reference (``{"params", "opt": {"step",
+    "m", "v"}, ["ef"]}``, every leaf a numpy array) -> the port's: float
+    leaves as float32 tensors, the integer step count as an int32
+    tensor, on ``device`` (``None`` = the CUDA device).  A parity check
+    starts both packages' train steps from one state so."""
+    dev = resolve_device(device)
+    out = {"params": params_from_numpy(state["params"], dev),
+           "opt": {"step": torch.tensor(np.asarray(state["opt"]["step"]),
+                                        dtype=torch.int32, device=dev),
+                   "m": params_from_numpy(state["opt"]["m"], dev),
+                   "v": params_from_numpy(state["opt"]["v"], dev)}}
+    if "ef" in state:
+        out["ef"] = params_from_numpy(state["ef"], dev)
+    return out

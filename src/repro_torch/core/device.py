@@ -6,6 +6,7 @@ when the caller asks for it (``device="cpu"``), as the tests do.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Union
 
 import torch
@@ -33,3 +34,16 @@ def to_device(tree, device: torch.device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return tree
+
+
+@contextlib.contextmanager
+def fp32_matmuls():
+    """fp32 products at full precision (no TF32) inside the block, the
+    caller's setting restored after: the HIL backward's and flash
+    attention's products must be the reference's fp32 arithmetic."""
+    was = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(was)

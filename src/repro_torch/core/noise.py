@@ -124,8 +124,41 @@ def chunk_offsets(fpn: dict, n_chunks: int,
     return off
 
 
+class NoiseFeed:
+    """Readout-noise draws handed out one analog pass at a time, in call
+    order: a model's whole forward (an LM's every layer, both passes of a
+    two-pass split) reads from one feed.  ``draws`` are injected tensors
+    (the reference's, in a parity test); past their end a feed with a
+    ``generator`` draws anew and records the draw, so the same feed
+    rewound (:meth:`rewind`, or ``pos`` set back) replays the same noise -
+    on another device too, or in a remat recompute.  A feed with neither
+    left raises."""
+
+    def __init__(self, draws=(), generator: Optional[torch.Generator] = None):
+        self.draws = list(draws)
+        self.generator = generator
+        self.pos = 0
+
+    def rewind(self) -> "NoiseFeed":
+        self.pos = 0
+        return self
+
+    def draw(self, shape: tuple, cfg: "NoiseConfig",
+             device: torch.device) -> torch.Tensor:
+        if self.pos == len(self.draws):
+            if self.generator is None:
+                raise ValueError(
+                    f"readout-noise feed exhausted after {self.pos} draws")
+            self.draws.append(cfg.readout_std * torch.randn(
+                shape, generator=self.generator, dtype=torch.float32,
+                device=self.generator.device))
+        d = self.draws[self.pos]
+        self.pos += 1
+        return readout_noise(d, shape, cfg, device=device)
+
+
 def readout_noise(
-    noise: Union[None, torch.Generator, torch.Tensor],
+    noise: Union[None, torch.Generator, torch.Tensor, NoiseFeed],
     shape: tuple,
     cfg: NoiseConfig,
     *,
@@ -140,6 +173,8 @@ def readout_noise(
     ``cfg.readout_std == 0`` or when ``cfg.mode == "none"``."""
     if noise is None or cfg.readout_std == 0.0 or cfg.mode == "none":
         return None
+    if isinstance(noise, NoiseFeed):
+        return noise.draw(shape, cfg, device)
     if isinstance(noise, torch.Tensor):
         if tuple(noise.shape) != tuple(shape):
             raise ValueError(

@@ -50,20 +50,22 @@ def _tie_mask(x: torch.Tensor, lo: float, hi=None) -> torch.Tensor:
 
 class _ClipSTE(torch.autograd.Function):
     """``clamp`` forward; ``jnp.clip``'s gradient backward (1 inside, 0.5
-    at a bound, 0 outside)."""
+    at a bound, 0 outside).  The forward keeps that factor, not ``x``,
+    for the backward: twice the factor as uint8, a quarter of ``x``'s
+    bytes (the weight quantizer of a full-size LM saves one per weight
+    every training step)."""
 
     @staticmethod
     def forward(ctx, x, lo, hi):
-        ctx.save_for_backward(x)
-        ctx.bounds = (lo, hi)
+        ctx.save_for_backward((2 * _tie_mask(x, lo, hi)).to(torch.uint8))
         if hi is None:
             return torch.clamp_min(x, lo)
         return torch.clamp(x, lo, hi)
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        return g * _tie_mask(x, *ctx.bounds), None, None
+        (m2,) = ctx.saved_tensors
+        return g * (m2.to(g.dtype) * 0.5), None, None
 
 
 def _clip_ste(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:

@@ -206,17 +206,19 @@ def lower_layer(
         gain_map=gain_map,
         chunk_rows=cfg.chunk_rows,
     )
+    signed = cfg.signed_input if signed_input is None else signed_input
     return LayerPlan(
         store=store,
         a_scale=a_scale,
         a_scale_in=a_scale_in,
         chunk_offset=chunk_off,
+        # the offset encoding's digital correction reads the column sums
+        colsum=store.w_eff.sum(dim=0) if signed == "offset" else None,
         bias=params.get("b"),
         k=k,
         n=n,
         chunk_rows=cfg.chunk_rows,
-        signed_input=cfg.signed_input if signed_input is None
-        else signed_input,
+        signed_input=signed,
         epilogue=epilogue,
         shift=default_shift(n_chunks),
         flatten_out=flatten_out,
@@ -322,6 +324,8 @@ def lower_fused(
         a_scale_in=a_scale_in,
         chunk_offset=cat_or_fill([lp.chunk_offset for lp in plans],
                                  lambda lp: torch.zeros((c, lp.n), **f32)),
+        colsum=cat_or_fill([lp.colsum for lp in plans],
+                           lambda lp: torch.zeros((lp.n,), **f32)),
         bias=cat_or_fill([lp.bias for lp in plans],
                          lambda lp: torch.zeros((lp.n,), **f32)),
         k=p0.k,

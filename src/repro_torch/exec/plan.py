@@ -63,6 +63,33 @@ def default_shift(n_chunks: int) -> int:
     return shift
 
 
+class _Rank1(torch.autograd.Function):
+    """``(codes * col_gain) * row_gain`` of a one-block rank-1 store, as
+    autograd computes it, without keeping the ``codes * col_gain``
+    product for the backward (the row gain's gradient recomputes it): a
+    full-size LM lowers every weight under autograd each training step,
+    and that product would be one more fp32 copy of every weight."""
+
+    @staticmethod
+    def forward(ctx, codes, col_gain, row_gain):
+        ctx.save_for_backward(codes, col_gain, row_gain)
+        return (codes * col_gain[..., None, :]) * row_gain[..., 0, :, None]
+
+    @staticmethod
+    def backward(ctx, g):
+        codes, col, row = ctx.saved_tensors
+        c, r = col[..., None, :], row[..., 0, :, None]
+        g_t1 = g * r
+        d_codes = d_col = d_row = None
+        if ctx.needs_input_grad[0]:
+            d_codes = g_t1 * c
+        if ctx.needs_input_grad[1]:
+            d_col = (g_t1 * codes).sum(dim=-2)
+        if ctx.needs_input_grad[2]:
+            d_row = (g * (codes * c)).sum(dim=-1).unsqueeze(-2)
+        return d_codes, d_col, d_row
+
+
 @dataclasses.dataclass(frozen=True)
 class WeightStore:
     """Packed weight state of one lowered analog layer.
@@ -120,16 +147,20 @@ class WeightStore:
 
     def __post_init__(self):
         w = self.codes.to(torch.float32)
-        if self.col_gain is not None:
-            w = w * self.col_gain[..., None, :]
-        if self.row_gain is not None:
-            if self.col_blocks is None:
-                w = w * self.row_gain[..., 0, :, None]
-            else:
+        col, row = self.col_gain, self.row_gain
+        if (col is not None and row is not None and self.col_blocks is None
+                and torch.is_grad_enabled()
+                and any(t.requires_grad for t in (w, col, row))):
+            w = _Rank1.apply(w, col, row)
+        else:
+            if col is not None:
+                w = w * col[..., None, :]
+            if row is not None and self.col_blocks is None:
+                w = w * row[..., 0, :, None]
+            elif row is not None:
                 parts, c0 = [], 0
                 for gi, nb in enumerate(self.col_blocks):
-                    parts.append(w[..., c0:c0 + nb]
-                                 * self.row_gain[..., gi, :, None])
+                    parts.append(w[..., c0:c0 + nb] * row[..., gi, :, None])
                     c0 += nb
                 w = torch.cat(parts, dim=-1)
         if self.chunk_gain is not None:

@@ -9,7 +9,10 @@ Left to run time (everything else was baked by
 - signed-input encoding of float activations: ``"split"`` runs both
   passes as ONE dispatch (the ``analog_mvm_split`` kernel on the card,
   reading the store's int8 codes and gain tables unless the store holds
-  a full gain map),
+  a full gain map), or as two ``analog_matmul`` passes when
+  ``cfg.fused_split`` is off or readout noise is drawn (each pass its own
+  draw); ``"offset"`` runs one pass on ``a + 16`` codes with a derated
+  gain and subtracts ``gain * 16 * colsum`` digitally,
 - the analog passes of each layer (the ``analog_mvm`` kernel when
   ``cfg.use_kernels``), and the column split of a fused group
   (:func:`run_group`),
@@ -44,6 +47,8 @@ import torch
 
 from repro_torch.core import quant
 from repro_torch.core.analog import AnalogConfig, analog_matmul, check_route
+from repro_torch.core.hw import BSS2
+from repro_torch.core.noise import NoiseFeed
 from repro_torch.exec.plan import (
     EPILOGUE_NONE,
     EPILOGUE_RELU_SHIFT,
@@ -68,10 +73,10 @@ def dispatch_count() -> int:
     return _DISPATCHES
 
 
-def _count() -> None:
+def _count(n: int = 1) -> None:
     global _DISPATCHES
-    _DISPATCHES += 1
-    _obs_metrics.counter("exec.dispatches").inc()
+    _DISPATCHES += n
+    _obs_metrics.counter("exec.dispatches").inc(n)
 
 
 def _pad_codes(a: torch.Tensor, k_pad: int) -> torch.Tensor:
@@ -113,39 +118,58 @@ def run_layer(
         # the group's shared LSB; dequantization below uses the same
         a_scale = lp.in_scale
     signed = "none" if x_is_codes else lp.signed_input
+    gain = lp.gain_row
     if signed == "none":
         a_code = x if x_is_codes else quant.quantize_act(x, a_scale)
         a_code = _pad_codes(a_code, lp.k_pad)
         _count()
-        y_int = analog_matmul(a_code, lp.w_eff, lp.gain_row,
-                              lp.chunk_offset, cfg, noise=rn)
+        y_int = analog_matmul(a_code, lp.w_eff, gain, lp.chunk_offset, cfg,
+                              noise=rn)
     elif signed == "split":
-        if not cfg.fused_split or rn is not None:
-            raise NotImplementedError(
-                "signed_input 'split' with fused_split=False or readout "
-                "noise (the two-pass route) is not ported yet (ROADMAP "
-                "queue 1, item 6)")
-        # ONE dispatch over shared weight tiles for both passes.  The
-        # store picks the kernel's operand: int8 codes + their gain
-        # tables (rank-1, and a calibrated bake's per-(chunk, column)
-        # chunk_gain), or fp32 w_eff for a full gain map
-        from repro_torch.kernels import ops as kernel_ops
-
-        check_route(cfg, x)
         a_pos = _pad_codes(quant.quantize_act(x, a_scale), lp.k_pad)
         a_neg = _pad_codes(quant.quantize_act(-x, a_scale), lp.k_pad)
-        batch_shape = a_pos.shape[:-1]
-        _count()
-        y_int = kernel_ops.analog_mvm_split(
-            a_pos.reshape(-1, lp.k_pad), a_neg.reshape(-1, lp.k_pad),
-            lp.w_eff, lp.gain_row, lp.chunk_offset,
-            chunk_rows=lp.chunk_rows, faithful=cfg.mode != "analog_fast",
-            store=lp.store,
-        ).reshape(batch_shape + (lp.n,))
+        if cfg.fused_split and rn is None:
+            # ONE dispatch over shared weight tiles for both passes.  The
+            # store picks the kernel's operand: int8 codes + their gain
+            # tables (rank-1, and a calibrated bake's per-(chunk, column)
+            # chunk_gain), or fp32 w_eff for a full gain map
+            from repro_torch.kernels import ops as kernel_ops
+
+            check_route(cfg, x)
+            batch_shape = a_pos.shape[:-1]
+            _count()
+            y_int = kernel_ops.analog_mvm_split(
+                a_pos.reshape(-1, lp.k_pad), a_neg.reshape(-1, lp.k_pad),
+                lp.w_eff, lp.gain_row, lp.chunk_offset,
+                chunk_rows=lp.chunk_rows,
+                faithful=cfg.mode != "analog_fast", store=lp.store,
+            ).reshape(batch_shape + (lp.n,))
+        else:
+            # two passes (noisy passes need independent draws): the
+            # positive pass draws first, then the negative one
+            n_pos, n_neg = _pass_noise(rn)
+            _count(2)
+            y_int = analog_matmul(a_pos, lp.w_eff, lp.gain_row,
+                                  lp.chunk_offset, cfg, noise=n_pos) - \
+                analog_matmul(a_neg, lp.w_eff, lp.gain_row, lp.chunk_offset,
+                              cfg, noise=n_neg)
     elif signed == "offset":
-        raise NotImplementedError(
-            "signed_input 'offset' is not ported yet (ROADMAP queue 1, "
-            "item 6)")
+        # one pass on offset-encoded activations with a digital
+        # correction, y = (a + h) @ W - h * colsum(W); the gain derated
+        # for the common-mode ADC headroom (cf. Weis et al.)
+        half = (BSS2.a_max + 1) // 2
+        a_scale = a_scale * 2.0
+        rms = cfg.act_rms_codes
+        gain = gain * rms / torch.sqrt(torch.tensor(
+            rms ** 2 + float(half) ** 2, dtype=torch.float32,
+            device=gain.device))
+        a_code = quant._clip_ste(quant._round_ste(x / a_scale) + half, 0.0,
+                                 float(BSS2.a_max))
+        a_code = _pad_codes(a_code, lp.k_pad)
+        _count()
+        y_int = analog_matmul(a_code, lp.w_eff, gain, lp.chunk_offset, cfg,
+                              noise=rn)
+        y_int = y_int - gain * half * lp.colsum
     else:
         raise ValueError(f"unknown signed_input {signed!r}")
 
@@ -155,10 +179,22 @@ def run_layer(
         # rule, then the floor shift), value-identical to the in-kernel
         # epilogue
         return quant.requantize_5bit(quant._maximum0(y_int), lp.shift)
-    y = y_int * (a_scale * lp.w_scale.reshape(-1) / lp.gain)
+    y = y_int * (a_scale * lp.w_scale.reshape(-1) / gain)
     if lp.bias is not None:
         y = y + lp.bias
     return y.to(in_dtype)
+
+
+def _pass_noise(noise):
+    """The two passes' readout-noise sources of a two-pass split: a
+    generator or a feed for both (they draw in sequence, positive pass
+    first), or a pair of injected draws."""
+    if noise is None or isinstance(noise, (torch.Generator, NoiseFeed)):
+        return noise, noise
+    if not isinstance(noise, (tuple, list)) or len(noise) != 2:
+        raise ValueError("a two-pass split layer takes a generator, a "
+                         "NoiseFeed or a pair of injected draws")
+    return tuple(noise)
 
 
 def run_group(gp: GroupPlan, x: torch.Tensor, cfg: AnalogConfig):
@@ -338,7 +374,7 @@ def _layer_noise(noise, n: int) -> list:
     """One readout-noise source per layer: the generator for every layer
     (it draws in sequence), or the per-layer injected draws (they stand in
     for the reference's ``jax.random.split(key, n)``)."""
-    if noise is None or isinstance(noise, torch.Generator):
+    if noise is None or isinstance(noise, (torch.Generator, NoiseFeed)):
         return [noise] * n
     noise = list(noise)
     if len(noise) != n:

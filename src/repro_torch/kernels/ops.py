@@ -14,9 +14,10 @@ Hardware-in-the-loop training (paper §III-B) differentiates through
 forward is the kernel (the hardware), their backward the straight-through
 linearization ``y ~= gain * (a @ w_eff)`` with frozen gain and offsets,
 as plain tensor ops and ``torch.matmul`` (the reference's backwards are
-plain products outside any Pallas kernel too).  The split VMM and the
-block plan have no HIL backward yet (ROADMAP queue 1, item 6): under
-autograd they raise.
+plain products outside any Pallas kernel too), at full fp32 precision.
+The signed-split pair (:func:`analog_mvm_split`) has the reference's
+``_analog_mvm_split_bwd``; the block plan has no HIL backward yet
+(ROADMAP): under autograd it raises.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.device import fp32_matmuls
 from repro_torch.core.hw import BSS2
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
@@ -59,8 +61,8 @@ def needs_grad(*tensors) -> bool:
 def _no_hil_backward(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} has no hardware-in-the-loop backward yet (ROADMAP queue "
-        "1, item 6: LM training); call it under torch.no_grad() or with "
-        "inputs that do not require grad")
+        "1, item 6: the block plan's HIL backward); call it under "
+        "torch.no_grad() or with inputs that do not require grad")
 
 
 def _mvm(a_code, w_eff, gain, chunk_offset, *, chunk_rows, faithful,
@@ -93,8 +95,10 @@ class _AnalogMVM(torch.autograd.Function):
     def backward(ctx, g):
         a_code, w_eff, gain = ctx.saved_tensors
         gg = g * gain
-        return (torch.matmul(gg, w_eff.t()), torch.matmul(a_code.t(), gg),
-                torch.zeros_like(gain), None, None, None)
+        with fp32_matmuls():
+            return (torch.matmul(gg, w_eff.t()),
+                    torch.matmul(a_code.t(), gg),
+                    torch.zeros_like(gain), None, None, None)
 
 
 def analog_mvm(
@@ -146,35 +150,19 @@ def _mvm_split_chunk_scan(a_pos, a_neg, w_eff, gain, chunk_offset,
     return acc
 
 
-def analog_mvm_split(
-    a_pos: torch.Tensor,
-    a_neg: torch.Tensor,
-    w_eff: torch.Tensor,
-    gain: torch.Tensor,
-    chunk_offset: Optional[torch.Tensor],
-    *,
-    chunk_rows: int = BSS2.signed_rows,
-    faithful: bool = True,
-    epilogue=None,
-    store=None,
-) -> torch.Tensor:
-    """Signed-split analog VMM ``mvm(a_pos) - mvm(a_neg)`` as ONE dispatch
-    (the per-layer hot path of LM plans), with the optional fused
-    ``relu_shift`` epilogue.  On the card, a ``store`` (the layer's
-    :class:`~repro_torch.exec.plan.WeightStore`, whose ``w_eff`` this is)
-    without a full gain map (:attr:`WeightStore.code_operand`: rank-1
-    tables and a measured ``chunk_gain``) selects the kernel's int8 code
-    operand; a store with a gain map, or none, the fp32 ``w_eff``
-    operand.  On the CPU: the
-    faithful chunk scan, or for fast mode the stacked ``[2M, K]`` plain
-    version (pre-round sums are order-sensitive, so fast mode keeps the
-    oracle's arithmetic).  Inference only: under autograd it raises."""
-    if needs_grad(a_pos, a_neg, w_eff):
-        raise _no_hil_backward("analog_mvm_split")
+def _split(a_pos, a_neg, w_eff, gain, chunk_offset, *, chunk_rows,
+           faithful, epilogue, store):
+    """One signed-split call: the kernel on the card, the plain version on
+    the CPU (:func:`analog_mvm_split`)."""
     if _on_cuda(a_pos):
         if store is not None and store.code_operand:
+            codes = store.codes
+            if codes.dtype != torch.int8:
+                # the fp32 STE codes of a store lowered under autograd
+                # hold the same 6-bit integers
+                codes = codes.detach().to(torch.int8)
             return analog_mvm_split_codes_cuda(
-                a_pos.contiguous(), a_neg.contiguous(), store.codes,
+                a_pos.contiguous(), a_neg.contiguous(), codes,
                 store.col_gain, store.row_gain, gain.contiguous(),
                 _contiguous(chunk_offset),
                 chunk_gain=_contiguous(store.chunk_gain),
@@ -194,6 +182,69 @@ def analog_mvm_split(
             chunk_rows=chunk_rows, faithful=False)
         y = y2[:m] - y2[m:]
     return ref_lib.adc_epilogue_ref(y, epilogue)
+
+
+class _AnalogMVMSplit(torch.autograd.Function):
+    """The split pair with the HIL backward of the reference's
+    ``_analog_mvm_split_bwd``, the linearization ``y ~= gain * ((a_pos -
+    a_neg) @ w_eff)``: ``da_pos = (g * gain) @ w_eff^T``, ``da_neg =
+    -da_pos``, ``dw = (a_pos - a_neg)^T @ (g * gain)``, zero gradient for
+    the gain and the chunk offsets.  The forward is the kernel."""
+
+    @staticmethod
+    def forward(ctx, a_pos, a_neg, w_eff, gain, chunk_offset, chunk_rows,
+                faithful, store):
+        ctx.save_for_backward(a_pos, a_neg, w_eff, gain)
+        return _split(a_pos, a_neg, w_eff, gain, chunk_offset,
+                      chunk_rows=chunk_rows, faithful=faithful,
+                      epilogue=None, store=store)
+
+    @staticmethod
+    def backward(ctx, g):
+        a_pos, a_neg, w_eff, gain = ctx.saved_tensors
+        gg = g * gain
+        with fp32_matmuls():
+            da = torch.matmul(gg, w_eff.t())
+            dw = torch.matmul((a_pos - a_neg).t(), gg)
+        return (da, -da, dw, torch.zeros_like(gain), None, None, None,
+                None)
+
+
+def analog_mvm_split(
+    a_pos: torch.Tensor,
+    a_neg: torch.Tensor,
+    w_eff: torch.Tensor,
+    gain: torch.Tensor,
+    chunk_offset: Optional[torch.Tensor],
+    *,
+    chunk_rows: int = BSS2.signed_rows,
+    faithful: bool = True,
+    epilogue=None,
+    store=None,
+) -> torch.Tensor:
+    """Signed-split analog VMM ``mvm(a_pos) - mvm(a_neg)`` as ONE dispatch
+    (the per-layer hot path of LM plans), with the optional fused
+    ``relu_shift`` epilogue.  On the card, a ``store`` (the layer's
+    :class:`~repro_torch.exec.plan.WeightStore`, whose ``w_eff`` this is)
+    without a full gain map (:attr:`WeightStore.code_operand`: rank-1
+    tables and a measured ``chunk_gain``) selects the kernel's int8 code
+    operand - under autograd too, where the store holds its codes as fp32
+    STE values; a store with a gain map, or none, the fp32 ``w_eff``
+    operand.  On the CPU: the faithful chunk scan, or for fast mode the
+    stacked ``[2M, K]`` plain version (pre-round sums are
+    order-sensitive, so fast mode keeps the oracle's arithmetic).
+    Differentiable without an epilogue (HIL backward,
+    :class:`_AnalogMVMSplit`)."""
+    if not needs_grad(a_pos, a_neg, w_eff):
+        return _split(a_pos, a_neg, w_eff, gain, chunk_offset,
+                      chunk_rows=chunk_rows, faithful=faithful,
+                      epilogue=epilogue, store=store)
+    if epilogue is not None:
+        raise ValueError(
+            "the fused in-kernel epilogue is inference-only; the "
+            "differentiable path applies it as elementwise STE ops")
+    return _AnalogMVMSplit.apply(a_pos, a_neg, w_eff, gain, chunk_offset,
+                                 chunk_rows, faithful, store)
 
 
 def _plan_forward(x_in, weights, gain_all, off_cat, *, schedule, chunk_rows,

@@ -5,9 +5,11 @@ fused-QKV plan path, the dense prefill and the float-cache branch of
 The parameter projections (QKV/O) run on the analog backend; the
 activation x activation products (logits, AV) stay digital - the BSS-2
 synapse array holds static weights only.  :func:`prefill_attention_glue`
-is the static-prefill glue of a fused attention+MLP block.  Not ported
-yet (ROADMAP): the int8 KV cache, flash attention for long prefills
-without a cache, and context-parallel attention.
+is the static-prefill glue of a fused attention+MLP block.  A prefill
+past ``flash_threshold`` positions without a cache runs
+:func:`repro_torch.models.flash.flash_attention`; the cache is float or
+int8 (per-(position, head) scales).  Not ported yet (ROADMAP):
+context-parallel attention, which needs a mesh.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.core.noise import NoiseConfig
 from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, find_group
 from repro_torch.exec.run import run_layer
 from repro_torch.models import layers as L
+from repro_torch.models.flash import flash_attention
 
 NEG_INF = -1e30
 
@@ -101,15 +104,33 @@ def _qkv_plan(params, acfg: AnalogConfig):
     return lp
 
 
+def _quantize_kv(t: torch.Tensor):
+    """int8 codes of ``t [B, S, H, dh]`` and their per-(position, head)
+    scales ``max|t| / 127`` (floored at 1e-9): the reference's int8 KV
+    cache ("store at ADC resolution").  ``torch.round`` rounds half to
+    even, as ``jnp.round`` does."""
+    sc = torch.clamp_min(t.abs().amax(dim=-1).to(torch.float32) / 127.0,
+                         1e-9)
+    q = torch.clamp(torch.round(t / sc[..., None]), -127, 127)
+    return q.to(torch.int8), sc
+
+
 def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
                     n_kv_heads, head_dim, rope_theta, mrope=False,
-                    cache=None, flash_threshold=2048):
-    """Returns (out, new_cache).  ``cache``: dict(k, v, len) for decode.
+                    cache=None, flash_threshold=2048,
+                    flash_blocks=(256, 512), noise=None):
+    """Returns (out, new_cache).  ``cache``: dict(k, v, len) for decode,
+    plus ``k_scale`` / ``v_scale`` when its ``k`` is int8.
 
-    The cache is updated IN PLACE: the new keys and values are written
-    into ``cache["k"]``/``cache["v"]`` at positions ``len .. len+S-1`` (the
-    reference's functional update donates its cache the same way), and
-    the returned cache holds the same tensors and the advanced length."""
+    The cache is updated IN PLACE: the new keys and values (int8 codes and
+    their scales for an int8 cache) are written at positions ``len ..
+    len+S-1`` (the reference's functional update donates its cache the
+    same way), and the returned cache holds the same tensors and the
+    advanced length.  Without a cache, more than ``flash_threshold``
+    positions take :func:`~repro_torch.models.flash.flash_attention`
+    with ``flash_blocks = (block_q, block_kv)``.  ``noise``: the
+    projections' readout-noise source (a generator or a
+    :class:`~repro_torch.core.noise.NoiseFeed`)."""
     if mrope:
         raise NotImplementedError("M-RoPE (Qwen2-VL) is not ported yet")
     b, s, _ = x.shape
@@ -120,12 +141,12 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
     if qkv_lp is not None:
         # the three same-input projections as ONE analog dispatch over the
         # concatenated output columns
-        qkv = run_layer(qkv_lp, x, acfg)
+        qkv = run_layer(qkv_lp, x, acfg, noise=noise)
         q, k, v = torch.split(qkv, [nq, nkv, nkv], dim=-1)
     else:
-        q = L.linear_apply(params["wq"], x, acfg)
-        k = L.linear_apply(params["wk"], x, acfg)
-        v = L.linear_apply(params["wv"], x, acfg)
+        q = L.linear_apply(params["wq"], x, acfg, noise=noise)
+        k = L.linear_apply(params["wk"], x, acfg, noise=noise)
+        v = L.linear_apply(params["wv"], x, acfg, noise=noise)
     q = q.reshape(b, s, n_heads, head_dim)
     k = k.reshape(b, s, n_kv_heads, head_dim)
     v = v.reshape(b, s, n_kv_heads, head_dim)
@@ -136,45 +157,60 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
     if cache is not None:
         # decode: append to the cache, attend over the valid prefix
         ck, cv = cache["k"], cache["v"]
-        if not ck.dtype.is_floating_point:
-            raise NotImplementedError(
-                "the int8 KV cache is not ported yet (ROADMAP)")
         length = cache["len"]
-        ck[:, length:length + s] = k.to(ck.dtype)
-        cv[:, length:length + s] = v.to(cv.dtype)
+        new_cache = {"k": ck, "v": cv, "len": length + s}
+        at = slice(length, length + s)
+        if ck.dtype == torch.int8:
+            # int8 KV cache (beyond the paper): per-(position, head)
+            # symmetric scales, about half the decode bytes of bf16
+            cks, cvs = cache["k_scale"], cache["v_scale"]
+            ck[:, at], cks[:, at] = _quantize_kv(k)
+            cv[:, at], cvs[:, at] = _quantize_kv(v)
+            ck_f = ck.to(torch.float32) * cks[..., None]
+            cv_f = cv.to(torch.float32) * cvs[..., None]
+            new_cache.update(k_scale=cks, v_scale=cvs)
+        else:
+            ck[:, at] = k.to(ck.dtype)
+            cv[:, at] = v.to(cv.dtype)
+            ck_f, cv_f = ck.to(torch.float32), cv.to(torch.float32)
         smax = ck.shape[1]
         kpos = torch.arange(smax, device=x.device)
         qpos = length + torch.arange(s, device=x.device)
         mask = qpos[:, None] >= kpos[None, :]
         mask &= (kpos < length + s)[None, :]
         sc = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
-                          ck.to(torch.float32)) / math.sqrt(head_dim)
+                          ck_f) / math.sqrt(head_dim)
         sc = torch.where(mask[None, None, None], sc, NEG_INF)
         p = torch.softmax(sc, dim=-1)
-        o = torch.einsum("bhgqk,bkhd->bqhgd", p, cv.to(torch.float32))
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, cv_f)
         o = o.to(x.dtype)
-        new_cache = {"k": ck, "v": cv, "len": length + s}
-    else:
-        if s > flash_threshold:
-            raise NotImplementedError(
-                f"prefill of {s} > {flash_threshold} positions without a "
-                "cache needs flash attention, not ported yet (ROADMAP)")
+    elif s <= flash_threshold:
         o = _dense_attention(qg, k, v, causal=True)
+        new_cache = None
+    else:
+        o = flash_attention(qg, k, v, causal=True,
+                            block_q=flash_blocks[0],
+                            block_kv=flash_blocks[1])
         new_cache = None
 
     o = o.reshape(b, s, nq)
-    return L.linear_apply(params["wo"], o, acfg), new_cache
+    return L.linear_apply(params["wo"], o, acfg, noise=noise), new_cache
 
 
 def init_cache(batch, max_len, n_kv_heads, head_dim, dtype=torch.bfloat16,
                device: DeviceLike = None):
-    if not dtype.is_floating_point:
-        raise NotImplementedError(
-            "the int8 KV cache is not ported yet (ROADMAP)")
+    """A zero KV cache; ``dtype=torch.int8`` adds the fp32 per-(position,
+    head) ``k_scale`` / ``v_scale``."""
     dev = resolve_device(device)
     shape = (batch, max_len, n_kv_heads, head_dim)
-    return {
+    c = {
         "k": torch.zeros(shape, dtype=dtype, device=dev),
         "v": torch.zeros(shape, dtype=dtype, device=dev),
         "len": 0,
     }
+    if dtype == torch.int8:
+        for name in ("k_scale", "v_scale"):
+            c[name] = torch.zeros(shape[:3], dtype=torch.float32, device=dev)
+    elif not dtype.is_floating_point:
+        raise ValueError(f"a KV cache is float or int8, not {dtype}")
+    return c

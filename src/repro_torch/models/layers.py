@@ -28,8 +28,8 @@ def linear_init(generator, in_dim, out_dim, *, bias=False,
     )
 
 
-def linear_apply(params, x, acfg: AnalogConfig):
-    return apply_linear(params, x, acfg)
+def linear_apply(params, x, acfg: AnalogConfig, *, noise=None):
+    return apply_linear(params, x, acfg, noise=noise)
 
 
 # ----------------------------------------------------------------- norms
@@ -103,10 +103,10 @@ def mlp_init(generator, d_model, d_ff, *, act="swiglu",
     return p
 
 
-def mlp_apply(params, x, acfg: AnalogConfig, *, act="swiglu"):
-    up = linear_apply(params["up"], x, acfg)
+def mlp_apply(params, x, acfg: AnalogConfig, *, act="swiglu", noise=None):
+    up = linear_apply(params["up"], x, acfg, noise=noise)
     if act == "swiglu":
-        gate = linear_apply(params["gate"], x, acfg)
+        gate = linear_apply(params["gate"], x, acfg, noise=noise)
         h = F.silu(gate) * up
     elif act == "gelu":
         h = F.gelu(up, approximate="tanh")
@@ -116,4 +116,4 @@ def mlp_apply(params, x, acfg: AnalogConfig, *, act="swiglu"):
         h = torch.square(torch.relu(up))
     else:
         raise ValueError(act)
-    return linear_apply(params["down"], h, acfg)
+    return linear_apply(params["down"], h, acfg, noise=noise)

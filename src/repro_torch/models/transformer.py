@@ -10,19 +10,22 @@ slice of every parameter, plan and cache leaf (:func:`stack_index`).
 Every parameter matmul dispatches through the analog backend; the
 execution mode (digital / analog_faithful / analog_fast) is a RunConfig
 knob.  :func:`attach_block_plans` adds fused attention+MLP block plans
-that replay a static prefill one dispatch per block.  Not ported yet:
-MoE, RWKV, Mamba and the hybrid families, the shared attention block and
-training (``lm_loss``).
+that replay a static prefill one dispatch per block.  :func:`lm_loss` is
+the training objective; under autograd ``cfg.remat`` recomputes each
+scan group in the backward (``torch.utils.checkpoint``), its readout
+noise replayed.  Not ported yet: MoE, RWKV, Mamba and the hybrid
+families, and the shared attention block.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.device import DeviceLike, resolve_device
-from repro_torch.core.noise import NoiseConfig
+from repro_torch.core.noise import NoiseConfig, NoiseFeed
 from repro_torch.exec.plan import PlanStack
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -144,19 +147,19 @@ def lm_module_spec(cfg: ArchConfig, params):
     """Declare the LM's analog layers once for the front door:
     ``api.compile(lm_module_spec(cfg, params), params, run)`` bakes every
     parameter matmul - the attention QKV fused into one dispatch group per
-    scan-stacked layer - and ``CompiledModel.apply(batch, cache=)`` is
-    :func:`lm_apply` over the pre-lowered tree."""
+    scan-stacked layer - and ``CompiledModel.apply(batch, cache=,
+    noise=)`` is :func:`lm_apply` over the pre-lowered tree."""
     from repro_torch import api
 
-    def _apply(model, batch, *, cache=None):
+    def _apply(model, batch, *, cache=None, noise=None):
         return lm_apply(model.lower(), batch, cfg, model.run_cfg,
-                        cache=cache)
+                        cache=cache, noise=noise)
 
     return api.tree_spec(f"lm_{cfg.name}", params, apply_fn=_apply)
 
 
 # ------------------------------------------------------------------ apply
-def _layer_apply(p, x, *, cfg, run, positions, cache):
+def _layer_apply(p, x, *, cfg, run, positions, cache, noise=None):
     acfg = run.analog
     bp = p.get("_block_plan")
     if bp is not None and cache is None and x.shape[1] == bp.block.seq:
@@ -166,40 +169,89 @@ def _layer_apply(p, x, *, cfg, run, positions, cache):
         # cache; decode and other lengths keep the per-layer path below
         from repro_torch.exec.run import run as run_plan
 
-        return run_plan(bp, x), None
+        return run_plan(bp, x, noise=noise), None
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     attn_out, c = A.attention_apply(
         p["attn"], h, positions=positions, acfg=acfg,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
         rope_theta=cfg.rope_theta,
         cache=None if cache is None else cache["attn"],
+        flash_blocks=(run.flash_block_q, run.flash_block_kv), noise=noise,
     )
     x = x + attn_out.to(x.dtype)
     h = L.norm_apply(p["ln2"], x, cfg.norm)
-    y = L.mlp_apply(p["mlp"], h, acfg, act=cfg.act)
+    y = L.mlp_apply(p["mlp"], h, acfg, act=cfg.act, noise=noise)
     x = x + y.to(x.dtype)
     return x, (None if cache is None else {"attn": c})
 
 
-def _group_apply(gp, x, *, cfg, run, positions, cache):
+def _group_apply(gp, x, *, cfg, run, positions, cache, noise=None):
     new_cache = {} if cache is not None else None
     for i in range(len(group_def(cfg))):
         x, c = _layer_apply(
             gp[f"l{i}"], x, cfg=cfg, run=run, positions=positions,
-            cache=None if cache is None else cache[f"l{i}"],
+            cache=None if cache is None else cache[f"l{i}"], noise=noise,
         )
         if cache is not None:
             new_cache[f"l{i}"] = c
     return x, new_cache
 
 
+def _noise_state(noise):
+    if isinstance(noise, torch.Generator):
+        return noise.get_state()
+    if isinstance(noise, NoiseFeed):
+        return noise.pos
+    return None
+
+
+def _set_noise_state(noise, state) -> None:
+    if isinstance(noise, torch.Generator):
+        noise.set_state(state)
+    elif isinstance(noise, NoiseFeed):
+        noise.pos = state
+
+
+def _remat_group(gp, x, *, cfg, run, positions, noise):
+    """One scan group under ``torch.utils.checkpoint``: the backward
+    recomputes the group from its input ``x`` (the reference's
+    ``jax.checkpoint``).  The checkpoint restores only the default
+    generators, so the recompute rewinds the readout-noise source (a
+    generator's state, a feed's position) to where the first forward
+    drew, replays the same draws - the HIL backward linearizes around the
+    same codes - and leaves the source where the first forward left
+    it."""
+    start = _noise_state(noise)
+    calls = []
+
+    def fn(h):
+        if not calls:
+            calls.append(1)
+            return _group_apply(gp, h, cfg=cfg, run=run, positions=positions,
+                                cache=None, noise=noise)[0]
+        end = _noise_state(noise)
+        _set_noise_state(noise, start)
+        try:
+            return _group_apply(gp, h, cfg=cfg, run=run, positions=positions,
+                                cache=None, noise=noise)[0]
+        finally:
+            _set_noise_state(noise, end)
+
+    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False)
+
+
 def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
-             cache: Optional[dict] = None):
+             cache: Optional[dict] = None, noise=None):
     """batch: {"tokens": [B,S] ints} or {"embeds": [B,S,d]}, optional
     {"positions": [B,S]}.  Returns (logits, new_cache, aux).
 
     With a cache (:func:`init_lm_cache`) the KV tensors are updated in
-    place and the returned cache holds the advanced lengths."""
+    place and the returned cache holds the advanced lengths.  ``noise``:
+    the readout-noise source of every analog layer (a ``torch.Generator``
+    drawn in call order, or a :class:`~repro_torch.core.noise.NoiseFeed`
+    of injected draws), ignored when ``run.analog.deterministic``.  Under
+    autograd without a cache, ``cfg.remat`` recomputes each group in the
+    backward (:func:`_remat_group`); the values do not change."""
     _check_ported(cfg)
     acfg = run.analog
     adt = (torch.bfloat16 if run.activation_dtype == "bfloat16"
@@ -217,13 +269,19 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
         pos = start + torch.arange(s, dtype=torch.int32, device=x.device)
         positions = torch.broadcast_to(pos[None, :], (b, s))
 
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     layer_cache = None if cache is None else cache["layers"]
     for i in range(n_groups(cfg)):
+        gp = stack_index(params["layers"], i)
+        if remat:
+            x = _remat_group(gp, x, cfg=cfg, run=run, positions=positions,
+                             noise=noise)
+            continue
         x, nc = _group_apply(
-            stack_index(params["layers"], i), x, cfg=cfg, run=run,
-            positions=positions,
+            gp, x, cfg=cfg, run=run, positions=positions,
             cache=None if layer_cache is None else stack_index(layer_cache,
                                                                i),
+            noise=noise,
         )
         if layer_cache is not None:
             _store_lengths(layer_cache, nc, i)
@@ -233,7 +291,7 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
         logits = torch.einsum("bsd,vd->bsv", x,
                               params["embed"]["table"].to(x.dtype))
     else:
-        logits = L.linear_apply(params["lm_head"], x, acfg)
+        logits = L.linear_apply(params["lm_head"], x, acfg, noise=noise)
     new_cache = None
     if cache is not None:
         new_cache = {"layers": layer_cache, "step": cache["step"] + s}
@@ -293,9 +351,10 @@ def _store_lengths(stacked, group_cache, i: int) -> None:
 # ------------------------------------------------------------------ cache
 def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device: DeviceLike = None):
-    """The decode cache: per group and layer a float KV cache with a
-    leading ``[n_groups]`` axis (one length per group), plus the global
-    step."""
+    """The decode cache: per group and layer a KV cache with a leading
+    ``[n_groups]`` axis (one length per group), plus the global step.
+    ``dtype=torch.int8`` stores int8 codes with fp32 per-(position, head)
+    ``k_scale`` / ``v_scale``."""
     _check_ported(cfg)
     ng = n_groups(cfg)
     dev = resolve_device(device)
@@ -303,9 +362,36 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
     def stacked_attn():
         c = A.init_cache(batch * ng, max_len, cfg.n_kv_heads, cfg.hd,
                          dtype, dev)
-        shape = (ng, batch) + tuple(c["k"].shape[1:])
-        return {"attn": {"k": c["k"].reshape(shape),
-                         "v": c["v"].reshape(shape), "len": [0] * ng}}
+        out = {k: t.reshape((ng, batch) + tuple(t.shape[1:]))
+               for k, t in c.items() if k != "len"}
+        out["len"] = [0] * ng
+        return {"attn": out}
 
     group = {f"l{i}": stacked_attn() for i in range(len(group_def(cfg)))}
     return {"layers": group, "step": 0}
+
+
+# ------------------------------------------------------------------- loss
+def lm_loss(params, batch, cfg: ArchConfig, run: RunConfig, noise=None):
+    """Next-token cross-entropy (+ the MoE aux loss, 0 for the dense
+    families).  ``batch`` needs ``"labels"``; an optional ``"mask"``
+    weights the positions.  Returns ``(loss, {"nll", "aux",
+    "logit_z"})``; the reductions run in fp32 over the activation-dtype
+    logits, as in the reference."""
+    logits, _, aux = lm_apply(params, batch, cfg, run, noise=noise)
+    labels = batch["labels"]
+    logz = torch.logsumexp(logits.to(torch.float32), dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64)
+                        )[..., 0].to(torch.float32)
+    nll = logz - gold
+    mask = batch.get("mask")
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp_min(mask.sum(), 1.0)
+    else:
+        denom = nll.numel()
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=nll.device)
+    loss = nll.sum() / denom + 0.01 * aux
+    metrics = {"nll": nll.sum() / denom, "aux": aux,
+               "logit_z": torch.mean(logz ** 2)}
+    return loss, metrics

@@ -1,6 +1,8 @@
 """Serving steps (port of ``repro.serve.serve_step``): prefill (process a
 full prompt, fill the cache) and decode (one new token against the
-cache).  The steps run eagerly; the reference jits them."""
+cache), over a float or an int8 KV cache (``T.init_lm_cache(dtype=)``).
+The steps run eagerly; the reference jits them.  Its mesh branch waits
+for the mesh code (ROADMAP)."""
 from __future__ import annotations
 
 import functools

@@ -100,44 +100,59 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(leaves))
 
 
-def adamw_update(params, grads, state, cfg: AdamWConfig):
-    """One AdamW step with global-norm clipping: returns ``(new_params,
-    new_state, {"grad_norm", "lr"})``.  Runs on the parameters' device
-    and reads nothing back to the host."""
+def _upd(p, g, m, v, lr, scale, bc1, bc2, cfg: AdamWConfig):
+    """One leaf's AdamW update in fp32: ``(param, m, v)`` in their own
+    dtypes."""
+    b1, b2 = cfg.b1, cfg.b2
+    g = g.to(torch.float32) * scale
+    m32 = m.to(torch.float32)
+    v32 = v.to(torch.float32)
+    m_new = b1 * m32 + (1 - b1) * g
+    v_new = b2 * v32 + (1 - b2) * g * g
+    mhat = m_new / bc1
+    vhat = v_new / bc2
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+    p32 = p.to(torch.float32)
+    p_new = p32 - lr * (delta + cfg.weight_decay * p32)
+    return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+
+
+def adamw_update_(params, grads, state, cfg: AdamWConfig) -> dict:
+    """One AdamW step with global-norm clipping, in place: each trainable
+    leaf of ``params`` and of ``state``'s moments is overwritten with its
+    new value, leaf by leaf, and ``state["step"]`` advanced, so one leaf's
+    temporaries are live at a time (the reference donates its state to
+    the same end).  Runs on the parameters' device, reads nothing back to
+    the host, and returns ``{"grad_norm", "lr"}``."""
     mask = trainable_mask(params)
     step = state["step"] + 1
     lr = schedule(cfg, step)
-
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
-
-    b1, b2 = cfg.b1, cfg.b2
     stepf = step.to(torch.float32)
-    bc1 = 1 - torch.pow(b1, stepf)
-    bc2 = 1 - torch.pow(b2, stepf)
+    bc1 = 1 - torch.pow(cfg.b1, stepf)
+    bc2 = 1 - torch.pow(cfg.b2, stepf)
 
     def upd(p, g, m, v, trainable):
         if not trainable:
-            return p, m, v
-        g = g.to(torch.float32) * scale
-        m32 = m.to(torch.float32)
-        v32 = v.to(torch.float32)
-        m_new = b1 * m32 + (1 - b1) * g
-        v_new = b2 * v32 + (1 - b2) * g * g
-        mhat = m_new / bc1
-        vhat = v_new / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
-        p32 = p.to(torch.float32)
-        p_new = p32 - lr * (delta + cfg.weight_decay * p32)
-        return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+            return
+        # a scan-stacked leaf one group at a time (elementwise, so the
+        # values do not change; the temporaries shrink by the stack depth)
+        for i in range(p.shape[0]) if p.ndim >= 3 else (slice(None),):
+            for dst, src in zip((p[i], m[i], v[i]), _upd(
+                    p[i], g[i], m[i], v[i], lr, scale, bc1, bc2, cfg)):
+                dst.copy_(src)
 
-    # ``out`` holds upd's (param, m, v) tuple at every leaf
-    out = tree_map(upd, params, grads, state["m"], state["v"], mask)
-    new_state = {"step": step, "m": _unzip(out, 1), "v": _unzip(out, 2)}
-    return _unzip(out, 0), new_state, {"grad_norm": gnorm, "lr": lr}
+    tree_map(upd, params, grads, state["m"], state["v"], mask)
+    state["step"] = step
+    return {"grad_norm": gnorm, "lr": lr}
 
 
-def _unzip(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _unzip(v, i) for k, v in tree.items()}
-    return tree[i]
+def adamw_update(params, grads, state, cfg: AdamWConfig):
+    """:func:`adamw_update_` on copies: returns ``(new_params, new_state,
+    {"grad_norm", "lr"})`` and leaves its arguments as they were."""
+    params = tree_map(torch.clone, params)
+    state = {"step": state["step"], "m": tree_map(torch.clone, state["m"]),
+             "v": tree_map(torch.clone, state["v"])}
+    metrics = adamw_update_(params, grads, state, cfg)
+    return params, state, metrics

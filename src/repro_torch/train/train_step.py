@@ -1,0 +1,128 @@
+"""The LM training step (port of ``repro.train.train_step`` without a
+mesh).
+
+State layout, as in the reference:
+    state = {"params": ..., "opt": {"step", "m", "v"}, ["ef": ...]}
+``ef`` (the int8 compression's error feedback) appears when
+``run.grad_compression`` is on.  The state is donated: a step updates
+the caller's tensors in place (the reference's jit donates its state the
+same way), so a full-size model never holds two copies of its
+parameters and moments.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.core.device import DeviceLike
+from repro_torch.models import transformer as T
+from repro_torch.train import compression as C
+from repro_torch.train import optimizer as O
+
+
+def make_opt_config(run: RunConfig, total_steps: int = 10_000
+                    ) -> O.AdamWConfig:
+    return O.AdamWConfig(
+        lr=run.learning_rate,
+        weight_decay=run.weight_decay,
+        grad_clip=run.grad_clip,
+        warmup_steps=run.warmup_steps,
+        total_steps=total_steps,
+        state_dtype=run.optim_dtype,
+    )
+
+
+def init_state(generator: torch.Generator, cfg: ArchConfig, run: RunConfig,
+               opt_cfg: Optional[O.AdamWConfig] = None,
+               device: DeviceLike = None):
+    """Random parameters from ``generator`` (:func:`~repro_torch.models.
+    transformer.lm_init`) on ``device`` (``None`` = the CUDA device),
+    zero AdamW moments and, under ``run.grad_compression``, zero error
+    feedback."""
+    opt_cfg = opt_cfg or make_opt_config(run)
+    params = T.lm_init(generator, cfg, device=device)
+    state = {"params": params, "opt": O.adamw_init(params, opt_cfg)}
+    if run.grad_compression:
+        state["ef"] = C.ef_init(params)
+    return state
+
+
+def loss_and_grads(params, batch, noise=None, *, cfg: ArchConfig,
+                   run: RunConfig):
+    """The differentiated half of a step: ``(loss, metrics, grads)`` of
+    :func:`~repro_torch.models.transformer.lm_loss` with respect to every
+    leaf of ``params`` (zeros where a leaf does not reach the loss, as
+    ``jax.value_and_grad`` gives them).
+
+    The analog layers go through the front door INSIDE the differentiated
+    function: ``api.compile`` re-bakes the plans from the float masters
+    every step (QKV fused into one dispatch group), and the STE
+    quantizers of the lowering carry the HIL gradients back to the
+    masters - compile-per-step is the hardware-in-the-loop contract.
+    ``noise``: the readout-noise source (a ``torch.Generator`` or a
+    :class:`~repro_torch.core.noise.NoiseFeed`), ignored when
+    ``run.analog`` is deterministic or digital."""
+    from repro_torch import api
+
+    acfg = run.analog
+    if acfg.deterministic or acfg.mode == "digital":
+        noise = None
+    # leaf views of the masters that record gradients (shared storage)
+    params = O.tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = O.tree_leaves(params)
+    with torch.enable_grad():
+        model = api.compile(T.lm_module_spec(cfg, params), params, run,
+                            device=leaves[0].device)
+        loss, metrics = T.lm_loss(model.lower(), batch, cfg, run,
+                                  noise=noise)
+        del model
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, _unflatten(params, iter(grads))
+
+
+def apply_update(state, grads, *, opt_cfg: O.AdamWConfig) -> dict:
+    """The update half of a step, in place on ``state``: the optional int8
+    gradient compression with error feedback, then AdamW.  Returns the
+    optimizer's metrics.  Not safe to repeat after a failure: the leaves
+    written before it are written again on a second call."""
+    with torch.no_grad():
+        if "ef" in state:
+            # int8 gradient compression with error feedback: the codes are
+            # what would cross the data-parallel axes
+            comp, state["ef"] = C.compress_grads(grads, state["ef"])
+            grads = C.decompress_grads(comp)
+        return O.adamw_update_(state["params"], grads, state["opt"], opt_cfg)
+
+
+def train_step(state, batch, noise=None, *, cfg: ArchConfig,
+               run: RunConfig, opt_cfg: O.AdamWConfig):
+    """One optimization step (:func:`loss_and_grads`, then
+    :func:`apply_update`); returns ``(state, metrics)``, ``state`` updated
+    in place.  The metrics stay on the device."""
+    loss, metrics, grads = loss_and_grads(state["params"], batch, noise,
+                                          cfg=cfg, run=run)
+    opt_metrics = apply_update(state, grads, opt_cfg=opt_cfg)
+    return state, {**metrics, **opt_metrics, "loss": loss}
+
+
+def _unflatten(tree, it):
+    if isinstance(tree, dict):
+        return {k: _unflatten(v, it) for k, v in tree.items()}
+    return next(it)
+
+
+def make_train_step(cfg: ArchConfig, run: RunConfig,
+                    opt_cfg: Optional[O.AdamWConfig] = None,
+                    total_steps: int = 10_000):
+    """The step for one device (the reference's no-mesh step):
+    ``step(state, batch, noise=None) -> (state, metrics)``, the state
+    donated (updated in place).  ``batch`` holds ``tokens`` and
+    ``labels`` on the state's device."""
+    opt_cfg = opt_cfg or make_opt_config(run, total_steps)
+    return functools.partial(train_step, cfg=cfg, run=run, opt_cfg=opt_cfg)

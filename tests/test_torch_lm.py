@@ -404,14 +404,20 @@ class TestNotPorted:
     def test_unported_hooks_and_paths_raise(self):
         # the engine's calibration, drift, plan-cache and fleet hooks are
         # ported (tests/test_torch_serve_hooks.py); these paths are not
+        # the int8 cache, the offset encoding and the two-pass split are
+        # ported too (tests/test_torch_lm_serve_opts.py); M-RoPE is not
         _, tp = _params(True)
         _, run = _runs(True)
-        with pytest.raises(NotImplementedError, match="int8"):
-            A.init_cache(1, 4, 2, 16, torch.int8, "cpu")
+        c = A.init_cache(1, 4, 2, 16, torch.int8, "cpu")
+        assert c["k"].dtype == torch.int8 and c["k_scale"].shape == (1, 4, 2)
         lp = api.lower_tree(tp, run)["lm_head"]["_plan"]
         x = torch.ones((1, 96))
-        for cfg in (run.analog.replace(signed_input="offset"),
-                    run.analog.replace(fused_split=False)):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                trun.run_layer(dataclasses.replace(
-                    lp, signed_input=cfg.signed_input), x, cfg)
+        y = trun.run_layer(lp, x, run.analog.replace(fused_split=False))
+        assert torch.equal(y, trun.run_layer(lp, x, run.analog))
+        with pytest.raises(NotImplementedError, match="M-RoPE"):
+            A.attention_apply(
+                T.stack_index(tp["layers"], 0)["l0"]["attn"],
+                torch.ones((1, 2, 96)), positions=torch.zeros((1, 2, 3)),
+                acfg=run.analog, n_heads=CFG.n_heads,
+                n_kv_heads=CFG.n_kv_heads, head_dim=CFG.hd,
+                rope_theta=CFG.rope_theta, mrope=True)

@@ -407,11 +407,13 @@ class TestChainHIL:
             _grad_check(path, g_pl[path].numpy(), g_mk, kind == "full")
 
     def test_block_plans_and_split_raise_under_autograd(self):
+        # the split pair has its HIL backward now (the LM training
+        # path, tests/test_torch_lm_train.py); a block plan still raises
         x = torch.ones((2, 256), requires_grad=True)
         w = torch.ones((256, 4))
         g = torch.ones(4)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.analog_mvm_split(x, x, w, g, None)
+        ops.analog_mvm_split(x, x, w, g, None).sum().backward()
+        assert torch.equal(x.grad, torch.zeros_like(x))   # da_pos - da_neg
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ops.analog_plan_codes(x, (w,), g[None], torch.zeros((2, 4)),
                                   schedule=(), block=object())
