@@ -23,7 +23,12 @@ with random weights from a seed, on one NVIDIA GPU:
   ``make_serve_steps``;
 - LM hardware-in-the-loop training: stablelm-3b at its published size
   through ``make_train_step`` (flash attention at 4096 positions), and
-  ``launch.train.train_loop`` with a checkpoint restart.
+  ``launch.train.train_loop`` with a checkpoint restart;
+- the MoE, M-RoPE and audio families: qwen3-moe-30b-a3b at its published
+  widths through ``ServeEngine`` (its expert stacks through the split
+  kernel's expert axis, one launch per stack), qwen2-vl-7b and
+  musicgen-medium through ``make_serve_steps`` on precomputed
+  embeddings, and the four families' SMOKE configs card vs CPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -212,8 +217,8 @@ exits non-zero without printing a result):
    with an int8 cache and a bf16 cache: max relative logit error and
    greedy tokens differing against the float32 cache's, cache bytes,
    decode ms per step, 161 split launches per call; the first layer's
-   int8 codes and scales after the prefill bit-exact against the plain
-   quantization of the float32 cache; the witness: the same int8 and
+   int8 codes and scales after the prefill bit-exact against the CPU's
+   plain quantization of the float32 cache; the witness: the same int8 and
    float32 caches with digital projections, max relative logit error
    within KV_DIGITAL_REL;
 26. (after 25) offset-encoded serving (``signed_input="offset"``):
@@ -226,11 +231,44 @@ exits non-zero without printing a result):
 27. ``launch.train.train_loop`` on the stablelm-3b smoke config on the
    card: checkpoints under ``build/``, a restart from the step-2
    checkpoint, the resumed losses equal to the uninterrupted run's;
-28. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+28. the split kernel's expert axis against its plain version on the
+   card, bit-exact: qwen3-moe-30b-a3b's up / gate [128, 2048, 768] and
+   down [128, 768, 2048] stacks at M = 32 per expert, and a ragged sweep
+   over E, M, K and N, faithful and fast; the 2-D call at phase 6's
+   phi4-mini shapes (M = 4) unchanged, bit-exact; the expert launch's ms
+   beside its bytes bound;
+29. qwen3-moe-30b-a3b at its published widths (d_model 2048, 32/4 heads
+   of 128, 128 experts top-8 of width 768, vocab 151936), random
+   weights, ``analog_faithful``, through ``ServeEngine`` at batch 4: 8
+   requests of 4-11 prompt tokens, 8 new tokens each; the depth cut to
+   SERVED_LAYERS (21 of 48), its serving peak held below
+   PEAK_BUDGET_GIB; per call 2 split launches
+   per layer (fused QKV, o) + the lm_head and 3 expert launches per
+   layer; decode ms per step (host, device, idle share), prefill
+   latency, the expert launches' device ms per step beside their bound,
+   peak memory;
+30. the four families' SMOKE configs (qwen3-moe, llama4-maverick with
+   its shared expert and [dense, MoE] groups, qwen2-vl with distinct
+   (t, h, w) positions, musicgen on embeddings) and qwen3-moe at full
+   width with 1 layer, card against CPU on integer effective weights at
+   fp32 activations: with the CPU's routing passed in, the logits
+   (phase 8's rows, the TIE_* bounds at full width) and the aux loss
+   within 1e-6 relative; free-running, the share of (layer, token) rows
+   routed differently (at most ROUTE_DIFF_SHARE) and the greedy tokens;
+31. qwen2-vl-7b at its published widths (28 layers, d_model 3584, 28/4
+   heads, d_ff 18944, vocab 152064; fits whole) through
+   ``make_serve_steps`` on precomputed embeddings with distinct
+   (t, h, w) positions: a 4 x 12 prefill, 8 decode steps, 141 split
+   launches per call, ms per step, idle share, peak memory;
+32. musicgen-medium at its published size (48 layers, d_model 1536, 24
+   heads, d_ff 6144, vocab 2048), the same calls, 193 split launches per
+   call;
+33. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
 ``python3 chip_smoke.py --slice10`` runs the build and phases 22-27
-alone (a quick check; the contract's run takes no arguments).
+alone, ``--slice11`` the build and phases 28-32 (quick checks; the
+contract's run takes no arguments).
 """
 from __future__ import annotations
 
@@ -271,6 +309,11 @@ TPU_KERNELS = {
                    "src/repro/kernels/analog_mvm.py:129"),
     "analog_mvm_split": ("src/repro_torch/csrc/analog_mvm_split.cu",
                          "src/repro/kernels/analog_mvm.py:251"),
+    # the same kernel's expert axis: every expert of an MoE expert stack
+    # in one launch (the reference runs its expert products through the
+    # plain chunked VMM, src/repro/exec/run.py:279)
+    "analog_mvm_split_experts": ("src/repro_torch/csrc/analog_mvm_split.cu",
+                                 "src/repro/kernels/analog_mvm.py:251"),
     "analog_plan": ("src/repro_torch/csrc/analog_plan.cu",
                     "src/repro/kernels/analog_plan.py:401"),
     "analog_plan_block": ("src/repro_torch/csrc/analog_plan_block.cu",
@@ -337,8 +380,16 @@ LOGIT_RTOL = 1e-5
 PARAM_RTOL, PARAM_ATOL = 1e-6, 1e-7
 
 
+# (tag, seconds since the script started) of every emitted line: the
+# wall time of each phase is the difference of its line's and the line
+# before it
+WALL = []
+_START = time.monotonic()
+
+
 def emit(tag: str, payload) -> None:
     print(json.dumps({tag: payload}), flush=True)
+    WALL.append((tag, time.monotonic() - _START))
 
 
 def _fail(msg: str) -> None:
@@ -391,7 +442,9 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.kernels.analog_mvm import (  # noqa: E402
     MVM_SMEM_LIMIT, analog_mvm_cuda, analog_mvm_cuda_with_plan,
-    analog_mvm_split_codes_cuda, analog_mvm_split_cuda, mvm_geometry)
+    analog_mvm_split_codes_cuda, analog_mvm_split_cuda,
+    analog_mvm_split_experts_cuda, mvm_geometry)
+from repro_torch.models import moe as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.core.quant import quantize_act  # noqa: E402
@@ -630,7 +683,8 @@ def main_path(raw, model, cpu_model):
     counts = ops.launch_counts()
     n = len(BATCHES)
     expected = {"maxmin_pool": n, "analog_plan": n, "analog_mvm": 3 * n,
-                "analog_mvm_split": 0, "analog_plan_block": 0}
+                "analog_mvm_split": 0, "analog_plan_block": 0,
+                "analog_mvm_split_experts": 0}
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
 
@@ -1055,7 +1109,8 @@ def lm_main_path():
     n_calls = calls["prefill"] + calls["decode"]
     per_call = 5 * cfg.n_layers + 1
     expected = {"maxmin_pool": 0, "analog_mvm": 0, "analog_plan": 0,
-                "analog_mvm_split": per_call * n_calls, "analog_plan_block": 0}
+                "analog_mvm_split": per_call * n_calls, "analog_plan_block": 0,
+                "analog_mvm_split_experts": 0}
     if counts != expected:
         raise AssertionError(f"LM launch counts {counts} != {expected} "
                              f"({calls})")
@@ -1321,7 +1376,8 @@ def block_main_path(params, cfg):
         logits = T.lm_apply(tree_, {"tokens": toks}, cfg, run)[0]
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        want = {"maxmin_pool": 0, "analog_mvm": 0, "analog_plan": 0, **want}
+        want = {"maxmin_pool": 0, "analog_mvm": 0, "analog_plan": 0,
+                "analog_mvm_split_experts": 0, **want}
         if counts != want:
             raise AssertionError(f"{name} prefill launch counts {counts} != "
                                  f"{want}")
@@ -1670,7 +1726,7 @@ def time_block(cfg, tree, p_block, toks, x):
                                           device=DEV)[None], x3.shape[:2])
     layer0 = T.stack_index(tree["layers"]["l0"], 0)
     model_path = lambda: T._layer_apply(  # noqa: E731
-        layer0, x3, cfg=cfg, run=run, positions=pos, cache=None)
+        layer0, "attn_mlp", x3, cfg=cfg, run=run, positions=pos, cache=None)
     fallback = lambda: trun.run(bp, x3, megakernel=False)  # noqa: E731
     row = {
         "kernel": "analog_plan_block",
@@ -1836,7 +1892,7 @@ def calibration_path(raw):
     n = len(BATCHES) * len(models)
     expected = {"maxmin_pool": len(BATCHES), "analog_plan": n,
                 "analog_mvm": 3 * n, "analog_mvm_split": 0,
-                "analog_plan_block": 0}
+                "analog_plan_block": 0, "analog_mvm_split_experts": 0}
     if counts != expected:
         raise AssertionError(f"calibrated launch counts {counts} != "
                              f"{expected}")
@@ -3497,19 +3553,20 @@ def _kv_gap(out, name):
 
 
 def _check_int8_first_layer(q, f, what):
-    """The first layer's int8 cache after the prefill against the plain
-    quantization of the float32 cache's keys and values (the same inputs
-    reach the first layer in both runs): codes and scales bit-exact, the
-    positions not yet written still zero."""
+    """The first layer's int8 cache after the prefill against the CPU's
+    plain quantization of the float32 cache's keys and values (the same
+    inputs reach the first layer in both runs; on the CPU a division by
+    a Python number is correctly rounded, as in the reference): codes
+    and scales bit-exact, the positions not yet written still zero."""
     for name in ("k", "v"):
-        x = f[name][:, :LM_SEQ]
+        x = f[name][:, :LM_SEQ].cpu()
         sc = torch.clamp_min(x.abs().amax(dim=-1) / 127.0, 1e-9)
         codes = torch.clamp(torch.round(x / sc[..., None]), -127, 127)
-        if not (torch.equal(q[name][:, :LM_SEQ], codes.to(torch.int8))
-                and torch.equal(q[f"{name}_scale"][:, :LM_SEQ], sc)
+        if not (torch.equal(q[name][:, :LM_SEQ].cpu(), codes.to(torch.int8))
+                and torch.equal(q[f"{name}_scale"][:, :LM_SEQ].cpu(), sc)
                 and not q[name][:, LM_SEQ:].any()):
             raise AssertionError(f"{what}: the first layer's int8 "
-                                 f"{name} cache is not the plain "
+                                 f"{name} cache is not the CPU's "
                                  "quantization of the float32 one")
 
 
@@ -3751,6 +3808,477 @@ def lm_training_phases(counts):
     return rows
 
 
+# -------------------------- phases 28-32: the MoE, M-RoPE and audio families
+MOE_ARCH = "qwen3-moe-30b-a3b"
+VL_ARCH = "qwen2-vl-7b"
+AUDIO_ARCH = "musicgen-medium"
+FAMILY_ARCHS = (MOE_ARCH, "llama4-maverick-400b-a17b", VL_ARCH, AUDIO_ARCH)
+# rows per expert of the dispatch buffer at batch 4: capacity
+# max(top_k, 1.25 * S * top_k / E) = 8 for qwen3's top-8 of 128 experts
+# at S = 1 (decode) and S = 12 (the 4 x 12 prefill), so M = B * C = 32
+EXPERT_M = 32
+# the expert axis's ragged sweep: (E, M, K, N), no multiple of a tile
+EXPERT_RAGGED = ((1, 5, 128, 40), (3, 9, 256, 136), (7, 17, 384, 200),
+                 (5, 33, 128, 64), (2, 48, 512, 1000), (4, 60, 256, 96))
+# the full-width trees are cut in depth so that the serving peak stays
+# below this much device memory (of the card's 80 GB)
+PEAK_BUDGET_GIB = 72.0
+# the served depths, fitted once on an H100 80GB HBM3 from the memory a
+# 1- and a 2-layer serving tree hold (PERF.md, Cells): qwen3-moe 2.974
+# GiB per layer + 3.778 fixed -> 21 of 48 layers (68.62 GiB peak);
+# qwen2-vl and musicgen fit whole
+SERVED_LAYERS = {MOE_ARCH: 21, VL_ARCH: 28, AUDIO_ARCH: 48}
+# free-running routing card vs CPU: a last-bit difference of the router's
+# softmax may flip a near tie of the top-k; at most this share of the
+# (layer, token) rows may route differently
+ROUTE_DIFF_SHARE = 1 - TIE_ROW_SHARE
+
+
+def _expert_operands(e, m, k, n, g):
+    """Random 5-bit codes ``[E, M, K]`` (both passes), int8 weight codes
+    ``[E, K, N]`` and a gain per expert ``[E, N]``, on the card."""
+    a_pos = torch.randint(0, 32, (e, m, k), generator=g, device=DEV).float()
+    a_neg = torch.randint(0, 32, (e, m, k), generator=g, device=DEV).float()
+    codes = torch.randint(-63, 64, (e, k, n), generator=g,
+                          device=DEV).to(torch.int8)
+    gain = (torch.rand((e, 1), generator=g, device=DEV) * 0.04 + 0.01
+            ).expand(e, n).contiguous()
+    return a_pos, a_neg, codes, gain
+
+
+def _expert_call(a_pos, a_neg, codes, gain, faithful, plain=False):
+    post, gk = (None, gain) if faithful else (gain, torch.ones_like(gain))
+    if plain:
+        with fp32_matmuls():
+            return ref.analog_mvm_split_experts_ref(
+                a_pos, a_neg, codes.float(), gk, post_gain=post,
+                faithful=faithful)
+    return analog_mvm_split_experts_cuda(a_pos, a_neg, codes, gk,
+                                         post_gain=post, faithful=faithful)
+
+
+def expert_work(e, m, k, n):
+    """(bytes, operations) of one expert-axis launch: both passes' codes,
+    the int8 weight codes, the gains and the output, each once; both
+    passes' products."""
+    return 4 * (2 * e * m * k + e * n + e * m * n) + e * k * n, \
+        2 * 2 * e * m * k * n
+
+
+def expert_shapes(cfg):
+    """(name, K, N) of one MoE layer's expert stacks."""
+    d, f = cfg.d_model, cfg.moe_d_ff
+    return (("up", d, f), ("gate", d, f), ("down", f, d))
+
+
+def check_expert_axis():
+    """Phase 28: the split kernel's expert axis against its plain version
+    on the card, bit-exact, at qwen3-moe-30b-a3b's stacks (128 experts,
+    M = 32 each), and a ragged sweep over E, M, K and N, faithful and
+    fast; then the launch's time at those stacks beside its bound."""
+    cfg = configs.get_arch(MOE_ARCH)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 11)
+    results, rows = [], []
+    cases = [(f"{name} E={cfg.n_experts} M={EXPERT_M}", cfg.n_experts,
+              EXPERT_M, k, n) for name, k, n in expert_shapes(cfg)[1:]]
+    cases += [(f"ragged {shape}", *shape) for shape in EXPERT_RAGGED]
+    for what, e, m, k, n in cases:
+        ops_ = _expert_operands(e, m, k, n, g)
+        for faithful in (True, False):
+            ops.reset_launch_counts()
+            got = _expert_call(*ops_, faithful)
+            if ops.launch_counts()["analog_mvm_split_experts"] != 1:
+                raise AssertionError(f"{what}: not one expert launch")
+            results.append(_compare(
+                "analog_mvm_split_experts", got,
+                _expert_call(*ops_, faithful, plain=True), exact=True,
+                what=f"{what} faithful={faithful}"))
+        del ops_
+    for name, k, n in expert_shapes(cfg):
+        e, m = cfg.n_experts, EXPERT_M
+        ops_ = _expert_operands(e, m, k, n, g)
+        nbytes, nops = expert_work(e, m, k, n)
+        b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+        kern = lambda o=ops_: _expert_call(*o, True)  # noqa: E731
+        plain = lambda o=ops_: _expert_call(*o, True, plain=True)  # noqa: E731
+        row = {"kernel": "analog_mvm_split_experts", "layer": name,
+               "what": f"{name} E={e} M={m} K={k} N={n}",
+               "ms": time_ms(kern, iters=10, reps=5),
+               "plain_ms": time_ms(plain, iters=2, reps=3),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "device_ms": device_trace(kern, iters=10)[0],
+               "bytes": nbytes, "operations": nops}
+        row["device_share_of_bound"] = (
+            None if row["device_ms"] is None else b_ms / row["device_ms"])
+        emit("timing", row)
+        rows.append(row)
+        del ops_
+    # the 2-D call at phase 6's shapes, unchanged: phi4-mini's six layer
+    # shapes at M = 4 (int8 codes, integer tables) bit-exact
+    phi = configs.get_arch(LM_ARCH)
+    for lname, k, n in lm_shapes(phi):
+        a_pos, a_neg = _split_codes(LM_BATCH, k, g)
+        (codes, col, row_g), w, gain, off = _split_weights(k, n, g, False)
+        for faithful in (True, False):
+            got = analog_mvm_split_codes_cuda(a_pos, a_neg, codes, col, row_g,
+                                              gain, off, faithful=faithful)
+            results.append(_compare(
+                "analog_mvm_split", got, ref.analog_mvm_split_ref(
+                    a_pos, a_neg, w, gain, off, faithful=faithful),
+                exact=True, what=f"2-D {lname} M={LM_BATCH} "
+                f"faithful={faithful}"))
+        del codes, col, row_g, w, gain, off
+    return results, rows
+
+
+def _cut(cfg, n_layers):
+    return dataclasses.replace(cfg, n_layers=n_layers)
+
+
+def _engine(cfg, run, **kw):
+    params = T.lm_init(torch.Generator(device=DEV).manual_seed(SEED), cfg)
+    return ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                       max_len=LM_MAX_LEN, **kw)
+
+
+def _serve_timing(cfg, prefill, decode, params, batch, step_input):
+    """Prefill latency (host clock around a synchronized call), decode ms
+    per step (host) and its device ms, activities and idle share from a
+    profiler trace, for ``prefill(params, batch, cache)`` and
+    ``decode(params, step_input, cache)``."""
+    def fresh():
+        return T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN,
+                               dtype=torch.float32, device=DEV)
+
+    pre = []
+    for _ in range(3):
+        cache = fresh()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch, cache)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    state = {"cache": cache}
+
+    def step():
+        lg, state["cache"] = decode(params, step_input, state["cache"])
+        return lg
+
+    dec = []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        dec.append((time.perf_counter() - t0) * 1e3)
+    dev_ms, acts = device_trace(step, iters=4)
+    host = statistics.median(dec[1:])
+    return {"prefill_ms_median": statistics.median(pre[1:]),
+            "prefill_ms_all": pre, "decode_ms_per_step_median": host,
+            "decode_device_ms_per_step": dev_ms,
+            "decode_device_activities_per_step": acts,
+            "decode_device_idle_share": None if dev_ms is None
+            else 1 - dev_ms / host}
+
+
+def _expert_launch_ms(tree, cfg, g):
+    """Device ms of one MoE layer's three expert launches at the decode
+    shape (M = 32 per expert), on the served tree's lowered stacks, and
+    their bound."""
+    from repro_torch.exec.run import run_expert_stack
+
+    acfg = AnalogConfig(mode="analog_faithful")
+    node = T.stack_index(tree["layers"]["l0"], 0)["moe"]["_groups"]
+    out = {}
+    for name, k, n in expert_shapes(cfg):
+        gp = node[name]
+        xe = torch.randn((cfg.n_experts, EXPERT_M, k), generator=g,
+                         device=DEV)
+        ms, rec = kernel_record_ms(lambda: run_expert_stack(gp, xe, acfg),
+                                   "split_kernel", iters=10)
+        out[name] = {"device_ms": ms, "records": rec,
+                     "bound_ms": bound(*expert_work(cfg.n_experts, EXPERT_M,
+                                                    k, n),
+                                       BF16_OPS_PER_S)[0]}
+    return out
+
+
+def moe_full_serving():
+    """Phase 29: qwen3-moe-30b-a3b at its published widths through
+    ServeEngine (random weights, analog_faithful), at SERVED_LAYERS' depth,
+    its serving peak held below PEAK_BUDGET_GIB: 8 requests of 4-11
+    prompt tokens, 8 new tokens each, at batch 4.  Per prefill and decode
+    call 2 split launches per layer (the fused QKV and o) + the lm_head,
+    and 3 expert-axis launches per layer; decode ms per step (host and
+    device, idle share), prefill latency, the expert launches' device ms
+    per step beside their bound, peak memory."""
+    full = configs.get_arch(MOE_ARCH)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    depth = SERVED_LAYERS[MOE_ARCH]
+    cfg = _cut(full, depth)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine = _engine(cfg, run)
+    torch.cuda.synchronize()
+    t_build = time.monotonic() - t0
+    calls = _counting(engine)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    done = engine.serve(_lm_requests(cfg))
+    torch.cuda.synchronize()
+    t_serve = time.monotonic() - t0
+    counts = ops.launch_counts()
+    n_calls = calls["prefill"] + calls["decode"]
+    want = _launches(analog_mvm_split=(2 * depth + 1) * n_calls,
+                     analog_mvm_split_experts=3 * depth * n_calls)
+    if counts != want:
+        raise AssertionError(f"qwen3 launch counts {counts} != {want} "
+                             f"({calls})")
+    for r in done:
+        out = r.output.tolist()
+        if len(out) != LM_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"request {r.uid}: tokens {out}")
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
+    timing = _serve_timing(cfg, engine.prefill, engine.decode, engine.params,
+                           {"tokens": toks}, toks[:, :1])
+    g = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    per_layer = _expert_launch_ms(engine.params, cfg, g)
+    dev = [v["device_ms"] for v in per_layer.values()]
+    report = {
+        "arch": cfg.name, "published_layers": full.n_layers,
+        "layers": depth, "build_s": t_build,
+        "serve_s": t_serve, "calls": calls, "launches": counts,
+        "launches_per_call": {"analog_mvm_split": 2 * depth + 1,
+                              "analog_mvm_split_experts": 3 * depth},
+        **timing,
+        "expert_launches_device_ms_per_layer": per_layer,
+        "expert_device_ms_per_decode_step": None if None in dev
+        else depth * sum(dev),
+        "expert_bound_ms_per_decode_step": depth * sum(
+            v["bound_ms"] for v in per_layer.values()),
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "tokens": {r.uid: r.output.tolist() for r in done},
+    }
+    if report["peak_memory_gib"] > PEAK_BUDGET_GIB:
+        raise AssertionError(f"qwen3 serving peak {report['peak_memory_gib']}"
+                             f" GiB above the {PEAK_BUDGET_GIB} GiB budget")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def _family_batch(cfg, seq, seed, device):
+    rng = np.random.default_rng(seed)
+    if cfg.embed_inputs:
+        b = {"tokens": rng.integers(0, cfg.vocab_size, (LM_BATCH, seq))}
+    else:
+        b = {"embeds": rng.standard_normal((LM_BATCH, seq, cfg.d_model))
+             .astype(np.float32)}
+    if cfg.mrope:
+        b["positions"] = rng.integers(0, 3 * seq, (LM_BATCH, seq, 3)
+                                      ).astype(np.int32)
+    return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+
+def _routes_differing(a, b):
+    """Share of the (layer, token) rows whose top-k expert ids differ
+    between two recordings."""
+    rows = diff = 0
+    for (_, ia), (_, ib) in zip(a, b):
+        d = (ia.cpu() != ib.cpu()).any(dim=-1)
+        rows += d.numel()
+        diff += int(d.sum())
+    return diff / rows if rows else 0.0
+
+
+def family_card_vs_cpu():
+    """Phase 30: the four families' SMOKE configs, and qwen3-moe at full
+    width with 1 layer, on the card against the CPU: one parameter tree
+    with integer effective weights (NOISELESS), fp32 activations, a
+    4 x 12 prefill (embeddings for qwen2-vl and musicgen, distinct
+    (t, h, w) positions for qwen2-vl).  With the CPU's routing passed in:
+    the logits (phase 8's tolerance, the TIE_* bounds at full width) and
+    the aux loss within 1e-6 relative.  Free-running: the share of
+    (layer, token) rows whose routing differs, and the greedy tokens."""
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful",
+                                        noise=NOISELESS),
+                    activation_dtype="float32")
+    cases = [(name, configs.get_smoke(name), False) for name in FAMILY_ARCHS]
+    cases.append((f"{MOE_ARCH} 1 layer", _cut(configs.get_arch(MOE_ARCH), 1),
+                  True))
+    results, bad = [], []
+    saved = T.NOISE
+    for what, cfg, ties in cases:
+        T.NOISE = NOISELESS            # integer effective weights
+        try:
+            params = T.lm_init(torch.Generator().manual_seed(SEED), cfg,
+                               device="cpu")
+        finally:
+            T.NOISE = saved
+        out = {}
+        for dev in ("cpu", "cuda"):
+            p = params if dev == "cpu" else to_device(params, DEV)
+            model = api.compile(T.lm_module_spec(cfg, p), p, run, device=dev)
+            batch = _family_batch(cfg, LM_SEQ, SEED + 3, dev)
+            ops.reset_launch_counts()
+            free = M.Routes()
+            with torch.no_grad():
+                logits, _, aux = T.lm_apply(model.lower(), batch, cfg, run,
+                                            routes=free)
+            launches = ops.launch_counts()
+            routed = None
+            if dev == "cuda" and cfg.n_experts:
+                with torch.no_grad():
+                    routed = T.lm_apply(
+                        model.lower(), batch, cfg, run,
+                        routes=M.Routes(replay=out["cpu"]["routes"]))
+            out[dev] = {"logits": logits.float(), "aux": float(aux),
+                        "routes": free.taken, "routed": routed,
+                        "launches": launches}
+            del model, p
+        cpu, card = out["cpu"], out["cuda"]
+        held = card["routed"] if card["routed"] is not None else (
+            card["logits"], None, card["aux"])
+        rep, b = _logits_vs_cpu(f"{what}, CPU routing", held[0].float(),
+                                cpu["logits"], exact=False,
+                                row_share=TIE_ROW_SHARE if ties
+                                else 1 - TIE_SHARE)
+        aux_card = float(held[2])
+        if abs(aux_card - cpu["aux"]) > 1e-6 * abs(cpu["aux"]):
+            b.append(f"{what}: aux {aux_card} != CPU's {cpu['aux']}")
+        route_diff = _routes_differing(card["routes"], cpu["routes"])
+        if route_diff > ROUTE_DIFF_SHARE:
+            b.append(f"{what}: {route_diff} of the rows route differently")
+        greedy = float((card["logits"].cpu().argmax(-1)
+                        == cpu["logits"].argmax(-1)).float().mean())
+        n_moe = sum(k == "attn_moe" for k in T.group_def(cfg)) * T.n_groups(
+            cfg)
+        if card["launches"]["analog_mvm_split_experts"] != 3 * n_moe:
+            b.append(f"{what}: {card['launches']} expert launches, "
+                     f"want {3 * n_moe}")
+        rep.update({"what": what, "aux": cpu["aux"], "aux_card": aux_card,
+                    "free_running_routes_differing": route_diff,
+                    "free_running_greedy_agreement": greedy,
+                    "launches": {k: v for k, v in card["launches"].items()
+                                 if v}})
+        emit("family_check", rep)
+        results.append(rep)
+        bad += b
+        del params, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError("; ".join(bad[:12]))
+    return results
+
+
+def embeds_full_serving(name):
+    """Phases 31 (qwen2-vl-7b, M-RoPE) and 32 (musicgen-medium): the
+    published widths, whole (SERVED_LAYERS), the serving peak held below
+    PEAK_BUDGET_GIB, through ``make_serve_steps`` on
+    precomputed embeddings: a 4 x 12 prefill (distinct (t, h, w)
+    positions under M-RoPE) and 8 decode steps with their split launches
+    (per call 5 per layer, 4 without a gate, + the lm_head), ms per step
+    (host and device, idle share), prefill latency, peak memory."""
+    full = configs.get_arch(name)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+
+    def build(c):
+        params = T.lm_init(torch.Generator(device=DEV).manual_seed(SEED), c)
+        return api.compile(T.lm_module_spec(c, params), params, run)
+
+    depth = SERVED_LAYERS[name]
+    cfg = _cut(full, depth)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    model = build(cfg)
+    torch.cuda.synchronize()
+    t_build = time.monotonic() - t0
+    prefill, decode = SS.make_serve_steps(cfg, run)
+    batch = _family_batch(cfg, LM_SEQ, SEED + 4, DEV)
+    cache = T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN, dtype=torch.float32)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    ops.reset_launch_counts()
+    logits, cache = prefill(model.lower(), batch, cache)
+    pre_counts = ops.launch_counts()
+    frames = [logits]
+    for _ in range(LM_NEW_TOKENS):
+        step = torch.randn((LM_BATCH, 1, cfg.d_model), generator=g,
+                           device=DEV)
+        logits, cache = decode(model.lower(), step, cache)
+        frames.append(logits)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    # fused QKV, o, up, (gate,) down per layer, then the lm_head
+    per_call = (5 if cfg.act == "swiglu" else 4) * depth + 1
+    want = _launches(analog_mvm_split=per_call * (1 + LM_NEW_TOKENS))
+    if counts != want or pre_counts["analog_mvm_split"] != per_call:
+        raise AssertionError(f"{name} launches {counts} != {want}")
+    for x in frames:
+        if tuple(x.shape) != (LM_BATCH, cfg.vocab_size) or not bool(
+                torch.isfinite(x).all()):
+            raise AssertionError(f"{name}: logits {tuple(x.shape)} not "
+                                 "finite of shape (B, vocab)")
+    timing = _serve_timing(cfg, prefill, decode, model.lower(), batch,
+                           batch["embeds"][:, :1].contiguous())
+    report = {"arch": cfg.name, "published_layers": full.n_layers,
+              "layers": depth, "build_s": t_build,
+              "prefill": [LM_BATCH, LM_SEQ],
+              "decode_steps": LM_NEW_TOKENS, "launches": counts,
+              "launches_per_call": per_call, **timing,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "greedy_codes": [x.argmax(-1).tolist() for x in frames]}
+    if report["peak_memory_gib"] > PEAK_BUDGET_GIB:
+        raise AssertionError(f"{name} serving peak "
+                             f"{report['peak_memory_gib']} GiB above the "
+                             f"{PEAK_BUDGET_GIB} GiB budget")
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def family_phases(counts):
+    """Phases 28-32: the expert axis, qwen3-moe served at full width, the
+    four families card vs CPU, qwen2-vl and musicgen served at full
+    width; returns the expert axis's timing rows."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks, rows = check_expert_axis()
+    emit("expert_axis_checks", {
+        "n": len(checks), "max_abs_err": MAX_ERR["analog_mvm_split_experts"],
+        "bit_exact": True, "rows": rows})
+    report = moe_full_serving()
+    emit("moe_full_serving", report)
+    for name, n in report["launches"].items():
+        counts[name] += n
+    emit("family_card_vs_cpu", {"n": len(family_card_vs_cpu())})
+    for name in (VL_ARCH, AUDIO_ARCH):
+        report = embeds_full_serving(name)
+        emit(f"{name}_full_serving", report)
+        for kname, n in report["launches"].items():
+            counts[kname] += n
+    return rows
+
+
+def slice11_only() -> None:
+    """``python3 chip_smoke.py --slice11``: the build and phases 28-32
+    alone (a quick check of the MoE / M-RoPE / audio slice; the run the
+    contract reads takes no arguments)."""
+    print(card_line(), flush=True)
+    emit("build", {"seconds_per_kernel": _build.build()})
+    counts = {name: 0 for name in TPU_KERNELS}
+    family_phases(counts)
+    emit("launches", counts)
+    emit("wall_s", WALL)
+
+
 def slice10_only() -> None:
     """``python3 chip_smoke.py --slice10``: the build and phases 22-27
     alone (a quick check of the LM training slice; the run the contract
@@ -3904,6 +4432,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     emit("serve_smoke", serve_smoke_gate())
     lm_training_phases(counts)
+    expert_rows = family_phases(counts)
 
     emit("train_step_checks", check_train_steps())
     torch.cuda.reset_peak_memory_stats()
@@ -3914,6 +4443,7 @@ def main() -> None:
     emit("profiler_traces", TRACES)
     obs.trace.end(tr)
     emit("telemetry", obs_line(tr))
+    emit("wall_s", WALL)
 
     kernels = []
     big = max(BATCHES)
@@ -3928,6 +4458,19 @@ def main() -> None:
                 **{k: per_step(split_rows, "decode", k, cfg.n_layers)
                    for k in ("ms", "plain_ms", "bound_ms")},
                 "bound_by": max(dec, key=lambda r: r["bound_ms"])["bound_by"],
+                "library_ms": None,
+            })
+            continue
+        if name == "analog_mvm_split_experts":
+            # one qwen3 MoE layer at decode: its up, gate and down launches
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": MAX_ERR[name], "per": "MoE layer (3 launches)",
+                **{k: sum(r[k] for r in expert_rows)
+                   for k in ("ms", "plain_ms", "bound_ms")},
+                "bound_by": max(expert_rows,
+                                key=lambda r: r["bound_ms"])["bound_by"],
                 "library_ms": None,
             })
             continue
@@ -3965,8 +4508,10 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--slice10"]:
         slice10_only()
+    elif sys.argv[1:] == ["--slice11"]:
+        slice11_only()
     elif sys.argv[1:]:
-        _fail(f"unknown arguments {sys.argv[1:]}; run with none, or "
-              "--slice10")
+        _fail(f"unknown arguments {sys.argv[1:]}; run with none, "
+              "--slice10 or --slice11")
     else:
         main()

@@ -9,7 +9,10 @@
   every declared fusion group into a
   :class:`~repro_torch.exec.plan.GroupPlan` under the members' parent
   node (``"_groups"``): ONE analog dispatch where the per-layer path
-  issued N.
+  issued N.  An MoE node's raw expert weights lower into ``expert_stack``
+  groups, a scan-stacked ``[S, E, K, N]`` weight into a
+  :class:`~repro_torch.exec.plan.PlanStack` of them, one per scan member
+  (the reference leaves scan-stacked experts to the per-call path).
 
 - block specs (:func:`block_spec`, :func:`compile_block`) lower one
   attention+MLP transformer block into a 4-layer plan that replays as ONE
@@ -59,15 +62,17 @@ from repro_torch.api.program import CompiledModel
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.device import DeviceLike, resolve_device, to_device
 from repro_torch.exec.lower import (layer_with_tables, lower_block,
-                                    lower_fused, lower_layer, lower_stack,
-                                    lowering_count, stack_calibs,
-                                    stacked_calib)
-from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, GroupPlan, PlanStack
+                                    lower_expert_stack, lower_fused,
+                                    lower_layer, lower_stack, lowering_count,
+                                    stack_calibs, stacked_calib)
+from repro_torch.exec.plan import (GROUP_COLUMN_CONCAT, GROUP_EXPERT_STACK,
+                                   GroupPlan, PlanStack)
 from repro_torch.obs import trace as _trace
 
 _PLAN = "_plan"
 _GROUPS = "_groups"
 _QKV_MEMBERS = ("wq", "wk", "wv")
+_EXPERT_MEMBERS = ("up", "gate", "down")
 # physical devices of one transformer block, in schedule order: the
 # member-name key space of a block's bake-time calibration snapshot
 _BLOCK_MEMBERS = ("wq", "wk", "wv", "wo", "up", "gate", "down")
@@ -129,23 +134,43 @@ def _static_fusable(calibs) -> bool:
                                       for c in calibs)
 
 
+def _expert_stacks(node) -> list:
+    """The names of an MoE node's raw expert weights (``up`` / ``gate`` /
+    ``down`` tensors of rank 3, ``[E, K, N]``, or 4 when scan-stacked,
+    beside a ``router``), else []."""
+    if not isinstance(node, dict) or "router" not in node:
+        return []
+    return [m for m in _EXPERT_MEMBERS
+            if getattr(node.get(m), "ndim", 0) in (3, 4)]
+
+
 def _derive_groups(params) -> Tuple[GroupSpec, ...]:
-    """The fusion-group declaration of a bare params tree: one
-    ``column_concat`` group per attention node whose wq/wk/wv share the
-    input dim and the stack rank (the walk :func:`tree_spec` records)."""
+    """The fusion-group declaration of a bare params tree (the walk
+    :func:`tree_spec` records):
+
+    - one ``column_concat`` group per attention node whose wq/wk/wv share
+      the input dim and the stack rank;
+    - one ``expert_stack`` group per raw expert weight of an MoE node.
+      The reference derives none (its scan-stacked LM trees re-derive the
+      experts' codes in every call); the port lowers them once, so a
+      served MoE model re-derives nothing per call, with the same values.
+    """
     groups = []
 
     def walk(node, path):
         if _is_analog_layer(node) or not isinstance(node, dict):
             return
+        prefix = ".".join(path + [""]) if path else ""
         ms = [node.get(m) for m in _QKV_MEMBERS]
         if (all(_is_analog_layer(m) for m in ms)
                 and len({(m["w"].ndim, m["w"].shape[-2]) for m in ms}) == 1):
-            prefix = ".".join(path + [""]) if path else ""
             groups.append(GroupSpec(
                 name=prefix + "qkv", kind=GROUP_COLUMN_CONCAT,
                 members=tuple(prefix + m for m in _QKV_MEMBERS),
             ))
+        for m in _expert_stacks(node):
+            groups.append(GroupSpec(name=prefix + m, kind=GROUP_EXPERT_STACK,
+                                    members=(prefix + m,)))
         for k, v in node.items():
             walk(v, path + [k])
 
@@ -164,6 +189,18 @@ def _lower_group(g: GroupSpec, locals_: Sequence[str], node: dict,
     member ``i`` of per-stack-member records when every member of the
     group has one (else from none)."""
     members = [node[m] for m in locals_]
+    if g.kind == GROUP_EXPERT_STACK:
+        # an expert stack has no measured device: always the plain bake
+        w = members[0]
+
+        def stack(arr):
+            return GroupPlan(kind=g.kind, fused=lower_expert_stack(arr, acfg),
+                             member_names=tuple(locals_),
+                             member_ns=(int(arr.shape[-1]),))
+
+        if w.ndim == 4:
+            return PlanStack(stack(w[i]) for i in range(w.shape[0]))
+        return stack(w)
     calibs = _member_calibs(calibration, parent, locals_)
     if acfg.act_calib != "dynamic" and not _static_fusable(calibs):
         return None
@@ -227,8 +264,8 @@ def lower_tree(params, run_cfg, *,
             if gp is not None:
                 gplans[g.local_name] = gp
                 fused.update(locals_)
-        out = {k: dict(v) if k in fused else walk(v, path + [k])
-               for k, v in node.items()}
+        out = {k: (dict(v) if isinstance(v, dict) else v) if k in fused
+               else walk(v, path + [k]) for k, v in node.items()}
         if gplans:
             out[_GROUPS] = gplans
         return out
@@ -264,6 +301,15 @@ def tree_spec(name: str, params, *, apply_fn=None) -> ModuleSpec:
             group=member_group.get(path),
             stacked=int(w.shape[0]) if w.ndim == 3 else 0,
         ))
+    for g in groups:
+        if g.kind == GROUP_EXPERT_STACK:
+            w = params
+            for key in g.members[0].split("."):
+                w = w[key]
+            layers.append(LayerSpec(
+                name=g.members[0], in_dim=int(w.shape[-2]),
+                out_dim=int(w.shape[-1]), group=g.name,
+                stacked=int(w.shape[-3])))
     return ModuleSpec(name=name, layers=tuple(layers), kind=TREE,
                       apply_fn=apply_fn, groups=groups)
 

@@ -18,16 +18,18 @@
 
 Fusion groups (tree specs): a :class:`GroupSpec` names the layers that
 replay as ONE analog dispatch.  The port runs the ``"column_concat"`` kind
-(same input, concatenated output columns - the attention QKV); the
-reference's ``"batch_concat"`` and ``"expert_stack"`` kinds are not
-ported yet.
+(same input, concatenated output columns - the attention QKV) and the
+``"expert_stack"`` kind (one stacked ``[E, K, N]`` MoE expert weight,
+lowered once into a per-expert plan, every expert in one dispatch); the
+reference's ``"batch_concat"`` kind (RWKV) is not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional, Tuple
 
-from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, GROUP_KINDS
+from repro_torch.exec.plan import (GROUP_COLUMN_CONCAT, GROUP_EXPERT_STACK,
+                                   GROUP_KINDS)
 
 STACK = "stack"
 TREE = "tree"
@@ -68,8 +70,9 @@ class GroupSpec:
     name:    group name; its dotted prefix locates the group
              ("layers.l0.attn.qkv"), the last segment is its local name at
              the parent params node.
-    kind:    "column_concat".
-    members: ordered member layer names (declared layers, all siblings).
+    kind:    "column_concat" | "expert_stack".
+    members: ordered member layer names (declared layers, all siblings;
+             an expert_stack group has one, a stacked expert weight).
     """
 
     name: str
@@ -127,6 +130,18 @@ def _validate_group(g: GroupSpec, by_name: dict, spec_name: str) -> None:
             f"{where}: fused members hand off dequantized floats and "
             "cannot carry a code-domain epilogue"
         )
+    if g.kind == GROUP_EXPERT_STACK:
+        if len(g.members) != 1:
+            raise ValueError(
+                f"{where}: declare one expert_stack group per stacked "
+                f"weight array; got members {g.members}"
+            )
+        if ls[0].stacked <= 0:
+            raise ValueError(
+                f"{where}: expert_stack member {ls[0].name!r} must be a "
+                f"stacked [E, K, N] weight (LayerSpec.stacked > 0)"
+            )
+        return
     for attr in ("signed_input", "stacked", "in_dim"):
         if len({getattr(l, attr) for l in ls}) != 1:
             raise ValueError(

@@ -1,6 +1,7 @@
 """Config registry: ``get_arch(name)`` / ``get_smoke(name)`` for the
-architectures the port runs (the dense transformers).  The other names of
-the reference's registry raise a "not ported yet" error."""
+architectures the port runs (the dense transformers, the MoE, vision and
+audio families).  The other names of the reference's registry (RWKV and
+the SSM hybrid) raise a "not ported yet" error."""
 from __future__ import annotations
 
 import importlib
@@ -14,13 +15,14 @@ _MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3p8b",
     "glm4-9b": "glm4_9b",
     "minitron-4b": "minitron_4b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b",
+    "musicgen-medium": "musicgen_medium",
 }
-# the reference's other architectures: their families (vlm, rwkv, moe,
-# hybrid ssm, audio) are not ported yet
-_NOT_PORTED = (
-    "qwen2-vl-7b", "rwkv6-7b", "llama4-maverick-400b-a17b",
-    "qwen3-moe-30b-a3b", "zamba2-2.7b", "musicgen-medium",
-)
+# the reference's other architectures: their families (rwkv, hybrid ssm)
+# are not ported yet
+_NOT_PORTED = ("rwkv6-7b", "zamba2-2.7b")
 
 ARCH_NAMES = list(_MODULES)
 
@@ -28,8 +30,8 @@ ARCH_NAMES = list(_MODULES)
 def _module(name: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"arch {name!r} is not ported yet: repro_torch runs the dense "
-            f"transformers ({', '.join(ARCH_NAMES)}); see ROADMAP.md"
+            f"arch {name!r} is not ported yet: repro_torch runs "
+            f"{', '.join(ARCH_NAMES)}; see ROADMAP.md"
         )
     if name not in _MODULES:
         raise KeyError(

@@ -70,10 +70,11 @@ class ArchConfig:
 class RunConfig:
     """Execution knobs orthogonal to the architecture, with the
     reference's defaults: the analog backend, AdamW's, flash attention's
-    blocks, the seed and int8 gradient compression.  The reference's
-    ``optimizer`` name (AdamW is the only one), its mesh knobs (``fsdp``,
-    ``seq_sp``, ``moe_dispatch``, ``attn_cp``) and ``capacity_factor``
-    come with the code that reads them (ROADMAP)."""
+    blocks, the seed, int8 gradient compression and the MoE dispatch's
+    ``capacity_factor``.  The reference's ``optimizer`` name (AdamW is
+    the only one) and its mesh knobs (``fsdp``, ``seq_sp``,
+    ``moe_dispatch``, ``attn_cp``) come with the code that reads them
+    (ROADMAP)."""
 
     analog: AnalogConfig = dataclasses.field(
         default_factory=lambda: AnalogConfig(
@@ -90,3 +91,4 @@ class RunConfig:
     activation_dtype: str = "bfloat16"
     seed: int = 0
     grad_compression: bool = False
+    capacity_factor: float = 1.25

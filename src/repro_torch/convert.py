@@ -6,8 +6,11 @@ leaf for leaf onto the port's: the same nested dicts (``w``, ``w_scale``,
 ``a_scale``, ``gain``, ``b`` and the ``fpn`` fixed-pattern tables) holding
 float32 tensors; an LM tree carries its scan-stacked ``layers`` (a
 leading ``[n_groups]`` axis on every leaf), ``embed`` and the norms the
-same way; a training state (:func:`state_from_numpy`) adds the AdamW
-moments and the error-feedback tree.  The port cannot reproduce
+same way (an MoE layer's ``router.w``, its raw ``up`` / ``gate`` /
+``down`` expert stacks ``[E, K, N]`` - ``[S, E, K, N]`` scan-stacked - and
+its ``shared`` expert MLP included); a training state
+(:func:`state_from_numpy`) adds the AdamW moments and the error-feedback
+tree.  The port cannot reproduce
 ``jax.random`` draws, so this is how a parity check hands both packages
 the same weights.
 """

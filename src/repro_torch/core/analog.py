@@ -239,10 +239,17 @@ def _statistical_gain(w: torch.Tensor, chunk_rows: int,
     """Analog gain so that ``headroom`` sigmas of the typical chunk partial
     sum stay inside the 8-bit ADC range (per-layer calibration)."""
     w_scale = quant.calibrate_weight_scale(w)
-    w_code_rms = torch.sqrt(torch.mean((w / w_scale) ** 2) + 1e-6)
+    # the mean as the reference's XLA program takes it: the sum times the
+    # fp32 reciprocal of the count (torch.mean divides by the count)
+    sq = (w / w_scale) ** 2
+    inv = torch.tensor(1.0 / sq.numel(), dtype=torch.float32, device=w.device)
+    w_code_rms = torch.sqrt(torch.sum(sq) * inv + 1e-6)
     # fp32 throughout, in the reference's operation order
     root = torch.sqrt(torch.tensor(float(chunk_rows), dtype=torch.float32,
                                    device=w.device))
     partial_rms = root * act_rms * w_code_rms
-    return torch.clamp_max(
-        float(BSS2.adc_max) / (headroom * partial_rms + 1e-6), 1.0)
+    # a tensor numerator: PyTorch divides a Python number by a tensor as
+    # a product with the tensor's reciprocal (not correctly rounded)
+    top = torch.tensor(float(BSS2.adc_max), dtype=torch.float32,
+                       device=w.device)
+    return torch.clamp_max(top / (headroom * partial_rms + 1e-6), 1.0)

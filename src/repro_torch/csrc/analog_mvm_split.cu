@@ -59,16 +59,22 @@ split_kernel(const Params p) {
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.z * 8 * MT;
+  // grid z: (expert, row group), the groups of one expert adjacent
+  const int groups = (p.m + 8 * MT - 1) / (8 * MT);
+  const int expert = blockIdx.z / groups, group = blockIdx.z % groups;
+  const int row0 = group * 8 * MT;
   const int wcol = blockIdx.x * kBN + warp * 32;
   const int n_chunks = p.k / p.chunk_rows;
   const int n_tot = p.faithful ? 2 : 4;
+  const long long mn = static_cast<long long>(p.m) * p.n;
   float* s_tot =
-      split_tile<FORM, MT>(p, blockIdx.x, blockIdx.y, blockIdx.z, smem);
+      split_tile<FORM, MT>(p, blockIdx.x, blockIdx.y, group, smem, expert);
 
   if (p.n_splits > 1) {  // faithful split-K: the last CTA of the tile ends it
-    const long long mn = static_cast<long long>(p.m) * p.n;
-    float* part = p.part + blockIdx.y * mn;
+    // the expert's slots: part [E, n_splits, m, n]
+    float* const slots = p.part + static_cast<long long>(expert) *
+                                      p.n_splits * mn;
+    float* part = slots + blockIdx.y * mn;
     for (int i = 0; i < MT; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -96,7 +102,7 @@ split_kernel(const Params p) {
         for (int h = 0; h < 2; ++h) {
           const int r = row0 + 8 * i + g, c = wcol + 8 * t + 4 * h + j;
           if (r >= p.m || c >= p.n) continue;
-          const float* src = p.part + static_cast<long long>(r) * p.n + c;
+          const float* src = slots + static_cast<long long>(r) * p.n + c;
           float sum = 0.f;
           for (int sp = 0; sp < p.n_splits; ++sp)
             sum = __fadd_rn(sum, __ldcg(src + sp * mn));
@@ -107,6 +113,9 @@ split_kernel(const Params p) {
   const float lo = -128.f * n_chunks;
   const float hi = 127.f * n_chunks;
   const float div = static_cast<float>(1 << (p.shift > 0 ? p.shift : 0));
+  const float* const post =
+      p.post_gain == nullptr ? nullptr : p.post_gain + expert * p.n_stride;
+  float* const out = p.out + expert * mn;
   for (int i = 0; i < MT; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
@@ -115,15 +124,22 @@ split_kernel(const Params p) {
         const int r = row0 + 8 * i + g, c = wcol + 8 * t + 4 * h + j;
         if (r >= p.m || c >= p.n) continue;
         const int e = tot_index(i, j, h, n_tot);
-        float y = p.faithful
-                      ? s_tot[e * kThreads]
-                      : __fsub_rn(adc_clip(s_tot[e * kThreads], lo, hi),
-                                  adc_clip(s_tot[(e + 2) * kThreads], lo, hi));
+        float y;
+        if (p.faithful) {
+          y = s_tot[e * kThreads];
+        } else {
+          float tp = s_tot[e * kThreads], tn = s_tot[(e + 2) * kThreads];
+          if (post != nullptr) {
+            tp = __fmul_rn(tp, post[c]);
+            tn = __fmul_rn(tn, post[c]);
+          }
+          y = __fsub_rn(adc_clip(tp, lo, hi), adc_clip(tn, lo, hi));
+        }
         if (p.shift >= 0) {
           y = floorf(__fdiv_rn(fmaxf(y, 0.f), div));
           y = fminf(fmaxf(y, 0.f), 31.f);
         }
-        p.out[static_cast<long long>(r) * p.n + c] = y;
+        out[static_cast<long long>(r) * p.n + c] = y;
       }
 }
 
@@ -184,6 +200,15 @@ int occupancy_mt(int mt, int faithful, int* blocks) {
 
 }  // namespace
 
+// experts > 1 (the expert axis, forms 0 and 1): one launch runs
+//         `experts` stacked matrices, ap / an [E, m, k], w [E, k, n],
+//         gain / post_gain [E, n], out [E, m, n], part [E, n_splits, m,
+//         n], counters [E x row groups x column tiles]; off [k /
+//         chunk_rows, n] is shared, col_gain, row_gain and chunk_gain
+//         absent.  The grid's z walks (expert, row group).
+// post_gain (fast mode only, else null): [E, n] gain applied to each
+//         pass's total before its rounding, with the chunks run at the
+//         gain passed as `gain` (1.0 for the expert products).
 // form 0: w is int8 codes [k, n] with optional col_gain [n] and row_gain
 //         [n_blocks, k] (block b covers columns [block_ends[b-1],
 //         block_ends[b]), each end a multiple of 4); form 2: the same
@@ -191,9 +216,9 @@ int occupancy_mt(int mt, int faithful, int* blocks) {
 //         column) gain table), null in every other form; form 1: w is
 //         fp32.
 // mt: m16 tiles per CTA (8 activation rows each: 1, 2, 3 or 6); the grid is
-// (ceil(n / 128), n_splits, ceil(m / (8 mt))).  n_splits > 1 (faithful
-// only) needs part [n_splits, m, n] and zeroed counters [row groups x
-// column tiles].  shift < 0: no epilogue.  vec: every operand row starts
+// (ceil(n / 128), n_splits, experts x ceil(m / (8 mt))).  n_splits > 1
+// (faithful only) needs part [E, n_splits, m, n] and zeroed counters
+// [E x row groups x column tiles].  shift < 0: no epilogue.  vec: every operand row starts
 // on a 16-byte boundary (cp.async staging).
 extern "C" int analog_mvm_split_launch(
     const float* ap, const float* an, const void* w, int form,
@@ -201,12 +226,16 @@ extern "C" int analog_mvm_split_launch(
     int n_blocks, const int* block_ends, const float* gain, const float* off, float* out,
     float* part, int* counters, int m, int k, int n, int chunk_rows,
     int chunks_per_cta, int n_splits, int mt, int faithful, int shift,
-    int vec, void* stream) {
-  if (m == 0 || n == 0) return 0;
+    int vec, int experts, const float* post_gain, void* stream) {
+  if (m == 0 || n == 0 || experts == 0) return 0;
   if (chunk_rows <= 0 || chunk_rows % kBK != 0 || k % chunk_rows != 0 ||
       k == 0 || n_blocks < 1 || n_blocks > kMaxBlocks ||
       chunks_per_cta < 1 || (n_splits > 1 && (!faithful || !part || !counters)) ||
-      form < 0 || form > 2 || (form == 2) != (chunk_gain != nullptr))
+      form < 0 || form > 2 || (form == 2) != (chunk_gain != nullptr) ||
+      experts < 1 ||
+      (experts > 1 && (col_gain != nullptr || row_gain != nullptr ||
+                       chunk_gain != nullptr)) ||
+      (post_gain != nullptr && faithful))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_chunks = k / chunk_rows;
   if ((n_chunks + chunks_per_cta - 1) / chunks_per_cta != n_splits)
@@ -216,7 +245,14 @@ extern "C" int analog_mvm_split_launch(
            faithful, shift, vec, n, 1};
   for (int b = 0; b < kMaxBlocks; ++b)
     p.block_end[b] = b < n_blocks ? block_ends[b] : n;
-  const long long groups = (m + 8LL * mt - 1) / (8LL * mt);
+  p.experts = experts;
+  p.post_gain = post_gain;
+  if (experts > 1) {
+    p.x_stride = static_cast<long long>(m) * k;
+    p.w_stride = static_cast<long long>(k) * n;
+    p.n_stride = n;
+  }
+  const long long groups = (m + 8LL * mt - 1) / (8LL * mt) * experts;
   if (groups > 65535 || n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n + kBN - 1) / kBN, n_splits, static_cast<unsigned>(groups));

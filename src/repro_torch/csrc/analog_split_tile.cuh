@@ -79,6 +79,17 @@ struct Params {
   int faithful, shift, vec;
   int off_stride;  // floats per row of off
   int neg;         // 0: the negative pass is absent (an is not read out)
+  // The expert axis (analog_mvm_split.cu only): `experts` stacked
+  // matrices in one launch, ap / an [E, m, k], w [E, k, n], gain [E, n],
+  // out [E, m, n]; off is shared, col_gain absent.  Element strides per
+  // expert (0 with one expert).
+  int experts = 1;
+  long long x_stride = 0;  // ap, an: m * k
+  long long w_stride = 0;  // w: k * n weights
+  long long n_stride = 0;  // gain, post_gain: n
+  // fast mode: [E, n] gain applied to each pass's total before its single
+  // rounding (the expert products, whose chunks run at gain 1), or null
+  const float* post_gain = nullptr;
 };
 
 // pipeline depth: 3 stages for the 48-row tile (its activations are the
@@ -173,7 +184,8 @@ __device__ __forceinline__ int tot_index(int i, int j, int h, int n_tot) {
 template <int FORM, int MT>
 __device__ __forceinline__ float* split_tile(const Params& p, int tile,
                                              int split, int group,
-                                             unsigned char* smem) {
+                                             unsigned char* smem,
+                                             int expert = 0) {
   constexpr int kStages = n_stages(MT);
   constexpr bool kCodes = reads_codes(FORM);
   constexpr bool kCG = FORM == 2;  // a chunk_gain table to multiply in
@@ -202,6 +214,13 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
   const int k_begin = c_begin * p.chunk_rows;
   const int wcol = col0 + warp * 32;  // the warp's first column
   const int n_tot = p.faithful ? 2 : 4;
+  // the expert's operands (row_gain, chunk_gain and off are shared)
+  const long long ex = expert;
+  const float* const ap = p.ap + ex * p.x_stride;
+  const float* const an = p.an + ex * p.x_stride;
+  const unsigned char* const wsrc =
+      static_cast<const unsigned char*>(p.w) + ex * p.w_stride * kE;
+  const float* const gain = p.gain + ex * p.n_stride;
 
   float* s_gain = reinterpret_cast<float*>(smem + kStages * kStage);
   float* s_off = s_gain + kBN;  // [kStages][kBN]
@@ -209,7 +228,7 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
   float* s_tot = reinterpret_cast<float*>(smem + tot_offset(FORM, MT)) + tid;
   __syncthreads();  // a previous item is done with the shared memory
   for (int e = tid; e < kBN; e += kThreads)
-    s_gain[e] = col0 + e < p.n ? p.gain[col0 + e] : 0.f;
+    s_gain[e] = col0 + e < p.n ? gain[col0 + e] : 0.f;
   for (int e = 0; e < MT * 4 * n_tot; ++e) s_tot[e * kThreads] = 0.f;
   // the B fragment columns of this lane: 4g + j
   const int bcol = wcol + 4 * g;
@@ -247,7 +266,7 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
         kCG ? p.chunk_gain + static_cast<long long>(chunk) * p.n : nullptr;
     if (p.vec) {
       // n * kE is a multiple of 16: a piece is wholly in or out of range
-      const unsigned char* w = static_cast<const unsigned char*>(p.w);
+      const unsigned char* w = wsrc;
 #pragma unroll
       for (int q = 0; q < kWPer; ++q) {
         const int e = tid + q * kThreads;
@@ -263,7 +282,7 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
         const int e = tid + q * kThreads;
         const int pr = e / (kBK / 4), cc = (e % (kBK / 4)) * 4;
         const int r = row0 + pr % kRows;
-        const float* src = pr < kRows ? p.ap : p.an;
+        const float* src = pr < kRows ? ap : an;
         cp_async16(act + pr * kActStride + cc,
                    r < p.m ? src + static_cast<long long>(r) * p.k + kr + cc
                            : p.ap,
@@ -292,17 +311,16 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
       const long long idx = static_cast<long long>(kr + r) * p.n + col0 + c;
       const bool in = col0 + c < p.n;
       if constexpr (kCodes) {
-        base[r * kWRow + c] =
-            in ? static_cast<const unsigned char*>(p.w)[idx] : 0;
+        base[r * kWRow + c] = in ? wsrc[idx] : 0;
       } else {
         reinterpret_cast<float*>(base + r * kWRow)[c] =
-            in ? static_cast<const float*>(p.w)[idx] : 0.f;
+            in ? reinterpret_cast<const float*>(wsrc)[idx] : 0.f;
       }
     }
     for (int e = tid; e < 2 * kRows * kBK; e += kThreads) {
       const int pr = e / kBK, c = e % kBK;
       const int r = row0 + pr % kRows;
-      const float* src = pr < kRows ? p.ap : p.an;
+      const float* src = pr < kRows ? ap : an;
       act[pr * kActStride + c] =
           r < p.m ? src[static_cast<long long>(r) * p.k + kr + c] : 0.f;
     }

@@ -5,7 +5,8 @@ The compile step of the compile-once/run-many split: everything that
 depends only on the master weights and the frozen calibration state is
 computed here, once - 6-bit weight quantization, the gain tables, chunk
 padding of the weights, the chunk-offset table, the column-concatenated
-plan of a fusion group (:func:`lower_fused`), the fused attention+MLP
+plan of a fusion group (:func:`lower_fused`), the per-expert plan of an
+MoE expert stack (:func:`lower_expert_stack`), the fused attention+MLP
 block (:func:`lower_block`) and, for eligible chains, the whole-plan
 megakernel packing.  Per-call quantities (the dynamic
 activation scale, the readout noise) stay in :mod:`repro_torch.exec.run`.
@@ -332,6 +333,56 @@ def lower_fused(
         n=sum(lp.n for lp in plans),
         chunk_rows=p0.chunk_rows,
         signed_input=p0.signed_input,
+    )
+
+
+def lower_expert_stack(w: torch.Tensor, cfg: AnalogConfig) -> LayerPlan:
+    """Lower a raw stacked expert weight ``[E, K, N]`` (an MoE ``up`` /
+    ``gate`` / ``down`` matrix) ONCE into a per-expert plan whose every
+    leaf carries the leading expert axis: the 6-bit codes ``[E, K_pad,
+    N]`` (int8, rows zero-padded to whole chunks: the split kernel's code
+    operand), the per-expert column scales ``w_scale [E, 1, N]`` from
+    ``max|w|`` over K plus 1e-9, and the statistical gain ``[E]`` of each
+    expert (the reference vmaps ``_statistical_gain`` over the experts).
+    There is no fixed pattern (the reference
+    omits expert fixed-pattern noise), so each expert's effective weights
+    are its integer codes and the gain applies after the sum; activation
+    scaling stays dynamic at run time (``a_scale`` ones).  The same
+    formulas as the per-call path
+    (:func:`repro_torch.models.moe._analog_expert_matmul`), so
+    :func:`repro_torch.exec.run.run_expert_stack` replays it bit-exactly.
+    Counts one lowering."""
+    from repro_torch.core.analog import _statistical_gain
+
+    global _LOWERINGS
+    _LOWERINGS += 1
+    if w.ndim != 3:
+        raise ValueError(f"expert stacks are [E, K, N] weight arrays, got "
+                         f"shape {tuple(w.shape)}")
+    w = w.to(torch.float32)
+    e, k, n = w.shape
+    w_scale = quant.weight_scale_from_max(
+        w.detach().abs().amax(dim=1, keepdim=True) + 1e-9)
+    n_chunks = -(-k // cfg.chunk_rows)
+    codes = F.pad(quant.quantize_weight(w, w_scale),
+                  (0, 0, 0, n_chunks * cfg.chunk_rows - k))
+    store = WeightStore(  # verify: allow-packed-weights
+        codes=codes.to(torch.int8),
+        w_scale=w_scale,
+        gain=torch.stack([_statistical_gain(w[i], cfg.chunk_rows)
+                          for i in range(e)]),
+        chunk_rows=cfg.chunk_rows,
+    )
+    return LayerPlan(
+        store=store,
+        a_scale=torch.ones((e,), dtype=torch.float32, device=w.device),
+        chunk_offset=None,
+        bias=None,
+        k=k,
+        n=n,
+        chunk_rows=cfg.chunk_rows,
+        signed_input="none",
+        shift=default_shift(n_chunks),
     )
 
 

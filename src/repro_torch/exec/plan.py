@@ -13,7 +13,8 @@ schedule.  The plans are frozen dataclasses holding tensors:
   them once, when the store is built.
 - :class:`LayerPlan` - one lowered analog layer.
 - :class:`GroupPlan` - one lowered fusion group (the attention QKV
-  ``column_concat`` group: one dispatch over concatenated columns).
+  ``column_concat`` group: one dispatch over concatenated columns; an MoE
+  ``expert_stack``: one dispatch over every expert of a stacked weight).
 - :class:`PlanStack` - the per-member plans of a scan-stacked layer.
 - :class:`MegakernelPack` - the kernel-ready packing of a whole chain or
   transformer block.
@@ -45,11 +46,14 @@ INPUT_FLOAT = "float"
 
 # Fusion-group kinds.  "column_concat": layers with the same input and
 # concatenated output columns (attention QKV) run as one [K, sum(N_i)]
-# pass.  The reference's "batch_concat" (RWKV) and "expert_stack" (MoE)
-# groups load from a plan store as data (a leading member axis on every
-# leaf); they do not run until those families are ported.
+# pass.  "expert_stack": one stacked [E, K, N] MoE expert weight, lowered
+# once into a per-expert plan (a leading expert axis on every leaf) that
+# runs as ONE dispatch over all experts.  The reference's "batch_concat"
+# (RWKV) groups load from a plan store as data (a leading member axis on
+# every leaf); they do not run until that family is ported.
 GROUP_COLUMN_CONCAT = "column_concat"
-GROUP_KINDS = (GROUP_COLUMN_CONCAT,)
+GROUP_EXPERT_STACK = "expert_stack"
+GROUP_KINDS = (GROUP_COLUMN_CONCAT, GROUP_EXPERT_STACK)
 
 
 def default_shift(n_chunks: int) -> int:
@@ -122,13 +126,18 @@ class WeightStore:
     with a leading member axis (a batch_concat or expert_stack group)
     derives its ``w_eff`` the same way.
 
-    Derived once, at construction, and kept beside the tables (an eager
-    replay would otherwise rebuild them on every call; the reference's
-    jit folds that work into its compiled program):
+    Derived once and kept beside the tables (an eager replay would
+    otherwise rebuild them on every call; the reference's jit folds that
+    work into its compiled program):
 
       w_eff:      [K_pad, N] fp32 effective weights, a differentiable view
-                  of the codes and the gain tables.
-      gain_row:   [N] the gain broadcast over the columns, contiguous.
+                  of the codes and the gain tables; derived at
+                  construction, except for int8 codes without any gain
+                  table (an expert stack's store, whose kernel reads the
+                  codes): there ``codes`` as fp32, derived at first read,
+                  so a store served on the card holds no fp32 copy.
+      gain_row:   [N] the gain broadcast over the columns, contiguous
+                  (an expert stack's [E, N], each expert's gain).
     """
 
     codes: torch.Tensor
@@ -140,12 +149,31 @@ class WeightStore:
     gain_map: Optional[torch.Tensor] = None
     chunk_rows: int = BSS2.signed_rows
     col_blocks: Optional[Tuple[int, ...]] = None
-    w_eff: torch.Tensor = dataclasses.field(init=False, repr=False,
-                                            compare=False)
     gain_row: torch.Tensor = dataclasses.field(init=False, repr=False,
                                                compare=False)
 
     def __post_init__(self):
+        gain = self.gain
+        if self.codes.ndim == 2:
+            gain = torch.broadcast_to(gain, (self.codes.shape[-1],))
+        elif self.codes.ndim == 3:  # an expert stack: [E] -> [E, N]
+            gain = torch.broadcast_to(gain.reshape(gain.shape[0], 1),
+                                      (gain.shape[0], self.codes.shape[-1]))
+        object.__setattr__(self, "gain_row", gain.contiguous())
+        if not (self.codes.dtype == torch.int8 and all(
+                t is None for t in (self.col_gain, self.row_gain,
+                                    self.chunk_gain, self.gain_map))):
+            object.__setattr__(self, "_w_eff", self._derive_w_eff())
+
+    @property
+    def w_eff(self) -> torch.Tensor:
+        w = self.__dict__.get("_w_eff")
+        if w is None:
+            w = self._derive_w_eff()
+            object.__setattr__(self, "_w_eff", w)
+        return w
+
+    def _derive_w_eff(self) -> torch.Tensor:
         w = self.codes.to(torch.float32)
         col, row = self.col_gain, self.row_gain
         if (col is not None and row is not None and self.col_blocks is None
@@ -168,11 +196,7 @@ class WeightStore:
                                             self.chunk_rows, dim=-2)
         if self.gain_map is not None:
             w = w * self.gain_map
-        object.__setattr__(self, "w_eff", w)
-        gain = self.gain
-        if self.codes.ndim == 2:
-            gain = torch.broadcast_to(gain, (self.codes.shape[-1],))
-        object.__setattr__(self, "gain_row", gain.contiguous())
+        return w
 
     @property
     def code_operand(self) -> bool:
@@ -260,7 +284,11 @@ class GroupPlan:
       kind:         one of :data:`GROUP_KINDS`.
       fused:        a :class:`LayerPlan` over the concatenated output
                     columns ``[K_pad, sum(N_i)]``
-                    (:func:`repro_torch.exec.lower.lower_fused`).
+                    (:func:`repro_torch.exec.lower.lower_fused`), or an
+                    expert stack's per-expert plan, every leaf with a
+                    leading expert axis: codes ``[E, K_pad, N]``,
+                    ``w_scale [E, 1, N]``, ``gain [E]``
+                    (:func:`repro_torch.exec.lower.lower_expert_stack`).
       member_names: the members' local names in the parent params node,
                     declaration order (e.g. ``("wq", "wk", "wv")``).
       member_ns:    each member's output width (the column split).

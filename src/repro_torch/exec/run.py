@@ -30,7 +30,9 @@ Left to run time (everything else was baked by
   with the first reason a plan or call cannot,
 - block plans (:func:`repro_torch.exec.lower.lower_block`): the whole
   attention+MLP block as ONE dispatch (the ``analog_plan_block``
-  kernel), or the 4-dispatch per-layer fallback.
+  kernel), or the 4-dispatch per-layer fallback,
+- MoE expert stacks (:func:`run_expert_stack`): every expert of a stacked
+  weight as ONE dispatch (the split kernel's expert axis).
 
 Every analog dispatch the executor issues adds one to
 :func:`dispatch_count` and to the ``exec.dispatches`` counter of
@@ -53,6 +55,7 @@ from repro_torch.exec.plan import (
     EPILOGUE_NONE,
     EPILOGUE_RELU_SHIFT,
     GROUP_COLUMN_CONCAT,
+    GROUP_EXPERT_STACK,
     AnalogPlan,
     GroupPlan,
     LayerPlan,
@@ -198,13 +201,43 @@ def _pass_noise(noise):
 
 
 def run_group(gp: GroupPlan, x: torch.Tensor, cfg: AnalogConfig):
-    """Replay a lowered fusion group: ``x`` is the members' shared input;
-    returns the tuple of member outputs (one fused dispatch, the columns
-    split back per member)."""
+    """Replay a lowered fusion group: for a column_concat group ``x`` is
+    the members' shared input and the tuple of member outputs comes back
+    (one fused dispatch, the columns split back per member); an
+    expert_stack group takes the dispatch buffer ``[E, C, K]`` and
+    returns ``[E, C, N]`` (:func:`run_expert_stack`)."""
+    if gp.kind == GROUP_EXPERT_STACK:
+        return run_expert_stack(gp, x, cfg)
     if gp.kind != GROUP_COLUMN_CONCAT:
         raise ValueError(f"unknown group kind {gp.kind!r}")
     y = run_layer(gp.fused, x, cfg)
     return tuple(torch.split(y, list(gp.member_ns), dim=-1))
+
+
+def run_expert_stack(gp: GroupPlan, xe: torch.Tensor,
+                     cfg: AnalogConfig) -> torch.Tensor:
+    """Replay an ``expert_stack`` group: ``xe [E, C, K]`` through the
+    pre-lowered per-expert plan -> ``[E, C, N]``, as ONE dispatch (the
+    split kernel's expert axis on the card, its plain version on the
+    CPU).  One dynamic activation scale over the whole dispatch buffer,
+    signed inputs through the pos / neg split, each expert's codes at its
+    gain, then ``y_int * (a_scale * w_scale / gain)`` in the reference's
+    order.  Expert readout noise is omitted, as on the per-call path."""
+    from repro_torch.kernels import ops as kernel_ops
+
+    lp = gp.fused
+    in_dtype = xe.dtype
+    xf = xe.to(torch.float32)
+    a_scale = quant.act_scale_from_max(xf.detach().abs().max() + 1e-9)
+    a_pos = _pad_codes(quant.quantize_act(xf, a_scale), lp.k_pad)
+    a_neg = _pad_codes(quant.quantize_act(-xf, a_scale), lp.k_pad)
+    gain = lp.gain_row                                            # [E, N]
+    _count()
+    y_int = kernel_ops.analog_mvm_split(
+        a_pos, a_neg, None, gain, None, chunk_rows=lp.chunk_rows,
+        faithful=cfg.mode != "analog_fast", store=lp.store)
+    y = y_int * (a_scale * lp.w_scale / gain[:, None, :1])
+    return y.to(in_dtype)
 
 
 def _run_layer_fused_infer(lp: LayerPlan, codes: torch.Tensor,

@@ -29,10 +29,11 @@ either package loads into the other.  Two translations keep it so:
 
 A megakernel packing is recorded as a flag and re-packed at load time
 from the loaded stores - repackaging, no lowering, so
-:func:`~repro_torch.exec.lower.lowering_count` does not move.  Groups of
-the reference's ``batch_concat`` and ``expert_stack`` kinds load as data
-(a leading member axis on every leaf) and run once those model families
-are ported.
+:func:`~repro_torch.exec.lower.lowering_count` does not move.
+``expert_stack`` groups (a leading expert axis on every leaf) load as
+live groups that :func:`~repro_torch.exec.run.run_expert_stack` replays;
+the reference's ``batch_concat`` groups load as data (a leading member
+axis on every leaf) and run once the RWKV family is ported.
 """
 from __future__ import annotations
 
@@ -199,7 +200,7 @@ def _stack_len(node, arrays, base: int):
 
 
 def _member_rank(kind: str) -> int:
-    # batch_concat / expert_stack fused plans carry a member axis
+    # batch_concat / expert_stack fused plans carry a member (expert) axis
     return 2 if kind == GROUP_COLUMN_CONCAT else 3
 
 

@@ -42,7 +42,10 @@ NVCC_FLAGS = (
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ARGTYPES: Dict[str, tuple] = {}
 _ENTRIES: Dict[str, object] = {}
-_LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# launch counts: one per kernel, and the split kernel's expert-axis
+# launches (one per expert stack) under a name of their own
+COUNTERS = KERNELS + ("analog_mvm_split_experts",)
+_LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 # PyTorch's current stream as a plain int (the private binding its own
 # Triton launcher uses), else through a Stream object
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
@@ -149,11 +152,13 @@ def function(name: str, symbol: str, argtypes: Sequence,
     return fn
 
 
-def launch(name: str, device: torch.device, *args) -> None:
+def launch(name: str, device: torch.device, *args,
+           count_as: Optional[str] = None) -> None:
     """Call ``<name>_launch(*args, stream)`` of kernel ``name`` on
     PyTorch's current stream of ``device``; raise on a CUDA error, else
-    count the launch.  ``device`` becomes the current device only for
-    the call, and only when it is not already."""
+    count the launch (under ``count_as``, one of :data:`COUNTERS`, when
+    given).  ``device`` becomes the current device only for the call,
+    and only when it is not already."""
     fn = _ENTRIES.get(name)
     if fn is None:
         _library(name)
@@ -169,7 +174,7 @@ def launch(name: str, device: torch.device, *args) -> None:
         msg = getattr(_LIBS[name], f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
                            f"({msg})")
-    _LAUNCHES[name] += 1
+    _LAUNCHES[count_as or name] += 1
 
 
 def _stream(index: int) -> int:

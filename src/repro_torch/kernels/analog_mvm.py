@@ -22,7 +22,10 @@ several CTAs (:func:`split_plan`).  Two weight operands: the plan's int8
 codes with their gain tables (:func:`analog_mvm_split_codes_cuda`, plain
 version :func:`repro_torch.kernels.ref.analog_mvm_split_codes_ref`), or
 an fp32 ``w_eff`` (:func:`analog_mvm_split_cuda`, plain version
-:func:`repro_torch.kernels.ref.analog_mvm_split_ref`).
+:func:`repro_torch.kernels.ref.analog_mvm_split_ref`).  An expert axis
+runs the E matrices of an MoE expert stack in one launch
+(:func:`analog_mvm_split_experts_cuda`, plain version
+:func:`repro_torch.kernels.ref.analog_mvm_split_experts_ref`).
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _build.declare("analog_mvm", (_P,) * 5 + (_I,) * 12)
 _build.declare("analog_mvm_split", (
     _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
 ))
 
 
@@ -241,9 +244,11 @@ def split_tile_rows(m: int) -> int:
 
 @functools.lru_cache(maxsize=4096)
 def split_plan(m: int, n: int, n_chunks: int, faithful: bool,
-               slots: int) -> SplitPlan:
+               slots: int, experts: int = 1) -> SplitPlan:
     """The launch geometry, fixed by the shapes, the mode and ``slots``
-    (the CTAs the card holds at once: SMs x CTAs per SM of this tiling).
+    (the CTAs the card holds at once: SMs x CTAs per SM of this tiling);
+    ``experts`` matrices of an expert stack share one launch, each cut
+    the same way.
 
     Faithful mode cuts each tile's chunks into as few ranges as keep one
     wave of CTAs on the card: the longest range per CTA that still fills
@@ -255,7 +260,7 @@ def split_plan(m: int, n: int, n_chunks: int, faithful: bool,
     col_tiles = -(-n // SPLIT_BN)
     cps = n_chunks
     if faithful:
-        per_tile = max(1, slots // (row_groups * col_tiles))
+        per_tile = max(1, slots // (experts * row_groups * col_tiles))
         cps = -(-n_chunks // min(per_tile, n_chunks))
     return SplitPlan(mt, row_groups, col_tiles, cps, -(-n_chunks // cps))
 
@@ -297,34 +302,48 @@ def _block_ends(ends: tuple):
 
 def _split_launch(form, a_pos, a_neg, w, col_gain, row_gain, chunk_gain,
                   block_ends, gain, chunk_offset, chunk_rows, faithful,
-                  epilogue):
+                  epilogue, post_gain=None):
     """Check the operands shared by both forms, cut the work
-    (:func:`split_plan`) and launch once."""
+    (:func:`split_plan`) and launch once.  ``a_pos`` / ``a_neg`` of
+    ``[E, M, K]`` against ``w [E, K, N]`` run the E matrices of an expert
+    stack in the same launch (the grid's expert axis; ``gain`` and
+    ``post_gain`` are then ``[E, N]``), counted as
+    ``analog_mvm_split_experts``."""
     dev = a_pos.device
-    m, k = a_pos.shape
-    n = w.shape[1]
+    experts = a_pos.shape[0] if a_pos.ndim == 3 else 1
+    lead = (experts,) if a_pos.ndim == 3 else ()
+    m, k = a_pos.shape[-2:]
+    n = w.shape[-1]
     if k % chunk_rows or chunk_rows % SPLIT_STAGE_ROWS or not k:
         raise ValueError(f"K={k} must be a nonzero multiple of chunk_rows="
                          f"{chunk_rows}, itself a multiple of "
                          f"{SPLIT_STAGE_ROWS}")
+    if post_gain is not None and faithful:
+        raise ValueError("post_gain scales the fast mode's totals only")
     n_chunks = k // chunk_rows
     chunk_offset = _chunk_offsets(chunk_offset, n_chunks, n, dev)
     shift = _epilogue_shift(epilogue)
-    for name, t, shape in (("a_pos", a_pos, (m, k)), ("a_neg", a_neg, (m, k)),
-                           ("gain", gain, (n,)),
-                           ("chunk_offset", chunk_offset, (n_chunks, n))):
+    checks = [("a_pos", a_pos, lead + (m, k)), ("a_neg", a_neg, lead + (m, k)),
+              ("gain", gain, lead + (n,)),
+              ("chunk_offset", chunk_offset, (n_chunks, n))]
+    if post_gain is not None:
+        checks.append(("post_gain", post_gain, lead + (n,)))
+    for name, t, shape in checks:
         _build.check_operand(name, t, dev, shape)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    if m == 0 or n == 0:
+    out = torch.empty(lead + (m, n), dtype=torch.float32, device=dev)
+    if m == 0 or n == 0 or experts == 0:
         return out
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     plan = split_plan(m, n, n_chunks, faithful,
-                      _slots(index, form, split_tile_rows(m), faithful))
+                      _slots(index, form, split_tile_rows(m), faithful),
+                      experts)
     part = counters = None
     if plan.n_splits > 1:
-        part = torch.empty((plan.n_splits, m, n), dtype=torch.float32,
-                           device=dev)
-        counters = torch.zeros((plan.row_groups * plan.col_tiles,),
+        # the split-K workspace: one set of slots and counters per expert,
+        # from PyTorch's caching allocator (the per-device pool)
+        part = torch.empty((experts, plan.n_splits, m, n),
+                           dtype=torch.float32, device=dev)
+        counters = torch.zeros((experts * plan.row_groups * plan.col_tiles,),
                                dtype=torch.int32, device=dev)
     staged = [a_pos, a_neg, w, chunk_offset] + [
         t for t in (row_gain, chunk_gain) if t is not None]
@@ -337,7 +356,9 @@ def _split_launch(form, a_pos, a_neg, w, col_gain, row_gain, chunk_gain,
         gain.data_ptr(), chunk_offset.data_ptr(), out.data_ptr(),
         _build.ptr(part),
         _build.ptr(counters), m, k, n, chunk_rows, plan.chunks_per_cta,
-        plan.n_splits, plan.mt, int(faithful), shift, vec)
+        plan.n_splits, plan.mt, int(faithful), shift, vec, experts,
+        _build.ptr(post_gain),
+        count_as="analog_mvm_split_experts" if lead else None)
     return out
 
 
@@ -437,3 +458,36 @@ def analog_mvm_split_codes_cuda(
     return _split_launch(0 if chunk_gain is None else 2, a_pos, a_neg, codes,
                          col_gain, row_gain, chunk_gain, ends, gain,
                          chunk_offset, chunk_rows, faithful, epilogue)
+
+
+def analog_mvm_split_experts_cuda(
+    a_pos: torch.Tensor,                   # [E, M, K] codes of max(x, 0)
+    a_neg: torch.Tensor,                   # [E, M, K] codes of max(-x, 0)
+    codes: torch.Tensor,                   # [E, K, N] int8 weight codes
+    gain: torch.Tensor,                    # [E, N]
+    *,
+    post_gain: Optional[torch.Tensor] = None,  # [E, N] or None (fast)
+    chunk_rows: int = BSS2.signed_rows,
+    faithful: bool = True,
+) -> torch.Tensor:
+    """The split VMM of every matrix of an expert stack in ONE launch (the
+    grid's expert axis): expert ``e`` multiplies ``a_pos[e]`` /
+    ``a_neg[e]`` by its int8 codes ``codes[e]`` at gain ``gain[e]``, with
+    no chunk offsets.  ``post_gain``
+    (fast mode only) scales each pass's total before its one rounding;
+    the expert products pass their gain there and 1.0 as ``gain``, which
+    is the reference's fast product ``clip(rint((a @ w) * gain))``.
+    Returns ``[E, M, N]``."""
+    _on_card("analog_mvm_split_experts_cuda", a_pos)
+    dev = a_pos.device
+    if codes.dtype != torch.int8 or codes.device != dev or \
+            not codes.is_contiguous() or codes.ndim != 3 or \
+            a_pos.ndim != 3 or codes.shape[:2] != (a_pos.shape[0],
+                                                   a_pos.shape[2]):
+        raise ValueError(
+            f"codes must be contiguous int8 [E, K, N] on {dev} matching "
+            f"a_pos [E, M, K] {tuple(a_pos.shape)}, got {codes.dtype} "
+            f"{tuple(codes.shape)} on {codes.device}")
+    return _split_launch(0, a_pos, a_neg, codes, None, None, None,
+                         (codes.shape[2],), gain, None, chunk_rows, faithful,
+                         None, post_gain=post_gain)

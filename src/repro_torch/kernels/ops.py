@@ -31,7 +31,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
 from repro_torch.kernels.analog_mvm import (analog_mvm_cuda,
                                             analog_mvm_split_codes_cuda,
-                                            analog_mvm_split_cuda)
+                                            analog_mvm_split_cuda,
+                                            analog_mvm_split_experts_cuda)
 from repro_torch.kernels.analog_plan import (analog_plan_block_cuda,
                                              analog_plan_cuda)
 from repro_torch.kernels.preproc import maxmin_pool_cuda
@@ -210,6 +211,30 @@ class _AnalogMVMSplit(torch.autograd.Function):
                 None)
 
 
+def _split_experts(a_pos, a_neg, w_eff, gain, *, chunk_rows, faithful,
+                   store):
+    """The expert axis of :func:`analog_mvm_split`: ``[E, M, K]``
+    operands against ``[E, K, N]`` weights, the reference's expert
+    products (``analog_matmul`` without a kernel: faithful mode reads
+    out every chunk at ``gain``, fast mode scales each pass's total by
+    it), in one launch on the card."""
+    post = None
+    if not faithful:
+        post, gain = gain, torch.ones_like(gain)
+    if _on_cuda(a_pos):
+        if store is None or not store.code_operand or \
+                store.codes.dtype != torch.int8 or store.col_gain is not None:
+            raise ValueError("the expert axis reads a table-free int8 "
+                             "expert-stack store on the card")
+        return analog_mvm_split_experts_cuda(
+            a_pos.contiguous(), a_neg.contiguous(), store.codes,
+            gain.contiguous(), post_gain=_contiguous(post),
+            chunk_rows=chunk_rows, faithful=faithful)
+    return ref_lib.analog_mvm_split_experts_ref(
+        a_pos, a_neg, store.w_eff if w_eff is None else w_eff, gain, post_gain=post, chunk_rows=chunk_rows,
+        faithful=faithful)
+
+
 def analog_mvm_split(
     a_pos: torch.Tensor,
     a_neg: torch.Tensor,
@@ -234,7 +259,23 @@ def analog_mvm_split(
     stacked ``[2M, K]`` plain version (pre-round sums are
     order-sensitive, so fast mode keeps the oracle's arithmetic).
     Differentiable without an epilogue (HIL backward,
-    :class:`_AnalogMVMSplit`)."""
+    :class:`_AnalogMVMSplit`).
+
+    ``[E, M, K]`` operands with ``w_eff [E, K, N]`` and ``gain [E, N]``
+    run the expert axis (:func:`_split_experts`): the E matrices of an
+    MoE expert stack, no chunk offsets and no epilogue, inference only
+    (the experts' HIL backward is ROADMAP work)."""
+    if a_pos.ndim == 3:
+        if chunk_offset is not None or epilogue is not None:
+            raise ValueError("the expert axis takes no chunk offsets and "
+                             "no epilogue")
+        if needs_grad(a_pos, a_neg, w_eff):
+            raise NotImplementedError(
+                "the split kernel's expert axis has no HIL backward yet "
+                "(ROADMAP: HIL training of the MoE families)")
+        return _split_experts(a_pos, a_neg, w_eff, gain,
+                              chunk_rows=chunk_rows, faithful=faithful,
+                              store=store)
     if not needs_grad(a_pos, a_neg, w_eff):
         return _split(a_pos, a_neg, w_eff, gain, chunk_offset,
                       chunk_rows=chunk_rows, faithful=faithful,

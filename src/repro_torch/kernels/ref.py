@@ -64,6 +64,52 @@ def analog_mvm_split_ref(
     return yp - yn
 
 
+def analog_mvm_split_experts_ref(
+    a_pos: torch.Tensor,                   # [E, M, K] codes of max(x, 0)
+    a_neg: torch.Tensor,                   # [E, M, K] codes of max(-x, 0)
+    w_eff: torch.Tensor,                   # [E, K, N]
+    gain: torch.Tensor,                    # [E, N]
+    *,
+    post_gain: Optional[torch.Tensor] = None,  # [E, N] (fast mode) or None
+    chunk_rows: int = BSS2.signed_rows,
+    faithful: bool = True,
+) -> torch.Tensor:
+    """Plain version of the split kernel's expert axis: the signed split
+    of every matrix of an expert stack, as one chunk scan batched over
+    the experts.  Per pass and chunk ``v_c = (a_c @ w_c) * gain[e]``;
+    faithful sums ``clip(rint(v_c))`` of the positive pass minus the
+    negative's, fast sums each pass's ``v_c`` in ascending chunk order,
+    scales the total by ``post_gain[e]`` when given, then rounds and
+    clips it once."""
+    e, m, k = a_pos.shape
+    n = w_eff.shape[-1]
+    if k % chunk_rows:
+        raise ValueError(f"K={k} is not a multiple of chunk_rows={chunk_rows}")
+    c = k // chunk_rows
+    g = gain[:, None, :]
+    acc = [torch.zeros((e, m, n), dtype=torch.float32, device=a_pos.device)
+           for _ in range(2)]
+    for ci in range(c):
+        rows = slice(ci * chunk_rows, (ci + 1) * chunk_rows)
+        w_c = w_eff[:, rows].to(torch.float32)
+        vs = [torch.bmm(a[:, :, rows].to(torch.float32), w_c) * g
+              for a in (a_pos, a_neg)]
+        if faithful:
+            acc[0] = acc[0] + (
+                torch.clamp(torch.round(vs[0]), BSS2.adc_min, BSS2.adc_max)
+                - torch.clamp(torch.round(vs[1]), BSS2.adc_min,
+                              BSS2.adc_max))
+        else:
+            acc = [t + v for t, v in zip(acc, vs)]
+    if faithful:
+        return acc[0]
+    if post_gain is not None:
+        acc = [t * post_gain[:, None, :] for t in acc]
+    lo, hi = BSS2.adc_min * c, BSS2.adc_max * c
+    return (torch.clamp(torch.round(acc[0]), lo, hi)
+            - torch.clamp(torch.round(acc[1]), lo, hi))
+
+
 def rebuild_w_eff_ref(codes: torch.Tensor,
                       col_gain: Optional[torch.Tensor],
                       row_gain: Optional[torch.Tensor],

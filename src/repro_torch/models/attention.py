@@ -18,6 +18,7 @@ import math
 import torch
 
 from repro_torch.core.analog import AnalogConfig
+from repro_torch.core.quant import _div_exact
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.noise import NoiseConfig
 from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, find_group
@@ -109,10 +110,20 @@ def _quantize_kv(t: torch.Tensor):
     scales ``max|t| / 127`` (floored at 1e-9): the reference's int8 KV
     cache ("store at ADC resolution").  ``torch.round`` rounds half to
     even, as ``jnp.round`` does."""
-    sc = torch.clamp_min(t.abs().amax(dim=-1).to(torch.float32) / 127.0,
-                         1e-9)
+    sc = torch.clamp_min(
+        _div_exact(t.abs().amax(dim=-1).to(torch.float32), 127.0), 1e-9)
     q = torch.clamp(torch.round(t / sc[..., None]), -127, 127)
     return q.to(torch.int8), sc
+
+
+def decode_scores(qg: torch.Tensor, ck_f: torch.Tensor) -> torch.Tensor:
+    """The cached decode's attention logits ``q . k / sqrt(head_dim)`` of
+    ``qg [B, S, KVH, G, dh]`` against the float cache ``ck_f [B, Smax,
+    KVH, dh]`` -> ``[B, KVH, G, S, Smax]``, divided exactly on every
+    device."""
+    return _div_exact(torch.einsum("bqhgd,bkhd->bhgqk",
+                                   qg.to(torch.float32), ck_f),
+                      math.sqrt(qg.shape[-1]))
 
 
 def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
@@ -131,8 +142,6 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
     with ``flash_blocks = (block_q, block_kv)``.  ``noise``: the
     projections' readout-noise source (a generator or a
     :class:`~repro_torch.core.noise.NoiseFeed`)."""
-    if mrope:
-        raise NotImplementedError("M-RoPE (Qwen2-VL) is not ported yet")
     b, s, _ = x.shape
     g = n_heads // n_kv_heads
     nq = n_heads * head_dim
@@ -150,8 +159,9 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
     q = q.reshape(b, s, n_heads, head_dim)
     k = k.reshape(b, s, n_kv_heads, head_dim)
     v = v.reshape(b, s, n_kv_heads, head_dim)
-    q = L.apply_rope(q, positions, rope_theta)
-    k = L.apply_rope(k, positions, rope_theta)
+    rope = L.apply_mrope if mrope else L.apply_rope
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
     qg = q.reshape(b, s, n_kv_heads, g, head_dim)
 
     if cache is not None:
@@ -178,8 +188,7 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
         qpos = length + torch.arange(s, device=x.device)
         mask = qpos[:, None] >= kpos[None, :]
         mask &= (kpos < length + s)[None, :]
-        sc = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32),
-                          ck_f) / math.sqrt(head_dim)
+        sc = decode_scores(qg, ck_f)
         sc = torch.where(mask[None, None, None], sc, NEG_INF)
         p = torch.softmax(sc, dim=-1)
         o = torch.einsum("bhgqk,bkhd->bqhgd", p, cv_f)

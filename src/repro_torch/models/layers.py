@@ -5,9 +5,11 @@ analog backend (:func:`repro_torch.api.program.apply_linear`).
 Module convention: ``<name>_init(generator, ..., device) -> params`` and
 ``<name>_apply(params, x, ...) -> y`` on plain dicts of tensors.  The
 reference's sharding hints (``constrain``) have no effect on one device
-and are left out; M-RoPE (Qwen2-VL) is not ported yet.
+and are left out.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +73,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     dh = x.shape[-1]
     freqs = rope_freqs(dh, theta, x.device)                  # [dh/2]
     angle = positions[..., None].to(torch.float32) * freqs   # [B, S, dh/2]
+    cos = torch.cos(angle)[:, :, None, :]
+    sin = torch.sin(angle)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _mrope_section_ids(sections: tuple, device: torch.device) -> torch.Tensor:
+    """The section (0 temporal, 1 height, 2 width) of each frequency slot,
+    made once per device: no host-to-device copy per attention call."""
+    return torch.repeat_interleave(
+        torch.arange(len(sections), device=device),
+        torch.tensor(sections, device=device))
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections=(16, 24, 24)) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL, arXiv:2409.12191): the ``head_dim / 2``
+    frequency slots split into (temporal, height, width) sections, each
+    rotated by its own position id.  x: [B, S, H, dh]; positions:
+    [B, S, 3] integers."""
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to "
+                         f"head_dim / 2 = {dh // 2}")
+    freqs = rope_freqs(dh, theta, x.device)                  # [dh/2]
+    sec_ids = _mrope_section_ids(tuple(sections), x.device)  # [dh/2]
+    angle = positions.to(torch.float32)[..., sec_ids] * freqs  # [B, S, dh/2]
     cos = torch.cos(angle)[:, :, None, :]
     sin = torch.sin(angle)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)

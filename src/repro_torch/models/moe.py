@@ -1,0 +1,315 @@
+"""Mixture-of-Experts layer (port of ``repro.models.moe`` without a
+mesh): top-k routing, capacity-bounded sort-based dispatch, and the
+expert products of every expert of a stack as ONE analog dispatch.
+
+Analog mapping: each expert's FFN matrices are analog tile grids; one
+``expert_stack`` dispatch runs them all (the split kernel's expert axis
+on the card, :func:`repro_torch.exec.run.run_expert_stack`).
+
+Dispatch algorithm (dropping, capacity factor c), the reference's
+arithmetic step for step:
+  1. router logits -> softmax -> top-k experts (ties to the lower expert
+     index, as ``jax.lax.top_k``) -> weights renormalized by
+     ``max(sum, 1e-9)``
+  2. position-in-expert via a stable sort over expert ids and the
+     segment starts
+  3. scatter tokens into a ``[B, E, C, d]`` buffer (over-capacity tokens
+     drop; their clamped slot receives zeros)
+  4. the expert FFNs, then each token's k contributions gathered back and
+     summed in the sorted dispatch order (ascending expert id), with no
+     atomics, so the sum is the same on every run and device.
+
+A dense fallback (``dense=True``) runs every expert on every token, for
+tiny smoke configs.  The expert-parallel shard_map dispatch waits for
+the mesh (ROADMAP).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.analog import AnalogConfig
+from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.noise import NoiseConfig, _normal
+from repro_torch.exec.plan import GROUP_EXPERT_STACK, GroupPlan, find_group
+from repro_torch.models import layers as L
+
+# the reference's no-mesh dispatch names: both build the buffer locally
+_NO_MESH_DISPATCH = ("gspmd_ep", "replicated_buf")
+class Routes:
+    """The routing ``(topw, topi)`` of every :func:`moe_apply` call it is
+    handed, in call order (:attr:`taken`).  Given another run's routes
+    (``replay``), each call takes the next of those in place of its
+    router's top-k: a card-against-CPU check routes the card's run as the
+    CPU's, whose router may round a near tie the other way."""
+
+    def __init__(self, replay=None):
+        self.taken: list = []
+        self._replay = None if replay is None else iter(replay)
+
+    def route(self, topw: torch.Tensor, topi: torch.Tensor):
+        if self._replay is not None:
+            topw, topi = (t.to(topw.device) for t in next(self._replay))
+        self.taken.append((topw, topi))
+        return topw, topi
+
+
+def moe_init(generator, d_model, d_ff, n_experts, *, n_shared=0,
+             act="swiglu", noise: NoiseConfig = NoiseConfig(),
+             dtype=torch.float32, device: DeviceLike = None):
+    """Router ``[d, E]`` (fp32) and the expert stacks ``up`` / ``gate``
+    ``[E, d, d_ff]`` and ``down`` ``[E, d_ff, d]``, normal draws at the
+    reference's scales (1/sqrt(fan-in)), plus a shared-expert MLP of
+    width ``d_ff * n_shared``."""
+    dev = resolve_device(device)
+    s_up = d_model ** -0.5
+    s_down = d_ff ** -0.5
+    shape_up = (n_experts, d_model, d_ff)
+    shape_down = (n_experts, d_ff, d_model)
+    p = {
+        "router": {"w": (_normal(generator, (d_model, n_experts), dev)
+                         * s_up).to(torch.float32)},
+        "up": (_normal(generator, shape_up, dev) * s_up).to(dtype),
+        "down": (_normal(generator, shape_down, dev) * s_down).to(dtype),
+    }
+    if act == "swiglu":
+        p["gate"] = (_normal(generator, shape_up, dev) * s_up).to(dtype)
+    if n_shared:
+        p["shared"] = L.mlp_init(generator, d_model, d_ff * n_shared,
+                                 act=act, noise=noise, dtype=dtype,
+                                 device=dev)
+    return p
+
+
+def moe_specs(*, act="swiglu", n_shared=0,
+              noise: NoiseConfig = NoiseConfig()):
+    """The logical axes of :func:`moe_init`'s tree (the reference's
+    sharding spec; on one device a declaration only)."""
+    del noise
+    p = {
+        "router": {"w": (None, None)},
+        "up": ("expert", "embed", None),
+        "down": ("expert", None, "embed"),
+    }
+    if act == "swiglu":
+        p["gate"] = ("expert", "embed", None)
+    if n_shared:
+        p["shared"] = {"up": ("embed", "mlp"), "down": ("mlp", "embed")}
+        if act == "swiglu":
+            p["shared"]["gate"] = ("embed", "mlp")
+    return p
+
+
+def _expert_names(act: str) -> list:
+    return ["up", "down"] + (["gate"] if act == "swiglu" else [])
+
+
+def moe_module_spec(d_model, d_ff, n_experts, *, top_k, act="swiglu",
+                    n_shared=0, capacity_factor: float = 1.25,
+                    dense: bool = False):
+    """Declare one MoE layer for the front door:
+    ``api.compile(moe_module_spec(...), params, run)`` lowers every
+    expert stack ONCE (one ``expert_stack`` group per stacked matrix:
+    codes, column scales and gains baked) and ``CompiledModel.apply(x)``
+    is :func:`moe_apply` over the pre-lowered tree.  ``params`` is
+    :func:`moe_init`'s dict."""
+    from repro_torch import api
+
+    def _apply(model, x, *, noise=None):
+        return moe_apply(model.lower(), x, acfg=model.acfg, top_k=top_k,
+                         capacity_factor=capacity_factor, act=act,
+                         dense=dense, noise=noise)
+
+    names = _expert_names(act)
+    layers = tuple(
+        api.LayerSpec(n, d_ff if n == "down" else d_model,
+                      d_model if n == "down" else d_ff, stacked=n_experts)
+        for n in names)
+    groups = tuple(api.GroupSpec(n, GROUP_EXPERT_STACK, (n,))
+                   for n in names)
+    return api.ModuleSpec(name=f"moe_{d_model}x{d_ff}x{n_experts}",
+                          kind="tree", apply_fn=_apply, layers=layers,
+                          groups=groups)
+
+
+def _analog_expert_matmul(xe, w, acfg: AnalogConfig):
+    """The PER-CALL expert product ``xe [E, C, K] x w [E, K, N]``: the
+    expert stack's codes, column scales and gains derived in this call
+    (:func:`repro_torch.exec.lower.lower_expert_stack`, one lowering),
+    then the same single dispatch as a pre-lowered plan
+    (:func:`repro_torch.exec.run.run_expert_stack`), so both paths agree
+    bit for bit."""
+    from repro_torch.exec.lower import lower_expert_stack
+    from repro_torch.exec.run import run_expert_stack
+
+    gp = GroupPlan(kind=GROUP_EXPERT_STACK,
+                   fused=lower_expert_stack(w, acfg),
+                   member_names=("w",), member_ns=(int(w.shape[-1]),))
+    return run_expert_stack(gp, xe, acfg)
+
+
+def _expert_matmul(xe, w, acfg: AnalogConfig, plan=None):
+    """``xe [..., E, C, K] x w [E, K, N] -> [..., E, C, N]``; ``plan`` (a
+    pre-lowered ``expert_stack`` :class:`GroupPlan`) replays the bake.
+    Leading group dims fold into the capacity axis, so one dispatch runs
+    the whole buffer."""
+    if acfg.mode == "digital":
+        return torch.matmul(xe, w.to(xe.dtype))
+
+    def one(x3):
+        if plan is not None:
+            from repro_torch.exec.run import run_expert_stack
+
+            return run_expert_stack(plan, x3, acfg)
+        return _analog_expert_matmul(x3, w, acfg)
+
+    if xe.ndim == 3:
+        return one(xe)
+    lead = xe.shape[:-3]
+    e, c, k = xe.shape[-3:]
+    x3 = xe.reshape(-1, e, c, k).transpose(0, 1).reshape(e, -1, k)
+    y3 = one(x3)
+    n = y3.shape[-1]
+    return y3.reshape(e, -1, c, n).transpose(0, 1).reshape(*lead, e, c, n)
+
+
+def _expert_ffn(params, xe, act, acfg: AnalogConfig):
+    """``xe [..., E, C, d] -> [..., E, C, d]`` through the expert FFNs.  A
+    compiled tree carries pre-lowered ``expert_stack`` plans in
+    ``params["_groups"]`` (keyed by the member weight's name); raw
+    params take the per-call derivation."""
+    gps = params.get("_groups")
+
+    def plan_of(name):
+        return find_group(gps, GROUP_EXPERT_STACK, (name,))
+
+    up = _expert_matmul(xe, params["up"], acfg, plan=plan_of("up"))
+    if act == "swiglu":
+        gate = _expert_matmul(xe, params["gate"], acfg,
+                              plan=plan_of("gate"))
+        h = F.silu(gate) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return _expert_matmul(h, params["down"], acfg, plan=plan_of("down"))
+
+
+def top_k_lower_index(probs: torch.Tensor, k: int):
+    """``(values, indices)`` of the ``k`` largest entries of the last
+    axis, descending, equal values ordered by the lower index (the order
+    ``jax.lax.top_k`` gives; ``torch.topk`` promises none on ties)."""
+    idx = torch.argsort(probs, dim=-1, descending=True, stable=True)[..., :k]
+    return torch.gather(probs, -1, idx), idx
+
+
+def route(probs: torch.Tensor, top_k: int):
+    """The router's top-k and the Switch aux loss from the softmax
+    ``probs [B, S, E]``: ``(topw, topi, aux)``, weights renormalized by
+    ``max(sum, 1e-9)``, ``aux = E * sum_e mean_prob_e * frac_routed_e``."""
+    e = probs.shape[-1]
+    topw, topi = top_k_lower_index(probs, top_k)
+    tot = topw[..., :1]
+    for j in range(1, top_k):          # the k weights summed in order
+        tot = tot + topw[..., j:j + 1]
+    topw = topw / torch.clamp_min(tot, 1e-9)
+    me = probs.mean(dim=(0, 1))
+    ce = torch.zeros((e,), dtype=torch.float32, device=probs.device)
+    ce = ce.index_put_((topi.reshape(-1),),
+                       torch.full((topi.numel(),), 1.0 / topi.numel(),
+                                  device=probs.device), accumulate=True)
+    aux = e * torch.sum(me * ce)
+    return topw, topi, aux
+
+
+def dispatch_layout(topi: torch.Tensor, e: int, capacity: int):
+    """Group-local routing metadata of ``topi [B, S, k]`` for a
+    ``[B, E, C]`` buffer: per routed copy (token-major flat index
+    ``s * k + slot``) its expert, its clamped slot ``pos_c`` in that
+    expert and whether it is kept (position < capacity), plus each
+    token's slots in the sorted dispatch order.  Positions come from a
+    stable sort over the expert ids and the segment starts, as in the
+    reference."""
+    b, s, k = topi.shape
+    eg = topi.reshape(b, s * k)
+    order = torch.argsort(eg, dim=-1, stable=True)
+    se = torch.gather(eg, 1, order)
+    n = s * k
+    pos_global = torch.arange(n, device=topi.device).expand(b, n)
+    seg_start = torch.full((b, e), n, dtype=torch.int64, device=topi.device)
+    seg_start = seg_start.scatter_reduce(1, se, pos_global, reduce="amin")
+    pos_sorted = pos_global - torch.gather(seg_start, 1, se)
+    # back to the token-major order of the routed copies
+    inv = torch.argsort(order, dim=-1)
+    pos = torch.gather(pos_sorted, 1, inv)
+    keep = pos < capacity
+    pos_c = torch.where(keep, pos, capacity - 1)
+    # each token's slots by their place in the sorted order (ascending
+    # expert id): the order the reference's scatter-add sums them in
+    slot_order = torch.argsort(inv.reshape(b, s, k), dim=-1)
+    return eg, pos_c, keep, slot_order
+
+
+def moe_apply(params, x, *, acfg: AnalogConfig, top_k: int,
+              capacity_factor: float = 1.25, act="swiglu",
+              dense: bool = False, dispatch: str = "gspmd_ep", noise=None,
+              routes: Optional[Routes] = None):
+    """``x [B, S, d] -> (y, aux)``.  The batch axis is the dispatch group:
+    every routing index is group-local.  ``routes``: a :class:`Routes`
+    that records this call's top-k, or replays another run's in its place
+    (the aux loss still reads this call's router).  ``noise`` reaches
+    the shared expert (the expert products have no readout noise, as in
+    the reference).  ``dispatch`` accepts only the no-mesh paths
+    (``"gspmd_ep"``, ``"replicated_buf"``): ``"shard_map"`` needs the
+    mesh (ROADMAP)."""
+    if dispatch not in _NO_MESH_DISPATCH:
+        raise NotImplementedError(
+            f"moe dispatch {dispatch!r} needs the device mesh, which is not "
+            f"ported yet (ROADMAP); one device takes "
+            f"{', '.join(_NO_MESH_DISPATCH)}")
+    b, s, d = x.shape
+    e = params["up"].shape[0]
+    logits = x.to(torch.float32) @ params["router"]["w"]          # [B, S, E]
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi, aux = route(probs, top_k)
+    if routes is not None:
+        topw, topi = routes.route(topw, topi)
+
+    if dense:
+        # smoke-config fallback: every expert sees every token
+        t = b * s
+        w_full = torch.zeros((t, e), dtype=torch.float32, device=x.device)
+        w_full.scatter_(1, topi.reshape(t, top_k), topw.reshape(t, top_k))
+        xf = x.reshape(t, d)
+        ye = _expert_ffn(params, xf[None].expand(e, t, d), act, acfg)
+        y = torch.einsum("te,etd->td", w_full, ye.to(torch.float32))
+        y = y.to(x.dtype).reshape(b, s, d)
+    else:
+        capacity = int(max(top_k, capacity_factor * s * top_k / e))
+        eg, pos_c, keep, slot_order = dispatch_layout(topi, e, capacity)
+        tok = torch.arange(s * top_k, device=x.device) // top_k     # [S k]
+        src = torch.where(keep[..., None], x[:, tok], 0.0)         # [B, Sk, d]
+        # the [B, E, C, d] buffer: a kept copy owns its slot; the dropped
+        # copies' clamped slot receives their zeros
+        buf = torch.zeros((b, e * capacity, d), dtype=x.dtype,
+                          device=x.device)
+        buf.index_put_(
+            (torch.arange(b, device=x.device)[:, None],
+             eg * capacity + pos_c), src, accumulate=True)
+        ye = _expert_ffn(params, buf.reshape(b, e, capacity, d), act, acfg)
+        # combine: each routed copy's output at its slot, weighted (zero
+        # when dropped), then each token's k copies summed in the sorted
+        # dispatch order, in the activation dtype
+        got = torch.gather(ye.reshape(b, e * capacity, d), 1,
+                           (eg * capacity + pos_c)[..., None].expand(-1, -1, d))
+        wk = torch.where(keep, topw.reshape(b, s * top_k), 0.0)
+        contrib = (got * wk[..., None].to(x.dtype)).reshape(b, s, top_k, d)
+        y = torch.zeros((b, s, d), dtype=x.dtype, device=x.device)
+        for j in range(top_k):
+            y = y + torch.gather(
+                contrib, 2, slot_order[:, :, j, None, None].expand(
+                    -1, -1, 1, d))[:, :, 0]
+
+    if "shared" in params:
+        y = y + L.mlp_apply(params["shared"], x, acfg, act=act, noise=noise)
+    return y, aux

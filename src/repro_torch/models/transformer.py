@@ -1,9 +1,11 @@
-"""Decoder LM (port of the ``attn_mlp`` kind of
-``repro.models.transformer``: the dense transformers).
+"""Decoder LM (port of the ``attn_mlp`` and ``attn_moe`` kinds of
+``repro.models.transformer``: the dense transformers, the MoE families,
+M-RoPE (Qwen2-VL) and frontends fed precomputed embeddings (Qwen2-VL,
+MusicGen)).
 
 Layers are grouped into homogeneous scan groups with stacked parameters,
-as in the reference (dense: one layer per group, every leaf with a
-leading ``[n_groups]`` axis).  The reference scans the groups with
+as in the reference (dense: one layer per group; Llama-4: a [dense, moe]
+pair per group; every leaf with a leading ``[n_groups]`` axis).  The reference scans the groups with
 ``lax.scan``; the port loops over them, handing group ``i`` the ``i``-th
 slice of every parameter, plan and cache leaf (:func:`stack_index`).
 
@@ -13,8 +15,9 @@ knob.  :func:`attach_block_plans` adds fused attention+MLP block plans
 that replay a static prefill one dispatch per block.  :func:`lm_loss` is
 the training objective; under autograd ``cfg.remat`` recomputes each
 scan group in the backward (``torch.utils.checkpoint``), its readout
-noise replayed.  Not ported yet: MoE, RWKV, Mamba and the hybrid
-families, and the shared attention block.
+noise replayed.  Not ported yet: RWKV, Mamba and the hybrid families,
+the shared attention block, and the training of the MoE and M-RoPE
+families (:func:`check_trainable`).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from repro_torch.core.noise import NoiseConfig, NoiseFeed
 from repro_torch.exec.plan import PlanStack
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
 NOISE = NoiseConfig()  # module-level default, as in the reference
 
@@ -51,14 +55,30 @@ def n_groups(cfg: ArchConfig) -> int:
     return cfg.n_layers // g
 
 
+_PORTED_KINDS = {"attn_mlp", "attn_moe"}
+
+
 def _check_ported(cfg: ArchConfig) -> None:
     kinds = set(group_def(cfg))
-    if kinds != {"attn_mlp"} or cfg.attn_every or cfg.mrope:
+    if not kinds <= _PORTED_KINDS or cfg.attn_every:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds)} (shared attention: "
-            f"{bool(cfg.attn_every)}, M-RoPE: {cfg.mrope}) are not ported "
-            "yet; the port runs dense attn_mlp transformers (ROADMAP)"
+            f"{cfg.name}: layer kinds {sorted(kinds - _PORTED_KINDS)} "
+            f"(shared attention every {cfg.attn_every} layers) are not "
+            "ported yet: rwkv, mamba and attn_every wait (ROADMAP); the "
+            "port runs attn_mlp and attn_moe transformers"
         )
+
+
+def check_trainable(cfg: ArchConfig) -> None:
+    """Raise for the families whose hardware-in-the-loop training is not
+    ported yet: MoE layers (the split kernel's expert axis has no HIL
+    backward) and M-RoPE."""
+    _check_ported(cfg)
+    if "attn_moe" in group_def(cfg) or cfg.mrope:
+        raise NotImplementedError(
+            f"{cfg.name}: training the MoE and M-RoPE families is not "
+            "ported yet (ROADMAP: HIL training through the expert axis's "
+            "backward); serve it, or train a dense config")
 
 
 def stack_index(node, i: int):
@@ -99,19 +119,26 @@ def _stack(make, n: int):
 
 # ------------------------------------------------------------------ init
 def _layer_init(generator, kind: str, cfg: ArchConfig, device):
-    if kind != "attn_mlp":
+    if kind not in _PORTED_KINDS:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
-    return {
+    p = {
         "ln1": L.norm_init(cfg.d_model, cfg.norm, device),
         "attn": A.attention_init(
             generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
             noise=NOISE, dtype=cfg.dtype, device=device,
         ),
         "ln2": L.norm_init(cfg.d_model, cfg.norm, device),
-        "mlp": L.mlp_init(generator, cfg.d_model,
-                          cfg.moe_dense_d_ff or cfg.d_ff, act=cfg.act,
-                          noise=NOISE, dtype=cfg.dtype, device=device),
     }
+    if kind == "attn_mlp":
+        p["mlp"] = L.mlp_init(generator, cfg.d_model,
+                              cfg.moe_dense_d_ff or cfg.d_ff, act=cfg.act,
+                              noise=NOISE, dtype=cfg.dtype, device=device)
+    else:
+        p["moe"] = M.moe_init(
+            generator, cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+            n_shared=cfg.n_shared_experts, act=cfg.act, noise=NOISE,
+            dtype=cfg.dtype, device=device)
+    return p
 
 
 def _group_init(generator, cfg: ArchConfig, device):
@@ -159,42 +186,60 @@ def lm_module_spec(cfg: ArchConfig, params):
 
 
 # ------------------------------------------------------------------ apply
-def _layer_apply(p, x, *, cfg, run, positions, cache, noise=None):
+def _layer_apply(p, kind, x, *, cfg, run, positions, cache, noise=None,
+                 routes=None):
+    """One layer: ``(x, new_cache, aux)`` (aux: the MoE layer's
+    load-balancing loss, 0.0 for a dense layer).  ``routes``: the MoE
+    layers' :class:`~repro_torch.models.moe.Routes`."""
     acfg = run.analog
     bp = p.get("_block_plan")
-    if bp is not None and cache is None and x.shape[1] == bp.block.seq:
+    if (bp is not None and cache is None and not cfg.mrope
+            and x.shape[1] == bp.block.seq):
         # pre-lowered fused block plan (attach_block_plans): the whole
         # attention+MLP block replays as ONE dispatch.  Static prefill
         # only - the baked attention assumes positions 0..seq-1 and no
         # cache; decode and other lengths keep the per-layer path below
         from repro_torch.exec.run import run as run_plan
 
-        return run_plan(bp, x, noise=noise), None
+        return run_plan(bp, x, noise=noise), None, 0.0
     h = L.norm_apply(p["ln1"], x, cfg.norm)
     attn_out, c = A.attention_apply(
         p["attn"], h, positions=positions, acfg=acfg,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-        rope_theta=cfg.rope_theta,
+        rope_theta=cfg.rope_theta, mrope=cfg.mrope,
         cache=None if cache is None else cache["attn"],
         flash_blocks=(run.flash_block_q, run.flash_block_kv), noise=noise,
     )
     x = x + attn_out.to(x.dtype)
     h = L.norm_apply(p["ln2"], x, cfg.norm)
-    y = L.mlp_apply(p["mlp"], h, acfg, act=cfg.act, noise=noise)
+    if kind == "attn_mlp":
+        y = L.mlp_apply(p["mlp"], h, acfg, act=cfg.act, noise=noise)
+        aux = 0.0
+    else:
+        y, aux = M.moe_apply(
+            p["moe"], h, acfg=acfg, top_k=cfg.top_k,
+            capacity_factor=run.capacity_factor, act=cfg.act, noise=noise,
+            routes=routes)
     x = x + y.to(x.dtype)
-    return x, (None if cache is None else {"attn": c})
+    return x, (None if cache is None else {"attn": c}), aux
 
 
-def _group_apply(gp, x, *, cfg, run, positions, cache, noise=None):
+def _group_apply(gp, x, *, cfg, run, positions, cache, noise=None,
+                 routes=None):
+    """One scan group: ``(x, new_cache, aux)``, the group's MoE aux
+    losses summed in layer order."""
     new_cache = {} if cache is not None else None
-    for i in range(len(group_def(cfg))):
-        x, c = _layer_apply(
-            gp[f"l{i}"], x, cfg=cfg, run=run, positions=positions,
+    aux_total = 0.0
+    for i, kind in enumerate(group_def(cfg)):
+        x, c, aux = _layer_apply(
+            gp[f"l{i}"], kind, x, cfg=cfg, run=run, positions=positions,
             cache=None if cache is None else cache[f"l{i}"], noise=noise,
+            routes=routes,
         )
+        aux_total = aux_total + aux
         if cache is not None:
             new_cache[f"l{i}"] = c
-    return x, new_cache
+    return x, new_cache, aux_total
 
 
 def _noise_state(noise):
@@ -241,9 +286,14 @@ def _remat_group(gp, x, *, cfg, run, positions, noise):
 
 
 def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
-             cache: Optional[dict] = None, noise=None):
+             cache: Optional[dict] = None, noise=None, routes=None):
     """batch: {"tokens": [B,S] ints} or {"embeds": [B,S,d]}, optional
-    {"positions": [B,S]}.  Returns (logits, new_cache, aux).
+    {"positions": [B,S]} ([B,S,3] (t, h, w) ids under M-RoPE; without
+    them the positions broadcast over the three).  Returns (logits,
+    new_cache, aux), aux the MoE layers' load-balancing loss summed over
+    the groups (0.0 without MoE layers).  ``routes``: a
+    :class:`~repro_torch.models.moe.Routes` that records the MoE layers'
+    routing, or replays another run's.
 
     With a cache (:func:`init_lm_cache`) the KV tensors are updated in
     place and the returned cache holds the advanced lengths.  ``noise``:
@@ -268,21 +318,26 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
         start = cache["step"] if cache is not None else 0
         pos = start + torch.arange(s, dtype=torch.int32, device=x.device)
         positions = torch.broadcast_to(pos[None, :], (b, s))
+        if cfg.mrope:
+            positions = torch.broadcast_to(positions[..., None], (b, s, 3))
 
-    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    remat = (cfg.remat and cache is None and torch.is_grad_enabled()
+             and "attn_moe" not in group_def(cfg))
     layer_cache = None if cache is None else cache["layers"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n_groups(cfg)):
         gp = stack_index(params["layers"], i)
         if remat:
             x = _remat_group(gp, x, cfg=cfg, run=run, positions=positions,
                              noise=noise)
             continue
-        x, nc = _group_apply(
+        x, nc, aux_g = _group_apply(
             gp, x, cfg=cfg, run=run, positions=positions,
             cache=None if layer_cache is None else stack_index(layer_cache,
                                                                i),
-            noise=noise,
+            noise=noise, routes=routes,
         )
+        aux = aux + aux_g
         if layer_cache is not None:
             _store_lengths(layer_cache, nc, i)
 
@@ -295,7 +350,7 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
     new_cache = None
     if cache is not None:
         new_cache = {"layers": layer_cache, "step": cache["step"] + s}
-    return logits, new_cache, 0.0
+    return logits, new_cache, aux
 
 
 def attach_block_plans(params, cfg: ArchConfig, acfg, *, seq: int):
@@ -373,8 +428,8 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 # ------------------------------------------------------------------- loss
 def lm_loss(params, batch, cfg: ArchConfig, run: RunConfig, noise=None):
-    """Next-token cross-entropy (+ the MoE aux loss, 0 for the dense
-    families).  ``batch`` needs ``"labels"``; an optional ``"mask"``
+    """Next-token cross-entropy + 0.01 x the MoE aux loss (0 for the
+    dense families).  ``batch`` needs ``"labels"``; an optional ``"mask"``
     weights the positions.  Returns ``(loss, {"nll", "aux",
     "logit_z"})``; the reductions run in fp32 over the activation-dtype
     logits, as in the reference."""

@@ -91,6 +91,8 @@ def _group_works(gp) -> list[LayerWork]:
     shape = _codes_shape(PlanStack(p.fused for p in gp)
                          if isinstance(gp, PlanStack) else fused)
     g = shape[0] if len(shape) == 3 else len(g0.member_names)
+    if len(shape) == 4 and g0.kind == "expert_stack":
+        g = shape[0] * shape[1]     # a scan stack of expert stacks
     return [_work(fused, split)] * g
 
 

@@ -71,6 +71,11 @@ class ServeEngine:
                  calibration=None, drift_monitor=None,
                  plan_cache: Optional[str] = None, fleet=None,
                  device: DeviceLike = None):
+        if not cfg.embed_inputs:
+            raise ValueError(
+                f"{cfg.name} is fed precomputed embeddings (embed_inputs="
+                "False), but ServeEngine serves token prompts; serve it "
+                "through serve_step.make_serve_steps with {'embeds': ...}")
         self.cfg, self.run = cfg, run
         self.device = resolve_device(device)
         # Serving is inference against frozen weights: compile the model

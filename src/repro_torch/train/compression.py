@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.quant import _div_exact
 from repro_torch.train.optimizer import tree_leaves, tree_map
 
 
@@ -24,7 +25,7 @@ def ef_init(params):
 
 def compress(g: torch.Tensor):
     """Symmetric int8 quantization; returns (codes int8, scale f32)."""
-    scale = torch.clamp_min(g.abs().max(), 1e-30) / 127.0
+    scale = _div_exact(torch.clamp_min(g.abs().max(), 1e-30), 127.0)
     codes = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return codes, scale
 

@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from repro_torch.core.quant import _div_exact
+
 FROZEN_KEYS = ("fpn", "a_scale", "w_scale", "gain")
 
 
@@ -65,10 +67,11 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     """Learning rate at ``step`` (a tensor): linear warmup times a cosine
     decay to ``min_lr_frac``, in fp32."""
     step = step.to(torch.float32)
-    warm = torch.clamp_max(step / max(cfg.warmup_steps, 1), 1.0)
-    prog = torch.clamp(
-        (step - cfg.warmup_steps)
-        / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    warm = torch.clamp_max(
+        _div_exact(step, float(max(cfg.warmup_steps, 1))), 1.0)
+    prog = torch.clamp(_div_exact(
+        step - cfg.warmup_steps,
+        float(max(cfg.total_steps - cfg.warmup_steps, 1))), 0.0, 1.0)
     cos = 0.5 * (1 + torch.cos(math.pi * prog))
     frac = cfg.min_lr_frac + (1 - cfg.min_lr_frac) * cos
     return cfg.lr * warm * frac

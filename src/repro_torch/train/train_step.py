@@ -123,6 +123,8 @@ def make_train_step(cfg: ArchConfig, run: RunConfig,
     """The step for one device (the reference's no-mesh step):
     ``step(state, batch, noise=None) -> (state, metrics)``, the state
     donated (updated in place).  ``batch`` holds ``tokens`` and
-    ``labels`` on the state's device."""
+    ``labels`` on the state's device.  The MoE and M-RoPE families raise:
+    their training is not ported yet (ROADMAP)."""
+    T.check_trainable(cfg)
     opt_cfg = opt_cfg or make_opt_config(run, total_steps)
     return functools.partial(train_step, cfg=cfg, run=run, opt_cfg=opt_cfg)

@@ -450,7 +450,8 @@ def test_routes_agree_and_count_launches(cuda):
     y_pl = model.apply(x, megakernel=False)
     assert ops.launch_counts() == {"maxmin_pool": 0, "analog_mvm": 3,
                                    "analog_mvm_split": 0, "analog_plan": 1,
-                                   "analog_plan_block": 0}
+                                   "analog_plan_block": 0,
+                                   "analog_mvm_split_experts": 0}
     cpu = _ecg_model("cpu")
     assert torch.equal(y_mk, y_pl)
     assert torch.equal(y_mk.cpu(), cpu.apply(x.cpu()))
@@ -783,8 +784,114 @@ def test_lm_block_route_on_card(cuda):
         if dev.type == "cuda":
             assert ops.launch_counts() == {
                 "maxmin_pool": 0, "analog_mvm": 0, "analog_mvm_split": 1,
-                "analog_plan": 0, "analog_plan_block": cfg.n_layers}
+                "analog_plan": 0, "analog_plan_block": cfg.n_layers,
+                "analog_mvm_split_experts": 0}
     want = logits["cpu"]
     assert _rel(logits["cuda"], want) <= 1e-2
     assert float((logits["cuda"].argmax(-1) == want.argmax(-1)).float().mean()
                  ) >= 0.95
+
+
+# the split kernel's expert axis: qwen3-moe-30b-a3b's up/gate and down
+# stacks at M = 32 per expert (narrowed to 16 experts here; chip_smoke.py
+# runs all 128), and a ragged sweep over E, M, K and N
+EXPERT_SHAPES = [(16, 32, 2048, 768), (16, 32, 768, 2048), (1, 5, 128, 40),
+                 (3, 9, 256, 136), (7, 17, 384, 200), (5, 33, 128, 64),
+                 (2, 48, 512, 1000), (4, 60, 256, 96)]
+
+
+@pytest.mark.parametrize("faithful", [True, False])
+@pytest.mark.parametrize("e,m,k,n", EXPERT_SHAPES)
+def test_analog_mvm_split_experts(cuda, e, m, k, n, faithful):
+    from repro_torch.kernels.analog_mvm import analog_mvm_split_experts_cuda
+
+    rng = np.random.default_rng(e * 7 + m + k + n)
+    a_pos, a_neg = (torch.from_numpy(rng.integers(0, 32, (e, m, k))
+                                     .astype(np.float32)).to(cuda)
+                    for _ in range(2))
+    codes = torch.from_numpy(rng.integers(-63, 64, (e, k, n))
+                             .astype(np.int8)).to(cuda)
+    gain = torch.from_numpy(np.repeat(rng.uniform(0.005, 0.05, (e, 1)), n, 1)
+                            .astype(np.float32)).to(cuda)
+    post = None
+    if not faithful:
+        post, gain = gain, torch.ones_like(gain)
+    ops.reset_launch_counts()
+    got = analog_mvm_split_experts_cuda(a_pos, a_neg, codes, gain,
+                                        post_gain=post, faithful=faithful)
+    counts = ops.launch_counts()
+    assert counts["analog_mvm_split_experts"] == 1
+    assert counts["analog_mvm_split"] == 0
+    want = ref.analog_mvm_split_experts_ref(
+        a_pos.cpu(), a_neg.cpu(), codes.cpu().float(), gain.cpu(),
+        post_gain=None if post is None else post.cpu(), faithful=faithful)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_expert_stack_and_moe_on_card_match_cpu(cuda):
+    """An MoE layer on the card against the CPU, the CPU's routing passed
+    in: the expert stacks through the split kernel's expert axis (one
+    launch per stack), their products bit-exact; the layer's output
+    within 1e-5 * max|y| (SiLU rounds in another order on the card)."""
+    from repro_torch.exec.lower import lower_expert_stack
+    from repro_torch.exec.plan import GroupPlan
+    from repro_torch.exec.run import run_expert_stack
+    from repro_torch.models import moe as M
+
+    g = torch.Generator().manual_seed(0)
+    p = M.moe_init(g, 256, 128, 8, act="swiglu", device="cpu")
+    acfg = AnalogConfig(mode="analog_faithful")
+    x = torch.randn((2, 12, 256), generator=g)
+    rec = M.Routes()
+    want, want_aux = M.moe_apply(p, x, acfg=acfg, top_k=2, routes=rec)
+    ops.reset_launch_counts()
+    got, aux = M.moe_apply(to_device(p, cuda), x.to(cuda), acfg=acfg,
+                           top_k=2, routes=M.Routes(replay=rec.taken))
+    assert ops.launch_counts()["analog_mvm_split_experts"] == 3
+    assert torch.allclose(got.cpu(), want, rtol=0,
+                          atol=1e-5 * want.abs().max().item())
+    assert abs(float(aux) - float(want_aux)) <= 1e-6 * float(want_aux)
+    xe = torch.randn((8, 6, 256), generator=g)
+    for mode in ("analog_faithful", "analog_fast"):
+        acfg = AnalogConfig(mode=mode)
+        gp = GroupPlan(kind="expert_stack",
+                       fused=lower_expert_stack(p["up"], acfg),
+                       member_names=("up",), member_ns=(128,))
+        gpc = GroupPlan(kind="expert_stack",
+                        fused=lower_expert_stack(p["up"].to(cuda), acfg),
+                        member_names=("up",), member_ns=(128,))
+        assert torch.equal(run_expert_stack(gpc, xe.to(cuda), acfg).cpu(),
+                           run_expert_stack(gp, xe, acfg))
+
+
+def test_divisions_are_exact_on_the_card(cuda):
+    """The int8 KV cache's codes and scales, the cached decode's scores,
+    the int8 gradient compression's scale and the learning-rate schedule
+    on the card equal the CPU's bit for bit (PyTorch's CUDA division by a
+    Python number multiplies by its rounded reciprocal; these sites pass
+    the divisor as a tensor)."""
+    from repro_torch.train import compression as C
+    from repro_torch.train import optimizer as O
+
+    rng = np.random.default_rng(9)
+    t = torch.from_numpy(rng.standard_normal((3, 50, 4, 64))
+                         .astype(np.float32) * 3)
+    for a, b in zip(A._quantize_kv(t.to(cuda)), A._quantize_kv(t)):
+        assert torch.equal(a.cpu(), b)
+    # integer q and k: the dot products are exact, the division is what
+    # is compared
+    for hd in (24, 64, 96, 128):
+        q = torch.from_numpy(rng.integers(-9, 10, (2, 3, 2, 2, hd))
+                             .astype(np.float32))
+        k = torch.from_numpy(rng.integers(-9, 10, (2, 7, 2, hd))
+                             .astype(np.float32))
+        assert torch.equal(A.decode_scores(q.to(cuda), k.to(cuda)).cpu(),
+                           A.decode_scores(q, k))
+    g = torch.from_numpy(rng.standard_normal((1000,)).astype(np.float32))
+    for a, b in zip(C.compress(g.to(cuda)), C.compress(g)):
+        assert torch.equal(a.cpu(), b)
+    cfg = O.AdamWConfig(lr=3e-4, warmup_steps=100, total_steps=1000)
+    for step in (0, 1, 50, 100, 101, 537, cfg.total_steps):
+        s = torch.tensor(step, dtype=torch.int32)
+        assert torch.equal(O.schedule(cfg, s.to(cuda)).cpu(),
+                           O.schedule(cfg, s))

@@ -129,11 +129,13 @@ class TestConfigs:
         assert full.dtype == torch.float32
 
     def test_other_families_are_not_ported(self):
-        for name in jconfigs.ARCH_NAMES:
-            if name in configs.ARCH_NAMES:
-                continue
-            with pytest.raises(NotImplementedError, match="not ported"):
-                configs.get_arch(name)
+        # the RWKV and SSM-hybrid configs are the two still unported
+        unported = sorted(set(jconfigs.ARCH_NAMES) - set(configs.ARCH_NAMES))
+        assert unported == ["rwkv6-7b", "zamba2-2.7b"]
+        for name in unported:
+            for get in (configs.get_arch, configs.get_smoke):
+                with pytest.raises(NotImplementedError, match="not ported"):
+                    get(name)
         with pytest.raises(KeyError):
             configs.get_smoke("no-such-arch")
 
@@ -405,7 +407,11 @@ class TestNotPorted:
         # the engine's calibration, drift, plan-cache and fleet hooks are
         # ported (tests/test_torch_serve_hooks.py); these paths are not
         # the int8 cache, the offset encoding and the two-pass split are
-        # ported too (tests/test_torch_lm_serve_opts.py); M-RoPE is not
+        # ported too (tests/test_torch_lm_serve_opts.py); so is M-RoPE,
+        # held against the reference's attention at head_dim 128 (its
+        # sections 16 + 24 + 24 fill head_dim / 2) with distinct (t, h, w)
+        # positions, prefill and one cached decode step, logits within
+        # 1e-5 * max|out| (NOISELESS, as above)
         _, tp = _params(True)
         _, run = _runs(True)
         c = A.init_cache(1, 4, 2, 16, torch.int8, "cpu")
@@ -414,10 +420,28 @@ class TestNotPorted:
         x = torch.ones((1, 96))
         y = trun.run_layer(lp, x, run.analog.replace(fused_split=False))
         assert torch.equal(y, trun.run_layer(lp, x, run.analog))
-        with pytest.raises(NotImplementedError, match="M-RoPE"):
-            A.attention_apply(
-                T.stack_index(tp["layers"], 0)["l0"]["attn"],
-                torch.ones((1, 2, 96)), positions=torch.zeros((1, 2, 3)),
-                acfg=run.analog, n_heads=CFG.n_heads,
-                n_kv_heads=CFG.n_kv_heads, head_dim=CFG.hd,
-                rope_theta=CFG.rope_theta, mrope=True)
+        jrun, _ = _runs(True)
+        geo = dict(n_heads=2, n_kv_heads=1, head_dim=128, rope_theta=1e6,
+                   mrope=True)
+        jp = JA.attention_init(jax.random.PRNGKey(3), 64, 2, 1, 128,
+                               noise=JNOISELESS)
+        ap = params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+        rng = np.random.default_rng(4)
+        x = rng.standard_normal((2, 5, 64)).astype(np.float32)
+        pos = rng.integers(0, 40, (2, 6, 3)).astype(np.int32)
+        jc = JA.init_cache(2, 8, 1, 128, jnp.float32)
+        tc = A.init_cache(2, 8, 1, 128, torch.float32, "cpu")
+        for sl in (slice(0, 5), slice(5, 6)):
+            xs = x[:, :5] if sl.start == 0 else x[:, :1] * 0.5
+            jy, jc = JA.attention_apply(jp, jnp.asarray(xs),
+                                        positions=jnp.asarray(pos[:, sl]),
+                                        acfg=jrun.analog, cache=jc, **geo)
+            ty, tc = A.attention_apply(ap, torch.from_numpy(xs),
+                                       positions=torch.from_numpy(pos[:, sl]),
+                                       acfg=run.analog, cache=tc, **geo)
+            want = np.asarray(jy)
+            np.testing.assert_allclose(_np(ty), want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+        with pytest.raises(ValueError, match="sections"):
+            L.apply_mrope(torch.ones((1, 2, 1, 16)),
+                          torch.zeros((1, 2, 3)), 1e4)

@@ -7,11 +7,12 @@ Cases: the ECG stack with its megakernel packing (code chain, and the
 static float chain on a measured calibration snapshot), a tree with a
 ``column_concat`` group - plain and scan-stacked (the port's
 ``PlanStack`` against the reference's stacked leaves) - and a
-transformer block plan; an ``expert_stack`` group loads as data.
+transformer block plan; an ``expert_stack`` group round-trips as a live
+group both ways.
 Tolerances:
 
 - every array leaf: bit for bit, dtypes kept (int8 codes int8 on disk).
-- ECG logits, both routes, and the group replay: bit-exact (the same
+- ECG logits, both routes, and the group replays: bit-exact (the same
   arithmetic on the same leaves as the reference-vs-port tests of
   ``test_torch_ecg.py`` / ``test_torch_calib.py``, measured bit-exact).
 - the block: within 1e-5 * max|y| and equal argmax, the block tolerance
@@ -37,6 +38,7 @@ from repro.data.preprocess import preprocess_batch  # noqa: E402
 from repro.exec import store as jstore  # noqa: E402
 from repro.exec.lower import lower_expert_stack  # noqa: E402
 from repro.exec.plan import GroupPlan as JGroupPlan  # noqa: E402
+from repro.exec.run import run_expert_stack as jrun_expert_stack  # noqa: E402
 from repro.exec.run import run_group as jrun_group  # noqa: E402
 from repro.models import ecg as JECG  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
@@ -49,6 +51,7 @@ from repro_torch.data.ecg_synth import ECGDatasetConfig, make_dataset  # noqa: E
 from repro_torch.data.preprocess import preprocess  # noqa: E402
 from repro_torch.exec import run as trun  # noqa: E402
 from repro_torch.exec import store  # noqa: E402
+from repro_torch.exec.lower import lower_expert_stack as tlower_expert_stack  # noqa: E402
 from repro_torch.exec.lower import lowering_count  # noqa: E402
 from repro_torch.exec.plan import (AnalogPlan, GroupPlan, LayerPlan,  # noqa: E402
                                    PlanStack)
@@ -275,19 +278,46 @@ class TestTree:
             np.testing.assert_array_equal(_np(a), _np(b))
         _check_groups(tm.lower(), jtree, acfg, jacfg)
 
-    def test_expert_stack_group_loads_as_data(self, tmp_path):
-        w = jax.random.normal(jax.random.PRNGKey(5), (3, 40, 24)) * 0.1
+    @pytest.mark.parametrize("mode", ["analog_faithful", "analog_fast"])
+    def test_expert_stack_group_round_trips_live(self, tmp_path, mode):
+        """An expert_stack group saved by either package loads into the
+        other as a live group and replays to the other's outputs, bit for
+        bit (the gains travel baked, so no reduction is redone), with no
+        lowering on load; the stores' leaves agree bit for bit."""
+        # integer-code weights (each column's max |code| 63, LSB 2^-6):
+        # the statistical gain's mean is then exact in any order
+        rng = np.random.default_rng(5)
+        codes = rng.integers(-20, 21, (3, 200, 24))
+        codes[:, 7] = 63
+        w = jnp.asarray((codes * 2.0 ** -6).astype(np.float32))
+        x = (np.random.default_rng(6).standard_normal((3, 5, 200))
+             .astype(np.float32))
+        jacfg, acfg = JAnalogConfig(mode=mode), AnalogConfig(mode=mode)
         jgp = JGroupPlan(kind="expert_stack",
-                         fused=lower_expert_stack(w, JAnalogConfig()),
+                         fused=lower_expert_stack(w, jacfg),
                          member_names=("up",), member_ns=(24,))
-        path = str(tmp_path / "experts.npz")
-        jstore.save_plan(path, {"moe": {"_groups": {"up": jgp}}})
-        gp = store.load_plan(path, device="cpu")["moe"]["_groups"]["up"]
-        assert isinstance(gp, GroupPlan) and gp.kind == "expert_stack"
-        assert gp.fused.store.codes.dtype == torch.int8
-        assert tuple(gp.fused.store.codes.shape) == (3, 128, 24)
-        np.testing.assert_array_equal(_np(gp.fused.w_eff),
-                                      _np(jgp.fused.w_eff))
+        gp = GroupPlan(kind="expert_stack",
+                       fused=tlower_expert_stack(_port(w), acfg),
+                       member_names=("up",), member_ns=(24,))
+        _same_leaves(gp, jgp)
+        want = np.asarray(jrun_expert_stack(jgp, jnp.asarray(x), jacfg))
+        for save, load in ((jstore.save_plan, store.load_plan),
+                           (store.save_plan, jstore.load_plan)):
+            path = str(tmp_path / f"experts-{save.__module__}.npz")
+            save(path, {"moe": {"_groups": {"up": jgp if save is
+                                            jstore.save_plan else gp}}})
+            before = lowering_count()
+            got = (load(path, device="cpu") if load is store.load_plan
+                   else load(path))["moe"]["_groups"]["up"]
+            assert got.kind == "expert_stack"
+            if load is store.load_plan:
+                assert lowering_count() == before
+                assert got.fused.store.codes.dtype == torch.int8
+                assert tuple(got.fused.store.codes.shape) == (3, 256, 24)
+                y = trun.run_group(got, torch.from_numpy(x), acfg)
+            else:
+                y = jrun_expert_stack(got, jnp.asarray(x), jacfg)
+            np.testing.assert_array_equal(_np(y), want)
 
 
 @functools.lru_cache(maxsize=None)
