@@ -28,7 +28,11 @@ with random weights from a seed, on one NVIDIA GPU:
   widths through ``ServeEngine`` (its expert stacks through the split
   kernel's expert axis, one launch per stack), qwen2-vl-7b and
   musicgen-medium through ``make_serve_steps`` on precomputed
-  embeddings, and the four families' SMOKE configs card vs CPU.
+  embeddings, and the four families' SMOKE configs card vs CPU;
+- the RWKV and SSM-hybrid families: rwkv6-7b at its published widths
+  through ``ServeEngine`` (its r/k/v/g ``batch_concat`` group through the
+  split kernel's member axis, one launch per layer), zamba2-2.7b through
+  ``make_serve_steps``, and both families card vs CPU.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -263,12 +267,37 @@ exits non-zero without printing a result):
 32. musicgen-medium at its published size (48 layers, d_model 1536, 24
    heads, d_ff 6144, vocab 2048), the same calls, 193 split launches per
    call;
-33. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+33. the split kernel's member axis against its plain version on the
+   card, bit-exact: rwkv6-7b's r/k/v/g (G = 4, K = N = 4096) at M = 4 and
+   48 with per-member integer rank-1 tables and chunk offsets, each
+   member bit-identical to its own 2-D launch, and a ragged sweep over
+   G, M, K and N with a per-member chunk_gain (form 2), faithful and
+   fast; the member launch's ms beside its bytes bound;
+34. rwkv6-7b at its published widths (32 layers, d_model 4096, 64 heads
+   of 64, d_ff 14336, vocab 65536; fits whole), random weights,
+   ``analog_faithful``, through ``ServeEngine`` at batch 4: 8 requests of
+   4-11 prompt tokens, 8 new tokens each; per call 1 member launch and 3
+   split launches per layer + the lm_head (129); decode ms per step
+   (host, device, idle share), prefill latency, the member launches'
+   device ms per step beside their bound, the WKV recurrence's device ms,
+   peak memory below PEAK_BUDGET_GIB;
+35. zamba2-2.7b at its published widths (54 Mamba-2 layers, d_model
+   2560, ssm_state 64, a shared attention block of 32 heads every 6
+   layers, vocab 32000; fits whole) through ``make_serve_steps``: a
+   4 x 12 prefill and 8 greedy decode steps, 127 split launches per call,
+   ms per step, idle share, the SSD recurrence's device ms, peak memory;
+36. both families' SMOKE configs, and each at full width cut to one scan
+   group, card against CPU on integer effective weights at fp32
+   activations: logits within phase 8's tolerance (the TIE_* row share at
+   full width), greedy tokens equal, one member launch per RWKV layer; at
+   static calibration on each device a 9-token prefill and 3 decode
+   steps against the 12-token prefill's last logits;
+37. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
 ``python3 chip_smoke.py --slice10`` runs the build and phases 22-27
-alone, ``--slice11`` the build and phases 28-32 (quick checks; the
-contract's run takes no arguments).
+alone, ``--slice11`` the build and phases 28-32, ``--slice12`` the build
+and phases 33-36 (quick checks; the contract's run takes no arguments).
 """
 from __future__ import annotations
 
@@ -313,6 +342,11 @@ TPU_KERNELS = {
     # in one launch (the reference runs its expert products through the
     # plain chunked VMM, src/repro/exec/run.py:279)
     "analog_mvm_split_experts": ("src/repro_torch/csrc/analog_mvm_split.cu",
+                                 "src/repro/kernels/analog_mvm.py:251"),
+    # the same kernel's member axis, each member with its own tables: the
+    # RWKV r/k/v/g batch_concat group in one launch (the reference vmaps
+    # analog_mvm_split_pallas over the members, src/repro/exec/run.py:240)
+    "analog_mvm_split_members": ("src/repro_torch/csrc/analog_mvm_split.cu",
                                  "src/repro/kernels/analog_mvm.py:251"),
     "analog_plan": ("src/repro_torch/csrc/analog_plan.cu",
                     "src/repro/kernels/analog_plan.py:401"),
@@ -443,8 +477,11 @@ from repro_torch.configs.base import RunConfig  # noqa: E402
 from repro_torch.kernels.analog_mvm import (  # noqa: E402
     MVM_SMEM_LIMIT, analog_mvm_cuda, analog_mvm_cuda_with_plan,
     analog_mvm_split_codes_cuda, analog_mvm_split_cuda,
-    analog_mvm_split_experts_cuda, mvm_geometry)
+    analog_mvm_split_experts_cuda, analog_mvm_split_members_cuda,
+    mvm_geometry)
 from repro_torch.models import moe as M  # noqa: E402
+from repro_torch.models import rwkv as R  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.core.quant import quantize_act  # noqa: E402
@@ -682,9 +719,7 @@ def main_path(raw, model, cpu_model):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     n = len(BATCHES)
-    expected = {"maxmin_pool": n, "analog_plan": n, "analog_mvm": 3 * n,
-                "analog_mvm_split": 0, "analog_plan_block": 0,
-                "analog_mvm_split_experts": 0}
+    expected = _launches(maxmin_pool=n, analog_plan=n, analog_mvm=3 * n)
     if counts != expected:
         raise AssertionError(f"launch counts {counts} != {expected}")
 
@@ -1060,7 +1095,9 @@ def _counting(engine):
         def run(params, batch, cache):
             logits, cache = step(params, batch, cache)
             calls[name] += 1
-            b = cache["layers"]["l0"]["attn"]["k"].shape[1]
+            # the call's batch rows: the prompt tokens, or the step's
+            b = (next(iter(batch.values())) if isinstance(batch, dict)
+                 else batch).shape[0]
             if tuple(logits.shape) != (b, engine.cfg.vocab_size) or not bool(
                     torch.isfinite(logits).all()):
                 raise AssertionError(f"{name}: logits {tuple(logits.shape)} "
@@ -1108,9 +1145,7 @@ def lm_main_path():
             if len(ms) > 1 else ms}
     n_calls = calls["prefill"] + calls["decode"]
     per_call = 5 * cfg.n_layers + 1
-    expected = {"maxmin_pool": 0, "analog_mvm": 0, "analog_plan": 0,
-                "analog_mvm_split": per_call * n_calls, "analog_plan_block": 0,
-                "analog_mvm_split_experts": 0}
+    expected = _launches(analog_mvm_split=per_call * n_calls)
     if counts != expected:
         raise AssertionError(f"LM launch counts {counts} != {expected} "
                              f"({calls})")
@@ -1376,8 +1411,7 @@ def block_main_path(params, cfg):
         logits = T.lm_apply(tree_, {"tokens": toks}, cfg, run)[0]
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        want = {"maxmin_pool": 0, "analog_mvm": 0, "analog_plan": 0,
-                "analog_mvm_split_experts": 0, **want}
+        want = _launches(**want)
         if counts != want:
             raise AssertionError(f"{name} prefill launch counts {counts} != "
                                  f"{want}")
@@ -1890,9 +1924,8 @@ def calibration_path(raw):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     n = len(BATCHES) * len(models)
-    expected = {"maxmin_pool": len(BATCHES), "analog_plan": n,
-                "analog_mvm": 3 * n, "analog_mvm_split": 0,
-                "analog_plan_block": 0, "analog_mvm_split_experts": 0}
+    expected = _launches(maxmin_pool=len(BATCHES), analog_plan=n,
+                         analog_mvm=3 * n)
     if counts != expected:
         raise AssertionError(f"calibrated launch counts {counts} != "
                              f"{expected}")
@@ -4267,6 +4300,423 @@ def family_phases(counts):
     return rows
 
 
+RWKV_ARCH = "rwkv6-7b"
+HYBRID_ARCH = "zamba2-2.7b"
+# the member axis's ragged sweep: (G, M, K, N), no multiple of a tile, in
+# form 2 (a measured chunk_gain per member)
+MEMBER_RAGGED = ((1, 5, 128, 40), (2, 9, 256, 136), (3, 17, 384, 200),
+                 (4, 33, 128, 64), (2, 48, 512, 1000), (5, 60, 256, 96))
+# served depths (PERF.md, Cells): both families fit whole
+SERVED_LAYERS.update({RWKV_ARCH: 32, HYBRID_ARCH: 54})
+
+
+def _member_operands(g, m, k, n, gen, form):
+    """Both passes' 5-bit codes ``[G, M, K]``, int8 weight codes ``[G, K,
+    N]`` and each member's integer tables - rank-1 gains in 1..3, chunk
+    offsets in -3..3, in form 2 a chunk_gain in 1..2 - with a dyadic gain
+    per member ``[G, N]``: every chunk sum exact, so the member axis is
+    held bit-exact against its plain version."""
+    c = k // 128
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             device=DEV).float()
+
+    a_pos, a_neg = ints(0, 32, (g, m, k)), ints(0, 32, (g, m, k))
+    codes = torch.randint(-63, 64, (g, k, n), generator=gen,
+                          device=DEV).to(torch.int8)
+    col, row = ints(1, 4, (g, n)), ints(1, 4, (g, 1, k))
+    cg = ints(1, 3, (g, c, n)) if form == 2 else None
+    gain = torch.pow(2.0, -ints(6, 10, (g, 1))).expand(g, n).contiguous()
+    off = ints(-3, 4, (g, c, n))
+    return a_pos, a_neg, codes, col, row, cg, gain, off
+
+
+def _member_call(o, faithful, plain=False):
+    a_pos, a_neg, codes, col, row, cg, gain, off = o
+    if plain:
+        w = (codes.float() * col[:, None, :]) * row[:, 0, :, None]
+        if cg is not None:
+            w = w * torch.repeat_interleave(cg, 128, dim=1)
+        with fp32_matmuls():
+            return ref.analog_mvm_split_members_ref(a_pos, a_neg, w, gain,
+                                                    off, faithful=faithful)
+    return analog_mvm_split_members_cuda(a_pos, a_neg, codes, col, row, gain,
+                                         off, chunk_gain=cg,
+                                         faithful=faithful)
+
+
+def member_work(g, m, k, n, form=0):
+    """(bytes, operations) of one member-axis launch: both passes' codes,
+    the int8 weight codes, each member's tables (gains, rank-1 factors,
+    chunk offsets, in form 2 the chunk gains) and the output, each once;
+    both passes' products."""
+    c = k // 128
+    tables = g * n + g * n + g * k + g * c * n + (g * c * n if form == 2
+                                                  else 0)
+    return 4 * (2 * g * m * k + tables + g * m * n) + g * k * n, \
+        2 * 2 * g * m * k * n
+
+
+def check_member_axis():
+    """Phase 33: the split kernel's member axis against its plain version
+    on the card, bit-exact: rwkv6-7b's r/k/v/g (G = 4, K = N = 4096) at
+    M = 4 (decode) and 48 (a 4 x 12 prefill) with per-member integer
+    rank-1 tables and chunk offsets, each member also bit-identical to its
+    own 2-D launch, and a ragged sweep over G, M, K and N in form 2 (a
+    chunk_gain per member), faithful and fast; then the launch's time at
+    the r/k/v/g shapes beside its bound."""
+    cfg = configs.get_arch(RWKV_ARCH)
+    d = cfg.d_model
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 21)
+    results, rows = [], []
+    cases = [(f"r/k/v/g G=4 M={m}", 4, m, d, d, 0) for m in LM_M.values()]
+    cases += [(f"ragged {shape} form 2", *shape, 2) for shape in MEMBER_RAGGED]
+    for what, g, m, k, n, form in cases:
+        o = _member_operands(g, m, k, n, gen, form)
+        for faithful in (True, False):
+            ops.reset_launch_counts()
+            got = _member_call(o, faithful)
+            counts = ops.launch_counts()
+            if counts["analog_mvm_split_members"] != 1 or \
+                    counts["analog_mvm_split"] != 0:
+                raise AssertionError(f"{what}: not one member launch "
+                                     f"({counts})")
+            results.append(_compare(
+                "analog_mvm_split_members", got,
+                _member_call(o, faithful, plain=True), exact=True,
+                what=f"{what} faithful={faithful}"))
+            if form == 0:
+                a_pos, a_neg, codes, col, row, _, gain, off = o
+                for i in range(g):
+                    solo = analog_mvm_split_codes_cuda(
+                        a_pos[i], a_neg[i], codes[i], col[i], row[i],
+                        gain[i], off[i], faithful=faithful)
+                    if not torch.equal(got[i], solo):
+                        raise AssertionError(f"{what}: member {i} differs "
+                                             "from its own 2-D launch")
+        del o
+    for m in LM_M.values():
+        o = _member_operands(4, m, d, d, gen, 0)
+        nbytes, nops = member_work(4, m, d, d)
+        b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+        kern = lambda o=o: _member_call(o, True)  # noqa: E731
+        plain = lambda o=o: _member_call(o, True, plain=True)  # noqa: E731
+        row = {"kernel": "analog_mvm_split_members", "m": m,
+               "what": f"r/k/v/g G=4 M={m} K={d} N={d}",
+               "ms": time_ms(kern, iters=20, reps=5),
+               "plain_ms": time_ms(plain, iters=3, reps=3),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+               "device_ms": device_trace(kern, iters=10)[0],
+               "bytes": nbytes, "operations": nops}
+        row["device_share_of_bound"] = (
+            None if row["device_ms"] is None else b_ms / row["device_ms"])
+        emit("timing", row)
+        rows.append(row)
+        del o
+    return results, rows
+
+
+def _member_launch_ms(tree, cfg, gen):
+    """Device ms of one RWKV layer's r/k/v/g member launch at the decode
+    shape (M = 4 per member), on the served tree's lowered group, and its
+    bound."""
+    acfg = AnalogConfig(mode="analog_faithful")
+    gp = T.stack_index(tree["layers"]["l0"], 0)["rwkv"]["_groups"]["rkvg"]
+    xs = [torch.randn((LM_BATCH, 1, cfg.d_model), generator=gen, device=DEV)
+          for _ in range(4)]
+    ms, rec = kernel_record_ms(lambda: trun.run_batch_concat(gp, xs, acfg),
+                               "split_kernel", iters=10)
+    return {"device_ms": ms, "records": rec,
+            "bound_ms": bound(*member_work(4, LM_BATCH, cfg.d_model,
+                                           cfg.d_model), BF16_OPS_PER_S)[0]}
+
+
+def rwkv_full_serving():
+    """Phase 34: rwkv6-7b at its published widths (32 layers, d_model
+    4096, 64 heads of 64, d_ff 14336, vocab 65536) through ServeEngine
+    (random weights, analog_faithful) at batch 4: 8 requests of 4-11
+    prompt tokens, 8 new tokens each.  Per prefill and decode call ONE
+    member launch per layer (r/k/v/g) and 3 split launches (wo, the
+    channel mix's two) + the lm_head; decode ms per step (host and device,
+    idle share), prefill latency, the member launches' device ms per step
+    beside their bound, the WKV recurrence's device ms per prefill, peak
+    memory, held below PEAK_BUDGET_GIB."""
+    full = configs.get_arch(RWKV_ARCH)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    depth = SERVED_LAYERS[RWKV_ARCH]
+    cfg = _cut(full, depth)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine = _engine(cfg, run)
+    torch.cuda.synchronize()
+    t_build = time.monotonic() - t0
+    calls = _counting(engine)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    done = engine.serve(_lm_requests(cfg))
+    torch.cuda.synchronize()
+    t_serve = time.monotonic() - t0
+    counts = ops.launch_counts()
+    n_calls = calls["prefill"] + calls["decode"]
+    want = _launches(analog_mvm_split=(3 * depth + 1) * n_calls,
+                     analog_mvm_split_members=depth * n_calls)
+    if counts != want:
+        raise AssertionError(f"rwkv launch counts {counts} != {want} "
+                             f"({calls})")
+    for r in done:
+        out = r.output.tolist()
+        if len(out) != LM_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"request {r.uid}: tokens {out}")
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
+    timing = _serve_timing(cfg, engine.prefill, engine.decode, engine.params,
+                           {"tokens": toks}, toks[:, :1])
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 22)
+    member = _member_launch_ms(engine.params, cfg, gen)
+    # the WKV recurrence of one layer at the prefill's 4 x 12 (plain
+    # PyTorch, one step per token)
+    hd = cfg.d_model // cfg.n_heads
+    shape = (LM_BATCH, LM_SEQ, cfg.n_heads, hd)
+    r, k, v = (torch.randn(shape, generator=gen, device=DEV)
+               for _ in range(3))
+    w = torch.rand(shape, generator=gen, device=DEV)
+    u = torch.randn(shape[2:], generator=gen, device=DEV)
+    s0 = torch.zeros((LM_BATCH, cfg.n_heads, hd, hd), device=DEV)
+    wkv_ms, wkv_acts = device_trace(lambda: R.wkv_scan(r, k, v, w, u, s0),
+                                    iters=5)
+    report = {
+        "arch": cfg.name, "published_layers": full.n_layers,
+        "layers": depth, "build_s": t_build, "serve_s": t_serve,
+        "calls": calls, "launches": counts,
+        "launches_per_call": {"analog_mvm_split": 3 * depth + 1,
+                              "analog_mvm_split_members": depth},
+        **timing,
+        "member_launch_device_ms_per_layer": member,
+        "member_device_ms_per_decode_step": None
+        if member["device_ms"] is None else depth * member["device_ms"],
+        "member_bound_ms_per_decode_step": depth * member["bound_ms"],
+        "wkv_scan_device_ms_per_layer_prefill": wkv_ms,
+        "wkv_scan_device_activities_per_layer_prefill": wkv_acts,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "tokens": {r.uid: r.output.tolist() for r in done},
+    }
+    if report["peak_memory_gib"] > PEAK_BUDGET_GIB:
+        raise AssertionError(f"rwkv serving peak {report['peak_memory_gib']}"
+                             f" GiB above the {PEAK_BUDGET_GIB} GiB budget")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def hybrid_full_serving():
+    """Phase 35: zamba2-2.7b at its published widths (54 Mamba-2 layers,
+    d_model 2560, ssm_state 64, a shared attention block of 32 heads at
+    the entry of every 6 layers, vocab 32000) through ``make_serve_steps``
+    (random weights, analog_faithful): a 4 x 12 prefill and 8 greedy
+    decode steps; per call 2 split launches per Mamba layer (in_proj,
+    out_proj), 2 per shared-attention application (fused QKV, o) and the
+    lm_head; ms per step (host and device, idle share), prefill latency,
+    the SSD recurrence's device ms per prefill, peak memory."""
+    full = configs.get_arch(HYBRID_ARCH)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    depth = SERVED_LAYERS[HYBRID_ARCH]
+    cfg = _cut(full, depth)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = T.lm_init(torch.Generator(device=DEV).manual_seed(SEED), cfg)
+    model = api.compile(T.lm_module_spec(cfg, params), params, run)
+    torch.cuda.synchronize()
+    t_build = time.monotonic() - t0
+    prefill, decode = SS.make_serve_steps(cfg, run)
+    batch = _family_batch(cfg, LM_SEQ, SEED + 6, DEV)
+    cache = T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN, dtype=torch.float32)
+    ops.reset_launch_counts()
+    logits, cache = prefill(model.lower(), batch, cache)
+    pre_counts = ops.launch_counts()
+    frames = [logits]
+    for _ in range(LM_NEW_TOKENS):
+        logits, cache = decode(model.lower(), logits.argmax(-1)[:, None],
+                               cache)
+        frames.append(logits)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    per_call = 2 * depth + 2 * T.n_groups(cfg) + 1
+    want = _launches(analog_mvm_split=per_call * (1 + LM_NEW_TOKENS))
+    if counts != want or pre_counts["analog_mvm_split"] != per_call:
+        raise AssertionError(f"zamba2 launches {counts} != {want}")
+    for x in frames:
+        if tuple(x.shape) != (LM_BATCH, cfg.vocab_size) or not bool(
+                torch.isfinite(x).all()):
+            raise AssertionError(f"zamba2: logits {tuple(x.shape)} not "
+                                 "finite of shape (B, vocab)")
+    timing = _serve_timing(cfg, prefill, decode, model.lower(), batch,
+                           batch["tokens"][:, :1].contiguous())
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 23)
+    d_in, n = 2 * cfg.d_model, cfg.ssm_state
+    h = d_in // 64
+    xh = torch.randn((LM_BATCH, LM_SEQ, h, 64), generator=gen, device=DEV)
+    dt = torch.rand((LM_BATCH, LM_SEQ, h), generator=gen, device=DEV)
+    bb, cc = (torch.randn((LM_BATCH, LM_SEQ, n), generator=gen, device=DEV)
+              for _ in range(2))
+    s0 = torch.zeros((LM_BATCH, h, 64, n), device=DEV)
+    ssd_ms, ssd_acts = device_trace(
+        lambda: SSM.ssd_scan(xh, dt, torch.exp(-dt), bb, cc, s0), iters=5)
+    report = {"arch": cfg.name, "published_layers": full.n_layers,
+              "layers": depth, "groups": T.n_groups(cfg),
+              "build_s": t_build, "prefill": [LM_BATCH, LM_SEQ],
+              "decode_steps": LM_NEW_TOKENS, "launches": counts,
+              "launches_per_call": per_call, **timing,
+              "ssd_scan_device_ms_per_layer_prefill": ssd_ms,
+              "ssd_scan_device_activities_per_layer_prefill": ssd_acts,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "greedy_codes": [x.argmax(-1).tolist() for x in frames]}
+    if report["peak_memory_gib"] > PEAK_BUDGET_GIB:
+        raise AssertionError(f"zamba2 serving peak "
+                             f"{report['peak_memory_gib']} GiB above the "
+                             f"{PEAK_BUDGET_GIB} GiB budget")
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def _recurrent_vs_cpu(what, cfg, ties):
+    """One family on the card against the CPU (phase 36): integer
+    effective weights, fp32 activations, a 4 x 12 prefill (dynamic
+    calibration): logits, greedy tokens and the launch counts; then at
+    static calibration, on each device, a prefill of 9 tokens and 3
+    decode steps against the 12-token prefill's last logits."""
+    saved = T.NOISE
+    T.NOISE = NOISELESS            # integer effective weights
+    try:
+        params = T.lm_init(torch.Generator().manual_seed(SEED), cfg,
+                           device="cpu")
+    finally:
+        T.NOISE = saved
+    row_share = TIE_ROW_SHARE if ties else 1 - TIE_SHARE
+    out, bad, rep = {}, [], {"what": what}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else to_device(params, DEV)
+        batch = _family_batch(cfg, LM_SEQ, SEED + 7, dev)
+        for calib_mode in ("dynamic", "static"):
+            run = RunConfig(analog=AnalogConfig(
+                mode="analog_faithful", noise=NOISELESS,
+                act_calib=calib_mode), activation_dtype="float32")
+            model = api.compile(T.lm_module_spec(cfg, p), p, run, device=dev)
+            if calib_mode == "dynamic":
+                ops.reset_launch_counts()
+                with torch.no_grad():
+                    logits = T.lm_apply(model.lower(), batch, cfg, run)[0]
+                out[dev] = {"logits": logits.float().cpu(),
+                            "launches": ops.launch_counts()}
+                continue
+            # static: the cache path against the whole prefill
+            pre, dec = SS.make_serve_steps(cfg, run)
+            toks = batch["tokens"]
+            with torch.no_grad():
+                whole, _ = pre(model.lower(), {"tokens": toks},
+                               T.init_lm_cache(cfg, LM_BATCH, 32,
+                                               dtype=torch.float32,
+                                               device=dev))
+                cache = T.init_lm_cache(cfg, LM_BATCH, 32,
+                                        dtype=torch.float32, device=dev)
+                last, cache = pre(model.lower(),
+                                  {"tokens": toks[:, :LM_SEQ - 3]}, cache)
+                for i in range(LM_SEQ - 3, LM_SEQ):
+                    last, cache = dec(model.lower(), toks[:, i:i + 1], cache)
+            r, b = _logits_vs_cpu(f"{what} on {dev}, prefill + 3 decode "
+                                  "steps vs the whole prefill", last,
+                                  whole.detach().cpu(), exact=False,
+                                  row_share=row_share)
+            rep[f"cache_path_{dev}"] = r
+            bad += b
+            del model
+        del p
+    r, b = _logits_vs_cpu(f"{what}, card vs CPU", out["cuda"]["logits"],
+                          out["cpu"]["logits"], exact=False,
+                          row_share=row_share)
+    rep.update(r)
+    bad += b
+    greedy = float((out["cuda"]["logits"].argmax(-1)
+                    == out["cpu"]["logits"].argmax(-1)).float().mean())
+    if greedy < 1 - TIE_SHARE:
+        bad.append(f"{what}: greedy tokens agree on {greedy} of the rows")
+    launches = out["cuda"]["launches"]
+    if cfg.block == "rwkv" and launches["analog_mvm_split_members"] != \
+            cfg.n_layers:
+        bad.append(f"{what}: {launches} member launches, want one per "
+                   "layer")
+    rep.update({"greedy_agreement": greedy,
+                "launches": {k: v for k, v in launches.items() if v}})
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rep, bad
+
+
+def recurrent_card_vs_cpu():
+    """Phase 36: rwkv6-7b and zamba2-2.7b, their SMOKE configs and each at
+    full width cut to one scan group (rwkv: 1 layer; zamba2: the shared
+    attention block and 6 Mamba layers), on the card against the CPU
+    (:func:`_recurrent_vs_cpu`): logits within phase 8's tolerance (the
+    TIE_* row share at full width, where the LayerNorm's last bit may
+    flip a dynamic code at a tie), greedy tokens equal, one member launch
+    per RWKV layer, and the cache path equal to the whole prefill."""
+    cases = [(f"{name} smoke", configs.get_smoke(name), False)
+             for name in (RWKV_ARCH, HYBRID_ARCH)]
+    for name in (RWKV_ARCH, HYBRID_ARCH):
+        full = configs.get_arch(name)
+        cases.append((f"{name} 1 group",
+                      _cut(full, len(T.group_def(full))), True))
+    results, bad = [], []
+    for what, cfg, ties in cases:
+        rep, b = _recurrent_vs_cpu(what, cfg, ties)
+        emit("recurrent_check", rep)
+        results.append(rep)
+        bad += b
+    if bad:
+        raise AssertionError("; ".join(bad[:12]))
+    return results
+
+
+def recurrent_phases(counts):
+    """Phases 33-36: the member axis, rwkv6-7b and zamba2-2.7b served at
+    full width, both families card vs CPU; returns the member axis's
+    timing rows."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks, rows = check_member_axis()
+    emit("member_axis_checks", {
+        "n": len(checks), "max_abs_err": MAX_ERR["analog_mvm_split_members"],
+        "bit_exact": True, "rows": rows})
+    for phase in (rwkv_full_serving, hybrid_full_serving):
+        report = phase()
+        emit(f"{report['arch']}_full_serving", report)
+        for name, n in report["launches"].items():
+            counts[name] += n
+    emit("recurrent_card_vs_cpu", {"n": len(recurrent_card_vs_cpu())})
+    return rows
+
+
+def slice12_only() -> None:
+    """``python3 chip_smoke.py --slice12``: the build and phases 33-36
+    alone (a quick check of the RWKV / hybrid slice; the run the contract
+    reads takes no arguments)."""
+    print(card_line(), flush=True)
+    emit("build", {"seconds_per_kernel": _build.build()})
+    counts = {name: 0 for name in TPU_KERNELS}
+    recurrent_phases(counts)
+    emit("launches", counts)
+    emit("wall_s", WALL)
+
+
 def slice11_only() -> None:
     """``python3 chip_smoke.py --slice11``: the build and phases 28-32
     alone (a quick check of the MoE / M-RoPE / audio slice; the run the
@@ -4433,6 +4883,7 @@ def main() -> None:
     emit("serve_smoke", serve_smoke_gate())
     lm_training_phases(counts)
     expert_rows = family_phases(counts)
+    member_rows = recurrent_phases(counts)
 
     emit("train_step_checks", check_train_steps())
     torch.cuda.reset_peak_memory_stats()
@@ -4474,6 +4925,18 @@ def main() -> None:
                 "library_ms": None,
             })
             continue
+        if name == "analog_mvm_split_members":
+            # one rwkv6-7b layer's r/k/v/g at decode (M = 4 per member)
+            row = next(r for r in member_rows if r["m"] == LM_BATCH)
+            kernels.append({
+                "name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": counts[name],
+                "max_abs_err": MAX_ERR[name],
+                "per": "RWKV layer at decode (1 launch)",
+                **{k: row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+            })
+            continue
         if name == "analog_plan_block":
             # one block of the 4 x 12 prefill (32 launches per prefill)
             kernels.append({
@@ -4510,8 +4973,10 @@ if __name__ == "__main__":
         slice10_only()
     elif sys.argv[1:] == ["--slice11"]:
         slice11_only()
+    elif sys.argv[1:] == ["--slice12"]:
+        slice12_only()
     elif sys.argv[1:]:
         _fail(f"unknown arguments {sys.argv[1:]}; run with none, "
-              "--slice10 or --slice11")
+              "--slice10, --slice11 or --slice12")
     else:
         main()

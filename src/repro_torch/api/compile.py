@@ -9,8 +9,9 @@
   every declared fusion group into a
   :class:`~repro_torch.exec.plan.GroupPlan` under the members' parent
   node (``"_groups"``): ONE analog dispatch where the per-layer path
-  issued N.  An MoE node's raw expert weights lower into ``expert_stack``
-  groups, a scan-stacked ``[S, E, K, N]`` weight into a
+  issued N (the attention QKV's ``column_concat``, the RWKV r/k/v/g
+  ``batch_concat``).  An MoE node's raw expert weights lower into
+  ``expert_stack`` groups, a scan-stacked ``[S, E, K, N]`` weight into a
   :class:`~repro_torch.exec.plan.PlanStack` of them, one per scan member
   (the reference leaves scan-stacked experts to the per-call path).
 
@@ -61,17 +62,19 @@ from repro_torch.api.module import (
 from repro_torch.api.program import CompiledModel
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.device import DeviceLike, resolve_device, to_device
-from repro_torch.exec.lower import (layer_with_tables, lower_block,
-                                    lower_expert_stack, lower_fused,
-                                    lower_layer, lower_stack, lowering_count,
-                                    stack_calibs, stacked_calib)
-from repro_torch.exec.plan import (GROUP_COLUMN_CONCAT, GROUP_EXPERT_STACK,
-                                   GroupPlan, PlanStack)
+from repro_torch.exec.lower import (layer_with_tables, lower_batch_concat,
+                                    lower_block, lower_expert_stack,
+                                    lower_fused, lower_layer, lower_stack,
+                                    lowering_count, stack_calibs,
+                                    stacked_calib)
+from repro_torch.exec.plan import (GROUP_BATCH_CONCAT, GROUP_COLUMN_CONCAT,
+                                   GROUP_EXPERT_STACK, GroupPlan, PlanStack)
 from repro_torch.obs import trace as _trace
 
 _PLAN = "_plan"
 _GROUPS = "_groups"
 _QKV_MEMBERS = ("wq", "wk", "wv")
+_RKVG_MEMBERS = ("wr", "wk", "wv", "wg")
 _EXPERT_MEMBERS = ("up", "gate", "down")
 # physical devices of one transformer block, in schedule order: the
 # member-name key space of a block's bake-time calibration snapshot
@@ -150,6 +153,8 @@ def _derive_groups(params) -> Tuple[GroupSpec, ...]:
 
     - one ``column_concat`` group per attention node whose wq/wk/wv share
       the input dim and the stack rank;
+    - one ``batch_concat`` group per RWKV time-mix node whose
+      wr/wk/wv/wg share the weight geometry and the stack rank;
     - one ``expert_stack`` group per raw expert weight of an MoE node.
       The reference derives none (its scan-stacked LM trees re-derive the
       experts' codes in every call); the port lowers them once, so a
@@ -168,6 +173,14 @@ def _derive_groups(params) -> Tuple[GroupSpec, ...]:
                 name=prefix + "qkv", kind=GROUP_COLUMN_CONCAT,
                 members=tuple(prefix + m for m in _QKV_MEMBERS),
             ))
+        ms = [node.get(m) for m in _RKVG_MEMBERS]
+        if (all(_is_analog_layer(m) for m in ms)
+                and len({(m["w"].ndim,) + tuple(m["w"].shape[-2:])
+                         for m in ms}) == 1):
+            groups.append(GroupSpec(
+                name=prefix + "rkvg", kind=GROUP_BATCH_CONCAT,
+                members=tuple(prefix + m for m in _RKVG_MEMBERS),
+            ))
         for m in _expert_stacks(node):
             groups.append(GroupSpec(name=prefix + m, kind=GROUP_EXPERT_STACK,
                                     members=(prefix + m,)))
@@ -184,7 +197,8 @@ def _lower_group(g: GroupSpec, locals_: Sequence[str], node: dict,
     cannot fuse under this config (column_concat shares one input
     encoding: always under dynamic activation calibration, under static
     only when the snapshot calibrated the group together; otherwise the
-    members keep their per-layer plans).  Scan-stacked members give a
+    members keep their per-layer plans; batch_concat members encode at
+    their own scales and always fuse).  Scan-stacked members give a
     :class:`PlanStack` of per-slice group plans, slice ``i`` baked from
     member ``i`` of per-stack-member records when every member of the
     group has one (else from none)."""
@@ -202,9 +216,19 @@ def _lower_group(g: GroupSpec, locals_: Sequence[str], node: dict,
             return PlanStack(stack(w[i]) for i in range(w.shape[0]))
         return stack(w)
     calibs = _member_calibs(calibration, parent, locals_)
+    member_ns = tuple(int(m["w"].shape[-1]) for m in members)
+    if g.kind == GROUP_BATCH_CONCAT:
+        # each member encodes at its own scale: it fuses under either
+        # activation calibration (a scan stack gives a PlanStack)
+        fused = lower_batch_concat(members, acfg, calibs=calibs)
+        if isinstance(fused, PlanStack):
+            return PlanStack(GroupPlan(kind=g.kind, fused=f,
+                                       member_names=tuple(locals_),
+                                       member_ns=member_ns) for f in fused)
+        return GroupPlan(kind=g.kind, fused=fused,
+                         member_names=tuple(locals_), member_ns=member_ns)
     if acfg.act_calib != "dynamic" and not _static_fusable(calibs):
         return None
-    member_ns = tuple(int(m["w"].shape[-1]) for m in members)
 
     def group(ms, cs):
         return GroupPlan(kind=g.kind,
@@ -371,11 +395,14 @@ def block_spec(name: str, *, d_model: int, d_ff: int, n_heads: int,
 
 def swap_calibration(lowered, snapshot, *, path: str = ""):
     """Hot-swap a refreshed snapshot's measured tables into a pre-lowered
-    params tree: every ``"_plan"`` entry and every column_concat
-    ``"_groups"`` plan the snapshot covers gets its ``chunk_offset``
-    replaced - and its ``chunk_gain`` when the plan baked a measured gain
-    table of matching shape
-    (:func:`~repro_torch.exec.lower.layer_with_tables`).  A scan-stacked
+    params tree: every ``"_plan"`` entry and every column_concat or
+    batch_concat ``"_groups"`` plan the snapshot covers gets its
+    ``chunk_offset`` replaced - and its ``chunk_gain`` when the plan
+    baked a measured gain table of matching shape
+    (:func:`~repro_torch.exec.lower.layer_with_tables`); a column_concat
+    group's member tables concatenate along the columns, a batch_concat
+    group's stack along its member axis.  Expert stacks have no measured
+    device and are kept.  A scan-stacked
     plan (a :class:`PlanStack`) swaps per-stack-member ``[S, C, N]``
     tables, member ``i`` taking slice ``i``.  Nothing is lowered; layers
     the snapshot does not cover and tables that do not match the plan's
@@ -406,7 +433,8 @@ def swap_calibration(lowered, snapshot, *, path: str = ""):
 
     def swap_group(gp, p: str):
         probe = gp[0] if isinstance(gp, PlanStack) and len(gp) else gp
-        if isinstance(probe, PlanStack) or probe.kind != GROUP_COLUMN_CONCAT:
+        if isinstance(probe, PlanStack) or probe.kind not in (
+                GROUP_COLUMN_CONCAT, GROUP_BATCH_CONCAT):
             return gp
         recs = _member_calibs(snapshot, p, probe.member_names)
         if recs is None or any(r.chunk_offset is None for r in recs):
@@ -414,7 +442,11 @@ def swap_calibration(lowered, snapshot, *, path: str = ""):
         dev = probe.fused.store.codes.device
 
         def cat(ts):
-            return torch.cat([t.to(dev, torch.float32) for t in ts], dim=-1)
+            ts = [torch.as_tensor(t).to(dev, torch.float32) for t in ts]
+            if probe.kind == GROUP_BATCH_CONCAT:
+                # the member axis, after a per-stack-member [S] axis
+                return torch.stack(ts, dim=-3)
+            return torch.cat(ts, dim=-1)
 
         gains = [r.gain_table for r in recs]
         gain = None if any(g is None for g in gains) else cat(gains)

@@ -17,19 +17,21 @@
   the baked prefill ``seq``, rope_theta, the RMSNorm eps).
 
 Fusion groups (tree specs): a :class:`GroupSpec` names the layers that
-replay as ONE analog dispatch.  The port runs the ``"column_concat"`` kind
-(same input, concatenated output columns - the attention QKV) and the
-``"expert_stack"`` kind (one stacked ``[E, K, N]`` MoE expert weight,
-lowered once into a per-expert plan, every expert in one dispatch); the
-reference's ``"batch_concat"`` kind (RWKV) is not ported yet.
+replay as ONE analog dispatch.  Three kinds, as in the reference:
+``"column_concat"`` (same input, concatenated output columns - the
+attention QKV), ``"batch_concat"`` (same weight geometry, DIFFERENT
+inputs - the RWKV r/k/v/g projections, one member axis with each
+member's own tables and input scale) and ``"expert_stack"`` (one stacked
+``[E, K, N]`` MoE expert weight, lowered once into a per-expert plan,
+every expert in one dispatch).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Optional, Tuple
 
-from repro_torch.exec.plan import (GROUP_COLUMN_CONCAT, GROUP_EXPERT_STACK,
-                                   GROUP_KINDS)
+from repro_torch.exec.plan import (GROUP_BATCH_CONCAT, GROUP_COLUMN_CONCAT,
+                                   GROUP_EXPERT_STACK, GROUP_KINDS)
 
 STACK = "stack"
 TREE = "tree"
@@ -70,7 +72,7 @@ class GroupSpec:
     name:    group name; its dotted prefix locates the group
              ("layers.l0.attn.qkv"), the last segment is its local name at
              the parent params node.
-    kind:    "column_concat" | "expert_stack".
+    kind:    "column_concat" | "batch_concat" | "expert_stack".
     members: ordered member layer names (declared layers, all siblings;
              an expert_stack group has one, a stacked expert weight).
     """
@@ -104,8 +106,8 @@ def group_parent(g: GroupSpec) -> Tuple[str, Tuple[str, ...]]:
 def _validate_group(g: GroupSpec, by_name: dict, spec_name: str) -> None:
     where = f"spec {spec_name!r} group {g.name!r}"
     if g.kind not in GROUP_KINDS:
-        raise NotImplementedError(
-            f"{where}: kind {g.kind!r} is not ported yet; ported kinds: "
+        raise ValueError(
+            f"{where}: unknown kind {g.kind!r}; kinds: "
             f"{', '.join(GROUP_KINDS)}"
         )
     if not g.members:
@@ -140,6 +142,20 @@ def _validate_group(g: GroupSpec, by_name: dict, spec_name: str) -> None:
             raise ValueError(
                 f"{where}: expert_stack member {ls[0].name!r} must be a "
                 f"stacked [E, K, N] weight (LayerSpec.stacked > 0)"
+            )
+        return
+    if g.kind == GROUP_BATCH_CONCAT:
+        for attr in ("signed_input", "stacked"):
+            if len({getattr(l, attr) for l in ls}) != 1:
+                raise ValueError(
+                    f"{where}: {GROUP_BATCH_CONCAT} members must agree on "
+                    f"{attr}; got {[(l.name, getattr(l, attr)) for l in ls]}"
+                )
+        if len({(l.in_dim, l.out_dim) for l in ls}) != 1:
+            raise ValueError(
+                f"{where}: {GROUP_BATCH_CONCAT} members must share the "
+                "weight geometry (in_dim, out_dim); got "
+                f"{[(l.name, l.in_dim, l.out_dim) for l in ls]}"
             )
         return
     for attr in ("signed_input", "stacked", "in_dim"):

@@ -189,8 +189,13 @@ def share_group_input_scale(
     member's ``a_scale_in`` to the widest member scale (no member's range
     is truncated), keeping each member's own ``a_scale``.  ``scales``
     overrides the per-member scales when the snapshot does not carry
-    them.  A ``column_concat`` group needs the shared LSB to fuse at all
-    under static activation calibration."""
+    them.  Both concat kinds take it (``names`` from
+    ``spec.group(name).members``): a ``column_concat`` group needs the
+    shared LSB to fuse at all under static activation calibration; a
+    ``batch_concat`` group fuses either way (each member encodes at its
+    own scale), and a shared ``a_scale_in`` gives the whole fused pass
+    one event LSB.  ``expert_stack`` groups keep dynamic activation
+    scaling and take no part."""
     if scales is None:
         scales = []
         for name in names:

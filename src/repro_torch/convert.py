@@ -8,7 +8,13 @@ float32 tensors; an LM tree carries its scan-stacked ``layers`` (a
 leading ``[n_groups]`` axis on every leaf), ``embed`` and the norms the
 same way (an MoE layer's ``router.w``, its raw ``up`` / ``gate`` /
 ``down`` expert stacks ``[E, K, N]`` - ``[S, E, K, N]`` scan-stacked - and
-its ``shared`` expert MLP included); a training state
+its ``shared`` expert MLP included; an RWKV layer's time mix ``rwkv``
+with its token-shift factors ``tm.mu_r`` ... ``tm.mu_w``, ``w0``, ``u``
+and the decay LoRA ``w_lora_a`` / ``w_lora_b`` beside ``wr`` / ``wk`` /
+``wv`` / ``wg`` / ``wo``, and its channel mix ``cmix`` (``mu_k``, ``wk``,
+``wv``); a Mamba layer's ``in_proj``, ``conv_w`` / ``conv_b``,
+``A_log``, ``dt_bias``, ``D``, ``norm`` and ``out_proj``; and Zamba2's
+unstacked ``shared_attn`` block, ``ln`` and ``attn``); a training state
 (:func:`state_from_numpy`) adds the AdamW moments and the error-feedback
 tree.  The port cannot reproduce
 ``jax.random`` draws, so this is how a parity check hands both packages

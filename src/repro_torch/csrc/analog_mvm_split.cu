@@ -37,6 +37,12 @@
 //   slots and runs the epilogue.  One launch per call.  Fast mode sums
 //   floats before its single rounding, so one CTA walks all of K in
 //   ascending chunk order, as the plain version's arithmetic needs.
+// * A stack axis.  One launch runs E stacked matrices, each against its
+//   own activations, cut the same way.  An MoE expert stack (the expert
+//   axis) shares one table-free operand form; the members of an RWKV
+//   r/k/v/g batch_concat group (the member axis) each read their own
+//   rank-1 gains, chunk offsets and measured chunk gains, so one launch
+//   gives each member what its own 2-D launch would, bit for bit.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -200,12 +206,16 @@ int occupancy_mt(int mt, int faithful, int* blocks) {
 
 }  // namespace
 
-// experts > 1 (the expert axis, forms 0 and 1): one launch runs
-//         `experts` stacked matrices, ap / an [E, m, k], w [E, k, n],
-//         gain / post_gain [E, n], out [E, m, n], part [E, n_splits, m,
-//         n], counters [E x row groups x column tiles]; off [k /
-//         chunk_rows, n] is shared, col_gain, row_gain and chunk_gain
-//         absent.  The grid's z walks (expert, row group).
+// experts > 1 (the expert axis): one launch runs `experts` stacked
+//         matrices, ap / an [E, m, k], w [E, k, n], gain / post_gain
+//         [E, n], out [E, m, n], part [E, n_splits, m, n], counters [E x
+//         row groups x column tiles].  The grid's z walks (expert, row
+//         group).  tables == 0 (an expert stack): off [k / chunk_rows, n]
+//         is shared, col_gain, row_gain and chunk_gain absent.
+// tables: 1 (the member axis of a batch_concat group, any form): each
+//         member reads its own off [E, k / chunk_rows, n] and, where
+//         given, col_gain [E, n], row_gain [E, n_blocks, k] and
+//         chunk_gain [E, k / chunk_rows, n].
 // post_gain (fast mode only, else null): [E, n] gain applied to each
 //         pass's total before its rounding, with the chunks run at the
 //         gain passed as `gain` (1.0 for the expert products).
@@ -226,15 +236,17 @@ extern "C" int analog_mvm_split_launch(
     int n_blocks, const int* block_ends, const float* gain, const float* off, float* out,
     float* part, int* counters, int m, int k, int n, int chunk_rows,
     int chunks_per_cta, int n_splits, int mt, int faithful, int shift,
-    int vec, int experts, const float* post_gain, void* stream) {
+    int vec, int experts, const float* post_gain, int tables,
+    void* stream) {
   if (m == 0 || n == 0 || experts == 0) return 0;
   if (chunk_rows <= 0 || chunk_rows % kBK != 0 || k % chunk_rows != 0 ||
       k == 0 || n_blocks < 1 || n_blocks > kMaxBlocks ||
       chunks_per_cta < 1 || (n_splits > 1 && (!faithful || !part || !counters)) ||
       form < 0 || form > 2 || (form == 2) != (chunk_gain != nullptr) ||
       experts < 1 ||
-      (experts > 1 && (col_gain != nullptr || row_gain != nullptr ||
-                       chunk_gain != nullptr)) ||
+      (experts > 1 && !tables &&
+       (col_gain != nullptr || row_gain != nullptr ||
+        chunk_gain != nullptr)) ||
       (post_gain != nullptr && faithful))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_chunks = k / chunk_rows;
@@ -251,6 +263,12 @@ extern "C" int analog_mvm_split_launch(
     p.x_stride = static_cast<long long>(m) * k;
     p.w_stride = static_cast<long long>(k) * n;
     p.n_stride = n;
+  }
+  if (tables) {
+    p.cg_stride = n;
+    p.rg_stride = static_cast<long long>(n_blocks) * k;
+    p.off_estride = static_cast<long long>(n_chunks) * n;
+    p.chg_stride = static_cast<long long>(n_chunks) * n;
   }
   const long long groups = (m + 8LL * mt - 1) / (8LL * mt) * experts;
   if (groups > 65535 || n_splits > 65535)

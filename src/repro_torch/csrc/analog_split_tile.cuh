@@ -81,12 +81,19 @@ struct Params {
   int neg;         // 0: the negative pass is absent (an is not read out)
   // The expert axis (analog_mvm_split.cu only): `experts` stacked
   // matrices in one launch, ap / an [E, m, k], w [E, k, n], gain [E, n],
-  // out [E, m, n]; off is shared, col_gain absent.  Element strides per
-  // expert (0 with one expert).
+  // out [E, m, n].  Element strides per expert (0 with one expert).
   int experts = 1;
   long long x_stride = 0;  // ap, an: m * k
   long long w_stride = 0;  // w: k * n weights
   long long n_stride = 0;  // gain, post_gain: n
+  // The member axis of a batch_concat group: each expert (member) reads
+  // its own tables, col_gain [E, n], row_gain [E, n_blocks, k], off and
+  // chunk_gain [E, k / chunk_rows, n].  Element strides per expert; 0
+  // shares one table (or none) across the experts.
+  long long cg_stride = 0;   // col_gain: n
+  long long rg_stride = 0;   // row_gain: n_blocks * k
+  long long off_estride = 0; // off: (k / chunk_rows) * off_stride
+  long long chg_stride = 0;  // chunk_gain: (k / chunk_rows) * n
   // fast mode: [E, n] gain applied to each pass's total before its single
   // rounding (the expert products, whose chunks run at gain 1), or null
   const float* post_gain = nullptr;
@@ -214,13 +221,20 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
   const int k_begin = c_begin * p.chunk_rows;
   const int wcol = col0 + warp * 32;  // the warp's first column
   const int n_tot = p.faithful ? 2 : 4;
-  // the expert's operands (row_gain, chunk_gain and off are shared)
+  // the expert's operands; its tables at their strides (0: shared)
   const long long ex = expert;
   const float* const ap = p.ap + ex * p.x_stride;
   const float* const an = p.an + ex * p.x_stride;
   const unsigned char* const wsrc =
       static_cast<const unsigned char*>(p.w) + ex * p.w_stride * kE;
   const float* const gain = p.gain + ex * p.n_stride;
+  const float* const off = p.off + ex * p.off_estride;
+  const float* const col_gain =
+      p.col_gain == nullptr ? nullptr : p.col_gain + ex * p.cg_stride;
+  const float* const row_gain =
+      p.row_gain == nullptr ? nullptr : p.row_gain + ex * p.rg_stride;
+  const float* const chunk_gain =
+      p.chunk_gain == nullptr ? nullptr : p.chunk_gain + ex * p.chg_stride;
 
   float* s_gain = reinterpret_cast<float*>(smem + kStages * kStage);
   float* s_off = s_gain + kBN;  // [kStages][kBN]
@@ -238,8 +252,8 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
   if constexpr (kCodes) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      cg[j] = (p.col_gain != nullptr && bcol + j < p.n)
-                  ? p.col_gain[bcol + j] : 1.f;
+      cg[j] = (col_gain != nullptr && bcol + j < p.n)
+                  ? col_gain[bcol + j] : 1.f;
     for (int b = 0; b + 1 < p.n_blocks; ++b) blk += p.block_end[b] <= bcol;
   }
 
@@ -260,10 +274,10 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
     }
     ld_buf = ld_buf + 1 == kStages ? 0 : ld_buf + 1;
     float* so = s_off + (chunk % kStages) * kBN;
-    const float* osrc = p.off + static_cast<long long>(chunk) * p.off_stride;
+    const float* osrc = off + static_cast<long long>(chunk) * p.off_stride;
     float* scg = s_cg + (chunk % kStages) * kBN;
     const float* cgsrc =
-        kCG ? p.chunk_gain + static_cast<long long>(chunk) * p.n : nullptr;
+        kCG ? chunk_gain + static_cast<long long>(chunk) * p.n : nullptr;
     if (p.vec) {
       // n * kE is a multiple of 16: a piece is wholly in or out of range
       const unsigned char* w = wsrc;
@@ -301,7 +315,7 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
       if (has_row && tid < p.n_blocks * (kBK / 4)) {
         const int b = tid / (kBK / 4), cc = (tid % (kBK / 4)) * 4;
         cp_async16(rg + b * kBK + cc,
-                   p.row_gain + static_cast<long long>(b) * p.k + kr + cc, 16);
+                   row_gain + static_cast<long long>(b) * p.k + kr + cc, 16);
       }
       return;
     }
@@ -333,7 +347,7 @@ __device__ __forceinline__ float* split_tile(const Params& p, int tile,
     if (has_row)
       for (int e = tid; e < p.n_blocks * kBK; e += kThreads) {
         const int b = e / kBK, c = e % kBK;
-        rg[b * kBK + c] = p.row_gain[static_cast<long long>(b) * p.k + kr + c];
+        rg[b * kBK + c] = row_gain[static_cast<long long>(b) * p.k + kr + c];
       }
   };
 

@@ -5,8 +5,9 @@ The compile step of the compile-once/run-many split: everything that
 depends only on the master weights and the frozen calibration state is
 computed here, once - 6-bit weight quantization, the gain tables, chunk
 padding of the weights, the chunk-offset table, the column-concatenated
-plan of a fusion group (:func:`lower_fused`), the per-expert plan of an
-MoE expert stack (:func:`lower_expert_stack`), the fused attention+MLP
+plan of a fusion group (:func:`lower_fused`), the member-axis plan of a
+batch_concat group (:func:`lower_batch_concat`), the per-expert plan of
+an MoE expert stack (:func:`lower_expert_stack`), the fused attention+MLP
 block (:func:`lower_block`) and, for eligible chains, the whole-plan
 megakernel packing.  Per-call quantities (the dynamic
 activation scale, the readout noise) stay in :mod:`repro_torch.exec.run`.
@@ -52,6 +53,7 @@ from repro_torch.exec.plan import (
     BlockGlue,
     LayerPlan,
     MegakernelPack,
+    PlanStack,
     WeightStore,
     default_shift,
 )
@@ -334,6 +336,130 @@ def lower_fused(
         chunk_rows=p0.chunk_rows,
         signed_input=p0.signed_input,
     )
+
+
+def _stack_layer_plans(plans: Sequence[LayerPlan]) -> LayerPlan:
+    """Stack G same-geometry plans along a new leading member axis (the
+    reference's ``_stack_layer_plans``): every leaf gains the member
+    axis, optional tables are filled for members that lack them (gains
+    with exact 1.0, offsets, column sums and biases with 0.0, so each
+    member's arithmetic is its own plan's), the gain broadcast per
+    column, and ``a_scale_in`` stacked only when every member carries it
+    (a partial group calibration must not unlock a shared encoding)."""
+    p0 = plans[0]
+    for lp in plans:
+        if (lp.k, lp.n, lp.chunk_rows, lp.signed_input) != (
+                p0.k, p0.n, p0.chunk_rows, p0.signed_input):
+            raise ValueError(
+                "batch-concat members must share the weight geometry and "
+                "input encoding: "
+                f"{[(p.k, p.n, p.chunk_rows, p.signed_input) for p in plans]}"
+            )
+        if lp.store.col_blocks != p0.store.col_blocks:
+            raise ValueError(
+                "batch-concat members must share the column-block layout: "
+                f"{[p.store.col_blocks for p in plans]}")
+    dev = p0.store.codes.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    c, k_pad, n = p0.n_chunks, p0.k_pad, p0.n
+    stores = [lp.store for lp in plans]
+    g_rows = next((s.row_gain.shape[-2] for s in stores
+                   if s.row_gain is not None), 1)
+
+    def stk(vals, fill=None):
+        if all(v is None for v in vals):
+            return None
+        if any(v is None for v in vals):
+            if fill is None:
+                return None
+            vals = [fill() if v is None else v for v in vals]
+        return torch.stack([torch.as_tensor(v, dtype=torch.float32,
+                                            device=dev) for v in vals])
+
+    codes = [s.codes for s in stores]
+    if any(t.dtype != torch.int8 for t in codes):
+        codes = [t.to(torch.float32) for t in codes]
+    store = WeightStore(  # verify: allow-packed-weights
+        codes=torch.stack(codes),
+        w_scale=stk([torch.broadcast_to(s.w_scale, (1, n)) for s in stores]),
+        # per column whatever the members' (scalar) gains: equal values,
+        # the same arithmetic
+        gain=stk([torch.broadcast_to(s.gain, (n,)) for s in stores]),
+        col_gain=stk([s.col_gain for s in stores],
+                     lambda: torch.ones((n,), **f32)),
+        row_gain=stk([s.row_gain for s in stores],
+                     lambda: torch.ones((g_rows, k_pad), **f32)),
+        chunk_gain=stk([s.chunk_gain for s in stores],
+                       lambda: torch.ones((c, n), **f32)),
+        gain_map=stk([s.gain_map for s in stores],
+                     lambda: torch.ones((k_pad, n), **f32)),
+        chunk_rows=p0.chunk_rows,
+        col_blocks=p0.store.col_blocks,
+    )
+    return LayerPlan(
+        store=store,
+        a_scale=stk([lp.a_scale for lp in plans]),
+        chunk_offset=stk([lp.chunk_offset for lp in plans],
+                         lambda: torch.zeros((c, n), **f32)),
+        colsum=stk([lp.colsum for lp in plans],
+                   lambda: torch.zeros((n,), **f32)),
+        bias=stk([lp.bias for lp in plans], lambda: torch.zeros((n,), **f32)),
+        a_scale_in=stk([lp.a_scale_in for lp in plans]),
+        k=p0.k,
+        n=n,
+        chunk_rows=p0.chunk_rows,
+        signed_input=p0.signed_input,
+        epilogue=EPILOGUE_NONE,
+        shift=0,
+    )
+
+
+def _slice_params(node, i: int):
+    """Slice ``i`` of a scan-stacked layer's params (every tensor leaf)."""
+    if isinstance(node, dict):
+        return {k: _slice_params(v, i) for k, v in node.items()}
+    return node[i]
+
+
+def lower_batch_concat(
+    layer_params: Sequence[Params],
+    cfg: AnalogConfig,
+    *,
+    signed_input: Optional[str] = None,
+    calibs: Optional[Sequence] = None,
+):
+    """Lower G same-geometry, DIFFERENT-input layers into ONE dispatch
+    group (the RWKV r/k/v/g fusion): on hardware the member matrices sit
+    on disjoint column blocks of one array configuration and every
+    member's input batch streams through in the same pass.
+
+    Each member is lowered on its own (:func:`lower_layer`, ``calibs[i]``
+    baking member ``i``) and the plans are stacked along a leading member
+    axis: codes ``[G, K_pad, N]``, ``w_scale [G, 1, N]``, ``gain [G,
+    N]``, ``col_gain [G, N]`` and ``row_gain [G, 1, K_pad]`` when rank-1,
+    ``chunk_offset`` and a measured ``chunk_gain [G, C, N]``, ``a_scale``,
+    ``a_scale_in`` and ``bias`` per member.
+    :func:`repro_torch.exec.run.run_batch_concat` replays it as one
+    member-axis dispatch, each member encoded at its own input scale, so
+    the result equals the G solo dispatches bit for bit.
+
+    Scan-stacked members (``[S, K, N]`` weights) lower into a
+    :class:`PlanStack` of S member-axis plans, slice ``i`` of every
+    member together, baked from slice ``i`` of per-stack-member records
+    (:func:`stacked_calib`); a record without a stack axis bakes no
+    stacked member, as in the reference."""
+    cs = list(calibs) if calibs is not None else [None] * len(layer_params)
+    if layer_params[0]["w"].ndim == 3:
+        s = layer_params[0]["w"].shape[0]
+        per = [stack_calibs(c, s) for c in cs]
+        return PlanStack(
+            lower_batch_concat([_slice_params(p, i) for p in layer_params],
+                               cfg, signed_input=signed_input,
+                               calibs=[m[i] for m in per])
+            for i in range(s))
+    return _stack_layer_plans([
+        lower_layer(p, cfg, signed_input=signed_input, calib=c)
+        for p, c in zip(layer_params, cs)])
 
 
 def lower_expert_stack(w: torch.Tensor, cfg: AnalogConfig) -> LayerPlan:

@@ -13,8 +13,10 @@ schedule.  The plans are frozen dataclasses holding tensors:
   them once, when the store is built.
 - :class:`LayerPlan` - one lowered analog layer.
 - :class:`GroupPlan` - one lowered fusion group (the attention QKV
-  ``column_concat`` group: one dispatch over concatenated columns; an MoE
-  ``expert_stack``: one dispatch over every expert of a stacked weight).
+  ``column_concat`` group: one dispatch over concatenated columns; the
+  RWKV r/k/v/g ``batch_concat`` group: one dispatch over a member axis;
+  an MoE ``expert_stack``: one dispatch over every expert of a stacked
+  weight).
 - :class:`PlanStack` - the per-member plans of a scan-stacked layer.
 - :class:`MegakernelPack` - the kernel-ready packing of a whole chain or
   transformer block.
@@ -46,14 +48,16 @@ INPUT_FLOAT = "float"
 
 # Fusion-group kinds.  "column_concat": layers with the same input and
 # concatenated output columns (attention QKV) run as one [K, sum(N_i)]
-# pass.  "expert_stack": one stacked [E, K, N] MoE expert weight, lowered
-# once into a per-expert plan (a leading expert axis on every leaf) that
-# runs as ONE dispatch over all experts.  The reference's "batch_concat"
-# (RWKV) groups load from a plan store as data (a leading member axis on
-# every leaf); they do not run until that family is ported.
+# pass.  "batch_concat": G same-geometry layers with DIFFERENT inputs (the
+# RWKV r/k/v/g projections), lowered into one plan with a leading member
+# axis on every leaf, each member with its own tables and input scale,
+# run as ONE dispatch.  "expert_stack": one stacked [E, K, N] MoE expert
+# weight, lowered once into a per-expert plan (a leading expert axis on
+# every leaf) that runs as ONE dispatch over all experts.
 GROUP_COLUMN_CONCAT = "column_concat"
+GROUP_BATCH_CONCAT = "batch_concat"
 GROUP_EXPERT_STACK = "expert_stack"
-GROUP_KINDS = (GROUP_COLUMN_CONCAT, GROUP_EXPERT_STACK)
+GROUP_KINDS = (GROUP_COLUMN_CONCAT, GROUP_BATCH_CONCAT, GROUP_EXPERT_STACK)
 
 
 def default_shift(n_chunks: int) -> int:
@@ -137,7 +141,8 @@ class WeightStore:
                   codes): there ``codes`` as fp32, derived at first read,
                   so a store served on the card holds no fp32 copy.
       gain_row:   [N] the gain broadcast over the columns, contiguous
-                  (an expert stack's [E, N], each expert's gain).
+                  (an expert stack's [E, N], each expert's gain; a
+                  batch_concat store's [G, N], each member's).
     """
 
     codes: torch.Tensor
@@ -156,9 +161,13 @@ class WeightStore:
         gain = self.gain
         if self.codes.ndim == 2:
             gain = torch.broadcast_to(gain, (self.codes.shape[-1],))
-        elif self.codes.ndim == 3:  # an expert stack: [E] -> [E, N]
+        elif self.codes.ndim == 3 and gain.ndim == 1:
+            # an expert stack: [E] -> [E, N]
             gain = torch.broadcast_to(gain.reshape(gain.shape[0], 1),
                                       (gain.shape[0], self.codes.shape[-1]))
+        elif self.codes.ndim == 3:  # a batch_concat store's [G, N]
+            gain = torch.broadcast_to(gain, (self.codes.shape[0],
+                                             self.codes.shape[-1]))
         object.__setattr__(self, "gain_row", gain.contiguous())
         if not (self.codes.dtype == torch.int8 and all(
                 t is None for t in (self.col_gain, self.row_gain,
@@ -279,14 +288,20 @@ class LayerPlan:
 @dataclasses.dataclass(frozen=True)
 class GroupPlan:
     """One lowered fusion group: the fused dispatch plus the member layout
-    that hands each member its own columns.
+    that hands each member its own columns (or its own output).
 
       kind:         one of :data:`GROUP_KINDS`.
       fused:        a :class:`LayerPlan` over the concatenated output
                     columns ``[K_pad, sum(N_i)]``
-                    (:func:`repro_torch.exec.lower.lower_fused`), or an
-                    expert stack's per-expert plan, every leaf with a
-                    leading expert axis: codes ``[E, K_pad, N]``,
+                    (:func:`repro_torch.exec.lower.lower_fused`); a
+                    batch_concat group's member-axis plan, every leaf
+                    with a leading member axis: codes ``[G, K_pad, N]``,
+                    ``w_scale [G, 1, N]``, ``gain [G, N]``, ``col_gain
+                    [G, N]``, ``row_gain [G, 1, K_pad]``, ``chunk_offset``
+                    and ``chunk_gain [G, C, N]``, ``a_scale [G]``
+                    (:func:`repro_torch.exec.lower.lower_batch_concat`);
+                    or an expert stack's per-expert plan, every leaf with
+                    a leading expert axis: codes ``[E, K_pad, N]``,
                     ``w_scale [E, 1, N]``, ``gain [E]``
                     (:func:`repro_torch.exec.lower.lower_expert_stack`).
       member_names: the members' local names in the parent params node,

@@ -32,7 +32,11 @@ Left to run time (everything else was baked by
   attention+MLP block as ONE dispatch (the ``analog_plan_block``
   kernel), or the 4-dispatch per-layer fallback,
 - MoE expert stacks (:func:`run_expert_stack`): every expert of a stacked
-  weight as ONE dispatch (the split kernel's expert axis).
+  weight as ONE dispatch (the split kernel's expert axis),
+- batch_concat groups (:func:`run_batch_concat`): the RWKV r/k/v/g
+  projections, each member encoded at its own input scale, as ONE
+  dispatch (the split kernel's member axis, each member with its own
+  tables).
 
 Every analog dispatch the executor issues adds one to
 :func:`dispatch_count` and to the ``exec.dispatches`` counter of
@@ -45,6 +49,9 @@ the port is eager and counts every call.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+
 import torch
 
 from repro_torch.core import quant
@@ -54,16 +61,19 @@ from repro_torch.core.noise import NoiseFeed
 from repro_torch.exec.plan import (
     EPILOGUE_NONE,
     EPILOGUE_RELU_SHIFT,
+    GROUP_BATCH_CONCAT,
     GROUP_COLUMN_CONCAT,
     GROUP_EXPERT_STACK,
     AnalogPlan,
     GroupPlan,
     LayerPlan,
+    WeightStore,
 )
 from repro_torch.kernels.ops import needs_grad
 from repro_torch.obs import metrics as _obs_metrics
 
 _DISPATCHES = 0
+_QUIET = 0     # > 0: a group replays member by member as one dispatch
 
 
 def reset_dispatch_count() -> None:
@@ -78,6 +88,8 @@ def dispatch_count() -> int:
 
 def _count(n: int = 1) -> None:
     global _DISPATCHES
+    if _QUIET:
+        return
     _DISPATCHES += n
     _obs_metrics.counter("exec.dispatches").inc(n)
 
@@ -200,18 +212,125 @@ def _pass_noise(noise):
     return tuple(noise)
 
 
-def run_group(gp: GroupPlan, x: torch.Tensor, cfg: AnalogConfig):
+def run_group(gp: GroupPlan, x, cfg: AnalogConfig, *, noise=None):
     """Replay a lowered fusion group: for a column_concat group ``x`` is
     the members' shared input and the tuple of member outputs comes back
-    (one fused dispatch, the columns split back per member); an
+    (one fused dispatch, the columns split back per member); a
+    batch_concat group takes the sequence of member inputs and returns
+    the tuple of member outputs (:func:`run_batch_concat`); an
     expert_stack group takes the dispatch buffer ``[E, C, K]`` and
     returns ``[E, C, N]`` (:func:`run_expert_stack`)."""
     if gp.kind == GROUP_EXPERT_STACK:
         return run_expert_stack(gp, x, cfg)
+    if gp.kind == GROUP_BATCH_CONCAT:
+        return run_batch_concat(gp, x, cfg, noise=noise)
     if gp.kind != GROUP_COLUMN_CONCAT:
         raise ValueError(f"unknown group kind {gp.kind!r}")
     y = run_layer(gp.fused, x, cfg)
     return tuple(torch.split(y, list(gp.member_ns), dim=-1))
+
+
+@contextlib.contextmanager
+def _one_dispatch():
+    """Count everything dispatched inside the block as ONE dispatch."""
+    global _QUIET
+    _QUIET += 1
+    try:
+        yield
+    finally:
+        _QUIET -= 1
+    _count()
+
+
+def _member_plan(lp: LayerPlan, i: int) -> LayerPlan:
+    """Member ``i`` of a member-axis plan (a batch_concat group's fused
+    plan) as a solo plan: slice ``i`` of every leaf, its gain per
+    column."""
+    st = lp.store
+
+    def pick(t):
+        return None if t is None else t[i]
+
+    store = WeightStore(  # verify: allow-packed-weights
+        codes=st.codes[i], w_scale=st.w_scale[i], gain=st.gain[i],
+        col_gain=pick(st.col_gain), row_gain=pick(st.row_gain),
+        chunk_gain=pick(st.chunk_gain), gain_map=pick(st.gain_map),
+        chunk_rows=st.chunk_rows, col_blocks=st.col_blocks)
+    return dataclasses.replace(
+        lp, store=store, a_scale=lp.a_scale[i],
+        chunk_offset=pick(lp.chunk_offset), colsum=pick(lp.colsum),
+        bias=pick(lp.bias), a_scale_in=pick(lp.a_scale_in))
+
+
+def run_batch_concat(gp: GroupPlan, xs, cfg: AnalogConfig, *, noise=None):
+    """Replay a ``batch_concat`` group: G same-geometry layers with
+    DIFFERENT inputs as ONE analog dispatch (the RWKV r/k/v/g fusion,
+    4 -> 1).  ``xs`` holds the member inputs in ``gp.member_names``
+    order (one shape); the tuple of member outputs comes back.
+
+    Each member encodes at its own input scale - under dynamic
+    calibration its own abs-max, under static its own ``in_scale`` (the
+    group's shared ``a_scale_in`` when it was calibrated together) - then
+    one split call on ``[G, M, K]`` operands runs every member at its
+    own gain, offsets and gain tables (the split kernel's member axis on
+    the card, :func:`repro_torch.kernels.ops.analog_mvm_split_members`),
+    and each member dequantizes as :func:`run_layer` does, so the result
+    equals the G solo dispatches bit for bit (the reference vmaps
+    ``run_layer`` over the members).  With readout noise, and for the
+    other signed encodings, the members replay one after another through
+    :func:`run_layer` (``noise``: one source for all, drawn in member
+    order, or one injected draw per member); that too counts one
+    dispatch.  Inference only: under autograd it raises."""
+    from repro_torch.kernels import ops as kernel_ops
+
+    g = len(gp.member_names)
+    if len(xs) != g:
+        raise ValueError(f"group has {g} members ({gp.member_names}), got "
+                         f"{len(xs)} inputs")
+    lp = gp.fused
+    if lp.store.codes.ndim != 3:
+        raise ValueError(
+            "run_batch_concat expects member-leading [G, K_pad, N] plan "
+            "leaves (a scan-stacked group is a PlanStack: pick its member "
+            f"first), got codes of shape {tuple(lp.store.codes.shape)}")
+    x = torch.stack(list(xs))
+    if needs_grad(x, lp.store.codes):
+        raise NotImplementedError(
+            "a batch_concat group has no HIL backward yet (ROADMAP queue "
+            "1, item 5h: HIL training of RWKV and the hybrid)")
+    rn = None if cfg.deterministic else noise
+    if lp.signed_input != "split" or not cfg.fused_split or rn is not None:
+        with _one_dispatch():
+            return tuple(
+                run_layer(_member_plan(lp, i), xs[i], cfg, noise=nz)
+                for i, nz in enumerate(_layer_noise(rn, g)))
+    check_route(cfg, x)
+    in_dtype = x.dtype
+    xf = x.to(torch.float32)
+    if cfg.act_calib == "dynamic":
+        a_scale = quant.act_scale_from_max(
+            xf.detach().abs().reshape(g, -1).amax(dim=1) + 1e-9)
+    else:
+        a_scale = lp.in_scale
+    lead = (g,) + (1,) * (x.ndim - 1)
+    a_scale = a_scale.reshape(lead)
+    k_pad = lp.k_pad
+    a_pos = _pad_codes(quant.quantize_act(xf, a_scale), k_pad)
+    a_neg = _pad_codes(quant.quantize_act(-xf, a_scale), k_pad)
+    batch_shape = a_pos.shape[1:-1]
+    gain = lp.gain_row                                            # [G, N]
+    _count()
+    y_int = kernel_ops.analog_mvm_split_members(
+        a_pos.reshape(g, -1, k_pad), a_neg.reshape(g, -1, k_pad), gain,
+        lp.chunk_offset, store=lp.store, chunk_rows=lp.chunk_rows,
+        faithful=cfg.mode != "analog_fast",
+    ).reshape((g,) + batch_shape + (lp.n,))
+    cols = (g,) + (1,) * len(batch_shape) + (lp.n,)
+    y = y_int * (a_scale * lp.w_scale.reshape(cols) / gain.reshape(cols))
+    if lp.bias is not None:
+        y = y + lp.bias.reshape(cols)
+    y = y.to(in_dtype)
+    return tuple(y[i] for i in range(g))
 
 
 def run_expert_stack(gp: GroupPlan, xe: torch.Tensor,

@@ -30,10 +30,11 @@ either package loads into the other.  Two translations keep it so:
 A megakernel packing is recorded as a flag and re-packed at load time
 from the loaded stores - repackaging, no lowering, so
 :func:`~repro_torch.exec.lower.lowering_count` does not move.
-``expert_stack`` groups (a leading expert axis on every leaf) load as
-live groups that :func:`~repro_torch.exec.run.run_expert_stack` replays;
-the reference's ``batch_concat`` groups load as data (a leading member
-axis on every leaf) and run once the RWKV family is ported.
+``batch_concat`` and ``expert_stack`` groups (a leading member or
+expert axis on every leaf; a scan-stacked one as the reference's
+``[S, G, ...]`` leaves) load as live groups that
+:func:`~repro_torch.exec.run.run_batch_concat` and
+:func:`~repro_torch.exec.run.run_expert_stack` replay.
 """
 from __future__ import annotations
 

@@ -43,8 +43,9 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _ARGTYPES: Dict[str, tuple] = {}
 _ENTRIES: Dict[str, object] = {}
 # launch counts: one per kernel, and the split kernel's expert-axis
-# launches (one per expert stack) under a name of their own
-COUNTERS = KERNELS + ("analog_mvm_split_experts",)
+# launches (one per expert stack) and member-axis launches (one per
+# batch_concat group) under names of their own
+COUNTERS = KERNELS + ("analog_mvm_split_experts", "analog_mvm_split_members")
 _LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 # PyTorch's current stream as a plain int (the private binding its own
 # Triton launcher uses), else through a Stream object

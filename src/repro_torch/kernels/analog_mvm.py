@@ -25,7 +25,11 @@ an fp32 ``w_eff`` (:func:`analog_mvm_split_cuda`, plain version
 :func:`repro_torch.kernels.ref.analog_mvm_split_ref`).  An expert axis
 runs the E matrices of an MoE expert stack in one launch
 (:func:`analog_mvm_split_experts_cuda`, plain version
-:func:`repro_torch.kernels.ref.analog_mvm_split_experts_ref`).
+:func:`repro_torch.kernels.ref.analog_mvm_split_experts_ref`); the same
+axis with per-member tables runs the G members of an RWKV r/k/v/g
+``batch_concat`` group in one launch
+(:func:`analog_mvm_split_members_cuda`, plain version
+:func:`repro_torch.kernels.ref.analog_mvm_split_members_ref`).
 """
 from __future__ import annotations
 
@@ -42,7 +46,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _build.declare("analog_mvm", (_P,) * 5 + (_I,) * 12)
 _build.declare("analog_mvm_split", (
     _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I,
 ))
 
 
@@ -302,18 +306,22 @@ def _block_ends(ends: tuple):
 
 def _split_launch(form, a_pos, a_neg, w, col_gain, row_gain, chunk_gain,
                   block_ends, gain, chunk_offset, chunk_rows, faithful,
-                  epilogue, post_gain=None):
+                  epilogue, post_gain=None, tables=False):
     """Check the operands shared by both forms, cut the work
     (:func:`split_plan`) and launch once.  ``a_pos`` / ``a_neg`` of
     ``[E, M, K]`` against ``w [E, K, N]`` run the E matrices of an expert
     stack in the same launch (the grid's expert axis; ``gain`` and
     ``post_gain`` are then ``[E, N]``), counted as
-    ``analog_mvm_split_experts``."""
+    ``analog_mvm_split_experts``; with ``tables`` each of them reads its
+    own ``chunk_offset [E, C, N]`` and gain tables (the member axis of a
+    batch_concat group), counted as ``analog_mvm_split_members``."""
     dev = a_pos.device
     experts = a_pos.shape[0] if a_pos.ndim == 3 else 1
     lead = (experts,) if a_pos.ndim == 3 else ()
     m, k = a_pos.shape[-2:]
     n = w.shape[-1]
+    if tables and not lead:
+        raise ValueError("per-member tables need [E, M, K] operands")
     if k % chunk_rows or chunk_rows % SPLIT_STAGE_ROWS or not k:
         raise ValueError(f"K={k} must be a nonzero multiple of chunk_rows="
                          f"{chunk_rows}, itself a multiple of "
@@ -321,11 +329,14 @@ def _split_launch(form, a_pos, a_neg, w, col_gain, row_gain, chunk_gain,
     if post_gain is not None and faithful:
         raise ValueError("post_gain scales the fast mode's totals only")
     n_chunks = k // chunk_rows
-    chunk_offset = _chunk_offsets(chunk_offset, n_chunks, n, dev)
+    off_lead = lead if tables else ()
+    if chunk_offset is None:
+        chunk_offset = torch.zeros(off_lead + (n_chunks, n),
+                                   dtype=torch.float32, device=dev)
     shift = _epilogue_shift(epilogue)
     checks = [("a_pos", a_pos, lead + (m, k)), ("a_neg", a_neg, lead + (m, k)),
               ("gain", gain, lead + (n,)),
-              ("chunk_offset", chunk_offset, (n_chunks, n))]
+              ("chunk_offset", chunk_offset, off_lead + (n_chunks, n))]
     if post_gain is not None:
         checks.append(("post_gain", post_gain, lead + (n,)))
     for name, t, shape in checks:
@@ -357,8 +368,9 @@ def _split_launch(form, a_pos, a_neg, w, col_gain, row_gain, chunk_gain,
         _build.ptr(part),
         _build.ptr(counters), m, k, n, chunk_rows, plan.chunks_per_cta,
         plan.n_splits, plan.mt, int(faithful), shift, vec, experts,
-        _build.ptr(post_gain),
-        count_as="analog_mvm_split_experts" if lead else None)
+        _build.ptr(post_gain), int(tables),
+        count_as=("analog_mvm_split_members" if tables
+                  else "analog_mvm_split_experts" if lead else None))
     return out
 
 
@@ -491,3 +503,56 @@ def analog_mvm_split_experts_cuda(
     return _split_launch(0, a_pos, a_neg, codes, None, None, None,
                          (codes.shape[2],), gain, None, chunk_rows, faithful,
                          None, post_gain=post_gain)
+
+
+def analog_mvm_split_members_cuda(
+    a_pos: torch.Tensor,                   # [G, M, K] codes of max(x, 0)
+    a_neg: torch.Tensor,                   # [G, M, K] codes of max(-x, 0)
+    w: torch.Tensor,                       # [G, K, N] int8 codes or fp32
+    col_gain: Optional[torch.Tensor],      # [G, N] or None
+    row_gain: Optional[torch.Tensor],      # [G, 1, K] or None
+    gain: torch.Tensor,                    # [G, N]
+    chunk_offset: Optional[torch.Tensor],  # [G, C, N] or None
+    *,
+    chunk_gain: Optional[torch.Tensor] = None,  # [G, C, N] or None
+    chunk_rows: int = BSS2.signed_rows,
+    faithful: bool = True,
+) -> torch.Tensor:
+    """The split VMM of every member of a batch_concat group in ONE
+    launch (the grid's member axis): member ``g`` multiplies ``a_pos[g]``
+    / ``a_neg[g]`` by its own weights at its own gain, chunk offsets and
+    gain tables - for int8 codes each weight rebuilt as ``((code *
+    col_gain[g, n]) * row_gain[g, 0, k]) * chunk_gain[g, c, n]`` (form 0,
+    form 2 with ``chunk_gain``), an fp32 ``w`` read as it is (form 1, a
+    store with a full gain map).  Member ``g`` of the result is what the
+    2-D launch on member ``g``'s operands gives, bit for bit.  Returns
+    ``[G, M, N]``."""
+    _on_card("analog_mvm_split_members_cuda", a_pos)
+    dev = a_pos.device
+    if w.ndim != 3 or a_pos.ndim != 3 or w.device != dev or \
+            not w.is_contiguous() or w.shape[:2] != (a_pos.shape[0],
+                                                      a_pos.shape[2]):
+        raise ValueError(
+            f"w must be contiguous [G, K, N] on {dev} matching a_pos "
+            f"[G, M, K] {tuple(a_pos.shape)}, got {w.dtype} "
+            f"{tuple(w.shape)} on {w.device}")
+    g, k, n = w.shape
+    if w.dtype == torch.float32:
+        if any(t is not None for t in (col_gain, row_gain, chunk_gain)):
+            raise ValueError("an fp32 member operand carries its gains in "
+                             "w itself")
+        form = 1
+    elif w.dtype == torch.int8:
+        form = 0 if chunk_gain is None else 2
+    else:
+        raise ValueError(f"member weights must be int8 codes or fp32, got "
+                         f"{w.dtype}")
+    for name, t, shape in (("col_gain", col_gain, (g, n)),
+                           ("row_gain", row_gain, (g, 1, k)),
+                           ("chunk_gain", chunk_gain,
+                            (g, k // chunk_rows, n))):
+        if t is not None:
+            _build.check_operand(name, t, dev, shape)
+    return _split_launch(form, a_pos, a_neg, w, col_gain, row_gain,
+                         chunk_gain, (n,), gain, chunk_offset, chunk_rows,
+                         faithful, None, tables=True)

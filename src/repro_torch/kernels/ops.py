@@ -32,7 +32,8 @@ from repro_torch.kernels import ref as ref_lib
 from repro_torch.kernels.analog_mvm import (analog_mvm_cuda,
                                             analog_mvm_split_codes_cuda,
                                             analog_mvm_split_cuda,
-                                            analog_mvm_split_experts_cuda)
+                                            analog_mvm_split_experts_cuda,
+                                            analog_mvm_split_members_cuda)
 from repro_torch.kernels.analog_plan import (analog_plan_block_cuda,
                                              analog_plan_cuda)
 from repro_torch.kernels.preproc import maxmin_pool_cuda
@@ -127,30 +128,6 @@ def analog_mvm(
                             faithful)
 
 
-def _mvm_split_chunk_scan(a_pos, a_neg, w_eff, gain, chunk_offset,
-                          chunk_rows):
-    """Faithful signed split as one chunk scan: both passes share each
-    weight chunk and their ADC codes subtract into a single [M, N]
-    accumulator (no [2M, K] concat, no [2M, C, N] per-chunk tensor).
-    The codes are integer-valued fp32, so the per-chunk subtraction is
-    bit-exact against ``yp - yn`` of the two-pass version."""
-    m, k = a_pos.shape
-    n = w_eff.shape[1]
-    if k % chunk_rows:
-        raise ValueError(f"K={k} is not a multiple of chunk_rows={chunk_rows}")
-    acc = torch.zeros((m, n), dtype=torch.float32, device=a_pos.device)
-    for c in range(k // chunk_rows):
-        rows = slice(c * chunk_rows, (c + 1) * chunk_rows)
-        w_c = w_eff[rows].to(torch.float32)
-        o = 0.0 if chunk_offset is None else chunk_offset[c]
-        vp = torch.matmul(a_pos[:, rows].to(torch.float32), w_c) * gain + o
-        vn = torch.matmul(a_neg[:, rows].to(torch.float32), w_c) * gain + o
-        acc = acc + (torch.clamp(torch.round(vp), BSS2.adc_min, BSS2.adc_max)
-                     - torch.clamp(torch.round(vn), BSS2.adc_min,
-                                   BSS2.adc_max))
-    return acc
-
-
 def _split(a_pos, a_neg, w_eff, gain, chunk_offset, *, chunk_rows,
            faithful, epilogue, store):
     """One signed-split call: the kernel on the card, the plain version on
@@ -173,15 +150,8 @@ def _split(a_pos, a_neg, w_eff, gain, chunk_offset, *, chunk_rows,
             a_pos.contiguous(), a_neg.contiguous(), w_eff.contiguous(),
             gain.contiguous(), _contiguous(chunk_offset),
             chunk_rows=chunk_rows, faithful=faithful, epilogue=epilogue)
-    if faithful:
-        y = _mvm_split_chunk_scan(a_pos, a_neg, w_eff, gain, chunk_offset,
-                                  chunk_rows)
-    else:
-        m = a_pos.shape[0]
-        y2 = ref_lib.analog_mvm_ref(
-            torch.cat([a_pos, a_neg], dim=0), w_eff, gain, chunk_offset,
-            chunk_rows=chunk_rows, faithful=False)
-        y = y2[:m] - y2[m:]
+    y = ref_lib.split_plain_ref(a_pos, a_neg, w_eff, gain, chunk_offset,
+                                chunk_rows=chunk_rows, faithful=faithful)
     return ref_lib.adc_epilogue_ref(y, epilogue)
 
 
@@ -286,6 +256,53 @@ def analog_mvm_split(
             "differentiable path applies it as elementwise STE ops")
     return _AnalogMVMSplit.apply(a_pos, a_neg, w_eff, gain, chunk_offset,
                                  chunk_rows, faithful, store)
+
+
+def analog_mvm_split_members(
+    a_pos: torch.Tensor,
+    a_neg: torch.Tensor,
+    gain: torch.Tensor,
+    chunk_offset: Optional[torch.Tensor],
+    *,
+    store,
+    chunk_rows: int = BSS2.signed_rows,
+    faithful: bool = True,
+) -> torch.Tensor:
+    """The member axis of :func:`analog_mvm_split`: the G members of a
+    batch_concat group (``store``, a member-axis
+    :class:`~repro_torch.exec.plan.WeightStore`: codes ``[G, K, N]`` and
+    each member's gain tables) against ``[G, M, K]`` operands, each
+    member at its own ``gain [G, N]`` and ``chunk_offset [G, C, N]``, as
+    ONE launch on the card (:func:`~repro_torch.kernels.analog_mvm.
+    analog_mvm_split_members_cuda`, counted as
+    ``analog_mvm_split_members``) and as the plain version on the CPU.
+    Member ``g`` equals the 2-D call on member ``g``'s operands bit for
+    bit.  Inference only: the member axis has no HIL backward yet
+    (ROADMAP queue 1, item 5h)."""
+    if needs_grad(a_pos, a_neg, store.codes):
+        raise NotImplementedError(
+            "the split kernel's member axis has no HIL backward yet "
+            "(ROADMAP queue 1, item 5h: HIL training of RWKV and the "
+            "hybrid)")
+    if _on_cuda(a_pos):
+        if store.code_operand:
+            codes = store.codes
+            if codes.dtype != torch.int8:
+                codes = codes.detach().to(torch.int8)
+            return analog_mvm_split_members_cuda(
+                a_pos.contiguous(), a_neg.contiguous(), codes,
+                _contiguous(store.col_gain), _contiguous(store.row_gain),
+                gain.contiguous(), _contiguous(chunk_offset),
+                chunk_gain=_contiguous(store.chunk_gain),
+                chunk_rows=chunk_rows, faithful=faithful)
+        return analog_mvm_split_members_cuda(
+            a_pos.contiguous(), a_neg.contiguous(),
+            store.w_eff.contiguous(), None, None, gain.contiguous(),
+            _contiguous(chunk_offset), chunk_rows=chunk_rows,
+            faithful=faithful)
+    return ref_lib.analog_mvm_split_members_ref(
+        a_pos, a_neg, store.w_eff, gain, chunk_offset, chunk_rows=chunk_rows,
+        faithful=faithful)
 
 
 def _plan_forward(x_in, weights, gain_all, off_cat, *, schedule, chunk_rows,

@@ -110,6 +110,68 @@ def analog_mvm_split_experts_ref(
             - torch.clamp(torch.round(acc[1]), lo, hi))
 
 
+def split_chunk_scan_ref(a_pos, a_neg, w_eff, gain, chunk_offset, *,
+                         chunk_rows: int = BSS2.signed_rows) -> torch.Tensor:
+    """Faithful signed split as one chunk scan: both passes share each
+    weight chunk and their ADC codes subtract into a single [M, N]
+    accumulator (no [2M, K] concat, no [2M, C, N] per-chunk tensor).
+    The codes are integer-valued fp32, so the per-chunk subtraction is
+    bit-exact against ``yp - yn`` of the two-pass version."""
+    m, k = a_pos.shape
+    n = w_eff.shape[1]
+    if k % chunk_rows:
+        raise ValueError(f"K={k} is not a multiple of chunk_rows={chunk_rows}")
+    acc = torch.zeros((m, n), dtype=torch.float32, device=a_pos.device)
+    for c in range(k // chunk_rows):
+        rows = slice(c * chunk_rows, (c + 1) * chunk_rows)
+        w_c = w_eff[rows].to(torch.float32)
+        o = 0.0 if chunk_offset is None else chunk_offset[c]
+        vp = torch.matmul(a_pos[:, rows].to(torch.float32), w_c) * gain + o
+        vn = torch.matmul(a_neg[:, rows].to(torch.float32), w_c) * gain + o
+        acc = acc + (torch.clamp(torch.round(vp), BSS2.adc_min, BSS2.adc_max)
+                     - torch.clamp(torch.round(vn), BSS2.adc_min,
+                                   BSS2.adc_max))
+    return acc
+
+
+def split_plain_ref(a_pos, a_neg, w_eff, gain, chunk_offset, *,
+                    chunk_rows: int = BSS2.signed_rows,
+                    faithful: bool = True) -> torch.Tensor:
+    """The signed split as the 2-D wrapper computes it on the CPU: the
+    faithful chunk scan (:func:`split_chunk_scan_ref`), or for fast mode
+    both passes stacked ``[2M, K]`` through :func:`analog_mvm_ref`
+    (pre-round sums are order-sensitive, so fast mode keeps the oracle's
+    arithmetic)."""
+    if faithful:
+        return split_chunk_scan_ref(a_pos, a_neg, w_eff, gain, chunk_offset,
+                                    chunk_rows=chunk_rows)
+    m = a_pos.shape[0]
+    y2 = analog_mvm_ref(torch.cat([a_pos, a_neg], dim=0), w_eff, gain,
+                        chunk_offset, chunk_rows=chunk_rows, faithful=False)
+    return y2[:m] - y2[m:]
+
+
+def analog_mvm_split_members_ref(
+    a_pos: torch.Tensor,                   # [G, M, K] codes of max(x, 0)
+    a_neg: torch.Tensor,                   # [G, M, K] codes of max(-x, 0)
+    w_eff: torch.Tensor,                   # [G, K, N]
+    gain: torch.Tensor,                    # [G, N]
+    chunk_offset: Optional[torch.Tensor],  # [G, C, N] or None
+    *,
+    chunk_rows: int = BSS2.signed_rows,
+    faithful: bool = True,
+) -> torch.Tensor:
+    """Plain version of the split kernel's member axis (a batch_concat
+    group): member ``g`` is the 2-D signed split of its own operands at
+    its own gain and chunk offsets (:func:`split_plain_ref`), so each
+    member equals its solo dispatch bit for bit.  ``[G, M, N]``."""
+    return torch.stack([
+        split_plain_ref(a_pos[i], a_neg[i], w_eff[i], gain[i],
+                        None if chunk_offset is None else chunk_offset[i],
+                        chunk_rows=chunk_rows, faithful=faithful)
+        for i in range(a_pos.shape[0])])
+
+
 def rebuild_w_eff_ref(codes: torch.Tensor,
                       col_gain: Optional[torch.Tensor],
                       row_gain: Optional[torch.Tensor],

@@ -1,13 +1,17 @@
-"""Decoder LM (port of the ``attn_mlp`` and ``attn_moe`` kinds of
-``repro.models.transformer``: the dense transformers, the MoE families,
-M-RoPE (Qwen2-VL) and frontends fed precomputed embeddings (Qwen2-VL,
-MusicGen)).
+"""Decoder LM (port of ``repro.models.transformer``): the dense
+transformers, the MoE families, M-RoPE (Qwen2-VL), frontends fed
+precomputed embeddings (Qwen2-VL, MusicGen), RWKV-6 (the ``rwkv`` kind)
+and the Zamba2 hybrid (the ``mamba`` kind with a shared attention block).
 
 Layers are grouped into homogeneous scan groups with stacked parameters,
 as in the reference (dense: one layer per group; Llama-4: a [dense, moe]
-pair per group; every leaf with a leading ``[n_groups]`` axis).  The reference scans the groups with
-``lax.scan``; the port loops over them, handing group ``i`` the ``i``-th
-slice of every parameter, plan and cache leaf (:func:`stack_index`).
+pair per group; Zamba2: ``attn_every`` Mamba layers behind the shared
+attention block, whose one unstacked parameter set every group applies
+at its entry; every layer leaf with a leading ``[n_groups]`` axis).  The
+reference scans the groups with ``lax.scan``; the port loops over them,
+handing group ``i`` the ``i``-th slice of every parameter, plan and cache
+leaf (:func:`stack_index`), and writes group ``i``'s recurrent states back
+into slice ``i`` of the stacked cache (:func:`_store_group_cache`).
 
 Every parameter matmul dispatches through the analog backend; the
 execution mode (digital / analog_faithful / analog_fast) is a RunConfig
@@ -15,9 +19,8 @@ knob.  :func:`attach_block_plans` adds fused attention+MLP block plans
 that replay a static prefill one dispatch per block.  :func:`lm_loss` is
 the training objective; under autograd ``cfg.remat`` recomputes each
 scan group in the backward (``torch.utils.checkpoint``), its readout
-noise replayed.  Not ported yet: RWKV, Mamba and the hybrid families,
-the shared attention block, and the training of the MoE and M-RoPE
-families (:func:`check_trainable`).
+noise replayed.  Not ported yet: the training of the MoE, M-RoPE, RWKV
+and hybrid families (:func:`check_trainable`).
 """
 from __future__ import annotations
 
@@ -33,6 +36,8 @@ from repro_torch.exec.plan import PlanStack
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as S
 
 NOISE = NoiseConfig()  # module-level default, as in the reference
 
@@ -55,26 +60,20 @@ def n_groups(cfg: ArchConfig) -> int:
     return cfg.n_layers // g
 
 
-_PORTED_KINDS = {"attn_mlp", "attn_moe"}
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    kinds = set(group_def(cfg))
-    if not kinds <= _PORTED_KINDS or cfg.attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {sorted(kinds - _PORTED_KINDS)} "
-            f"(shared attention every {cfg.attn_every} layers) are not "
-            "ported yet: rwkv, mamba and attn_every wait (ROADMAP); the "
-            "port runs attn_mlp and attn_moe transformers"
-        )
-
-
 def check_trainable(cfg: ArchConfig) -> None:
     """Raise for the families whose hardware-in-the-loop training is not
-    ported yet: MoE layers (the split kernel's expert axis has no HIL
-    backward) and M-RoPE."""
-    _check_ported(cfg)
-    if "attn_moe" in group_def(cfg) or cfg.mrope:
+    ported yet: RWKV and the Mamba hybrid (the split kernel's member axis
+    has no HIL backward, and the per-step recurrences' autograd memory
+    does not fit at the reference's 4096 positions), MoE layers (the
+    expert axis has no HIL backward) and M-RoPE."""
+    kinds = set(group_def(cfg))
+    if kinds & {"rwkv", "mamba"} or cfg.attn_every:
+        raise NotImplementedError(
+            f"{cfg.name}: training the RWKV and hybrid families is not "
+            "ported yet (ROADMAP queue 1, item 5h: the member axis's HIL "
+            "backward and a recurrence whose autograd memory fits); serve "
+            "it, or train a dense config")
+    if "attn_moe" in kinds or cfg.mrope:
         raise NotImplementedError(
             f"{cfg.name}: training the MoE and M-RoPE families is not "
             "ported yet (ROADMAP: HIL training through the expert axis's "
@@ -119,8 +118,21 @@ def _stack(make, n: int):
 
 # ------------------------------------------------------------------ init
 def _layer_init(generator, kind: str, cfg: ArchConfig, device):
-    if kind not in _PORTED_KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+    kw = dict(noise=NOISE, dtype=cfg.dtype, device=device)
+    if kind == "rwkv":
+        return {
+            "ln1": L.norm_init(cfg.d_model, cfg.norm, device),
+            "rwkv": R.rwkv_init(generator, cfg.d_model, cfg.n_heads, **kw),
+            "ln2": L.norm_init(cfg.d_model, cfg.norm, device),
+            "cmix": R.channel_mix_init(generator, cfg.d_model, cfg.d_ff,
+                                       **kw),
+        }
+    if kind == "mamba":
+        return {"ln1": L.norm_init(cfg.d_model, cfg.norm, device),
+                "mamba": S.mamba_init(generator, cfg.d_model,
+                                      d_state=cfg.ssm_state, **kw)}
+    if kind not in ("attn_mlp", "attn_moe"):
+        raise ValueError(f"unknown layer kind {kind!r}")
     p = {
         "ln1": L.norm_init(cfg.d_model, cfg.norm, device),
         "attn": A.attention_init(
@@ -151,8 +163,8 @@ def lm_init(generator: torch.Generator, cfg: ArchConfig,
     """Random LM parameters from ``generator`` (drawn on the generator's
     own device), placed on ``device`` (``None`` = the CUDA device).  The
     tree has the reference's layout: ``embed``, ``layers`` (stacked
-    groups), ``final_norm``, ``lm_head``."""
-    _check_ported(cfg)
+    groups), ``shared_attn`` (Zamba2's shared attention block, one
+    unstacked parameter set), ``final_norm``, ``lm_head``."""
     dev = resolve_device(device)
     params = {}
     if cfg.embed_inputs:
@@ -161,6 +173,13 @@ def lm_init(generator: torch.Generator, cfg: ArchConfig,
                                            device=dev)
     params["layers"] = _stack(lambda: _group_init(generator, cfg, dev),
                               n_groups(cfg))
+    if cfg.attn_every:   # zamba2's shared attention block
+        params["shared_attn"] = {
+            "ln": L.norm_init(cfg.d_model, cfg.norm, dev),
+            "attn": A.attention_init(
+                generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                noise=NOISE, dtype=cfg.dtype, device=dev),
+        }
     params["final_norm"] = L.norm_init(cfg.d_model, cfg.norm, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.linear_init(
@@ -192,6 +211,25 @@ def _layer_apply(p, kind, x, *, cfg, run, positions, cache, noise=None,
     load-balancing loss, 0.0 for a dense layer).  ``routes``: the MoE
     layers' :class:`~repro_torch.models.moe.Routes`."""
     acfg = run.analog
+    if kind == "rwkv":
+        h = L.norm_apply(p["ln1"], x, cfg.norm)
+        y, c1 = R.rwkv_apply(p["rwkv"], h, acfg=acfg, n_heads=cfg.n_heads,
+                             cache=None if cache is None else cache["tmix"],
+                             noise=noise)
+        x = x + y.to(x.dtype)
+        h = L.norm_apply(p["ln2"], x, cfg.norm)
+        y, c2 = R.channel_mix_apply(
+            p["cmix"], h, acfg=acfg,
+            cache=None if cache is None else cache["cmix"], noise=noise)
+        x = x + y.to(x.dtype)
+        return x, (None if cache is None else {"tmix": c1, "cmix": c2}), 0.0
+    if kind == "mamba":
+        h = L.norm_apply(p["ln1"], x, cfg.norm)
+        y, c = S.mamba_apply(p["mamba"], h, acfg=acfg, d_state=cfg.ssm_state,
+                             cache=None if cache is None else cache["mamba"],
+                             noise=noise)
+        x = x + y.to(x.dtype)
+        return x, (None if cache is None else {"mamba": c}), 0.0
     bp = p.get("_block_plan")
     if (bp is not None and cache is None and not cfg.mrope
             and x.shape[1] == bp.block.seq):
@@ -225,11 +263,24 @@ def _layer_apply(p, kind, x, *, cfg, run, positions, cache, noise=None,
 
 
 def _group_apply(gp, x, *, cfg, run, positions, cache, noise=None,
-                 routes=None):
+                 routes=None, shared_attn=None):
     """One scan group: ``(x, new_cache, aux)``, the group's MoE aux
-    losses summed in layer order."""
+    losses summed in layer order.  ``shared_attn``: Zamba2's shared
+    attention block, applied at the group's entry with the group's own
+    KV cache."""
     new_cache = {} if cache is not None else None
     aux_total = 0.0
+    if shared_attn is not None:
+        h = L.norm_apply(shared_attn["ln"], x, cfg.norm)
+        y, c = A.attention_apply(
+            shared_attn["attn"], h, positions=positions, acfg=run.analog,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+            rope_theta=cfg.rope_theta,
+            cache=None if cache is None else cache["shared_attn"],
+            flash_blocks=(run.flash_block_q, run.flash_block_kv), noise=noise)
+        x = x + y.to(x.dtype)
+        if cache is not None:
+            new_cache["shared_attn"] = c
     for i, kind in enumerate(group_def(cfg)):
         x, c, aux = _layer_apply(
             gp[f"l{i}"], kind, x, cfg=cfg, run=run, positions=positions,
@@ -257,7 +308,7 @@ def _set_noise_state(noise, state) -> None:
         noise.pos = state
 
 
-def _remat_group(gp, x, *, cfg, run, positions, noise):
+def _remat_group(gp, x, *, cfg, run, positions, noise, shared_attn=None):
     """One scan group under ``torch.utils.checkpoint``: the backward
     recomputes the group from its input ``x`` (the reference's
     ``jax.checkpoint``).  The checkpoint restores only the default
@@ -273,12 +324,14 @@ def _remat_group(gp, x, *, cfg, run, positions, noise):
         if not calls:
             calls.append(1)
             return _group_apply(gp, h, cfg=cfg, run=run, positions=positions,
-                                cache=None, noise=noise)[0]
+                                cache=None, noise=noise,
+                                shared_attn=shared_attn)[0]
         end = _noise_state(noise)
         _set_noise_state(noise, start)
         try:
             return _group_apply(gp, h, cfg=cfg, run=run, positions=positions,
-                                cache=None, noise=noise)[0]
+                                cache=None, noise=noise,
+                                shared_attn=shared_attn)[0]
         finally:
             _set_noise_state(noise, end)
 
@@ -296,13 +349,14 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
     routing, or replays another run's.
 
     With a cache (:func:`init_lm_cache`) the KV tensors are updated in
-    place and the returned cache holds the advanced lengths.  ``noise``:
+    place, the recurrent states (RWKV's ``x_prev`` / ``state``, Mamba's
+    ``conv`` / ``state``) are written into the stacked cache, and the
+    returned cache holds the advanced lengths.  ``noise``:
     the readout-noise source of every analog layer (a ``torch.Generator``
     drawn in call order, or a :class:`~repro_torch.core.noise.NoiseFeed`
     of injected draws), ignored when ``run.analog.deterministic``.  Under
     autograd without a cache, ``cfg.remat`` recomputes each group in the
     backward (:func:`_remat_group`); the values do not change."""
-    _check_ported(cfg)
     acfg = run.analog
     adt = (torch.bfloat16 if run.activation_dtype == "bfloat16"
            else torch.float32)
@@ -324,22 +378,26 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
     remat = (cfg.remat and cache is None and torch.is_grad_enabled()
              and "attn_moe" not in group_def(cfg))
     layer_cache = None if cache is None else cache["layers"]
+    shared = params.get("shared_attn")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    retyped: dict = {}
     for i in range(n_groups(cfg)):
         gp = stack_index(params["layers"], i)
         if remat:
             x = _remat_group(gp, x, cfg=cfg, run=run, positions=positions,
-                             noise=noise)
+                             noise=noise, shared_attn=shared)
             continue
         x, nc, aux_g = _group_apply(
             gp, x, cfg=cfg, run=run, positions=positions,
             cache=None if layer_cache is None else stack_index(layer_cache,
                                                                i),
-            noise=noise, routes=routes,
+            noise=noise, routes=routes, shared_attn=shared,
         )
         aux = aux + aux_g
         if layer_cache is not None:
-            _store_lengths(layer_cache, nc, i)
+            _store_group_cache(layer_cache, nc, i, retyped)
+    for node, k, vals in retyped.values():
+        node[k] = torch.stack(vals)
 
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     if cfg.tie_embeddings:
@@ -393,26 +451,46 @@ def attach_block_plans(params, cfg: ArchConfig, acfg, *, seq: int):
     return {**params, "layers": new_layers}
 
 
-def _store_lengths(stacked, group_cache, i: int) -> None:
-    """Write group ``i``'s advanced cache lengths back into the stacked
-    cache (its KV tensors were updated in place)."""
+_STATES = ("x_prev", "state", "conv")
+
+
+def _store_group_cache(stacked, group_cache, i: int, retyped: dict) -> None:
+    """Write group ``i``'s advanced cache back into the stacked cache: its
+    lengths, and its recurrent states into slice ``i`` (its KV tensors
+    were updated in place).  A state whose dtype differs from the stacked
+    leaf's (RWKV's ``x_prev`` leaves the layer in the activation dtype,
+    as in the reference) is collected in ``retyped`` under ``(node,
+    key)``; the caller stacks those anew once every group has read its
+    slice."""
     for k, v in group_cache.items():
         if isinstance(v, dict):
-            _store_lengths(stacked[k], v, i)
+            _store_group_cache(stacked[k], v, i, retyped)
         elif k == "len":
             stacked[k][i] = v
+        elif k in _STATES:
+            if v.dtype == stacked[k].dtype:
+                stacked[k][i].copy_(v)
+            else:
+                retyped.setdefault((id(stacked), k), (stacked, k, []))[
+                    2].append(v)
 
 
 # ------------------------------------------------------------------ cache
 def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
                   dtype=torch.bfloat16, device: DeviceLike = None):
-    """The decode cache: per group and layer a KV cache with a leading
-    ``[n_groups]`` axis (one length per group), plus the global step.
-    ``dtype=torch.int8`` stores int8 codes with fp32 per-(position, head)
-    ``k_scale`` / ``v_scale``."""
-    _check_ported(cfg)
+    """The decode cache: per group and layer a cache with a leading
+    ``[n_groups]`` axis, plus the global step.  An attention layer (and
+    Zamba2's shared attention block, one cache per group) holds a KV
+    cache with one length per group; ``dtype=torch.int8`` stores int8
+    codes with fp32 per-(position, head) ``k_scale`` / ``v_scale``.  An
+    RWKV layer holds the time mix's ``x_prev`` (in ``dtype``) and fp32
+    WKV ``state``, and the channel mix's ``x_prev``; a Mamba layer its
+    fp32 conv carry and SSM ``state``."""
     ng = n_groups(cfg)
     dev = resolve_device(device)
+
+    def zeros(shape, dt=torch.float32):
+        return torch.zeros((ng,) + tuple(shape), dtype=dt, device=dev)
 
     def stacked_attn():
         c = A.init_cache(batch * ng, max_len, cfg.n_kv_heads, cfg.hd,
@@ -420,9 +498,25 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
         out = {k: t.reshape((ng, batch) + tuple(t.shape[1:]))
                for k, t in c.items() if k != "len"}
         out["len"] = [0] * ng
-        return {"attn": out}
+        return out
 
-    group = {f"l{i}": stacked_attn() for i in range(len(group_def(cfg)))}
+    def layer(kind):
+        if kind == "rwkv":
+            hd = cfg.d_model // cfg.n_heads
+            return {"tmix": {"x_prev": zeros((batch, cfg.d_model), dtype),
+                             "state": zeros((batch, cfg.n_heads, hd, hd))},
+                    "cmix": {"x_prev": zeros((batch, cfg.d_model), dtype)}}
+        if kind == "mamba":
+            d_in = 2 * cfg.d_model
+            return {"mamba": {
+                "conv": zeros((batch, S.CONV_K - 1,
+                               d_in + 2 * cfg.ssm_state)),
+                "state": zeros((batch, d_in // 64, 64, cfg.ssm_state))}}
+        return {"attn": stacked_attn()}
+
+    group = {f"l{i}": layer(kind) for i, kind in enumerate(group_def(cfg))}
+    if cfg.attn_every:
+        group["shared_attn"] = stacked_attn()
     return {"layers": group, "step": 0}
 
 

@@ -451,7 +451,8 @@ def test_routes_agree_and_count_launches(cuda):
     assert ops.launch_counts() == {"maxmin_pool": 0, "analog_mvm": 3,
                                    "analog_mvm_split": 0, "analog_plan": 1,
                                    "analog_plan_block": 0,
-                                   "analog_mvm_split_experts": 0}
+                                   "analog_mvm_split_experts": 0,
+                                   "analog_mvm_split_members": 0}
     cpu = _ecg_model("cpu")
     assert torch.equal(y_mk, y_pl)
     assert torch.equal(y_mk.cpu(), cpu.apply(x.cpu()))
@@ -785,7 +786,7 @@ def test_lm_block_route_on_card(cuda):
             assert ops.launch_counts() == {
                 "maxmin_pool": 0, "analog_mvm": 0, "analog_mvm_split": 1,
                 "analog_plan": 0, "analog_plan_block": cfg.n_layers,
-                "analog_mvm_split_experts": 0}
+                "analog_mvm_split_experts": 0, "analog_mvm_split_members": 0}
     want = logits["cpu"]
     assert _rel(logits["cuda"], want) <= 1e-2
     assert float((logits["cuda"].argmax(-1) == want.argmax(-1)).float().mean()
@@ -862,6 +863,143 @@ def test_expert_stack_and_moe_on_card_match_cpu(cuda):
                         member_names=("up",), member_ns=(128,))
         assert torch.equal(run_expert_stack(gpc, xe.to(cuda), acfg).cpu(),
                            run_expert_stack(gp, xe, acfg))
+
+
+# the split kernel's member axis: rwkv6-7b's r/k/v/g (G = 4, K = N = 4096,
+# narrowed to N = 1024 here; chip_smoke.py runs the full width) at the
+# decode and prefill rows, and a ragged sweep over G, M, K and N
+MEMBER_SHAPES = [(4, 4, 4096, 1024), (4, 48, 4096, 1024), (1, 5, 128, 40),
+                 (2, 9, 256, 136), (3, 17, 384, 200), (4, 33, 128, 64),
+                 (2, 48, 512, 1000), (5, 60, 256, 96)]
+
+
+def _member_operands(g, m, k, n, chunk_rows, seed, form):
+    """Codes, integer per-member rank-1 tables (1..3), integer chunk
+    offsets, a dyadic gain per member and, in form 2, an integer
+    chunk_gain: every chunk sum of the rebuilt weights is an exact
+    integer.  Form 1 gives the rebuilt fp32
+    weights instead of codes and tables."""
+    rng = np.random.default_rng(seed)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    c = k // chunk_rows
+    a_pos, a_neg = (f32(rng.integers(0, 32, (g, m, k))) for _ in range(2))
+    codes = torch.from_numpy(rng.integers(-63, 64, (g, k, n)).astype(np.int8))
+    col = f32(rng.integers(1, 4, (g, n)))
+    row = f32(rng.integers(1, 4, (g, 1, k)))
+    cg = f32(rng.integers(1, 3, (g, c, n))) if form == 2 else None
+    # dyadic gains: fast mode's float totals are exact in any order too
+    gain = f32(np.repeat(2.0 ** -rng.integers(6, 10, (g, 1)), n, axis=1))
+    off = f32(rng.integers(-3, 4, (g, c, n)))
+    return a_pos, a_neg, codes, col, row, cg, gain, off
+
+
+def _member_w_eff(codes, col, row, cg, chunk_rows):
+    w = (codes.float() * col[:, None, :]) * row[:, 0, :, None]
+    if cg is not None:
+        w = w * torch.repeat_interleave(cg, chunk_rows, dim=1)
+    return w
+
+
+@pytest.mark.parametrize("faithful", [True, False])
+@pytest.mark.parametrize("form", [0, 1, 2])
+@pytest.mark.parametrize("g,m,k,n", MEMBER_SHAPES)
+def test_analog_mvm_split_members(cuda, g, m, k, n, form, faithful):
+    """Per-member col_gain, row_gain, chunk offsets and chunk_gain (form
+    2), or per-member fp32 weights (form 1): one launch, counted as a
+    member launch, bit-exact against the plain version on integer
+    tables, and each member bit-identical to its own 2-D launch."""
+    from repro_torch.kernels.analog_mvm import (analog_mvm_split_codes_cuda,
+                                                analog_mvm_split_cuda,
+                                                analog_mvm_split_members_cuda)
+
+    ops_ = _member_operands(g, m, k, n, 128, g * 31 + m + k + n + form,
+                            form)
+    a_pos, a_neg, codes, col, row, cg, gain, off = (
+        None if t is None else t.to(cuda) for t in ops_)
+    w = _member_w_eff(codes, col, row, cg, 128)
+    ops.reset_launch_counts()
+    if form == 1:
+        got = analog_mvm_split_members_cuda(a_pos, a_neg, w.contiguous(),
+                                            None, None, gain, off,
+                                            faithful=faithful)
+    else:
+        got = analog_mvm_split_members_cuda(a_pos, a_neg, codes, col, row,
+                                            gain, off, chunk_gain=cg,
+                                            faithful=faithful)
+    counts = ops.launch_counts()
+    assert counts["analog_mvm_split_members"] == 1
+    assert counts["analog_mvm_split"] == counts[
+        "analog_mvm_split_experts"] == 0
+    want = ref.analog_mvm_split_members_ref(
+        a_pos.cpu(), a_neg.cpu(), w.cpu(), gain.cpu(), off.cpu(),
+        faithful=faithful)
+    assert torch.equal(got.cpu(), want)
+    for i in range(g):
+        if form == 1:
+            solo = analog_mvm_split_cuda(a_pos[i], a_neg[i],
+                                         w[i].contiguous(), gain[i], off[i],
+                                         faithful=faithful)
+        else:
+            solo = analog_mvm_split_codes_cuda(
+                a_pos[i], a_neg[i], codes[i].contiguous(), col[i], row[i],
+                gain[i], off[i], faithful=faithful,
+                chunk_gain=None if cg is None else cg[i].contiguous())
+        assert torch.equal(got[i], solo)
+
+
+@pytest.mark.parametrize("faithful", [True, False])
+def test_shared_tables_reproduce_the_expert_axis(cuda, faithful):
+    """Zero-stride (shared) tables: the expert axis's launch, bit for
+    bit, still counted as an expert launch."""
+    from repro_torch.kernels.analog_mvm import (analog_mvm_split_experts_cuda,
+                                                analog_mvm_split_members_cuda)
+
+    a_pos, a_neg, codes, _, _, _, gain, _ = (
+        None if t is None else t.to(cuda)
+        for t in _member_operands(4, 12, 512, 136, 128, 5, 0))
+    ops.reset_launch_counts()
+    experts = analog_mvm_split_experts_cuda(a_pos, a_neg, codes, gain,
+                                            faithful=faithful)
+    assert ops.launch_counts()["analog_mvm_split_experts"] == 1
+    members = analog_mvm_split_members_cuda(a_pos, a_neg, codes, None, None,
+                                            gain, None, faithful=faithful)
+    assert ops.launch_counts()["analog_mvm_split_members"] == 1
+    assert torch.equal(members, experts)
+
+
+def test_batch_concat_group_on_card_matches_cpu(cuda):
+    """An RWKV time-mix block compiled on the card: r/k/v/g in one member
+    launch, bit-exact against the CPU's group on integer tables."""
+    from repro_torch.models import rwkv as R
+
+    g = torch.Generator().manual_seed(3)
+    p = R.rwkv_init(g, 256, 4, device="cpu")
+    rng = np.random.default_rng(4)
+    for name in ("wr", "wk", "wv", "wg", "wo"):
+        fpn = p[name]["fpn"]
+        for t in ("col_gain", "row_gain"):
+            fpn[t] = torch.from_numpy(rng.integers(1, 3, tuple(
+                fpn[t].shape)).astype(np.float32))
+        fpn["chunk_offset"] = torch.from_numpy(rng.integers(
+            -2, 3, tuple(fpn["chunk_offset"].shape)).astype(np.float32))
+    acfg = AnalogConfig(mode="analog_faithful")
+    x = torch.randn((2, 6, 256), generator=g) * 0.3
+    spec = R.rwkv_module_spec(256, 4)
+    want = api.compile(spec, p, acfg, device="cpu").lower()["_groups"][
+        "rkvg"]
+    got = api.compile(spec, p, acfg, device=cuda).lower()["_groups"]["rkvg"]
+    from repro_torch.exec.run import run_batch_concat
+
+    xs = [x * (1 + i) for i in range(4)]
+    ops.reset_launch_counts()
+    ys = run_batch_concat(got, [t.to(cuda) for t in xs], acfg)
+    assert ops.launch_counts()["analog_mvm_split_members"] == 1
+    assert ops.launch_counts()["analog_mvm_split"] == 0
+    for a, b in zip(ys, run_batch_concat(want, xs, acfg)):
+        assert torch.equal(a.cpu(), b)
 
 
 def test_divisions_are_exact_on_the_card(cuda):

@@ -139,7 +139,8 @@ def test_split_k_partials_combine_exactly(m, k, n, slots):
     total = torch.zeros((m, n))
     for c0, c1 in ranges:
         total = total + ref.split_chunk_range_ref(*args, c0, c1)
-    assert torch.equal(total, ops._mvm_split_chunk_scan(*args, 128))
+    assert torch.equal(total, ref.split_chunk_scan_ref(*args,
+                                                      chunk_rows=128))
     want = analog_mvm_split_pallas(*(jnp.asarray(t.numpy()) for t in args),
                                    faithful=True, interpret=True)
     np.testing.assert_array_equal(total.numpy(), np.asarray(want))

@@ -8,7 +8,9 @@ static float chain on a measured calibration snapshot), a tree with a
 ``column_concat`` group - plain and scan-stacked (the port's
 ``PlanStack`` against the reference's stacked leaves) - and a
 transformer block plan; an ``expert_stack`` group round-trips as a live
-group both ways.
+group both ways, and so do ``batch_concat`` groups (the RWKV r/k/v/g
+member axis), plain and scan-stacked (the reference's ``[S, G, ...]``
+leaves against the port's ``PlanStack`` of member-axis plans).
 Tolerances:
 
 - every array leaf: bit for bit, dtypes kept (int8 codes int8 on disk).
@@ -38,6 +40,8 @@ from repro.data.preprocess import preprocess_batch  # noqa: E402
 from repro.exec import store as jstore  # noqa: E402
 from repro.exec.lower import lower_expert_stack  # noqa: E402
 from repro.exec.plan import GroupPlan as JGroupPlan  # noqa: E402
+from repro.core.noise import NoiseConfig as JNoiseConfig  # noqa: E402
+from repro.exec.run import run_batch_concat as jrun_batch_concat  # noqa: E402
 from repro.exec.run import run_expert_stack as jrun_expert_stack  # noqa: E402
 from repro.exec.run import run_group as jrun_group  # noqa: E402
 from repro.models import ecg as JECG  # noqa: E402
@@ -55,6 +59,7 @@ from repro_torch.exec.lower import lower_expert_stack as tlower_expert_stack  # 
 from repro_torch.exec.lower import lowering_count  # noqa: E402
 from repro_torch.exec.plan import (AnalogPlan, GroupPlan, LayerPlan,  # noqa: E402
                                    PlanStack)
+from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.models.ecg import ECGConfig, ecg_apply_plan, ecg_module_spec  # noqa: E402
 
 ARCH = "phi4-mini-3.8b"
@@ -318,6 +323,124 @@ class TestTree:
             else:
                 y = jrun_expert_stack(got, jnp.asarray(x), jacfg)
             np.testing.assert_array_equal(_np(y), want)
+
+
+_RKVG = ("wr", "wk", "wv", "wg")
+
+
+@functools.lru_cache(maxsize=None)
+def _rkvg_tree():
+    """Two r/k/v/g quads - one plain, one scan-stacked over two slices -
+    with integer rank-1 tables and integer chunk offsets (integer
+    ``w_eff``: the split's chunk sums are exact in any order), lowered
+    by both packages into batch_concat groups."""
+    rng = np.random.default_rng(21)
+    keys = jax.random.split(jax.random.PRNGKey(13), 12)
+
+    def member(key):
+        p = jax.tree.map(np.asarray,
+                         jlinear_init(key, 64, 64, noise=JNoiseConfig()))
+        fpn = p["fpn"]
+        for name in ("col_gain", "row_gain"):
+            fpn[name] = rng.integers(1, 3, fpn[name].shape).astype(
+                np.float32)
+        fpn["chunk_offset"] = rng.integers(
+            -2, 3, fpn["chunk_offset"].shape).astype(np.float32)
+        return p
+
+    plain = {n: member(keys[i]) for i, n in enumerate(_RKVG)}
+    stacked = {n: jax.tree.map(lambda *a: np.stack(a), member(keys[4 + 2 * i]),
+                               member(keys[5 + 2 * i]))
+               for i, n in enumerate(_RKVG)}
+    jt = jax.tree.map(jnp.asarray, {"tmix": plain,
+                                    "layers": {"tmix": stacked}})
+    jacfg, acfg = JAnalogConfig(), AnalogConfig()
+    jm = japi.compile(japi.tree_spec("r", jt), jt, jacfg)
+    tt = _port(jt)
+    tm = api.compile(tree_spec("r", tt), tt, acfg, device="cpu")
+    return jm, tm, jacfg, acfg
+
+
+def _check_rkvg(got, jtree, acfg, jacfg):
+    xs = [np.random.default_rng(30 + i).standard_normal((2, 3, 64)).astype(
+        np.float32) * (0.2 + 0.1 * i) for i in range(4)]
+    pairs = [(got["tmix"]["_groups"]["rkvg"],
+              jtree["tmix"]["_groups"]["rkvg"])]
+    stack = got["layers"]["tmix"]["_groups"]["rkvg"]
+    assert isinstance(stack, PlanStack) and len(stack) == 2
+    jst = jtree["layers"]["tmix"]["_groups"]["rkvg"]
+    for i, gp in enumerate(stack):
+        pairs.append((gp, jax.tree.map(lambda a, i=i: a[i], jst)))
+    for gp, jgp in pairs:
+        assert isinstance(gp, GroupPlan) and gp.kind == "batch_concat"
+        assert tuple(gp.fused.store.codes.shape) == (4, 128, 64)
+        for a, b in zip(trun.run_group(gp, [torch.from_numpy(x) for x in xs],
+                                       acfg),
+                        jrun_batch_concat(jgp, [jnp.asarray(x) for x in xs],
+                                          jacfg)):
+            np.testing.assert_array_equal(_np(a), _np(b))
+
+
+class TestBatchConcat:
+    def test_reference_groups_load_and_replay(self, tmp_path):
+        jm, tm, jacfg, acfg = _rkvg_tree()
+        path = str(tmp_path / "jax_rkvg.npz")
+        jstore.save_plan(path, jm.lower())
+        before = lowering_count()
+        tree = store.load_plan(path, device="cpu")
+        assert lowering_count() == before
+        _same_leaves(tree, tm.lower())
+        _check_rkvg(tree, jm.lower(), acfg, jacfg)
+
+    def test_port_groups_load_into_reference(self, tmp_path):
+        jm, tm, jacfg, acfg = _rkvg_tree()
+        path = str(tmp_path / "port_rkvg.npz")
+        store.save_plan(path, tm.lower())
+        jtree = jstore.load_plan(path)
+        want = jm.lower()
+        assert jax.tree.structure(jtree) == jax.tree.structure(want)
+        for a, b in zip(jax.tree.leaves(jtree), jax.tree.leaves(want)):
+            assert _np(a).dtype == _np(b).dtype
+            np.testing.assert_array_equal(_np(a), _np(b))
+        _check_rkvg(tm.lower(), jtree, acfg, jacfg)
+
+    def test_rwkv_smoke_lm_round_trips(self, tmp_path):
+        """The rwkv6-7b SMOKE LM's lowered tree (scan-stacked r/k/v/g
+        groups, the [S, G, ...] leaves on disk) both ways: a reference
+        file served by the port gives the port's own compiled logits bit
+        for bit, and a port file served by the reference gives the
+        reference's own."""
+        from repro.configs.base import RunConfig as JRunConfig
+
+        from repro_torch.configs.base import RunConfig
+
+        jcfg, cfg = jconfigs.get_smoke("rwkv6-7b"), configs.get_smoke(
+            "rwkv6-7b")
+        jp = JT.lm_init(jax.random.PRNGKey(0), jcfg)
+        tp = _port(jp)
+        jrun = JRunConfig(analog=JAnalogConfig(), activation_dtype="float32")
+        run = RunConfig(analog=AnalogConfig(), activation_dtype="float32")
+        jm = japi.compile(JT.lm_module_spec(jcfg, jp), jp, jrun)
+        tm = api.compile(T.lm_module_spec(cfg, tp), tp, run, device="cpu")
+        toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 5))
+        jpath, tpath = str(tmp_path / "jax_lm.npz"), str(tmp_path / "lm.npz")
+        jstore.save_plan(jpath, jm.lower())
+        store.save_plan(tpath, tm.lower())
+        before = lowering_count()
+        loaded = store.load_plan(jpath, device="cpu")
+        assert lowering_count() == before
+        gp = loaded["layers"]["l0"]["rwkv"]["_groups"]["rkvg"]
+        assert isinstance(gp, PlanStack) and gp[0].kind == "batch_concat"
+        _same_leaves(loaded, tm.lower())
+        t_in = {"tokens": torch.from_numpy(toks)}
+        np.testing.assert_array_equal(
+            _np(T.lm_apply(loaded, t_in, cfg, run)[0]),
+            _np(T.lm_apply(tm.lower(), t_in, cfg, run)[0]))
+        j_in = {"tokens": jnp.asarray(toks)}
+        np.testing.assert_array_equal(
+            np.asarray(JT.lm_apply(jstore.load_plan(tpath), j_in, jcfg,
+                                   jrun)[0]),
+            np.asarray(JT.lm_apply(jm.lower(), j_in, jcfg, jrun)[0]))
 
 
 @functools.lru_cache(maxsize=None)
