@@ -467,9 +467,11 @@ def lower_expert_stack(w: torch.Tensor, cfg: AnalogConfig) -> LayerPlan:
     ``gate`` / ``down`` matrix) ONCE into a per-expert plan whose every
     leaf carries the leading expert axis: the 6-bit codes ``[E, K_pad,
     N]`` (int8, rows zero-padded to whole chunks: the split kernel's code
-    operand), the per-expert column scales ``w_scale [E, 1, N]`` from
-    ``max|w|`` over K plus 1e-9, and the statistical gain ``[E]`` of each
-    expert (the reference vmaps ``_statistical_gain`` over the experts).
+    operand; fp32 straight-through codes when ``w`` requires grad), the
+    per-expert column scales ``w_scale [E, 1, N]`` from ``max|w|`` over K
+    plus 1e-9 (no gradient: the reference's ``stop_gradient``), and the
+    statistical gain ``[E]`` of each expert (the reference vmaps
+    ``_statistical_gain`` over the experts; its gradient reaches ``w``).
     There is no fixed pattern (the reference
     omits expert fixed-pattern noise), so each expert's effective weights
     are its integer codes and the gain applies after the sum; activation
@@ -492,8 +494,13 @@ def lower_expert_stack(w: torch.Tensor, cfg: AnalogConfig) -> LayerPlan:
     n_chunks = -(-k // cfg.chunk_rows)
     codes = F.pad(quant.quantize_weight(w, w_scale),
                   (0, 0, 0, n_chunks * cfg.chunk_rows - k))
+    if not codes.requires_grad:
+        # int8 for serving; codes that require grad stay fp32 STE values
+        # (the cast would cut the straight-through gradient to the
+        # masters), and the card casts them to its int8 operand
+        codes = codes.to(torch.int8)
     store = WeightStore(  # verify: allow-packed-weights
-        codes=codes.to(torch.int8),
+        codes=codes,
         w_scale=w_scale,
         gain=torch.stack([_statistical_gain(w[i], cfg.chunk_rows)
                           for i in range(e)]),

@@ -280,7 +280,10 @@ def run_batch_concat(gp: GroupPlan, xs, cfg: AnalogConfig, *, noise=None):
     other signed encodings, the members replay one after another through
     :func:`run_layer` (``noise``: one source for all, drawn in member
     order, or one injected draw per member); that too counts one
-    dispatch.  Inference only: under autograd it raises."""
+    dispatch.  Differentiable: the fused call's HIL backward is the 2-D
+    split pair's batched over the members
+    (:func:`repro_torch.kernels.ops.analog_mvm_split_members`), and the
+    member-by-member replay differentiates through :func:`run_layer`."""
     from repro_torch.kernels import ops as kernel_ops
 
     g = len(gp.member_names)
@@ -294,10 +297,6 @@ def run_batch_concat(gp: GroupPlan, xs, cfg: AnalogConfig, *, noise=None):
             "leaves (a scan-stacked group is a PlanStack: pick its member "
             f"first), got codes of shape {tuple(lp.store.codes.shape)}")
     x = torch.stack(list(xs))
-    if needs_grad(x, lp.store.codes):
-        raise NotImplementedError(
-            "a batch_concat group has no HIL backward yet (ROADMAP queue "
-            "1, item 5h: HIL training of RWKV and the hybrid)")
     rn = None if cfg.deterministic else noise
     if lp.signed_input != "split" or not cfg.fused_split or rn is not None:
         with _one_dispatch():
@@ -341,7 +340,12 @@ def run_expert_stack(gp: GroupPlan, xe: torch.Tensor,
     CPU).  One dynamic activation scale over the whole dispatch buffer,
     signed inputs through the pos / neg split, each expert's codes at its
     gain, then ``y_int * (a_scale * w_scale / gain)`` in the reference's
-    order.  Expert readout noise is omitted, as on the per-call path."""
+    order.  Expert readout noise is omitted, as on the per-call path.
+    Differentiable: a store of fp32 STE codes (lowered under autograd)
+    hands its codes to the split call as ``w_eff``, whose HIL backward is
+    batched over the experts; the gain's gradient reaches the masters
+    through the dequantization (and in fast mode through the product),
+    the abs-max none (the reference's ``stop_gradient``)."""
     from repro_torch.kernels import ops as kernel_ops
 
     lp = gp.fused
@@ -352,8 +356,9 @@ def run_expert_stack(gp: GroupPlan, xe: torch.Tensor,
     a_neg = _pad_codes(quant.quantize_act(-xf, a_scale), lp.k_pad)
     gain = lp.gain_row                                            # [E, N]
     _count()
+    w = None if lp.store.codes.dtype == torch.int8 else lp.w_eff
     y_int = kernel_ops.analog_mvm_split(
-        a_pos, a_neg, None, gain, None, chunk_rows=lp.chunk_rows,
+        a_pos, a_neg, w, gain, None, chunk_rows=lp.chunk_rows,
         faithful=cfg.mode != "analog_fast", store=lp.store)
     y = y_int * (a_scale * lp.w_scale / gain[:, None, :1])
     return y.to(in_dtype)

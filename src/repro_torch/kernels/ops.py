@@ -16,7 +16,10 @@ linearization ``y ~= gain * (a @ w_eff)`` with frozen gain and offsets,
 as plain tensor ops and ``torch.matmul`` (the reference's backwards are
 plain products outside any Pallas kernel too), at full fp32 precision.
 The signed-split pair (:func:`analog_mvm_split`) has the reference's
-``_analog_mvm_split_bwd``; the block plan has no HIL backward yet
+``_analog_mvm_split_bwd``, and so has the split kernel's leading axis -
+the members of a batch_concat group (:func:`analog_mvm_split_members`)
+and the experts of an MoE expert stack - as one batched product
+(:class:`_AnalogMVMLead`); the block plan has no HIL backward yet
 (ROADMAP): under autograd it raises.
 """
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from repro_torch.core.device import fp32_matmuls
 from repro_torch.core.hw import BSS2
+from repro_torch.core.quant import _tie_mask
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as ref_lib
 from repro_torch.kernels.analog_mvm import (analog_mvm_cuda,
@@ -187,22 +191,109 @@ def _split_experts(a_pos, a_neg, w_eff, gain, *, chunk_rows, faithful,
     operands against ``[E, K, N]`` weights, the reference's expert
     products (``analog_matmul`` without a kernel: faithful mode reads
     out every chunk at ``gain``, fast mode scales each pass's total by
-    it), in one launch on the card."""
+    it), in one launch on the card.  The card reads the store's int8
+    codes; the fp32 STE codes of a store lowered under autograd hold the
+    same 6-bit integers and are cast."""
     post = None
     if not faithful:
         post, gain = gain, torch.ones_like(gain)
     if _on_cuda(a_pos):
         if store is None or not store.code_operand or \
-                store.codes.dtype != torch.int8 or store.col_gain is not None:
-            raise ValueError("the expert axis reads a table-free int8 "
-                             "expert-stack store on the card")
+                store.codes.dtype not in (torch.int8, torch.float32) or \
+                store.col_gain is not None:
+            raise ValueError("the expert axis reads a table-free expert-"
+                             "stack store of int8 (or fp32 STE) codes on "
+                             "the card")
+        codes = store.codes
+        if codes.dtype != torch.int8:
+            codes = codes.detach().to(torch.int8)
         return analog_mvm_split_experts_cuda(
-            a_pos.contiguous(), a_neg.contiguous(), store.codes,
+            a_pos.contiguous(), a_neg.contiguous(), codes,
             gain.contiguous(), post_gain=_contiguous(post),
             chunk_rows=chunk_rows, faithful=faithful)
     return ref_lib.analog_mvm_split_experts_ref(
-        a_pos, a_neg, store.w_eff if w_eff is None else w_eff, gain, post_gain=post, chunk_rows=chunk_rows,
+        a_pos, a_neg, store.w_eff if w_eff is None else w_eff, gain,
+        post_gain=post, chunk_rows=chunk_rows, faithful=faithful)
+
+
+def _split_members(a_pos, a_neg, gain, chunk_offset, *, store, chunk_rows,
+                   faithful):
+    """The member axis of :func:`analog_mvm_split_members`: one launch
+    on the card, the plain version on the CPU."""
+    if _on_cuda(a_pos):
+        if store.code_operand:
+            codes = store.codes
+            if codes.dtype != torch.int8:
+                codes = codes.detach().to(torch.int8)
+            return analog_mvm_split_members_cuda(
+                a_pos.contiguous(), a_neg.contiguous(), codes,
+                _contiguous(store.col_gain), _contiguous(store.row_gain),
+                gain.contiguous(), _contiguous(chunk_offset),
+                chunk_gain=_contiguous(store.chunk_gain),
+                chunk_rows=chunk_rows, faithful=faithful)
+        return analog_mvm_split_members_cuda(
+            a_pos.contiguous(), a_neg.contiguous(),
+            store.w_eff.detach().contiguous(), None, None, gain.contiguous(),
+            _contiguous(chunk_offset), chunk_rows=chunk_rows,
+            faithful=faithful)
+    return ref_lib.analog_mvm_split_members_ref(
+        a_pos, a_neg, store.w_eff, gain, chunk_offset, chunk_rows=chunk_rows,
         faithful=faithful)
+
+
+class _AnalogMVMLead(torch.autograd.Function):
+    """The split kernel's leading axis - the G members of a batch_concat
+    group or the E experts of an expert stack - with the HIL backward of
+    the 2-D pair batched over that axis (the reference vmaps
+    ``analog_mvm_split``'s custom VJP over the members, and its expert
+    products' faithful backward is ``_faithful_mm_bwd`` per expert):
+    ``da_pos = bmm(g * gain, w_eff^T)``, ``da_neg = -da_pos``, ``dw =
+    bmm((a_pos - a_neg)^T, g * gain)``, zero gradient for the gain and
+    the chunk offsets.  The forward is the one launch.
+
+    The experts in fast mode differentiate as the reference's jnp
+    expert product does (``clip(round_ste(total * gain))`` per pass):
+    the gradient passes each pass's unclipped outputs (half of it at a
+    clip bound, ``jnp.clip``'s rule), and reaches the gain - there it is
+    not frozen."""
+
+    @staticmethod
+    def forward(ctx, a_pos, a_neg, w_eff, gain, chunk_offset, experts,
+                chunk_rows, faithful, store):
+        ctx.save_for_backward(a_pos, a_neg, w_eff, gain)
+        ctx.fast_experts = experts and not faithful
+        ctx.chunk_rows = chunk_rows
+        if experts:
+            return _split_experts(a_pos, a_neg, w_eff, gain,
+                                  chunk_rows=chunk_rows, faithful=faithful,
+                                  store=store)
+        return _split_members(a_pos, a_neg, gain, chunk_offset, store=store,
+                              chunk_rows=chunk_rows, faithful=faithful)
+
+    @staticmethod
+    def backward(ctx, g):
+        a_pos, a_neg, w_eff, gain = ctx.saved_tensors
+        gain3 = gain[:, None, :]
+        w_t = w_eff.transpose(1, 2)
+        with fp32_matmuls():
+            if not ctx.fast_experts:
+                gg = g * gain3
+                da = torch.bmm(gg, w_t)
+                dw = torch.bmm((a_pos - a_neg).transpose(1, 2), gg)
+                return (da, -da, dw, torch.zeros_like(gain), None, None,
+                        None, None, None)
+            c = a_pos.shape[-1] // ctx.chunk_rows
+            lo, hi = float(BSS2.adc_min * c), float(BSS2.adc_max * c)
+            grads, dw, dgain = [], 0.0, 0.0
+            for a, ga in ((a_pos, g), (a_neg, -g)):
+                total = torch.bmm(a, w_eff)
+                dv = ga * _tie_mask(torch.round(total * gain3), lo, hi)
+                dt = dv * gain3
+                grads.append(torch.bmm(dt, w_t))
+                dw = dw + torch.bmm(a.transpose(1, 2), dt)
+                dgain = dgain + (dv * total).sum(dim=1)
+        return (grads[0], grads[1], dw, dgain, None, None, None, None,
+                None)
 
 
 def analog_mvm_split(
@@ -231,18 +322,19 @@ def analog_mvm_split(
     Differentiable without an epilogue (HIL backward,
     :class:`_AnalogMVMSplit`).
 
-    ``[E, M, K]`` operands with ``w_eff [E, K, N]`` and ``gain [E, N]``
-    run the expert axis (:func:`_split_experts`): the E matrices of an
-    MoE expert stack, no chunk offsets and no epilogue, inference only
-    (the experts' HIL backward is ROADMAP work)."""
+    ``[E, M, K]`` operands with ``w_eff [E, K, N]`` (or None: the
+    store's) and ``gain [E, N]`` run the expert axis
+    (:func:`_split_experts`): the E matrices of an MoE expert stack, no
+    chunk offsets and no epilogue, differentiable through
+    :class:`_AnalogMVMLead`."""
     if a_pos.ndim == 3:
         if chunk_offset is not None or epilogue is not None:
             raise ValueError("the expert axis takes no chunk offsets and "
                              "no epilogue")
-        if needs_grad(a_pos, a_neg, w_eff):
-            raise NotImplementedError(
-                "the split kernel's expert axis has no HIL backward yet "
-                "(ROADMAP: HIL training of the MoE families)")
+        if needs_grad(a_pos, a_neg, w_eff, gain):
+            return _AnalogMVMLead.apply(
+                a_pos, a_neg, store.w_eff if w_eff is None else w_eff, gain,
+                None, True, chunk_rows, faithful, store)
         return _split_experts(a_pos, a_neg, w_eff, gain,
                               chunk_rows=chunk_rows, faithful=faithful,
                               store=store)
@@ -277,32 +369,15 @@ def analog_mvm_split_members(
     analog_mvm_split_members_cuda`, counted as
     ``analog_mvm_split_members``) and as the plain version on the CPU.
     Member ``g`` equals the 2-D call on member ``g``'s operands bit for
-    bit.  Inference only: the member axis has no HIL backward yet
-    (ROADMAP queue 1, item 5h)."""
-    if needs_grad(a_pos, a_neg, store.codes):
-        raise NotImplementedError(
-            "the split kernel's member axis has no HIL backward yet "
-            "(ROADMAP queue 1, item 5h: HIL training of RWKV and the "
-            "hybrid)")
-    if _on_cuda(a_pos):
-        if store.code_operand:
-            codes = store.codes
-            if codes.dtype != torch.int8:
-                codes = codes.detach().to(torch.int8)
-            return analog_mvm_split_members_cuda(
-                a_pos.contiguous(), a_neg.contiguous(), codes,
-                _contiguous(store.col_gain), _contiguous(store.row_gain),
-                gain.contiguous(), _contiguous(chunk_offset),
-                chunk_gain=_contiguous(store.chunk_gain),
-                chunk_rows=chunk_rows, faithful=faithful)
-        return analog_mvm_split_members_cuda(
-            a_pos.contiguous(), a_neg.contiguous(),
-            store.w_eff.contiguous(), None, None, gain.contiguous(),
-            _contiguous(chunk_offset), chunk_rows=chunk_rows,
-            faithful=faithful)
-    return ref_lib.analog_mvm_split_members_ref(
-        a_pos, a_neg, store.w_eff, gain, chunk_offset, chunk_rows=chunk_rows,
-        faithful=faithful)
+    bit.  Differentiable: under autograd the same launch runs inside
+    :class:`_AnalogMVMLead`, whose backward is the 2-D pair's batched
+    over the members (the weights' gradient reaches ``store.w_eff``)."""
+    if needs_grad(a_pos, a_neg, store.w_eff):
+        return _AnalogMVMLead.apply(a_pos, a_neg, store.w_eff, gain,
+                                    chunk_offset, False, chunk_rows,
+                                    faithful, store)
+    return _split_members(a_pos, a_neg, gain, chunk_offset, store=store,
+                          chunk_rows=chunk_rows, faithful=faithful)
 
 
 def _plan_forward(x_in, weights, gain_all, off_cat, *, schedule, chunk_rows,

@@ -60,11 +60,21 @@ def norm_apply(params, x, kind="rmsnorm", eps=1e-5):
 
 
 # ------------------------------------------------------------------ RoPE
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    even = 2.0 * torch.arange(head_dim // 2, dtype=torch.float32)
+    return (1.0 / (theta ** (even / head_dim))).to(device)
+
+
 def rope_freqs(head_dim: int, theta: float,
                device: DeviceLike = "cpu") -> torch.Tensor:
-    even = 2.0 * torch.arange(head_dim // 2, dtype=torch.float32,
-                              device=device)
-    return 1.0 / (theta ** (even / head_dim))
+    """``1 / theta^(2i / head_dim)``, computed on the CPU and copied to
+    ``device`` (cached; do not write to it): the card's ``pow``, and its
+    division of a number by a tensor, round a frequency's last bit
+    otherwise, and position ``p`` multiplies that into ``p`` ulps of the
+    angle (M-RoPE's positions reach the hundreds)."""
+    return _rope_freqs(head_dim, float(theta), torch.device(device))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -148,3 +158,20 @@ def mlp_apply(params, x, acfg: AnalogConfig, *, act="swiglu", noise=None):
     else:
         raise ValueError(act)
     return linear_apply(params["down"], h, acfg, noise=noise)
+
+
+# ------------------------------------------------------ recurrent scans
+# Time steps per segment of the per-token recurrences' backward
+# (``models.rwkv.wkv_scan``, ``models.ssm.ssd_scan``): under autograd the
+# forward keeps the state at every segment's start, and the backward
+# recomputes one segment's states at a time.  ``None``: plain autograd
+# through the loop, every step's tensors kept (the reference's memory; a
+# test or a measurement sets it, read at each call).
+SCAN_SEGMENT = 128
+
+
+def scan_needs_segments(*tensors) -> bool:
+    """Does a recurrence on ``tensors`` run its segmented backward (under
+    autograd, with :data:`SCAN_SEGMENT` set)?"""
+    return SCAN_SEGMENT is not None and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors)

@@ -38,21 +38,37 @@ from repro_torch.models import layers as L
 
 # the reference's no-mesh dispatch names: both build the buffer locally
 _NO_MESH_DISPATCH = ("gspmd_ep", "replicated_buf")
+
+
 class Routes:
     """The routing ``(topw, topi)`` of every :func:`moe_apply` call it is
-    handed, in call order (:attr:`taken`).  Given another run's routes
-    (``replay``), each call takes the next of those in place of its
+    handed, in call order (:attr:`taken`, detached).  Given another run's
+    routes (``replay``), each call takes the next of those in place of its
     router's top-k: a card-against-CPU check routes the card's run as the
-    CPU's, whose router may round a near tie the other way."""
+    CPU's, whose router may round a near tie the other way.  Under
+    autograd the replayed weights keep their values and take the gradient
+    of this call's router at the replayed experts (its probabilities
+    gathered there and renormalized), so the router trains as it would
+    have routed.  A test hook: no entry point routes through it unless
+    the caller passes one."""
 
     def __init__(self, replay=None):
         self.taken: list = []
         self._replay = None if replay is None else iter(replay)
 
-    def route(self, topw: torch.Tensor, topi: torch.Tensor):
+    @property
+    def replaying(self) -> bool:
+        return self._replay is not None
+
+    def route(self, topw: torch.Tensor, topi: torch.Tensor,
+              probs: Optional[torch.Tensor] = None):
         if self._replay is not None:
-            topw, topi = (t.to(topw.device) for t in next(self._replay))
-        self.taken.append((topw, topi))
+            w, i = (t.to(topw.device) for t in next(self._replay))
+            if probs is not None and probs.requires_grad:
+                own = _renormalize(torch.gather(probs, -1, i))
+                w = w + (own - own.detach())
+            topw, topi = w, i
+        self.taken.append((topw.detach(), topi))
         return topw, topi
 
 
@@ -203,16 +219,25 @@ def top_k_lower_index(probs: torch.Tensor, k: int):
     return torch.gather(probs, -1, idx), idx
 
 
-def route(probs: torch.Tensor, top_k: int):
+def _renormalize(topw: torch.Tensor) -> torch.Tensor:
+    """The top-k weights over ``max(sum, 1e-9)``, the k summed in order."""
+    tot = topw[..., :1]
+    for j in range(1, topw.shape[-1]):
+        tot = tot + topw[..., j:j + 1]
+    return topw / torch.clamp_min(tot, 1e-9)
+
+
+def route(probs: torch.Tensor, top_k: int, routes=None):
     """The router's top-k and the Switch aux loss from the softmax
     ``probs [B, S, E]``: ``(topw, topi, aux)``, weights renormalized by
-    ``max(sum, 1e-9)``, ``aux = E * sum_e mean_prob_e * frac_routed_e``."""
+    ``max(sum, 1e-9)``, ``aux = E * sum_e mean_prob_e * frac_routed_e``.
+    ``routes`` (a :class:`Routes`) records the top-k, or replays another
+    run's in its place, the aux loss's routed fractions included."""
     e = probs.shape[-1]
     topw, topi = top_k_lower_index(probs, top_k)
-    tot = topw[..., :1]
-    for j in range(1, top_k):          # the k weights summed in order
-        tot = tot + topw[..., j:j + 1]
-    topw = topw / torch.clamp_min(tot, 1e-9)
+    topw = _renormalize(topw)
+    if routes is not None:
+        topw, topi = routes.route(topw, topi, probs)
     me = probs.mean(dim=(0, 1))
     ce = torch.zeros((e,), dtype=torch.float32, device=probs.device)
     ce = ce.index_put_((topi.reshape(-1),),
@@ -255,13 +280,12 @@ def moe_apply(params, x, *, acfg: AnalogConfig, top_k: int,
               dense: bool = False, dispatch: str = "gspmd_ep", noise=None,
               routes: Optional[Routes] = None):
     """``x [B, S, d] -> (y, aux)``.  The batch axis is the dispatch group:
-    every routing index is group-local.  ``routes``: a :class:`Routes`
-    that records this call's top-k, or replays another run's in its place
-    (the aux loss still reads this call's router).  ``noise`` reaches
-    the shared expert (the expert products have no readout noise, as in
-    the reference).  ``dispatch`` accepts only the no-mesh paths
-    (``"gspmd_ep"``, ``"replicated_buf"``): ``"shard_map"`` needs the
-    mesh (ROADMAP)."""
+    every routing index is group-local.  ``routes``: a :class:`Routes` that
+    records this call's top-k, or replays another run's in its place (the aux
+    loss's probabilities stay this call's router's).  ``noise`` reaches the
+    shared expert (the expert products have no readout noise, as in the
+    reference).  ``dispatch`` accepts only the no-mesh paths (``"gspmd_ep"``,
+    ``"replicated_buf"``): ``"shard_map"`` needs the mesh (ROADMAP)."""
     if dispatch not in _NO_MESH_DISPATCH:
         raise NotImplementedError(
             f"moe dispatch {dispatch!r} needs the device mesh, which is not "
@@ -271,9 +295,7 @@ def moe_apply(params, x, *, acfg: AnalogConfig, top_k: int,
     e = params["up"].shape[0]
     logits = x.to(torch.float32) @ params["router"]["w"]          # [B, S, E]
     probs = torch.softmax(logits, dim=-1)
-    topw, topi, aux = route(probs, top_k)
-    if routes is not None:
-        topw, topi = routes.route(topw, topi)
+    topw, topi, aux = route(probs, top_k, routes)
 
     if dense:
         # smoke-config fallback: every expert sees every token

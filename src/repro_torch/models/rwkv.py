@@ -9,8 +9,9 @@ through ``api.compile``) runs r/k/v/g as ONE ``batch_concat`` dispatch:
 the split kernel's member axis on the card.
 
 The recurrence is the O(T) sequential scan of the reference, one step per
-token.  The reference's sharding hints (``constrain``) have no effect on
-one device and are left out.
+token; under autograd its backward recomputes the states a segment at a time,
+so its memory stays bounded at 4096 positions.  The reference's sharding hints
+(``constrain``) have no effect on one device and are left out.
 """
 from __future__ import annotations
 
@@ -92,20 +93,88 @@ def _lerp(x, x_shift, mu):
     return x + (x_shift - x) * mu
 
 
-def wkv_scan(r, k, v, w, u, state0):
-    """Sequential WKV-6 recurrence, one step per token.
-
-    r, k, v: [B, T, H, D]; w: [B, T, H, D] decay in (0, 1); u: [H, D];
-    state0: [B, H, D, D] -> (out [B, T, H, D], state [B, H, D, D])."""
-    state, ys = state0, []
+def _wkv_steps(r, k, v, w, u, state, seg=0):
+    """The per-token WKV-6 loop: ``(out, state, starts)``, ``starts`` the
+    state at the start of every ``seg`` steps (none for ``seg=0``)."""
+    ys, starts = [], []
     with fp32_matmuls():
         for t in range(r.shape[1]):
+            if seg and t % seg == 0:
+                starts.append(state)
             k_t, v_t = k[:, t], v[:, t]
             kv = k_t[..., :, None] * v_t[..., None, :]          # [B, H, D, D]
             ys.append(torch.einsum("bhi,bhij->bhj", r[:, t],
                                    state + u[None, :, :, None] * kv))
             state = w[:, t][..., :, None] * state + kv
-    return torch.stack(ys, dim=1), state
+    return torch.stack(ys, dim=1), state, starts
+
+
+class _WKVScan(torch.autograd.Function):
+    """The WKV loop under autograd with its memory bounded: the forward is
+    :func:`_wkv_steps` (the serving loop, so the values are bit-identical)
+    keeping only the state at each segment's start; the backward walks
+    the segments in reverse, recomputes a segment's states ``S_{t-1}``
+    from its start (the same ops), and runs the recurrence's adjoint.  With
+    ``y_t = r_t (S_{t-1} + u kv_t)``, ``S_t = w_t S_{t-1} + kv_t`` and
+    ``H_t = dL/dS_t``: ``G_t = r_t (x) dy_t``, ``H_{t-1} = G_t + w_t
+    H_t`` (the only serial step), then over the segment at once ``dr =
+    (S_{t-1} + u kv_t) dy_t``, ``dkv = u G_t + H_t``, ``dk = dkv v_t``,
+    ``dv = k_t dkv``, ``dw = sum_j H_t S_{t-1}``, ``du = sum G_t kv_t``.
+    The same derivatives as autograd's, summed in another order."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        ctx.seg = L.SCAN_SEGMENT
+        y, state, starts = _wkv_steps(r, k, v, w, u, state0, ctx.seg)
+        ctx.save_for_backward(r, k, v, w, u, torch.stack(starts))
+        return y, state
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        r, k, v, w, u, starts = ctx.saved_tensors
+        seg = ctx.seg
+        dr, dk, dv, dw = (torch.zeros_like(t) for t in (r, k, v, w))
+        du = torch.zeros_like(u)
+        uu = u[None, None, :, :, None]
+        carry = gstate                              # dL/dS after the last step
+        with fp32_matmuls():
+            for i in reversed(range(starts.shape[0])):
+                sl = slice(i * seg, (i + 1) * seg)
+                rs, ks, vs, ws, dys = (t[:, sl] for t in (r, k, v, w, gy))
+                n = rs.shape[1]
+                kv = ks[..., :, None] * vs[..., None, :]    # [B, n, H, D, D]
+                wk = ws[..., :, None]
+                prev, s = [], starts[i]
+                for t in range(n):
+                    prev.append(s)
+                    s = wk[:, t] * s + kv[:, t]
+                prev = torch.stack(prev, dim=1)             # S_{t-1}
+                g = rs[..., :, None] * dys[..., None, :]
+                hs = [None] * n
+                for t in reversed(range(n)):
+                    hs[t] = carry
+                    carry = g[:, t] + wk[:, t] * carry
+                h = torch.stack(hs, dim=1)                  # dL/dS_t
+                dkv = uu * g + h
+                dr[:, sl] = torch.einsum("blhij,blhj->blhi", prev + uu * kv,
+                                         dys)
+                dk[:, sl] = (dkv * vs[..., None, :]).sum(-1)
+                dv[:, sl] = (dkv * ks[..., :, None]).sum(-2)
+                dw[:, sl] = (h * prev).sum(-1)
+                du += (g * kv).sum(dim=(0, 1, 4))
+        return dr, dk, dv, dw, du, carry
+
+
+def wkv_scan(r, k, v, w, u, state0):
+    """Sequential WKV-6 recurrence, one step per token; under autograd
+    with its memory bounded (:class:`_WKVScan`: segments of
+    :data:`~repro_torch.models.layers.SCAN_SEGMENT` steps).
+
+    r, k, v: [B, T, H, D]; w: [B, T, H, D] decay in (0, 1); u: [H, D];
+    state0: [B, H, D, D] -> (out [B, T, H, D], state [B, H, D, D])."""
+    if L.scan_needs_segments(r, k, v, w, u, state0):
+        return _WKVScan.apply(r, k, v, w, u, state0)
+    return _wkv_steps(r, k, v, w, u, state0)[:2]
 
 
 def _rkvg(params, xs, acfg: AnalogConfig, noise):

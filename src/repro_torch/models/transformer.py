@@ -17,10 +17,12 @@ Every parameter matmul dispatches through the analog backend; the
 execution mode (digital / analog_faithful / analog_fast) is a RunConfig
 knob.  :func:`attach_block_plans` adds fused attention+MLP block plans
 that replay a static prefill one dispatch per block.  :func:`lm_loss` is
-the training objective; under autograd ``cfg.remat`` recomputes each
-scan group in the backward (``torch.utils.checkpoint``), its readout
-noise replayed.  Not ported yet: the training of the MoE, M-RoPE, RWKV
-and hybrid families (:func:`check_trainable`).
+the training objective, for every family; under autograd ``cfg.remat``
+recomputes each scan group in the backward (``torch.utils.checkpoint``),
+Zamba2's shared block at its entry included, its readout noise and its
+MoE routing replayed.  Under autograd the RWKV and Mamba recurrences
+recompute their states a segment at a time in the backward, so their
+memory stays bounded at 4096 positions.
 """
 from __future__ import annotations
 
@@ -58,26 +60,6 @@ def n_groups(cfg: ArchConfig) -> int:
         raise ValueError(f"{cfg.n_layers} layers do not split into groups "
                          f"of {g}")
     return cfg.n_layers // g
-
-
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for the families whose hardware-in-the-loop training is not
-    ported yet: RWKV and the Mamba hybrid (the split kernel's member axis
-    has no HIL backward, and the per-step recurrences' autograd memory
-    does not fit at the reference's 4096 positions), MoE layers (the
-    expert axis has no HIL backward) and M-RoPE."""
-    kinds = set(group_def(cfg))
-    if kinds & {"rwkv", "mamba"} or cfg.attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: training the RWKV and hybrid families is not "
-            "ported yet (ROADMAP queue 1, item 5h: the member axis's HIL "
-            "backward and a recurrence whose autograd memory fits); serve "
-            "it, or train a dense config")
-    if "attn_moe" in kinds or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: training the MoE and M-RoPE families is not "
-            "ported yet (ROADMAP: HIL training through the expert axis's "
-            "backward); serve it, or train a dense config")
 
 
 def stack_index(node, i: int):
@@ -308,30 +290,44 @@ def _set_noise_state(noise, state) -> None:
         noise.pos = state
 
 
-def _remat_group(gp, x, *, cfg, run, positions, noise, shared_attn=None):
-    """One scan group under ``torch.utils.checkpoint``: the backward
-    recomputes the group from its input ``x`` (the reference's
+def _remat_group(gp, x, *, cfg, run, positions, noise, routes=None,
+                 shared_attn=None):
+    """One scan group under ``torch.utils.checkpoint``: ``(x, aux)``, the
+    backward recomputing the group from its input ``x`` (the reference's
     ``jax.checkpoint``).  The checkpoint restores only the default
     generators, so the recompute rewinds the readout-noise source (a
     generator's state, a feed's position) to where the first forward
     drew, replays the same draws - the HIL backward linearizes around the
-    same codes - and leaves the source where the first forward left
-    it."""
+    same codes - and leaves the source where the first forward left it.
+    The MoE layers' routing is replayed too: when ``routes`` (a
+    :class:`~repro_torch.models.moe.Routes`, which sees each call once)
+    replays another run's, the recompute takes the routes the first
+    forward took."""
     start = _noise_state(noise)
+    first = len(routes.taken) if routes is not None else 0
     calls = []
+
+    def apply(h, rts):
+        y, _, aux = _group_apply(gp, h, cfg=cfg, run=run,
+                                 positions=positions, cache=None,
+                                 noise=noise, routes=rts,
+                                 shared_attn=shared_attn)
+        return y, torch.as_tensor(aux, dtype=torch.float32, device=y.device)
 
     def fn(h):
         if not calls:
             calls.append(1)
-            return _group_apply(gp, h, cfg=cfg, run=run, positions=positions,
-                                cache=None, noise=noise,
-                                shared_attn=shared_attn)[0]
+            return apply(h, routes)
         end = _noise_state(noise)
         _set_noise_state(noise, start)
+        rts = None
+        if routes is not None:
+            # the ops the first forward ran: a replay replays, a recording
+            # run routes itself again (the same routes on one device)
+            rts = M.Routes(replay=routes.taken[first:]) \
+                if routes.replaying else M.Routes()
         try:
-            return _group_apply(gp, h, cfg=cfg, run=run, positions=positions,
-                                cache=None, noise=noise,
-                                shared_attn=shared_attn)[0]
+            return apply(h, rts)
         finally:
             _set_noise_state(noise, end)
 
@@ -375,8 +371,7 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
         if cfg.mrope:
             positions = torch.broadcast_to(positions[..., None], (b, s, 3))
 
-    remat = (cfg.remat and cache is None and torch.is_grad_enabled()
-             and "attn_moe" not in group_def(cfg))
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     layer_cache = None if cache is None else cache["layers"]
     shared = params.get("shared_attn")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -384,8 +379,10 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
     for i in range(n_groups(cfg)):
         gp = stack_index(params["layers"], i)
         if remat:
-            x = _remat_group(gp, x, cfg=cfg, run=run, positions=positions,
-                             noise=noise, shared_attn=shared)
+            x, aux_g = _remat_group(gp, x, cfg=cfg, run=run,
+                                    positions=positions, noise=noise,
+                                    routes=routes, shared_attn=shared)
+            aux = aux + aux_g
             continue
         x, nc, aux_g = _group_apply(
             gp, x, cfg=cfg, run=run, positions=positions,
@@ -521,13 +518,15 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
 
 
 # ------------------------------------------------------------------- loss
-def lm_loss(params, batch, cfg: ArchConfig, run: RunConfig, noise=None):
+def lm_loss(params, batch, cfg: ArchConfig, run: RunConfig, noise=None,
+            routes=None):
     """Next-token cross-entropy + 0.01 x the MoE aux loss (0 for the
     dense families).  ``batch`` needs ``"labels"``; an optional ``"mask"``
     weights the positions.  Returns ``(loss, {"nll", "aux",
     "logit_z"})``; the reductions run in fp32 over the activation-dtype
-    logits, as in the reference."""
-    logits, _, aux = lm_apply(params, batch, cfg, run, noise=noise)
+    logits, as in the reference.  ``routes``: :func:`lm_apply`'s."""
+    logits, _, aux = lm_apply(params, batch, cfg, run, noise=noise,
+                              routes=routes)
     labels = batch["labels"]
     logz = torch.logsumexp(logits.to(torch.float32), dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].to(torch.int64)

@@ -51,7 +51,7 @@ def init_state(generator: torch.Generator, cfg: ArchConfig, run: RunConfig,
 
 
 def loss_and_grads(params, batch, noise=None, *, cfg: ArchConfig,
-                   run: RunConfig):
+                   run: RunConfig, routes=None):
     """The differentiated half of a step: ``(loss, metrics, grads)`` of
     :func:`~repro_torch.models.transformer.lm_loss` with respect to every
     leaf of ``params`` (zeros where a leaf does not reach the loss, as
@@ -64,7 +64,10 @@ def loss_and_grads(params, batch, noise=None, *, cfg: ArchConfig,
     masters - compile-per-step is the hardware-in-the-loop contract.
     ``noise``: the readout-noise source (a ``torch.Generator`` or a
     :class:`~repro_torch.core.noise.NoiseFeed`), ignored when
-    ``run.analog`` is deterministic or digital."""
+    ``run.analog`` is deterministic or digital.  ``routes``: a
+    :class:`~repro_torch.models.moe.Routes` that records the MoE layers'
+    routing or replays another run's (a card-against-CPU check; off by
+    default)."""
     from repro_torch import api
 
     acfg = run.analog
@@ -77,7 +80,7 @@ def loss_and_grads(params, batch, noise=None, *, cfg: ArchConfig,
         model = api.compile(T.lm_module_spec(cfg, params), params, run,
                             device=leaves[0].device)
         loss, metrics = T.lm_loss(model.lower(), batch, cfg, run,
-                                  noise=noise)
+                                  noise=noise, routes=routes)
         del model
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
@@ -101,12 +104,12 @@ def apply_update(state, grads, *, opt_cfg: O.AdamWConfig) -> dict:
 
 
 def train_step(state, batch, noise=None, *, cfg: ArchConfig,
-               run: RunConfig, opt_cfg: O.AdamWConfig):
+               run: RunConfig, opt_cfg: O.AdamWConfig, routes=None):
     """One optimization step (:func:`loss_and_grads`, then
     :func:`apply_update`); returns ``(state, metrics)``, ``state`` updated
     in place.  The metrics stay on the device."""
     loss, metrics, grads = loss_and_grads(state["params"], batch, noise,
-                                          cfg=cfg, run=run)
+                                          cfg=cfg, run=run, routes=routes)
     opt_metrics = apply_update(state, grads, opt_cfg=opt_cfg)
     return state, {**metrics, **opt_metrics, "loss": loss}
 
@@ -121,10 +124,9 @@ def make_train_step(cfg: ArchConfig, run: RunConfig,
                     opt_cfg: Optional[O.AdamWConfig] = None,
                     total_steps: int = 10_000):
     """The step for one device (the reference's no-mesh step):
-    ``step(state, batch, noise=None) -> (state, metrics)``, the state
-    donated (updated in place).  ``batch`` holds ``tokens`` and
-    ``labels`` on the state's device.  The MoE and M-RoPE families raise:
-    their training is not ported yet (ROADMAP)."""
-    T.check_trainable(cfg)
+    ``step(state, batch, noise=None, routes=None) -> (state, metrics)``,
+    the state donated (updated in place).  ``batch`` holds ``tokens`` (or
+    ``embeds`` for the configs fed precomputed embeddings) and ``labels``
+    on the state's device.  Every family of the registry trains."""
     opt_cfg = opt_cfg or make_opt_config(run, total_steps)
     return functools.partial(train_step, cfg=cfg, run=run, opt_cfg=opt_cfg)

@@ -1033,3 +1033,184 @@ def test_divisions_are_exact_on_the_card(cuda):
         s = torch.tensor(step, dtype=torch.int32)
         assert torch.equal(O.schedule(cfg, s.to(cuda)).cpu(),
                            O.schedule(cfg, s))
+
+
+# the split kernel's leading axis under autograd: the members (per-member
+# integer rank-1 tables, chunk offsets) and the experts (table-free STE
+# codes), on the card against the CPU.  The forward is the one launch,
+# bit-exact; da and dw are fp32 products at "highest" precision summed in
+# another order than the CPU's: within LEAD_GRAD_REL of their max
+LEAD_GRAD_REL = 1e-5
+LEAD_SHAPES = [(4, 48, 512, 256), (1, 5, 128, 40), (3, 9, 256, 136),
+               (5, 33, 384, 64)]
+
+
+def _lead_case(g, m, k, n, experts, device, seed):
+    """Operands, a store as the training path lowers it (fp32 STE codes
+    requiring grad; members also rank-1 tables requiring grad), gains,
+    offsets and an output gradient, on ``device``."""
+    from repro_torch.exec.plan import WeightStore
+
+    a_pos, a_neg, codes, col, row, _, gain, off = _member_operands(
+        g, m, k, n, 128, seed, 0)
+    gy = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        (g, m, n)).astype(np.float32))
+    mv = (lambda t, grad=False: t.to(device).requires_grad_(grad))
+    if experts:
+        st = WeightStore(  # verify: allow-packed-weights
+            codes=mv(codes.float(), True), w_scale=mv(torch.ones((g, 1, n))),
+            gain=mv(gain[:, 0].contiguous()))
+        off = None
+    else:
+        st = WeightStore(  # verify: allow-packed-weights
+            codes=mv(codes.float(), True), w_scale=mv(torch.ones((g, 1, n))),
+            gain=mv(gain), col_gain=mv(col, True), row_gain=mv(row, True))
+        off = mv(off)
+    return (mv(a_pos, True), mv(a_neg, True), st, mv(gain),
+            None if off is None else off, mv(gy), codes)
+
+
+def _lead_grads(case, experts, faithful):
+    a_pos, a_neg, st, gain, off, gy, _ = case
+    if experts:
+        y = ops.analog_mvm_split(a_pos, a_neg, st.w_eff, st.gain_row, None,
+                                 store=st, faithful=faithful)
+    else:
+        y = ops.analog_mvm_split_members(a_pos, a_neg, gain, off, store=st,
+                                         faithful=faithful)
+    return (y,) + torch.autograd.grad(y, (a_pos, a_neg, st.w_eff), gy)
+
+
+@pytest.mark.parametrize("faithful", [True, False])
+@pytest.mark.parametrize("experts", [False, True])
+@pytest.mark.parametrize("g,m,k,n", LEAD_SHAPES)
+def test_leading_axis_backward_on_card_matches_cpu(cuda, g, m, k, n, experts,
+                                                   faithful):
+    """The leading axis under autograd: one launch counted for its axis,
+    the forward bit-exact against the CPU's, each of da_pos, da_neg and
+    dw within LEAD_GRAD_REL of the CPU's max."""
+    seed = g * 13 + m + k + n
+    ops.reset_launch_counts()
+    card = _lead_grads(_lead_case(g, m, k, n, experts, cuda, seed), experts,
+                       faithful)
+    counts = ops.launch_counts()
+    kern = "analog_mvm_split_experts" if experts else \
+        "analog_mvm_split_members"
+    assert counts[kern] == 1 and sum(counts.values()) == 1
+    cpu = _lead_grads(_lead_case(g, m, k, n, experts, torch.device("cpu"),
+                                 seed), experts, faithful)
+    assert torch.equal(card[0].detach().cpu(), cpu[0].detach())
+    for a, b in zip(card[1:], cpu[1:]):
+        err = float((a.cpu() - b).abs().max())
+        assert err <= LEAD_GRAD_REL * float(b.abs().max())
+
+
+@pytest.mark.parametrize("faithful", [True, False])
+def test_expert_axis_reads_ste_codes_as_int8(cuda, faithful):
+    """``_split_experts`` on a store of fp32 STE codes equals the call on
+    the same codes packed to int8, bit for bit."""
+    from repro_torch.exec.plan import WeightStore
+    from repro_torch.kernels.analog_mvm import analog_mvm_split_experts_cuda
+
+    a_pos, a_neg, st, gain, _, _, codes = _lead_case(6, 20, 256, 72, True,
+                                                     cuda, 7)
+    got = ops._split_experts(a_pos.detach(), a_neg.detach(), None,
+                             st.gain_row, chunk_rows=128, faithful=faithful,
+                             store=st)
+    int8 = WeightStore(  # verify: allow-packed-weights
+        codes=codes.to(cuda), w_scale=st.w_scale, gain=st.gain)
+    want = ops._split_experts(a_pos.detach(), a_neg.detach(), None,
+                              int8.gain_row, chunk_rows=128,
+                              faithful=faithful, store=int8)
+    assert torch.equal(got, want)
+    post, gk = (None, st.gain_row) if faithful else (
+        st.gain_row, torch.ones_like(st.gain_row))
+    assert torch.equal(got, analog_mvm_split_experts_cuda(
+        a_pos.detach(), a_neg.detach(), codes.to(cuda), gk, post_gain=post,
+        faithful=faithful))
+
+
+def _family_step(name, device, routes=None):
+    """One train step of a SMOKE config (integer effective weights, fp32
+    activations, static calibration: under dynamic calibration a last-bit
+    difference between card and CPU flips a 5-bit code at a rounding tie
+    now and then) on ``device``: loss, gradients, the state after AdamW
+    and the parameters before it."""
+    from repro_torch.core.noise import NOISELESS
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    cfg = configs.get_smoke(name)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful",
+                                        noise=NOISELESS, act_calib="static"),
+                    activation_dtype="float32", learning_rate=3e-4,
+                    warmup_steps=1)
+    saved = T.NOISE
+    T.NOISE = NOISELESS
+    try:
+        state = TS.init_state(torch.Generator().manual_seed(0), cfg, run,
+                              device="cpu")
+    finally:
+        T.NOISE = saved
+    state = O.tree_map(lambda t: t.to(device), state)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 17))).to(device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    params = O.tree_map(lambda t: t.clone(), state["params"])
+    loss, _, grads = TS.loss_and_grads(state["params"], batch, cfg=cfg,
+                                       run=run, routes=routes)
+    TS.apply_update(state, grads, opt_cfg=TS.make_opt_config(run))
+    return loss, grads, state, params
+
+
+@pytest.mark.parametrize("name", ["rwkv6-7b", "qwen3-moe-30b-a3b"])
+def test_family_train_step_on_card_matches_cpu(cuda, name):
+    """One ``train_step`` on the rwkv6-7b and qwen3-moe SMOKE configs on
+    the card against the CPU (the CPU's routes replayed): one member
+    launch per RWKV layer and forward pass (the remat recompute is one),
+    three expert launches per MoE layer and pass; the loss within 1e-6
+    relative, every gradient leaf within 1e-5 of its max |grad|, a
+    layer's w_scale, gain and a_scale (sums of cancelling terms) within
+    2e-4 of it or, for a gain, of the scale of its terms (RWKV's r/k/v
+    gains sum to zero: the group norm makes the loss invariant to their
+    scale); the parameters after AdamW within 2 lr."""
+    from repro_torch.models import moe as M
+    from repro_torch.train import optimizer as O
+
+    rec = M.Routes()
+    cpu = _family_step(name, torch.device("cpu"), rec)
+    ops.reset_launch_counts()
+    card = _family_step(name, cuda, M.Routes(replay=rec.taken))
+    counts = ops.launch_counts()
+    n = configs.get_smoke(name).n_layers
+    if name == "rwkv6-7b":
+        assert counts["analog_mvm_split_members"] == 2 * n
+        assert counts["analog_mvm_split"] == 2 * 3 * n + 1
+    else:
+        assert counts["analog_mvm_split_experts"] == 2 * 3 * n
+    assert abs(float(card[0]) - float(cpu[0])) <= 1e-6 * abs(float(cpu[0]))
+
+    def named(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                yield from named(v, f"{path}/{k}")
+        else:
+            yield path, tree
+
+    params, grads = dict(named(cpu[3])), dict(named(cpu[1]))
+    for (path, a), (_, b) in zip(named(card[1]), named(cpu[1])):
+        parent, leaf = path.rsplit("/", 1)
+        scale = float(b.abs().max())
+        if leaf == "gain":
+            # the terms the gain's gradient sums: the dequantization
+            # y_int * a_scale * w_scale / gain ties it to w_scale's
+            terms = (params[f"{parent}/w_scale"]
+                     * grads[f"{parent}/w_scale"]).abs()
+            scale = max(scale, float((terms.reshape(b.shape + (-1,)).sum(-1)
+                                      / params[path].abs()).max()))
+        sums = leaf in ("w_scale", "gain", "a_scale")
+        lim = (2e-4 if sums else 1e-5) * max(scale, 1e-30)
+        assert float((a.cpu() - b).abs().max()) <= lim, path
+    for a, b in zip(O.tree_leaves(card[2]["params"]),
+                    O.tree_leaves(cpu[2]["params"])):
+        assert float((a.cpu() - b).abs().max()) <= 2 * 3e-4 + 1e-6

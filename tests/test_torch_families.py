@@ -192,10 +192,25 @@ def test_apply_mrope():
                          1e6)), rtol=1e-6, atol=1e-6)
 
 
-def test_training_and_token_serving_refuse_what_is_not_ported():
+def test_moe_and_mrope_train_and_embeds_refuse_token_serving():
+    """qwen3-moe and qwen2-vl train through ``make_train_step`` (one
+    step: finite loss and parameters; the steps against the reference's:
+    ``test_torch_family_train*.py``); ``ServeEngine`` still refuses a
+    config fed precomputed embeddings (``make_serve_steps`` serves it)."""
+    from repro_torch.train import train_step as TS
+
     for name in ("qwen3-moe-30b-a3b", "qwen2-vl-7b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(configs.get_smoke(name), _runs()[1])
+        cfg, run = configs.get_smoke(name), _runs()[1]
+        state = TS.init_state(torch.Generator().manual_seed(0), cfg, run,
+                              device="cpu")
+        b = {k: torch.from_numpy(v) for k, v in _batch(cfg, 5).items()}
+        b["labels"] = torch.from_numpy(np.random.default_rng(6).integers(
+            0, cfg.vocab_size, (B, S)))
+        state, metrics = make_train_step(cfg, run)(state, b)
+        assert bool(torch.isfinite(metrics["loss"]))
+        assert int(state["opt"]["step"]) == 1
+        assert all(bool(torch.isfinite(p).all())
+                   for p in TS.O.tree_leaves(state["params"]))
     _, cfg, _, tp, _, _ = _setup("musicgen-medium")
     with pytest.raises(ValueError, match="make_serve_steps"):
         ServeEngine(cfg, _runs()[1], tp, device="cpu")

@@ -281,14 +281,34 @@ def test_noisy_group_replays_member_by_member_as_one_dispatch():
             _np(g), _np(run_layer(lower_layer(p, acfg), x, acfg, noise=gen)))
 
 
-def test_group_refuses_autograd():
+def test_group_differentiates_as_its_solo_dispatches():
+    """Under autograd the group is still ONE dispatch, and its HIL
+    backward (the 2-D split pair's, batched over the members) gives the
+    four solo dispatches' gradients: the inputs' and the masters'."""
     acfg = AnalogConfig()
-    ps = [params_from_numpy(p, "cpu") for p in _members(True)]
-    gp = GroupPlan("batch_concat", lower_batch_concat(ps, acfg), NAMES,
-                   (D,) * 4)
-    xs = [torch.from_numpy(_x(50 + i)).requires_grad_() for i in range(4)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_batch_concat(gp, xs, acfg)
+    ps_np = _members(True)
+    out = {}
+    for fused in (True, False):
+        ps = [{k: (v.clone().requires_grad_(True) if k == "w" else v)
+               for k, v in params_from_numpy(p, "cpu").items()}
+              for p in ps_np]
+        xs = [torch.from_numpy(_x(50 + i)).requires_grad_()
+              for i in range(4)]
+        reset_dispatch_count()
+        if fused:
+            gp = GroupPlan("batch_concat", lower_batch_concat(ps, acfg),
+                           NAMES, (D,) * 4)
+            ys = run_batch_concat(gp, xs, acfg)
+            assert dispatch_count() == 1
+        else:
+            ys = [run_layer(lower_layer(p, acfg), x, acfg)
+                  for p, x in zip(ps, xs)]
+        loss = sum((y * (i + 1)).sum() for i, y in enumerate(ys))
+        out[fused] = torch.autograd.grad(loss, xs + [p["w"] for p in ps])
+    for a, b in zip(out[True], out[False]):
+        assert bool(b.abs().max() > 0)
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))
 
 
 # ------------------------------------------------------- compiled blocks
@@ -603,8 +623,21 @@ def test_energy_report_of_the_lm_tree():
     assert energy_report(tm) == pytest.approx(jenergy_report(jm), rel=1e-6)
 
 
-def test_training_refused():
-    from repro_torch.train.train_step import make_train_step
+def test_training_step_runs():
+    """``make_train_step`` on the SMOKE config (analog faithful, fp32
+    activations): one step, finite loss and parameters (the step against the
+    reference's: ``test_torch_family_train_recurrent.py``)."""
+    from repro_torch.train import train_step as TS
 
-    with pytest.raises(NotImplementedError, match="5h"):
-        make_train_step(configs.get_smoke(ARCH), _runs()[1])
+    cfg, run = configs.get_smoke(ARCH), _runs()[1]
+    state = TS.init_state(torch.Generator().manual_seed(0), cfg, run,
+                          device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, S + 1)))
+    state, metrics = TS.make_train_step(cfg, run)(
+        state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert bool(torch.isfinite(metrics["loss"])) and \
+        float(metrics["loss"]) > 0
+    assert int(state["opt"]["step"]) == 1
+    assert all(bool(torch.isfinite(p).all())
+               for p in jax.tree.leaves(state["params"]))

@@ -312,8 +312,21 @@ def test_serve_engine_tokens():
         assert r.output.tolist() == jr.output.tolist()
 
 
-def test_training_refused():
-    from repro_torch.train.train_step import make_train_step
+def test_training_step_runs():
+    """``make_train_step`` on the SMOKE config (analog faithful, fp32
+    activations): one step, finite loss and parameters (the step against the
+    reference's: ``test_torch_family_train_recurrent.py``)."""
+    from repro_torch.train import train_step as TS
 
-    with pytest.raises(NotImplementedError, match="5h"):
-        make_train_step(configs.get_smoke(ARCH), _runs()[1])
+    cfg, run = configs.get_smoke(ARCH), _runs()[1]
+    state = TS.init_state(torch.Generator().manual_seed(0), cfg, run,
+                          device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 9)))
+    state, metrics = TS.make_train_step(cfg, run)(
+        state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    assert bool(torch.isfinite(metrics["loss"])) and \
+        float(metrics["loss"]) > 0
+    assert int(state["opt"]["step"]) == 1
+    assert all(bool(torch.isfinite(p).all())
+               for p in jax.tree.leaves(state["params"]))
