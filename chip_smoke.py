@@ -37,7 +37,12 @@ with random weights from a seed, on one NVIDIA GPU:
   families: the leading axis's HIL backward, the recurrences'
   segmented backward, train steps card vs CPU, and qwen3-moe-30b-a3b,
   qwen2-vl-7b, rwkv6-7b and zamba2-2.7b each trained at its published
-  widths through ``make_train_step``.
+  widths through ``make_train_step``;
+- the static plan verifier that every ``api.compile`` runs, with no
+  host-device synchronisation, ``CompiledModel.verify()`` on the models
+  the phases above built, and ``python -m repro_torch.verify``; a block
+  plan's noisy replay and its HIL backward around the one
+  ``analog_plan_block`` launch.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -318,11 +323,11 @@ exits non-zero without printing a result):
    weights, fp32 activations, the CPU's MoE routes and readout noise
    replayed): the SMOKE configs of qwen3-moe, llama4-maverick, qwen2-vl,
    rwkv6-7b (and its noisy two-pass step) and zamba2-2.7b at static
-   calibration, rwkv6-7b at full width cut to one layer at dynamic
-   calibration, zamba2-2.7b to one group at static: loss, every
+   calibration, zamba2-2.7b at full width cut to one group at static
+   (the other full-width cuts left this phase for time): loss, every
    gradient leaf (within GRAD_RTOL of its max |grad|, a layer's LAYER_SUMS
-   within LAYER_SUM_TOL, the TIE_* bounds for the dynamic full-width steps;
-   RWKV's within RWKV_GRAD_REL), the global norm and the parameters after
+   within LAYER_SUM_TOL, RWKV's within RWKV_GRAD_REL), the global norm
+   and the parameters after
    AdamW, and the launches per kernel: one member launch per RWKV layer and
    pass (never four 2-D launches), three expert launches per MoE layer and
    pass;
@@ -334,13 +339,37 @@ exits non-zero without printing a result):
    per step host ms, the loss, the launches by kernel, the parameters
    all finite; the second step's device ms, activities and idle share
    (qwen3-moe, qwen2-vl); the peak memory, held below PEAK_BUDGET_GIB;
-41. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+41. the static verifier on the card: ``api.compile`` of phi4-mini at
+   full width (after 10, on its parameters) and stablelm-3b's per-step
+   compile under autograd (after 22, on its trained parameters) run with
+   ``torch.cuda.set_sync_debug_mode("error")`` (any host-device
+   synchronisation raises), their cheap tier's host ms timed on its own;
+   ``CompiledModel.verify()`` (the full rule set) empty on phi4-mini's
+   oracle (7), calibrated (18), fleet (19, with its placement and fleet
+   snapshot) and calibrated block (20) models, qwen3-moe's expert stacks
+   (29) and rwkv6-7b's member group (34), each timed where it runs; a
+   corrupted plan raising ``VerifyError``; ``python -m
+   repro_torch.verify`` exiting 0 on the card;
+42. the block plan's two remaining paths at the phi4-mini block shape
+   (d_model 3072, d_ff 8192, 4 x 12, integer effective weights): a noisy
+   replay (the readout noise drawn, 4 layers x 2 passes, the same draws
+   on the card and the CPU) layer by layer, bit-exact against the CPU's
+   (integer effective weights read out the same ADC codes on both), the
+   megakernel route refused with the reference's reason; the block route
+   under autograd (one ``analog_plan_block`` launch forward, the
+   backward through the split kernel per layer) against the per-layer
+   route and against the CPU's block route, every gradient (input, seven
+   weight masters, ln1, ln2) within BLOCK_GRAD_REL of its max; the
+   launch's device ms and the backward's device and host ms beside the
+   per-layer route's;
+43. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
 ``python3 chip_smoke.py --slice10`` runs the build and phases 22-27
 alone, ``--slice11`` the build and phases 28-32, ``--slice12`` the build
-and phases 33-36, ``--slice13`` the build and phases 37-40 (quick
-checks; the contract's run takes no arguments).
+and phases 33-36, ``--slice13`` the build and phases 37-40, ``--slice14``
+the build and phases 41-42 on models of their own (quick checks; the
+contract's run takes no arguments).
 """
 from __future__ import annotations
 
@@ -543,6 +572,8 @@ from repro_torch.models.ecg import (  # noqa: E402
     ECGConfig, _im2col, ecg_apply, ecg_apply_plan, ecg_init, ecg_module_spec)
 from repro_torch.train import ecg_accuracy as tacc  # noqa: E402
 from repro_torch.train import optimizer as O  # noqa: E402
+from repro_torch.verify import (VerifyError, verify_plan,  # noqa: E402
+                                verify_spec)
 
 DEV = torch.device("cuda")
 MAX_ERR = {name: 0.0 for name in TPU_KERNELS}
@@ -1167,6 +1198,7 @@ def lm_main_path():
     torch.cuda.synchronize()
     t_compile = time.monotonic() - t0 - t_init
     del params
+    verify_on_card("phi4-mini oracle", engine.model)
     calls = _counting(engine)
     reqs = _lm_requests(cfg)
     hists = {h: obs.histogram(h) for h in ("serve.prefill_us",
@@ -2657,6 +2689,7 @@ def calibrated_serving(params, cfg):
                           drift_monitor=mon, plan_cache=str(cache))
         torch.cuda.synchronize()
         report["cold_boot_s"] = time.perf_counter() - t0
+        verify_on_card("phi4-mini calibrated", eng.model)
         head = eng.params["lm_head"]["_plan"].store
         if head.chunk_gain is None or not head.code_operand:
             raise AssertionError("the calibrated lm_head is not read as the "
@@ -2827,6 +2860,7 @@ def fleet_path(params, cfg):
                       max_len=LM_MAX_LEN, calibration=snap, fleet=mon)
     torch.cuda.synchronize()
     report["compile_s"] = time.perf_counter() - t0
+    verify_on_card("phi4-mini fleet", eng.model, placement=pl, fleet=fsnap)
     stores = _stores_of(eng.params)
     stacked = eng.params["layers"]["l0"]["mlp"]["up"]["_plan"]
     if not all(st.chunk_gain is not None and st.code_operand
@@ -2953,6 +2987,7 @@ def calibrated_block(params, cfg):
     kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
               head_dim=cfg.hd, seq=LM_SEQ, rope_theta=cfg.rope_theta)
     model = api.compile_block(block, acfg, calibration=snap, **kw)
+    verify_on_card("phi4-mini calibrated block", model)
     plan = model.lower()
     if not all(lp.store.chunk_gain is not None and lp.store.code_operand
                for lp in plan.layers):
@@ -3338,6 +3373,13 @@ def lm_train_full():
               "warmup_steps": run.warmup_steps, "init_s": t_init,
               "state_gib": mem_state, "peak_memory_gib": peak,
               "optim_dtype": run.optim_dtype}
+    # phase 41: the step's per-step compile once more, under autograd on
+    # the trained parameters, with the sync debug mode at "error"
+    grad_params = O.tree_map(lambda p: p.detach().requires_grad_(True),
+                             state["params"])
+    compile_without_sync(f"{cfg.name} train step", T.lm_module_spec(
+        cfg, grad_params), grad_params, run, grad=True)
+    del grad_params
     del state
     gc.collect()
     torch.cuda.empty_cache()
@@ -4128,6 +4170,7 @@ def moe_full_serving():
     engine = _engine(cfg, run)
     torch.cuda.synchronize()
     t_build = time.monotonic() - t0
+    verify_on_card("qwen3-moe expert stacks", engine.model)
     calls = _counting(engine)
     ops.reset_launch_counts()
     t0 = time.monotonic()
@@ -4526,6 +4569,7 @@ def rwkv_full_serving():
     engine = _engine(cfg, run)
     torch.cuda.synchronize()
     t_build = time.monotonic() - t0
+    verify_on_card("rwkv6-7b member group", engine.model)
     calls = _counting(engine)
     ops.reset_launch_counts()
     t0 = time.monotonic()
@@ -5197,10 +5241,8 @@ def family_train_card_vs_cpu():
     and zamba2-2.7b at seq 64 and static calibration, rwkv6-7b's noisy
     step (two-pass, readout noise drawn on the CPU and replayed through
     a NoiseFeed, remat and the r/k/v/g members included) at seq 16, and
-    at full width rwkv6-7b cut to one layer (dynamic calibration, the
-    TIE_* bounds) and zamba2-2.7b to one group (the shared block and 6
-    Mamba layers, static), at seq 64.  The CPU runs
-    first; the MoE layers on the card replay its routes.  Loss, every
+    at full width zamba2-2.7b cut to one group (the shared block and 6
+    Mamba layers, static) at seq 64.  The CPU runs first; the MoE layers on the card replay its routes.  Loss, every
     gradient leaf (within GRAD_RTOL of its max, RWKV's within
     RWKV_GRAD_REL, a layer's LAYER_SUMS within LAYER_SUM_TOL), the
     global norm and the parameters after AdamW, and the card's launches
@@ -5220,39 +5262,33 @@ def family_train_card_vs_cpu():
     # difference between card and CPU (a softmax, an atomic sum's order)
     # flips a 5-bit code at a rounding tie now and then (qwen3's SMOKE
     # step at 2 x 16 moved layer 0's gradients by 1.4 %; none moved on
-    # the CPU under one ulp added to the embeddings); the dynamic steps of
-    # the full-width cuts are held to the TIE_* bounds.  zamba2's group
-    # at full width under dynamic calibration is chaotic even on the CPU
-    # alone (one ulp added to every embedding moves its loss by 0.7 % and
-    # a gain's gradient by 287 % in relative L2: six Mamba layers and a
-    # shared block, the SSD state carrying each flipped code on), so it
-    # is held at static calibration (5e-6 under the same ulp)
+    # the CPU under one ulp added to the embeddings)
     cases = [(f"{n} smoke, static calibration", configs.get_smoke(n),
-              run_cfg("static"), TRAIN_CHECK_SEQ, False, False)
+              run_cfg("static"), TRAIN_CHECK_SEQ, False)
              for n in (MOE_ARCH, "llama4-maverick-400b-a17b", VL_ARCH,
                        RWKV_ARCH, HYBRID_ARCH)]
     cases.append((f"{RWKV_ARCH} smoke, noisy two-pass, static calibration",
                   configs.get_smoke(RWKV_ARCH),
                   run_cfg("static", noisy, deterministic=False),
-                  TRAIN_NOISY_SEQ, True, False))
-    # qwen3-moe's full-width layer is not stepped here: its 1.25 G
-    # parameters made the CPU's step and comparison 156 s of the run's
-    # 1200 s (PERF.md, Findings); its expert products' backward at full
-    # width is phase 37's, its full-width forward card vs CPU phase 30's,
-    # its training at published widths phase 40's
-    cases.append((f"{RWKV_ARCH} 1 layer, dynamic calibration",
-                  _cut(configs.get_arch(RWKV_ARCH), 1), run_cfg("dynamic"),
-                  TRAIN_CHECK_SEQ, False, True))
+                  TRAIN_NOISY_SEQ, True))
+    # zamba2's group at full width (the shared block and 6 Mamba layers)
+    # is held at static calibration: under dynamic calibration it is
+    # chaotic even on the CPU alone (one ulp added to every embedding
+    # moves its loss by 0.7 %).  Not stepped here, for the run's time:
+    # qwen3-moe's full-width layer (its CPU step and comparison took
+    # 156 s) and rwkv6-7b's full-width layer at dynamic calibration
+    # (40-45 s; PERF.md, Cells); their backward at full width is phase
+    # 37's and 38's, their full-width forward card vs CPU phase 30's and
+    # 36's, their training at published widths phase 40's
     cases.append((f"{HYBRID_ARCH} 1 group, static calibration",
                   _cut(configs.get_arch(HYBRID_ARCH), 6),
-                  run_cfg("static"), TRAIN_CHECK_SEQ, False, False))
+                  run_cfg("static"), TRAIN_CHECK_SEQ, False))
     results, bad, counts = [], [], {k: 0 for k in TPU_KERNELS}
     saved = T.NOISE
-    for what, cfg, run, seq, noisy_run, ties in cases:
+    for what, cfg, run, seq, noisy_run in cases:
         T.NOISE = NOISELESS            # integer effective weights
         try:
-            # drawn on the card (a full-width draw on the host's cores
-            # takes seconds), then copied to the CPU
+            # drawn on the card, then copied to the CPU
             params = to_device(T.lm_init(
                 torch.Generator(device=DEV).manual_seed(SEED), cfg,
                 device=DEV), torch.device("cpu"))
@@ -5269,7 +5305,7 @@ def family_train_card_vs_cpu():
                                M.Routes(replay=rec.taken))
         launches = ops.launch_counts()
         rep, b = _lm_leaves_vs_cpu(
-            what, card, cpu, run.learning_rate, ties, params=params,
+            what, card, cpu, run.learning_rate, params=params,
             grad_rel=RWKV_GRAD_REL if cfg.block == "rwkv" else GRAD_RTOL)
         # a noisy step replays layer by layer (two passes, the members
         # one after another): no fused launch to count
@@ -5417,6 +5453,319 @@ def training_family_phases(counts):
         counts[k] += v
     family_train_full(counts)
     return rows
+
+# ------------------------------------------------------------ phase 41
+# CompiledModel.verify() of the models the earlier phases built: label ->
+# its diagnostics and seconds (read by phase 41's line)
+VERIFIED = {}
+# phase 41's compiles under the sync debug mode (label -> report)
+SYNC_COMPILES = {}
+
+
+def verify_on_card(label, model, **extra):
+    """Phase 41, where a model is built: the FULL rule set over it
+    (``CompiledModel.verify()``; ``extra`` - a placement and a fleet
+    snapshot - runs the plan rules once more with the fleet rules), timed
+    on the host; any diagnostic fails the phase."""
+    t0 = time.monotonic()
+    diags = model.verify()
+    if extra:
+        diags += verify_plan(model.lowered, spec=model.spec,
+                             calibration=model.calibration, **extra)
+    torch.cuda.synchronize()
+    VERIFIED[label] = {"diagnostics": len(diags),
+                       "seconds": time.monotonic() - t0}
+    if diags:
+        raise AssertionError(f"{label}: " + "; ".join(map(str, diags)))
+
+
+def cheap_tier_ms(model, reps=5):
+    """Host ms of the cheap tier ``api.compile`` runs (``verify_spec`` +
+    ``verify_plan(cheap_only=True)``) over a compiled model, median of
+    ``reps``."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        diags = verify_spec(model.spec) + verify_plan(
+            model.lowered, spec=model.spec, calibration=model.calibration,
+            cheap_only=True)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if diags:
+            raise AssertionError("; ".join(map(str, diags)))
+    return statistics.median(times)
+
+
+def compile_without_sync(label, spec, params, run, *, grad=False):
+    """Phase 41: ``api.compile`` (its cheap verify included) with the CUDA
+    sync debug mode at "error": a host-device synchronisation anywhere in
+    it raises.  ``grad``: the train step's per-step compile (params that
+    require grad, under autograd).  Records the compile's host seconds
+    (until it returns: its device work is queued) and its seconds until
+    the card is done, and the cheap tier's host ms; returns the model."""
+    torch.cuda.synchronize()
+    ctx = torch.enable_grad() if grad else torch.no_grad()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.monotonic()
+        with ctx:
+            model = api.compile(spec, params, run)
+        t_host = time.monotonic() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    SYNC_COMPILES[label] = {"compile_host_s": t_host,
+                            "compile_s": time.monotonic() - t0, "syncs": 0,
+                            "cheap_tier_host_ms": cheap_tier_ms(model)}
+    return model
+
+
+def verify_compile_phase(params, cfg):
+    """Phase 41 (after 10): phi4-mini's full-width ``api.compile`` under
+    the sync debug mode, and a corrupted copy of its plan tree: one
+    column_concat group's member widths broken, which the cheap tier
+    must refuse with ``VerifyError`` naming the group."""
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    model = compile_without_sync("phi4-mini-3.8b", T.lm_module_spec(
+        cfg, params), params, run)
+    node = model.lowered["layers"]["l0"]["attn"]
+    stack = node["_groups"]["qkv"]
+    bad_stack = type(stack)(dataclasses.replace(
+        g, member_ns=g.member_ns[:-1] + (7,)) for g in stack)
+    bad = dataclasses.replace(model, lowered={
+        **model.lowered, "layers": {**model.lowered["layers"], "l0": {
+            **model.lowered["layers"]["l0"], "attn": {
+                **node, "_groups": {**node["_groups"], "qkv": bad_stack}}}}})
+    try:
+        bad.verify(strict=True, cheap_only=True)
+    except VerifyError as e:
+        paths = sorted({d.path for d in e.diagnostics})
+    else:
+        raise AssertionError("a corrupted qkv group passed the verifier")
+    if not all(p.startswith("plan.layers.l0.attn._groups.qkv[")
+               for p in paths):
+        raise AssertionError(f"the corrupted group was reported at {paths}")
+    del model, bad, bad_stack
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"corrupted_plan_raised": True, "paths": paths}
+
+
+def verify_phase():
+    """Phase 41's line: the compiles under the sync debug mode, every
+    model's full verify, and ``python -m repro_torch.verify`` on the card
+    (lint and sweep) in a subprocess, which must exit 0."""
+    t0 = time.monotonic()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.verify"],
+                       cwd=ROOT, env=env, capture_output=True, text=True,
+                       timeout=600)
+    lines = r.stdout.splitlines()
+    if r.returncode != 0 or not lines or lines[-1] != "verify: OK":
+        raise AssertionError(f"python -m repro_torch.verify exited "
+                             f"{r.returncode}: {r.stdout[-2000:]}"
+                             f"{r.stderr[-2000:]}")
+    return {"sync_debug_compiles": SYNC_COMPILES, "model_verify": VERIFIED,
+            "cli": {"exit": r.returncode, "seconds": time.monotonic() - t0,
+                    "summary": [l for l in lines if l.startswith(
+                        ("lint:", "invariant sweep:"))]}}
+
+
+# ------------------------------------------------------------ phase 42
+# the block route's gradients card vs CPU and against the per-layer
+# route, within this share of each gradient's max |value| (fp32
+# tolerance: on integer effective weights both devices read out the same
+# ADC codes, and the glue's reductions round in another order)
+BLOCK_GRAD_REL = GRAD_RTOL
+_MASTERS = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+            ("mlp", "up"), ("mlp", "gate"), ("mlp", "down"))
+
+
+def _block_masters(bp):
+    """The block node's differentiated leaves: the seven weight masters
+    and the two RMSNorm scales, made leaves that record gradients."""
+    out = {f"{g}.{k}": bp[g][k]["w"] for g, k in _MASTERS}
+    out.update(ln1=bp["ln1"]["scale"], ln2=bp["ln2"]["scale"])
+    for t in out.values():
+        t.requires_grad_(True)
+    return out
+
+
+def _block_grads(bp, masters, x, acfg, kw, megakernel):
+    """Lower the block under autograd and take the gradients of
+    mean(y ** 2) w.r.t. the input and the masters."""
+    x = x.detach().requires_grad_(True)
+    plan = lower_block(bp, acfg, **kw)
+    y = trun.run(plan, x, megakernel=megakernel)
+    grads = torch.autograd.grad((y ** 2).mean(), [x, *masters.values()])
+    return dict(zip(["x", *masters], grads))
+
+
+def _grad_rel(a, b):
+    return max(float((a[k].cpu() - b[k].cpu()).abs().max()
+                     / b[k].cpu().abs().max()) for k in b)
+
+
+def block_paths(cfg, counts):
+    """Phase 42: the block plan's noisy replay and HIL backward at the
+    phi4-mini block shape (module docstring)."""
+    acfg = _block_run()[0]
+    kw = dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.hd, seq=LM_SEQ, rope_theta=cfg.rope_theta)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 42)
+    bp = _block_params(cfg, g, NoiseConfig(gain_std=0.0))
+    bp_cpu = to_device(bp, torch.device("cpu"))
+    cpu = torch.Generator().manual_seed(SEED + 42)
+    x = torch.randn((LM_BATCH, LM_SEQ, cfg.d_model), generator=cpu) * 0.5
+    report = {"shape": [LM_BATCH, LM_SEQ, cfg.d_model], "d_ff": cfg.d_ff}
+
+    # noisy replay: every layer's two passes draw their readout noise
+    nacfg = acfg.replace(deterministic=False)
+    with torch.no_grad():
+        plan = lower_block(bp, nacfg, **kw)
+        cplan = lower_block(bp_cpu, nacfg, **kw)
+        draws = [nacfg.noise.readout_std * torch.randn(
+            (LM_BATCH, LM_SEQ, lp.n_chunks, lp.n), generator=cpu)
+            for lp in cplan.layers for _ in range(2)]
+        feed = NoiseFeed(draws)
+        ops.reset_launch_counts()
+        trun.reset_dispatch_count()
+        y = trun.run(plan, x.to(DEV), noise=feed)
+        torch.cuda.synchronize()
+        noisy_launches = ops.launch_counts()
+        dispatches, drawn = trun.dispatch_count(), feed.pos
+        y_cpu = trun.run(cplan, x, noise=feed.rewind())
+        drawn_cpu = feed.pos
+        y_det = trun.run(plan, x.to(DEV))
+        reason = "noisy replay (readout-noise keys) is layer-by-layer"
+        try:
+            trun.run(plan, x.to(DEV), noise=feed.rewind(), megakernel=True)
+        except ValueError as e:
+            if reason not in str(e):
+                raise
+        else:
+            raise AssertionError("a noisy block call took the megakernel")
+    rel = _rel(y.cpu(), y_cpu)
+    if not bool(torch.isfinite(y).all()) or not torch.equal(y.cpu(),
+                                                            y_cpu) or \
+            (drawn, drawn_cpu, dispatches) != (8, 8, 8) or \
+            torch.equal(y, y_det):
+        raise AssertionError(f"noisy block replay: rel diff vs CPU {rel}, "
+                             f"{drawn} / {drawn_cpu} draws, {dispatches} "
+                             "dispatches, or the noise took no effect")
+    report["noisy_replay"] = {
+        "draws": drawn, "dispatches": dispatches,
+        "launches": {k: v for k, v in noisy_launches.items() if v},
+        "rel_max_diff_vs_cpu": rel,
+        "share_differing_vs_cpu": float((y.cpu() != y_cpu).float().mean()),
+        "megakernel_refused": reason}
+    del plan, cplan, y, y_cpu, y_det
+
+    # the HIL backward: block route vs per-layer route vs the CPU
+    masters = _block_masters(bp)
+    ops.reset_launch_counts()
+    g_block = _block_grads(bp, masters, x.to(DEV), acfg, kw, True)
+    torch.cuda.synchronize()
+    block_launches = ops.launch_counts()
+    ops.reset_launch_counts()
+    g_layer = _block_grads(bp, masters, x.to(DEV), acfg, kw, False)
+    torch.cuda.synchronize()
+    layer_launches = ops.launch_counts()
+    g_cpu = _block_grads(bp_cpu, _block_masters(bp_cpu), x, acfg, kw, True)
+    want_block = _launches(analog_plan_block=1, analog_mvm_split=4)
+    if block_launches != want_block or \
+            layer_launches != _launches(analog_mvm_split=4):
+        raise AssertionError(f"block route under autograd launched "
+                             f"{block_launches}, per-layer {layer_launches}")
+    counts["analog_plan_block"] += 1
+    counts["analog_mvm_split"] += 8
+    rel_layer, rel_cpu = _grad_rel(g_block, g_layer), _grad_rel(g_block,
+                                                                 g_cpu)
+    if rel_layer > BLOCK_GRAD_REL or rel_cpu > BLOCK_GRAD_REL or not all(
+            bool(torch.isfinite(t).all()) and float(t.abs().max()) > 0
+            for t in g_block.values()):
+        raise AssertionError(f"block route gradients: rel diff "
+                             f"{rel_layer} vs per-layer, {rel_cpu} vs CPU")
+    report["hil_backward"] = {
+        "launches_block_route": {k: v for k, v in block_launches.items()
+                                 if v},
+        "launches_per_layer_route": {k: v for k, v in
+                                     layer_launches.items() if v},
+        "rel_max_diff_vs_per_layer": rel_layer,
+        "rel_max_diff_vs_cpu": rel_cpu,
+        "per_leaf_vs_cpu": {k: _grad_rel({k: g_block[k]}, {k: g_cpu[k]})
+                            for k in g_block}}
+    del g_cpu, bp_cpu
+
+    # time: one forward, and forward + backward, of each route on the
+    # plan lowered once under autograd (the backward also runs through
+    # the lowering's STE graph, the same for both routes)
+    xg = x.to(DEV).requires_grad_(True)
+    leaves = [xg, *masters.values()]
+    plan = lower_block(bp, acfg, **kw)
+    timing = {}
+    for route, mk in (("block", True), ("per_layer", False)):
+        def fwd(mk=mk):
+            return trun.run(plan, xg, megakernel=mk)
+
+        def fwd_bwd(mk=mk):
+            return torch.autograd.grad((fwd(mk) ** 2).mean(), leaves,
+                                       retain_graph=True)
+
+        rec = {"forward_ms": time_ms(fwd, iters=5, reps=3),
+               "forward_device_ms": device_trace(fwd, iters=5)[0],
+               "forward_backward_ms": time_ms(fwd_bwd, iters=3, reps=3),
+               "forward_backward_device_ms": device_trace(fwd_bwd,
+                                                          iters=3)[0]}
+        rec["backward_ms"] = rec["forward_backward_ms"] - rec["forward_ms"]
+        if None not in (rec["forward_device_ms"],
+                        rec["forward_backward_device_ms"]):
+            rec["backward_device_ms"] = (rec["forward_backward_device_ms"]
+                                         - rec["forward_device_ms"])
+        timing[route] = rec
+    timing["block"]["launch_device_ms"] = kernel_record_ms(
+        lambda: trun.run(plan, xg, megakernel=True),
+        "analog_plan_block_kernel", iters=5)[0]
+    report["timing"] = timing
+    del plan, masters, xg, leaves, bp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
+
+
+def slice14_only() -> None:
+    """``python3 chip_smoke.py --slice14``: the build and phases 41-42
+    alone, on models of their own: phi4-mini at full width compiled under
+    the sync debug mode and verified (oracle), a corrupted plan refused,
+    stablelm-3b's per-step compile under autograd under the sync debug
+    mode, ``python -m repro_torch.verify``, and phase 42 (a quick check of
+    this slice; the run the contract reads takes no arguments)."""
+    print(card_line(), flush=True)
+    emit("build", {"seconds_per_kernel": _build.build()})
+    counts = {name: 0 for name in TPU_KERNELS}
+    cfg = configs.get_arch(LM_ARCH)
+    params = T.lm_init(torch.Generator(device=DEV).manual_seed(SEED), cfg)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    verify_on_card("phi4-mini oracle", api.compile(
+        T.lm_module_spec(cfg, params), params, run))
+    gc.collect()
+    emit("verify_compile", verify_compile_phase(params, cfg))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    scfg = configs.get_arch(TRAIN_LM_ARCH)
+    sparams = TS.init_state(torch.Generator(device=DEV).manual_seed(SEED),
+                            scfg, run)["params"]
+    grad_params = O.tree_map(lambda p: p.detach().requires_grad_(True),
+                             sparams)
+    compile_without_sync(f"{scfg.name} train step", T.lm_module_spec(
+        scfg, grad_params), grad_params, run, grad=True)
+    del sparams, grad_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("verify", verify_phase())
+    emit("block_paths", block_paths(cfg, counts))
+    emit("launches", counts)
+    emit("wall_s", WALL)
 
 
 def slice13_only() -> None:
@@ -5574,6 +5923,7 @@ def main() -> None:
     del engine
     gc.collect()
     torch.cuda.empty_cache()
+    emit("verify_compile", verify_compile_phase(params, cfg))
     lm_cal = calibrated_serving(params, cfg)
     emit("lm_calibrated_serving", lm_cal)
     counts["analog_mvm_split"] += lm_cal["launches"]["analog_mvm_split"]
@@ -5620,6 +5970,8 @@ def main() -> None:
     emit("train_main_path", treport)
     for name, n in treport["launches"].items():
         counts[name] += n
+    emit("verify", verify_phase())
+    emit("block_paths", block_paths(cfg, counts))
     emit("profiler_traces", TRACES)
     obs.trace.end(tr)
     emit("telemetry", obs_line(tr))
@@ -5706,8 +6058,10 @@ if __name__ == "__main__":
         slice12_only()
     elif sys.argv[1:] == ["--slice13"]:
         slice13_only()
+    elif sys.argv[1:] == ["--slice14"]:
+        slice14_only()
     elif sys.argv[1:]:
         _fail(f"unknown arguments {sys.argv[1:]}; run with none, "
-              "--slice10, --slice11, --slice12 or --slice13")
+              "--slice10, --slice11, --slice12, --slice13 or --slice14")
     else:
         main()

@@ -42,8 +42,17 @@ a refreshed snapshot's tables without lowering.
 
 Everything is lowered once, on the target device, inside an
 ``api.compile`` span of :mod:`repro_torch.obs.trace` that records the
-:func:`~repro_torch.exec.lower.lowering_count` it took.  Not ported yet:
-the static verify step (``repro.verify``).
+:func:`~repro_torch.exec.lower.lowering_count` it took.
+
+``verify=True`` (the default) then runs the CHEAP static invariant rules
+(:mod:`repro_torch.verify.invariants`: shapes and static metadata only,
+no host-device synchronisation, so cheap enough for the train step's
+per-step recompile) over the spec and the lowered artifact, records each
+finding as a ``verify.diagnostic`` trace event and their count as the
+span's ``diagnostics``, and raises
+:class:`repro_torch.verify.VerifyError` on any.  The full rule set
+(drift-swap, sharding coverage, packed layout) is
+:meth:`~repro_torch.api.program.CompiledModel.verify`.
 """
 from __future__ import annotations
 
@@ -310,11 +319,13 @@ def iter_analog_layers(params) -> Iterator[Tuple[str, dict]]:
     yield from walk(params, [])
 
 
-def tree_spec(name: str, params, *, apply_fn=None) -> ModuleSpec:
+def tree_spec(name: str, params, *, param_axes=None,
+              apply_fn=None) -> ModuleSpec:
     """A tree-kind :class:`ModuleSpec` from a params tree: one
     :class:`LayerSpec` per analog layer plus the derived fusion groups
     (:func:`_derive_groups`).  The groups are authoritative:
-    :func:`compile` lowers exactly ``spec.groups``."""
+    :func:`compile` lowers exactly ``spec.groups``.  ``param_axes`` is
+    the params' logical-axis spec tree."""
     groups = _derive_groups(params)
     member_group = {m: g.name for g in groups for m in g.members}
     layers = []
@@ -335,7 +346,8 @@ def tree_spec(name: str, params, *, apply_fn=None) -> ModuleSpec:
                 out_dim=int(w.shape[-1]), group=g.name,
                 stacked=int(w.shape[-3])))
     return ModuleSpec(name=name, layers=tuple(layers), kind=TREE,
-                      apply_fn=apply_fn, groups=groups)
+                      apply_fn=apply_fn, param_axes=param_axes,
+                      groups=groups)
 
 
 def _stack_params(spec: ModuleSpec, params) -> list:
@@ -523,14 +535,22 @@ def compile_block(block_params, run_cfg, *, n_heads: int, n_kv_heads: int,
 
 
 def compile(spec: ModuleSpec, params, run_cfg, *,  # noqa: A001
-            calibration=None, device: DeviceLike = None) -> CompiledModel:
+            calibration=None, device: DeviceLike = None,
+            verify: bool = True) -> CompiledModel:
     """Compile a declared model against concrete parameters on ``device``
     (``None`` = the CUDA device; raises when there is none).  The
     parameters are moved there first, then every analog layer is lowered
     once: a stack into one AnalogPlan, a tree into plan entries beside the
     params (fusion groups planned from ``spec.groups``), a block into one
     block plan.  ``calibration`` (a CalibrationSnapshot) bakes measured
-    tables in place of the oracle fixed pattern (module docstring)."""
+    tables in place of the oracle fixed pattern (module docstring).
+
+    ``verify=True`` (the default) runs the CHEAP static invariant rules
+    (:mod:`repro_torch.verify.invariants`: shape/static-metadata only)
+    over the spec and the lowered artifact and raises
+    :class:`repro_torch.verify.VerifyError` on any diagnostic.  The full
+    rule set (drift-swap, sharding coverage, packed layout) is
+    :meth:`CompiledModel.verify`."""
     dev = resolve_device(device)
     acfg = _acfg(run_cfg)
     params = to_device(params, dev)
@@ -564,6 +584,20 @@ def compile(spec: ModuleSpec, params, run_cfg, *,  # noqa: A001
                 calibs=calibs,
             )
         sp.add(lowerings=lowering_count() - before)
+        if verify:
+            from repro_torch.verify import invariants as _inv
+
+            diags = _inv.verify_spec(spec)
+            if lowered is not None:
+                diags = diags + _inv.verify_plan(
+                    lowered, spec=spec, calibration=calibration,
+                    cheap_only=True,
+                )
+            for d in diags:
+                _trace.event("verify.diagnostic", rule=d.rule,
+                             path=d.path, message=d.message)
+            sp.add(diagnostics=len(diags))
+            _inv.check(diags)
     return CompiledModel(spec=spec, params=params, run_cfg=run_cfg,
                          lowered=lowered, device=dev,
                          calibration=calibration)

@@ -28,7 +28,7 @@ every expert in one dispatch).
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 from repro_torch.exec.plan import (GROUP_BATCH_CONCAT, GROUP_COLUMN_CONCAT,
                                    GROUP_EXPERT_STACK, GROUP_KINDS)
@@ -49,6 +49,7 @@ class LayerSpec:
     epilogue:     ADC hand-off to the NEXT stacked layer ("none" float
                   glue | "relu_shift" code-domain chain).
     flatten_out:  flatten trailing output dims before the next layer.
+    sharding:     logical axis names of the (in, out) weight dims.
     group:        name of the :class:`GroupSpec` this layer dispatches
                   with, or None; a tag without a declared GroupSpec implies
                   a ``column_concat`` group of the layers sharing it.
@@ -61,6 +62,7 @@ class LayerSpec:
     signed_input: Optional[str] = None
     epilogue: str = "none"
     flatten_out: bool = False
+    sharding: Tuple[Optional[str], Optional[str]] = (None, None)
     group: Optional[str] = None
     stacked: int = 0
 
@@ -176,7 +178,10 @@ class ModuleSpec:
     ``input_domain`` (stack kind) declares what the compiled program's
     INITIAL input is: "codes" (unsigned 5-bit event codes, quantization
     skipped) or "float" (quantized on entry); None infers it from the
-    first layer's epilogue.  ``groups`` declares the fusion groups (tree
+    first layer's epilogue.  ``param_axes`` (tree kind) is the
+    logical-axis spec tree of the raw params
+    (:mod:`repro_torch.distributed.sharding`; the ``sharding-specs``
+    verifier rule extends it over the baked plans).  ``groups`` declares the fusion groups (tree
     kind); a ``LayerSpec.group`` tag must name one of them.
     ``block_geom`` (block kind only, required there) is the geometry dict
     :func:`repro_torch.exec.lower.lower_block` takes: ``n_heads``,
@@ -187,6 +192,7 @@ class ModuleSpec:
     layers: Tuple[LayerSpec, ...] = ()
     kind: str = STACK
     apply_fn: Optional[Callable] = None
+    param_axes: Any = None
     input_domain: Optional[str] = None
     groups: Tuple[GroupSpec, ...] = ()
     block_geom: Optional[dict] = None
@@ -247,3 +253,17 @@ class ModuleSpec:
             f"no fusion group {name!r} in spec {self.name!r}; declared "
             f"groups: {', '.join(g.name for g in self.groups) or '(none)'}"
         )
+
+
+def linear_spec(in_dim: int, out_dim: int, *, name: str = "layer",
+                signed_input: Optional[str] = None,
+                sharding: Tuple[Optional[str], Optional[str]] = (None, None),
+                ) -> ModuleSpec:
+    """Spec for a single analog linear layer (params = {name: layer_params}
+    or the layer params dict itself)."""
+    return ModuleSpec(
+        name=f"linear_{in_dim}x{out_dim}",
+        layers=(LayerSpec(name, in_dim, out_dim, signed_input=signed_input,
+                          sharding=sharding),),
+        kind=STACK,
+    )

@@ -142,6 +142,22 @@ class CompiledModel:
         return dataclasses.replace(self, lowered=lowered,
                                    calibration=snapshot)
 
+    def verify(self, *, strict: bool = False, cheap_only: bool = False):
+        """Run the FULL static invariant rule set
+        (:mod:`repro_torch.verify.invariants`) over this model's spec,
+        lowered artifact and baked calibration - including the rules
+        ``compile(..., verify=True)`` skips (the identity drift swap,
+        sharding-spec coverage, the packed layout's one-chunk probe).
+        Returns the tuple of :class:`repro_torch.verify.Diagnostic`
+        records (empty = clean); ``strict=True`` raises
+        :class:`repro_torch.verify.VerifyError` instead."""
+        from repro_torch.verify import invariants as _inv
+
+        diags = _inv.verify_model(self, cheap_only=cheap_only)
+        if strict:
+            _inv.check(diags)
+        return diags
+
     def group_plan(self, name: str) -> Optional[Any]:
         """The lowered :class:`~repro_torch.exec.plan.GroupPlan` (a
         :class:`~repro_torch.exec.plan.PlanStack` of them for scan-stacked

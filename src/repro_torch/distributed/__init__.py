@@ -1,1 +1,2 @@
-"""Fault tolerance for the training launcher (the mesh code waits, ROADMAP)."""
+"""Fault tolerance for the training launcher (``fault.py``) and the plan
+leaves' logical-axis specs (``sharding.py``); the mesh waits (ROADMAP)."""

@@ -861,3 +861,23 @@ def plan_with_tables(plan: AnalogPlan, offsets: Sequence, gains=None
         return dataclasses.replace(out, mega=plan.mega.with_off(
             _packed_offsets(layers, plan.mega.n_max)))
     return dataclasses.replace(out, mega=pack_megakernel(out))
+
+
+def layer_with_offsets(lp: LayerPlan, chunk_offset) -> LayerPlan:
+    """Swap ONE lowered layer's ADC offset table (the drift refresh; the
+    reference's signature over :func:`layer_with_tables`): only the
+    ``chunk_offset`` tensor changes, so the plan keeps its structure and
+    static metadata.  Raises when the plan was lowered without an offset
+    table (re-lower instead) or the shapes differ."""
+    return layer_with_tables(lp, chunk_offset=chunk_offset)
+
+
+def plan_with_offsets(plan: AnalogPlan, offsets: Sequence) -> AnalogPlan:
+    """Swap the per-layer ADC offset tables of a lowered stack (the
+    reference's signature over :func:`plan_with_tables`; ``offsets[i] =
+    None`` keeps layer i's table).  The megakernel pack keeps its stores
+    and schedule and takes the new offset table."""
+    if len(offsets) != len(plan.layers):
+        raise ValueError(
+            f"{len(offsets)} offset tables for {len(plan.layers)} layers")
+    return plan_with_tables(plan, offsets)

@@ -483,3 +483,24 @@ class AnalogPlan:
             else:
                 is_codes = lp.epilogue == EPILOGUE_RELU_SHIFT
         return n
+
+
+# The reference's pytree registration of each plan class: (data fields,
+# static metadata fields).  The plan store writes these fields, and the
+# verifier walks them (paths, structure); derived views (``w_eff``,
+# ``gain_row``, ``w_cat``) are not fields of the artifact.
+PYTREE_FIELDS = {
+    WeightStore: (("codes", "w_scale", "gain", "col_gain", "row_gain",
+                   "chunk_gain", "gain_map"), ("chunk_rows", "col_blocks")),
+    LayerPlan: (("store", "a_scale", "chunk_offset", "colsum", "bias",
+                 "a_scale_in"),
+                ("k", "n", "chunk_rows", "signed_input", "epilogue",
+                 "shift", "flatten_out")),
+    GroupPlan: (("fused",), ("kind", "member_names", "member_ns")),
+    MegakernelPack: (("stores", "gain", "off", "deq", "bias", "enc", "ln"),
+                     ("schedule", "n_max", "chunk_rows", "block")),
+    BlockGlue: (("ln1", "ln2"),
+                ("n_heads", "n_kv_heads", "head_dim", "seq", "rope_theta",
+                 "d_ff", "eps")),
+    AnalogPlan: (("layers", "mega", "block"), ("cfg", "input_domain")),
+}

@@ -30,7 +30,8 @@ Left to run time (everything else was baked by
   with the first reason a plan or call cannot,
 - block plans (:func:`repro_torch.exec.lower.lower_block`): the whole
   attention+MLP block as ONE dispatch (the ``analog_plan_block``
-  kernel), or the 4-dispatch per-layer fallback,
+  kernel), or the 4-dispatch per-layer fallback, which a noisy call
+  takes (one readout-noise source per layer),
 - MoE expert stacks (:func:`run_expert_stack`): every expert of a stacked
   weight as ONE dispatch (the split kernel's expert axis),
 - batch_concat groups (:func:`run_batch_concat`): the RWKV r/k/v/g
@@ -51,6 +52,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -461,39 +463,65 @@ def _megakernel_route(plan: AnalogPlan, x: torch.Tensor, x_is_codes: bool,
     return _megakernel_batch_shape(plan, x)
 
 
-def _run_block_fallback(plan: AnalogPlan, x: torch.Tensor) -> torch.Tensor:
+def megakernel_fallback_reason(plan: AnalogPlan, x: torch.Tensor, *,
+                               noise=None) -> Optional[str]:
+    """Why a ``run(plan, x, noise=noise)`` call cannot take the megakernel
+    route (None = it can)."""
+    if plan.block is not None:
+        return _block_fallback_reason(plan, noise, "auto")
+    route = _megakernel_route(plan, x, plan.expects_codes, noise)
+    return route if isinstance(route, str) else None
+
+
+def _block_fallback_reason(plan: AnalogPlan, noise, megakernel
+                           ) -> Optional[str]:
+    if megakernel is False:
+        return "megakernel=False"
+    if noise is not None and not plan.cfg.deterministic:
+        return "noisy replay (readout-noise keys) is layer-by-layer"
+    return None
+
+
+def _run_block_fallback(plan: AnalogPlan, x: torch.Tensor,
+                        noise=None) -> torch.Tensor:
     """Per-layer replay of a block plan: 4 analog dispatches (fused QKV,
     o, fused up|gate, down) with the digital glue in PyTorch - the glue
     functions the whole-block plain version calls, so on one device the
-    two routes agree bit for bit (tested)."""
+    two routes agree bit for bit (tested).  ``noise`` gives each layer its
+    readout-noise source (:func:`_layer_noise`; the reference's
+    ``jax.random.split(key, 4)``)."""
     from repro_torch.models.attention import prefill_attention_glue
     from repro_torch.models.layers import norm_apply
 
     bg, cfg = plan.block, plan.cfg
     qkv_lp, o_lp, ug_lp, dn_lp = plan.layers
+    ns = _layer_noise(noise, 4)
     b, s, _ = x.shape
     res = x.to(torch.float32)
     h = norm_apply({"scale": bg.ln1}, res, eps=bg.eps)
-    qkv = run_layer(qkv_lp, h, cfg)
+    qkv = run_layer(qkv_lp, h, cfg, noise=ns[0])
     o_in = prefill_attention_glue(
         qkv.reshape(b * s, qkv_lp.n), batch=b, seq=s,
         n_heads=bg.n_heads, n_kv_heads=bg.n_kv_heads,
         head_dim=bg.head_dim, rope_theta=bg.rope_theta,
     )
-    res = res + run_layer(o_lp, o_in.reshape(b, s, o_lp.k), cfg)
+    res = res + run_layer(o_lp, o_in.reshape(b, s, o_lp.k), cfg,
+                          noise=ns[1])
     h = norm_apply({"scale": bg.ln2}, res, eps=bg.eps)
-    ug = run_layer(ug_lp, h, cfg)
+    ug = run_layer(ug_lp, h, cfg, noise=ns[2])
     up, gate = ug[..., :bg.d_ff], ug[..., bg.d_ff:]
-    y = run_layer(dn_lp, torch.nn.functional.silu(gate) * up, cfg)
+    y = run_layer(dn_lp, torch.nn.functional.silu(gate) * up, cfg,
+                  noise=ns[3])
     return (res + y).to(x.dtype)
 
 
-def _run_block(plan: AnalogPlan, x: torch.Tensor, *,
+def _run_block(plan: AnalogPlan, x: torch.Tensor, *, noise,
                megakernel) -> torch.Tensor:
     """Execute a block plan (:func:`repro_torch.exec.lower.lower_block`):
     ``x [batch, seq, d_model]`` -> same shape, the whole attention+MLP
     block as ONE dispatch (the ``analog_plan_block`` kernel on the card),
-    or 4 on the per-layer fallback (``megakernel=False``).  Computes in
+    or 4 on the per-layer fallback (``megakernel=False``, or a noisy
+    call: ``megakernel=True`` then raises with the reason).  Computes in
     fp32 and casts the output back to ``x``'s dtype once."""
     from repro_torch.kernels import ops as kernel_ops
     from repro_torch.kernels.ref import analog_plan_ref
@@ -510,9 +538,12 @@ def _run_block(plan: AnalogPlan, x: torch.Tensor, *,
             f"seq={bg.seq}, got seq={x.shape[1]}; re-lower for this "
             "length (the in-kernel attention bakes its positions)"
         )
-    if megakernel is False:
+    reason = _block_fallback_reason(plan, noise, megakernel)
+    if reason is not None:
+        if megakernel is True:
+            raise ValueError(f"megakernel=True, but: {reason}")
         _obs_metrics.counter("exec.run.per_layer").inc()
-        return _run_block_fallback(plan, x)
+        return _run_block_fallback(plan, x, noise)
     _obs_metrics.counter("exec.run.megakernel").inc()
     b, s, d = x.shape
     run_block = (kernel_ops.analog_plan_codes if cfg.use_kernels
@@ -555,7 +586,8 @@ def run(
     ``noise``: temporal readout noise, a ``torch.Generator`` on ``x``'s
     device or a sequence of one injected draw per layer
     (:func:`repro_torch.core.analog.analog_matmul`); ignored when
-    ``plan.cfg.deterministic``.  A noisy call replays layer by layer.
+    ``plan.cfg.deterministic``.  A noisy call replays layer by layer (a
+    block plan too: one source per layer, :func:`_run_block_fallback`).
 
     ``megakernel``: ``"auto"`` (default) takes the whole-plan route
     whenever the plan and the call are eligible, ``False`` forces the
@@ -573,11 +605,7 @@ def run(
         raise ValueError(f"megakernel must be 'auto'|True|False, "
                          f"got {megakernel!r}")
     if plan.block is not None:
-        if noise is not None and not cfg.deterministic:
-            raise NotImplementedError(
-                "noisy replay of a block plan is not ported yet (ROADMAP "
-                "queue 1, item 6)")
-        return _run_block(plan, x, megakernel=megakernel)
+        return _run_block(plan, x, noise=noise, megakernel=megakernel)
     x_is_codes = plan.expects_codes
     if megakernel is True or megakernel == "auto":
         route = _megakernel_route(plan, x, x_is_codes, noise)

@@ -53,6 +53,7 @@ from repro_torch.exec.plan import (
     BlockGlue,
     GroupPlan,
     LayerPlan,
+    PYTREE_FIELDS,
     MegakernelPack,
     PlanStack,
     WeightStore,
@@ -60,14 +61,9 @@ from repro_torch.exec.plan import (
 
 FORMAT_VERSION = "repro-plan-v1"
 
-_LAYER_META = ("k", "n", "chunk_rows", "signed_input", "epilogue", "shift",
-               "flatten_out")
-_LAYER_DATA = ("store", "a_scale", "chunk_offset", "colsum", "bias",
-               "a_scale_in")
-_STORE_DATA = ("codes", "w_scale", "gain", "col_gain", "row_gain",
-               "chunk_gain", "gain_map")
-_GLUE_META = ("n_heads", "n_kv_heads", "head_dim", "seq", "rope_theta",
-              "d_ff", "eps")
+_LAYER_DATA, _LAYER_META = PYTREE_FIELDS[LayerPlan]
+_STORE_DATA = PYTREE_FIELDS[WeightStore][0]
+_GLUE_META = PYTREE_FIELDS[BlockGlue][1]
 
 
 def _shift_arrays(node, base: int):

@@ -379,6 +379,16 @@ def _on_card(name, a_pos):
         raise ValueError(f"{name} needs CUDA tensors, got {a_pos.device}")
 
 
+def int8_codes(store) -> torch.Tensor:
+    """A code-operand store's codes as the kernels read them: int8.  The
+    fp32 STE codes of a store lowered under autograd hold the same 6-bit
+    integers and are cast (a detached copy)."""
+    codes = store.codes
+    if codes.dtype != torch.int8:
+        codes = codes.detach().to(torch.int8).contiguous()
+    return codes
+
+
 def code_operand_ends(codes, col_gain, row_gain, col_blocks, k: int,
                       dev: torch.device, chunk_gain=None,
                       chunk_rows: int = BSS2.signed_rows) -> tuple:

@@ -50,6 +50,7 @@ import torch
 from repro_torch.core.hw import BSS2
 from repro_torch.kernels import _build
 from repro_torch.kernels.analog_mvm import (SplitPlan, code_operand_ends,
+                                             int8_codes,
                                             split_plan, split_tile_rows)
 
 MAX_LAYERS = 8
@@ -362,20 +363,22 @@ def block_operand(weight, k_pad: int, n: int,
     """The operand a block layer's VMM stage reads, by the rule of
     ``exec/run.py``'s split branch: a
     :class:`~repro_torch.exec.plan.WeightStore` without a full gain map
-    (``code_operand``) gives its int8 codes and gain tables (rank-1 and a
+    (``code_operand``) gives its int8 codes (:func:`int8_codes`) and gain
+    tables (rank-1 and a
     measured ``chunk_gain``), a store with a gain map its ``w_eff``; a
     tensor is taken as the fp32 effective weights."""
     if getattr(weight, "codes", None) is not None:
         if weight.code_operand:
-            ends = code_operand_ends(weight.codes, weight.col_gain,
+            codes = int8_codes(weight)
+            ends = code_operand_ends(codes, weight.col_gain,
                                      weight.row_gain, weight.col_blocks,
                                      k_pad, dev, chunk_gain=weight.chunk_gain,
                                      chunk_rows=weight.chunk_rows)
-            if weight.codes.shape[1] != n:
-                raise ValueError(f"store of {weight.codes.shape[1]} columns "
+            if codes.shape[1] != n:
+                raise ValueError(f"store of {codes.shape[1]} columns "
                                  f"for a layer of {n}")
             return BlockOperand(0 if weight.chunk_gain is None else 2,
-                                weight.codes, weight.col_gain,
+                                codes, weight.col_gain,
                                 weight.row_gain, weight.chunk_gain, ends)
         weight = weight.w_eff
     _build.check_operand("weights", weight, dev, (k_pad, n))

@@ -19,8 +19,10 @@ The signed-split pair (:func:`analog_mvm_split`) has the reference's
 ``_analog_mvm_split_bwd``, and so has the split kernel's leading axis -
 the members of a batch_concat group (:func:`analog_mvm_split_members`)
 and the experts of an MoE expert stack - as one batched product
-(:class:`_AnalogMVMLead`); the block plan has no HIL backward yet
-(ROADMAP): under autograd it raises.
+(:class:`_AnalogMVMLead`).  The block form of :func:`analog_plan_codes`
+differentiates through :class:`_PlanBlock`: the forward is the one
+``analog_plan_block`` launch, the backward the VJP of the block's STE
+walk with each VMM through the per-layer ops above.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from repro_torch.kernels.analog_mvm import (analog_mvm_cuda,
                                             analog_mvm_split_codes_cuda,
                                             analog_mvm_split_cuda,
                                             analog_mvm_split_experts_cuda,
-                                            analog_mvm_split_members_cuda)
+                                            analog_mvm_split_members_cuda,
+                                            int8_codes)
 from repro_torch.kernels.analog_plan import (analog_plan_block_cuda,
                                              analog_plan_cuda)
 from repro_torch.kernels.preproc import maxmin_pool_cuda
@@ -62,13 +65,6 @@ def needs_grad(*tensors) -> bool:
     """Does autograd record a call on these tensors?"""
     return torch.is_grad_enabled() and any(
         isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
-
-
-def _no_hil_backward(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} has no hardware-in-the-loop backward yet (ROADMAP queue "
-        "1, item 6: the block plan's HIL backward); call it under "
-        "torch.no_grad() or with inputs that do not require grad")
 
 
 def _mvm(a_code, w_eff, gain, chunk_offset, *, chunk_rows, faithful,
@@ -138,13 +134,8 @@ def _split(a_pos, a_neg, w_eff, gain, chunk_offset, *, chunk_rows,
     the CPU (:func:`analog_mvm_split`)."""
     if _on_cuda(a_pos):
         if store is not None and store.code_operand:
-            codes = store.codes
-            if codes.dtype != torch.int8:
-                # the fp32 STE codes of a store lowered under autograd
-                # hold the same 6-bit integers
-                codes = codes.detach().to(torch.int8)
             return analog_mvm_split_codes_cuda(
-                a_pos.contiguous(), a_neg.contiguous(), codes,
+                a_pos.contiguous(), a_neg.contiguous(), int8_codes(store),
                 store.col_gain, store.row_gain, gain.contiguous(),
                 _contiguous(chunk_offset),
                 chunk_gain=_contiguous(store.chunk_gain),
@@ -204,11 +195,8 @@ def _split_experts(a_pos, a_neg, w_eff, gain, *, chunk_rows, faithful,
             raise ValueError("the expert axis reads a table-free expert-"
                              "stack store of int8 (or fp32 STE) codes on "
                              "the card")
-        codes = store.codes
-        if codes.dtype != torch.int8:
-            codes = codes.detach().to(torch.int8)
         return analog_mvm_split_experts_cuda(
-            a_pos.contiguous(), a_neg.contiguous(), codes,
+            a_pos.contiguous(), a_neg.contiguous(), int8_codes(store),
             gain.contiguous(), post_gain=_contiguous(post),
             chunk_rows=chunk_rows, faithful=faithful)
     return ref_lib.analog_mvm_split_experts_ref(
@@ -222,11 +210,8 @@ def _split_members(a_pos, a_neg, gain, chunk_offset, *, store, chunk_rows,
     on the card, the plain version on the CPU."""
     if _on_cuda(a_pos):
         if store.code_operand:
-            codes = store.codes
-            if codes.dtype != torch.int8:
-                codes = codes.detach().to(torch.int8)
             return analog_mvm_split_members_cuda(
-                a_pos.contiguous(), a_neg.contiguous(), codes,
+                a_pos.contiguous(), a_neg.contiguous(), int8_codes(store),
                 _contiguous(store.col_gain), _contiguous(store.row_gain),
                 gain.contiguous(), _contiguous(chunk_offset),
                 chunk_gain=_contiguous(store.chunk_gain),
@@ -423,9 +408,9 @@ def analog_plan_codes(
     ln)``.  Returns the final layer's raw accumulated ADC codes
     ``[B * m_last, n_last]``, or the block output.
 
-    A chain is differentiable (:class:`_PlanChain`: the forward is still
-    the one launch, the backward the STE/HIL chain rule of the
-    reference's ``_plan_codes``); a block under autograd raises."""
+    Both forms are differentiable: the forward is still the one launch,
+    the backward the STE/HIL chain rule of the reference's
+    ``_plan_codes`` (:class:`_PlanChain`, :class:`_PlanBlock`)."""
     kw = dict(schedule=schedule, chunk_rows=chunk_rows, faithful=faithful,
               extras=extras, block=block)
     operands = list(extras or ())
@@ -436,7 +421,13 @@ def analog_plan_codes(
     if not needs_grad(x_in, *operands):
         return _plan_forward(x_in, weights, gain_all, off_cat, **kw)
     if block is not None:
-        raise _no_hil_backward("analog_plan_codes of a block plan")
+        stores = None
+        if getattr(weights[0], "codes", None) is not None:
+            stores = tuple(weights)
+        return _PlanBlock.apply(x_in, *extras, gain_all, off_cat,
+                                stores, schedule, block, chunk_rows,
+                                faithful, *(getattr(w, "w_eff", w)
+                                            for w in weights))
     deq = bias = enc = None
     if extras is not None:
         deq, bias, enc, _ = extras
@@ -489,6 +480,68 @@ class _PlanChain(torch.autograd.Function):
             got = iter(torch.autograd.grad(y, wrt, g, allow_unused=True))
         grads = tuple(next(got) if n else None for n in need)
         return grads + (None, None, None)
+
+
+class _PlanBlock(torch.autograd.Function):
+    """One attention+MLP block plan with the HIL backward of the
+    reference's ``_plan_codes`` (the VJP of its STE walk): the forward is
+    the ONE ``analog_plan_block`` launch (the plain version on the CPU);
+    the backward replays the block's walk
+    (:func:`repro_torch.kernels.ref.analog_plan_ref`) with each VMM
+    through the per-layer ops whose HIL backward exists - a ``"split"``
+    layer's pair through :func:`analog_mvm_split` (the split kernel on
+    the card, reading the store's codes), an ``"unsigned"`` layer's pass
+    through :func:`analog_mvm` - and the block glue (RMSNorms, RoPE and
+    attention, residuals, SwiGLU, the dequantization), and
+    differentiates it.  Gain and offsets are frozen (zero gradient);
+    the input, the four layers' effective weights and the glue rows
+    (``deq``, ``bias``, ``enc``, ``ln``) get real gradients - a store's
+    ``w_eff`` carries its gradient on to the STE codes and the gain
+    tables it was derived from.  The attention inside bakes the plan's
+    static positions, as the forward does."""
+
+    @staticmethod
+    def forward(ctx, x_in, deq, bias, enc, ln, gain_all, off_cat, stores,
+                schedule, block, chunk_rows, faithful, *w_effs):
+        ctx.save_for_backward(x_in, deq, bias, enc, ln, gain_all, off_cat,
+                              *w_effs)
+        ctx.static = (stores, schedule, block, chunk_rows, faithful)
+        return _plan_forward(x_in, w_effs if stores is None else stores, gain_all, off_cat,
+                             schedule=schedule, chunk_rows=chunk_rows,
+                             faithful=faithful, extras=(deq, bias, enc, ln),
+                             block=block)
+
+    @staticmethod
+    def backward(ctx, g):
+        stores, schedule, block, chunk_rows, faithful = ctx.static
+        # gain_all and off_cat (positions 5, 6) stay frozen
+        need = [n and i not in (5, 6)
+                for i, n in enumerate(ctx.needs_input_grad[:7])]
+        need += list(ctx.needs_input_grad[12:])
+        with torch.enable_grad():
+            args = [t.detach().requires_grad_(n)
+                    for t, n in zip(ctx.saved_tensors, need)]
+            x_in, deq, bias, enc, ln, gain_all, off_cat = args[:7]
+
+            def vmm(a, w_l, gain, offs):
+                return analog_mvm(a, w_l, gain, offs, chunk_rows=chunk_rows,
+                                  faithful=faithful)
+
+            def pair(li, a_pos, a_neg, w_l, gain, offs):
+                return analog_mvm_split(
+                    a_pos, a_neg, w_l, gain, offs, chunk_rows=chunk_rows,
+                    faithful=faithful,
+                    store=None if stores is None else stores[li])
+
+            y = ref_lib.analog_plan_ref(
+                x_in, args[7:], gain_all, off_cat, schedule,
+                chunk_rows=chunk_rows, faithful=faithful,
+                extras=(deq, bias, enc, ln), block=block, vmm=vmm,
+                pair=pair)
+            wrt = [t for t, n in zip(args, need) if n]
+            got = iter(torch.autograd.grad(y, wrt, g, allow_unused=True))
+        grads = [next(got) if n else None for n in need]
+        return tuple(grads[:7]) + (None,) * 5 + tuple(grads[7:])
 
 
 def maxmin_pool(x: torch.Tensor, window: int = 32) -> torch.Tensor:

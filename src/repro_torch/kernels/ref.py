@@ -9,6 +9,7 @@ are inference-only, like the reference's.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -293,7 +294,8 @@ def _chunk_adc(a, w_l, gain, offs, n_chunks, chunk_rows, faithful):
 
 def plan_layer_ref(h, w_l, gain, offs, meta, scale, *,
                    chunk_rows: int = BSS2.signed_rows,
-                   faithful: bool = True, vmm=None) -> torch.Tensor:
+                   faithful: bool = True, vmm=None,
+                   pair=None) -> torch.Tensor:
     """One scheduled layer: ``h`` holds 5-bit codes padded to ``k_pad``
     (encode ``"codes"``) or float features whose first ``k`` columns are
     quantized at ``scale`` and then padded (``"unsigned"``; ``"split"``
@@ -301,7 +303,9 @@ def plan_layer_ref(h, w_l, gain, offs, meta, scale, *,
     them).  Returns the accumulated ADC codes ``[rows, n]``.  ``vmm(a,
     w_l, gain, offs)``, when given, computes each pass in place of the
     chunk scan here (the chain's HIL backward passes the ``analog_mvm``
-    wrapper)."""
+    wrapper); ``pair(a_pos, a_neg, w_l, gain, offs)``, when given,
+    computes a ``"split"`` layer's two passes as one difference (the
+    block's HIL backward passes the ``analog_mvm_split`` wrapper)."""
     from repro_torch.core.quant import quantize_act
 
     def mvm(a):
@@ -318,6 +322,8 @@ def plan_layer_ref(h, w_l, gain, offs, meta, scale, *,
     def codes(v):
         return torch.nn.functional.pad(quantize_act(v, scale), (0, pad))
 
+    if meta.encode == "split" and pair is not None:
+        return pair(codes(f), codes(-f), w_l, gain, offs)
     acc = mvm(codes(f))
     if meta.encode == "split":
         acc = acc - mvm(codes(-f))
@@ -368,6 +374,7 @@ def analog_plan_ref(
     block=None,                 # BlockMeta | None (transformer glue)
     trace: Optional[list] = None,
     vmm=None,                   # per-pass VMM of plan_layer_ref | None
+    pair=None,                  # split-pair VMM pair(li, ...) | None
 ) -> torch.Tensor:
     """A whole packed layer chain - code-domain hand-offs, float-domain
     hand-offs, or one attention+MLP block - with the per-layer route's
@@ -380,7 +387,9 @@ def analog_plan_ref(
     ``[B * m_mult_last, n_last]`` (``"raw"``) or the block output
     (``"res_out"``).  ``trace``, when a list, receives each layer's
     ``(input, accumulated ADC codes)``; ``vmm`` replaces each layer's
-    chunk scan (:func:`plan_layer_ref`).
+    chunk scan, ``pair(li, a_pos, a_neg, w_l, gain, offs)`` the two
+    passes of layer ``li`` when it encodes ``"split"``
+    (:func:`plan_layer_ref`).
 
     Differentiable with the HIL contract of the reference's oracle: each
     readout is a pure straight-through term, gain and offsets are frozen,
@@ -416,7 +425,8 @@ def analog_plan_ref(
             h, ws[li], gain_all[li, :meta.n],
             off_cat[meta.c0:meta.c0 + meta.n_chunks, :meta.n], meta,
             None if meta.encode == "codes" else enc[li, 0],
-            chunk_rows=chunk_rows, faithful=faithful, vmm=vmm)
+            chunk_rows=chunk_rows, faithful=faithful, vmm=vmm,
+            pair=None if pair is None else functools.partial(pair, li))
         if trace is not None:
             trace.append((h, acc))
         handoff = layer_handoff(meta, li == last)

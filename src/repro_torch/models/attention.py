@@ -41,6 +41,15 @@ def attention_init(generator, d_model, n_heads, n_kv_heads, head_dim, *,
     }
 
 
+def attention_specs(noise: NoiseConfig = NoiseConfig()):
+    return {
+        "wq": L.linear_specs("embed", "heads", noise=noise),
+        "wk": L.linear_specs("embed", "heads", noise=noise),
+        "wv": L.linear_specs("embed", "heads", noise=noise),
+        "wo": L.linear_specs("heads", "embed", noise=noise),
+    }
+
+
 def _dense_attention(q, k, v, *, causal: bool, q_offset=0):
     """q: [B,Sq,KVH,G,dh], k/v: [B,Sk,KVH,dh].  Direct path for short S."""
     scale = 1.0 / math.sqrt(q.shape[-1])

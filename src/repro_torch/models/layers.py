@@ -10,6 +10,7 @@ and are left out.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -34,12 +35,47 @@ def linear_apply(params, x, acfg: AnalogConfig, *, noise=None):
     return apply_linear(params, x, acfg, noise=noise)
 
 
+def linear_specs(in_name: Optional[str], out_name: Optional[str],
+                 *, bias=False, noise: NoiseConfig = NoiseConfig()):
+    """The logical axes of :func:`linear_init`'s dict (the reference's
+    sharding spec: a declaration, read by the ``sharding-specs`` verifier
+    rule)."""
+    specs = {
+        "w": (in_name, out_name),
+        "w_scale": (None, out_name),
+        "a_scale": (),
+        "gain": (),
+    }
+    if bias:
+        specs["b"] = (out_name,)
+    if noise.mode != "none":
+        fpn = {}
+        if noise.gain_std > 0:
+            if noise.mode == "full":
+                fpn["gain"] = (in_name, out_name)
+            else:
+                fpn["row_gain"] = (in_name,)
+                fpn["col_gain"] = (out_name,)
+        if noise.offset_std > 0:
+            fpn["chunk_offset"] = ("chunks", out_name)
+        if fpn:
+            specs["fpn"] = fpn
+    return specs
+
+
 # ----------------------------------------------------------------- norms
 def norm_init(dim, kind="rmsnorm", device: DeviceLike = None):
     dev = resolve_device(device)
     p = {"scale": torch.ones((dim,), dtype=torch.float32, device=dev)}
     if kind == "layernorm":
         p["bias"] = torch.zeros((dim,), dtype=torch.float32, device=dev)
+    return p
+
+
+def norm_specs(kind="rmsnorm"):
+    p = {"scale": (None,)}
+    if kind == "layernorm":
+        p["bias"] = (None,)
     return p
 
 
@@ -130,6 +166,10 @@ def embedding_apply(params, tokens):
     return params["table"][tokens]
 
 
+def embedding_specs():
+    return {"table": ("vocab", "embed")}
+
+
 # ------------------------------------------------------------------- MLP
 def mlp_init(generator, d_model, d_ff, *, act="swiglu",
              noise: NoiseConfig = NoiseConfig(), dtype=torch.float32,
@@ -141,6 +181,16 @@ def mlp_init(generator, d_model, d_ff, *, act="swiglu",
     }
     if act == "swiglu":
         p["gate"] = linear_init(generator, d_model, d_ff, **kw)
+    return p
+
+
+def mlp_specs(*, act="swiglu", noise: NoiseConfig = NoiseConfig()):
+    p = {
+        "up": linear_specs("embed", "mlp", noise=noise),
+        "down": linear_specs("mlp", "embed", noise=noise),
+    }
+    if act == "swiglu":
+        p["gate"] = linear_specs("embed", "mlp", noise=noise)
     return p
 
 

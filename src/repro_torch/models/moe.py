@@ -103,7 +103,6 @@ def moe_specs(*, act="swiglu", n_shared=0,
               noise: NoiseConfig = NoiseConfig()):
     """The logical axes of :func:`moe_init`'s tree (the reference's
     sharding spec; on one device a declaration only)."""
-    del noise
     p = {
         "router": {"w": (None, None)},
         "up": ("expert", "embed", None),
@@ -112,9 +111,7 @@ def moe_specs(*, act="swiglu", n_shared=0,
     if act == "swiglu":
         p["gate"] = ("expert", "embed", None)
     if n_shared:
-        p["shared"] = {"up": ("embed", "mlp"), "down": ("mlp", "embed")}
-        if act == "swiglu":
-            p["shared"]["gate"] = ("embed", "mlp")
+        p["shared"] = L.mlp_specs(act=act, noise=noise)
     return p
 
 
@@ -124,7 +121,8 @@ def _expert_names(act: str) -> list:
 
 def moe_module_spec(d_model, d_ff, n_experts, *, top_k, act="swiglu",
                     n_shared=0, capacity_factor: float = 1.25,
-                    dense: bool = False):
+                    dense: bool = False,
+                    noise: NoiseConfig = NoiseConfig()):
     """Declare one MoE layer for the front door:
     ``api.compile(moe_module_spec(...), params, run)`` lowers every
     expert stack ONCE (one ``expert_stack`` group per stacked matrix:
@@ -147,7 +145,9 @@ def moe_module_spec(d_model, d_ff, n_experts, *, top_k, act="swiglu",
                    for n in names)
     return api.ModuleSpec(name=f"moe_{d_model}x{d_ff}x{n_experts}",
                           kind="tree", apply_fn=_apply, layers=layers,
-                          groups=groups)
+                          groups=groups,
+                          param_axes=moe_specs(act=act, n_shared=n_shared,
+                                               noise=noise))
 
 
 def _analog_expert_matmul(xe, w, acfg: AnalogConfig):

@@ -57,7 +57,23 @@ def rwkv_init(generator, d_model, n_heads, *,
     }
 
 
-def rwkv_module_spec(d_model, n_heads):
+def rwkv_specs(noise: NoiseConfig = NoiseConfig()):
+    return {
+        "tm": {k: (None,) for k in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w")},
+        "wr": L.linear_specs("embed", "heads", noise=noise),
+        "wk": L.linear_specs("embed", "heads", noise=noise),
+        "wv": L.linear_specs("embed", "heads", noise=noise),
+        "wg": L.linear_specs("embed", "heads", noise=noise),
+        "wo": L.linear_specs("heads", "embed", noise=noise),
+        "w0": ("heads", None),
+        "w_lora_a": (None, None),
+        "w_lora_b": (None, "heads"),
+        "u": ("heads", None),
+    }
+
+
+def rwkv_module_spec(d_model, n_heads, *,
+                     noise: NoiseConfig = NoiseConfig()):
     """Declare one RWKV-6 time-mix block for the front door:
     ``api.compile(rwkv_module_spec(d, h), params, run)`` bakes the five
     projections once - r/k/v/g fused into ONE ``batch_concat`` dispatch
@@ -78,6 +94,7 @@ def rwkv_module_spec(d_model, n_heads):
             [api.LayerSpec(n, d_model, d_model, group="rkvg") for n in _RKVG]
             + [api.LayerSpec("wo", d_model, d_model)]),
         groups=(api.GroupSpec("rkvg", GROUP_BATCH_CONCAT, _RKVG),),
+        param_axes=rwkv_specs(noise),
     )
 
 
@@ -238,6 +255,14 @@ def channel_mix_init(generator, d_model, d_ff, *,
         "mu_k": torch.zeros((d_model,), dtype=torch.float32, device=dev),
         "wk": L.linear_init(generator, d_model, d_ff, **kw),
         "wv": L.linear_init(generator, d_ff, d_model, **kw),
+    }
+
+
+def channel_mix_specs(noise: NoiseConfig = NoiseConfig()):
+    return {
+        "mu_k": (None,),
+        "wk": L.linear_specs("embed", "mlp", noise=noise),
+        "wv": L.linear_specs("mlp", "embed", noise=noise),
     }
 
 

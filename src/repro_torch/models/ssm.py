@@ -44,6 +44,19 @@ def mamba_init(generator, d_model, *, d_state=64, expand=2, head_dim=64,
     }
 
 
+def mamba_specs(noise: NoiseConfig = NoiseConfig()):
+    return {
+        "in_proj": L.linear_specs("embed", "mlp", noise=noise),
+        "conv_w": (None, "mlp"),
+        "conv_b": ("mlp",),
+        "A_log": (None,),
+        "dt_bias": (None,),
+        "D": (None,),
+        "norm": L.norm_specs("rmsnorm"),
+        "out_proj": L.linear_specs("mlp", "embed", noise=noise),
+    }
+
+
 def _causal_conv(x, w, b, conv_state=None):
     """Depthwise causal conv over time.  x: [B, T, C]; w: [K, C];
     conv_state: the [B, K-1, C] carry for decode.  Returns (silu(out),

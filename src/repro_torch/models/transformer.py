@@ -135,6 +135,25 @@ def _layer_init(generator, kind: str, cfg: ArchConfig, device):
     return p
 
 
+def _layer_specs(kind: str, cfg: ArchConfig):
+    p = {"ln1": L.norm_specs(cfg.norm)}
+    if kind in ("attn_mlp", "attn_moe"):
+        p["attn"] = A.attention_specs(NOISE)
+        p["ln2"] = L.norm_specs(cfg.norm)
+        if kind == "attn_mlp":
+            p["mlp"] = L.mlp_specs(act=cfg.act, noise=NOISE)
+        else:
+            p["moe"] = M.moe_specs(act=cfg.act,
+                                   n_shared=cfg.n_shared_experts, noise=NOISE)
+    elif kind == "rwkv":
+        p["rwkv"] = R.rwkv_specs(NOISE)
+        p["ln2"] = L.norm_specs(cfg.norm)
+        p["cmix"] = R.channel_mix_specs(NOISE)
+    elif kind == "mamba":
+        p["mamba"] = S.mamba_specs(NOISE)
+    return p
+
+
 def _group_init(generator, cfg: ArchConfig, device):
     return {f"l{i}": _layer_init(generator, kind, cfg, device)
             for i, kind in enumerate(group_def(cfg))}
@@ -171,6 +190,34 @@ def lm_init(generator: torch.Generator, cfg: ArchConfig,
     return params
 
 
+def _prepend(specs, name="layers"):
+    """Every logical-name tuple of a spec tree with ``name`` in front (the
+    stacked groups' leading axis)."""
+    if isinstance(specs, dict):
+        return {k: _prepend(v, name) for k, v in specs.items()}
+    return (name,) + tuple(specs)
+
+
+def lm_specs(cfg: ArchConfig):
+    """The logical axes of :func:`lm_init`'s tree (the reference's
+    sharding spec; the ``param_axes`` of :func:`lm_module_spec`)."""
+    specs = {}
+    if cfg.embed_inputs:
+        specs["embed"] = L.embedding_specs()
+    group = {f"l{i}": _layer_specs(kind, cfg)
+             for i, kind in enumerate(group_def(cfg))}
+    specs["layers"] = _prepend(group)
+    if cfg.attn_every:
+        specs["shared_attn"] = {
+            "ln": L.norm_specs(cfg.norm),
+            "attn": A.attention_specs(NOISE),
+        }
+    specs["final_norm"] = L.norm_specs(cfg.norm)
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = L.linear_specs("embed", "vocab", noise=NOISE)
+    return specs
+
+
 def lm_module_spec(cfg: ArchConfig, params):
     """Declare the LM's analog layers once for the front door:
     ``api.compile(lm_module_spec(cfg, params), params, run)`` bakes every
@@ -183,7 +230,8 @@ def lm_module_spec(cfg: ArchConfig, params):
         return lm_apply(model.lower(), batch, cfg, model.run_cfg,
                         cache=cache, noise=noise)
 
-    return api.tree_spec(f"lm_{cfg.name}", params, apply_fn=_apply)
+    return api.tree_spec(f"lm_{cfg.name}", params, param_axes=lm_specs(cfg),
+                         apply_fn=_apply)
 
 
 # ------------------------------------------------------------------ apply

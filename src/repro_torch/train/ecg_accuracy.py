@@ -27,7 +27,6 @@ chips' readout noise seeded from ``seed + 2``).
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 
@@ -43,6 +42,7 @@ from repro_torch.models.ecg import (
     ecg_loss,
     ecg_module_spec,
 )
+from repro_torch.obs import trace as _trace
 from repro_torch.train import optimizer as O
 
 FAST = dict(n_train=1000, n_test=300, epochs=20, lr=3e-3)
@@ -115,7 +115,7 @@ def run(n_train=1500, n_test=500, epochs=30, batch=64, lr=2e-3, seed=0,
     the calibrated bake's (``calibrated_*`` keys) and the seconds its
     blind calibration took (``calibrate_s``)."""
     dev = resolve_device(device)
-    t0 = time.perf_counter()
+    t0 = _trace.clock_us() * 1e-6
     dcfg = ECGDatasetConfig(n_train=n_train, n_test=n_test, seed=1234)
     xtr_raw, ytr = make_dataset(dcfg, "train")
     xte_raw, yte = make_dataset(dcfg, "test")
@@ -173,12 +173,12 @@ def run(n_train=1500, n_test=500, epochs=30, batch=64, lr=2e-3, seed=0,
         else:
             stale += 1
         if verbose:
-            print(f"epoch {ep + 1:3d}: loss={float(loss):.4f} "
-                  f"val={val_acc*100:5.1f}% det={det*100:5.1f}% "
-                  f"fp={fpr*100:5.1f}% acc={acc*100:5.1f}%", flush=True)
+            _trace.log(f"epoch {ep + 1:3d}: loss={float(loss):.4f} "
+                       f"val={val_acc*100:5.1f}% det={det*100:5.1f}% "
+                       f"fp={fpr*100:5.1f}% acc={acc*100:5.1f}%")
         if stale >= patience:
             if verbose:
-                print(f"early stop at epoch {ep + 1}", flush=True)
+                _trace.log(f"early stop at epoch {ep + 1}")
             break
     params = best[1]
     (te_logits,) = eval_batches(params, xte)
@@ -189,7 +189,7 @@ def run(n_train=1500, n_test=500, epochs=30, batch=64, lr=2e-3, seed=0,
         "detection_rate": det,
         "false_positive_rate": fpr,
         "accuracy": acc,
-        "train_s": time.perf_counter() - t0,
+        "train_s": _trace.clock_us() * 1e-6 - t0,
         "history": history,
         "params": params,
         "epochs_run": epochs_run,
@@ -199,7 +199,7 @@ def run(n_train=1500, n_test=500, epochs=30, batch=64, lr=2e-3, seed=0,
         # ideal bake vs calibrated bake, same trained weights, same test
         # set: the calibrated plan only knows what blind measurement on
         # the layers' chips recovered
-        t1 = time.perf_counter()
+        t1 = _trace.clock_us() * 1e-6
         with torch.no_grad():
             snap = calib.calibrate_model(
                 spec, params,
@@ -211,36 +211,38 @@ def run(n_train=1500, n_test=500, epochs=30, batch=64, lr=2e-3, seed=0,
         out.update(calibrated_detection_rate=det_c,
                    calibrated_false_positive_rate=fpr_c,
                    calibrated_accuracy=acc_c,
-                   calibrate_s=time.perf_counter() - t1)
+                   calibrate_s=_trace.clock_us() * 1e-6 - t1)
     return out
 
 
 def main(fast: bool = False, device: DeviceLike = None) -> list:
     kw = dict(FAST) if fast else {}
-    print("\n== ECG A-fib classification (paper §IV / Fig. 8) ==")
-    print("HIL training through each inter-layer chain, eval on plans "
-          "(ideal bake | calibrated-snapshot bake):")
+    _trace.log("\n== ECG A-fib classification (paper §IV / Fig. 8) ==")
+    _trace.log("HIL training through each inter-layer chain, eval on plans "
+               "(ideal bake | calibrated-snapshot bake):")
     rows = []
     for epilogue, label in (("none", "float-glue"),
                             ("relu_shift", "code-domain")):
         r = run(mode="analog_faithful", verbose=False, epilogue=epilogue,
                 device=device, **kw)
         rows.append(r)
-        print(f"  {label:>12s}: detection {r['detection_rate']*100:5.1f}% "
-              f"@ {r['false_positive_rate']*100:5.1f}% FP, accuracy "
-              f"{r['accuracy']*100:5.1f}% | calibrated "
-              f"{r['calibrated_detection_rate']*100:5.1f}% @ "
-              f"{r['calibrated_false_positive_rate']*100:5.1f}% FP, "
-              f"accuracy {r['calibrated_accuracy']*100:5.1f}%; "
-              f"{r['epochs_run']} epochs, {r['train_s']:.1f} s")
-    print("(paper: 93.7 +- 0.7 % @ 14.0 +- 1.0 %; synthetic data)")
+        _trace.log(
+            f"  {label:>12s}: detection {r['detection_rate']*100:5.1f}% "
+            f"@ {r['false_positive_rate']*100:5.1f}% FP, accuracy "
+            f"{r['accuracy']*100:5.1f}% | calibrated "
+            f"{r['calibrated_detection_rate']*100:5.1f}% @ "
+            f"{r['calibrated_false_positive_rate']*100:5.1f}% FP, "
+            f"accuracy {r['calibrated_accuracy']*100:5.1f}%; "
+            f"{r['epochs_run']} epochs, {r['train_s']:.1f} s")
+    _trace.log("(paper: 93.7 +- 0.7 % @ 14.0 +- 1.0 %; synthetic data)")
     rd = run(mode="digital", verbose=False, device=device, **kw)
-    print(f"digital baseline: detection {rd['detection_rate']*100:.1f}% @ "
-          f"{rd['false_positive_rate']*100:.1f}% FP, accuracy "
-          f"{rd['accuracy']*100:.1f}%")
+    _trace.log(
+        f"digital baseline: detection {rd['detection_rate']*100:.1f}% @ "
+        f"{rd['false_positive_rate']*100:.1f}% FP, accuracy "
+        f"{rd['accuracy']*100:.1f}%")
     if resolve_device(device).type == "cuda":
-        print(f"peak device memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        _trace.log(f"peak device memory "
+                   f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return rows + [rd]
 
 

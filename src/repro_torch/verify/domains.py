@@ -7,7 +7,7 @@ it; the messages are the reference's, word for word.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 from repro_torch.exec.plan import (
     EPILOGUE_NONE,
@@ -32,6 +32,11 @@ DOMAIN_AFTER = {
 # signed encodings a megakernel can emit in-kernel for float-consuming
 # layers ("offset" keeps its column-sum correction per-layer)
 PACKABLE_SIGNED = ("none", "split")
+
+
+def next_domain(domain: str, epilogue: str) -> str:
+    """One transition of the table (KeyError on unknown tags)."""
+    return DOMAIN_AFTER[(domain, epilogue)]
 
 
 def plan_input_domain(plan: AnalogPlan) -> str:
@@ -69,9 +74,35 @@ def handoff_tag(epilogue: str, is_last: bool) -> str:
     return "codes" if epilogue == EPILOGUE_RELU_SHIFT else "relu"
 
 
+def expected_dispatches(
+    input_domain: str,
+    epilogues: Sequence[str],
+    signed_inputs: Sequence[str],
+    *,
+    fused_split: bool,
+) -> int:
+    """Analog dispatches one layer-by-layer deterministic replay issues,
+    derived from the transition table alone: one per layer, plus a second
+    pass for float-consuming signed-split layers without the fused-split
+    kernel (codes-consuming layers are never re-encoded, so their signed
+    mode is moot)."""
+    n = 0
+    d = input_domain
+    last = len(epilogues) - 1
+    for i, (epi, signed) in enumerate(zip(epilogues, signed_inputs)):
+        eff = "none" if d == DOMAIN_CODES else signed
+        n += 2 if (eff == "split" and not fused_split) else 1
+        if i < last:
+            d = DOMAIN_AFTER.get((d, epi), DOMAIN_FLOAT)
+    return n
+
+
 def chain_ineligible_reason(plan: AnalogPlan) -> Optional[str]:
     """Structural megakernel eligibility of a lowered plan; None when
-    eligible, else a reason naming the first offending layer."""
+    eligible, else a reason naming the first offending layer.  Block
+    plans are validated at lower time and always eligible."""
+    if plan.block is not None:
+        return None
     layers = plan.layers
     if len(layers) < 2:
         return "megakernel needs a stack of >= 2 layers"
@@ -81,6 +112,8 @@ def chain_ineligible_reason(plan: AnalogPlan) -> Optional[str]:
         where = (
             f"layer {i} (consumes {domains[i]!r}, epilogue {lp.epilogue!r})"
         )
+        if getattr(lp.store.codes, "ndim", 2) != 2:
+            return f"{where}: scan-stacked (vmapped) plans are not packable"
         if lp.chunk_rows != layers[0].chunk_rows:
             return (
                 f"{where}: chunk geometry {lp.chunk_rows} disagrees with "

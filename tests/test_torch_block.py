@@ -19,6 +19,14 @@ The reference side runs ``analog_plan_pallas`` in interpret mode
 - the port's block route against its own per-layer fallback and its
   per-layer model path: bit-exact under ``NOISELESS`` (the same glue
   functions on the same device).
+- a noisy block call (readout noise drawn) against the reference's
+  ``run(plan, x, key=)`` with the reference's draws passed in: within
+  1e-5 * max|y|, as a deterministic block.
+- the block route's HIL gradients (input, the seven weight masters,
+  ln1 and ln2, lowered under autograd) against the reference's
+  ``jax.grad`` through its megakernel route: within 1e-6 absolute (the
+  reference holds its own two routes to that); the port's block route
+  against its per-layer route: bit-exact.
 
 The CUDA kernels run only on the card: tests/test_torch_cuda.py and
 ``chip_smoke.py`` hold them against these plain versions there.
@@ -40,6 +48,7 @@ from repro.configs.base import RunConfig as JRunConfig  # noqa: E402
 from repro.core.analog import AnalogConfig as JAnalogConfig  # noqa: E402
 from repro.core.analog import analog_linear_init as jlinear_init  # noqa: E402
 from repro.core.noise import NOISELESS as JNOISELESS  # noqa: E402
+from repro.core.noise import readout_noise as j_readout_noise  # noqa: E402
 from repro.kernels.analog_plan import analog_plan_pallas  # noqa: E402
 from repro.kernels.analog_plan import default_block_b  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
@@ -48,6 +57,7 @@ from repro_torch import api, configs  # noqa: E402
 from repro_torch.configs.base import ArchConfig, RunConfig  # noqa: E402
 from repro_torch.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.analog import AnalogConfig  # noqa: E402
+from repro_torch.core.noise import NoiseFeed  # noqa: E402
 from repro_torch.exec import run as trun  # noqa: E402
 from repro_torch.exec.lower import lower_block, lower_stack  # noqa: E402
 from repro_torch.exec.plan import PlanStack  # noqa: E402
@@ -311,6 +321,138 @@ class TestBlockRoutes:
         assert y.dtype == torch.bfloat16
         assert torch.equal(
             y, trun.run(tplan, x.to(torch.float32)).to(torch.bfloat16))
+
+
+def _block_draws(key, jplan, b, mode):
+    """The reference's readout noise of a noisy block replay, in the
+    port's call order: one key per layer (``split(key, 4)``), each split
+    once more into the positive and the negative pass of its signed
+    split; ``[B, S, C, N]`` per pass (faithful) or ``[B, S, N]`` (fast)."""
+    draws = []
+    for lk, lp in zip(jax.random.split(key, 4), jplan.layers):
+        shape = (b, SEQ, lp.n_chunks, lp.n) if mode == "analog_faithful" \
+            else (b, SEQ, lp.n)
+        draws += [torch.tensor(np.asarray(
+            j_readout_noise(kk, shape, jplan.cfg.noise)))
+            for kk in jax.random.split(lk)]
+    return draws
+
+
+_TRAINED = (("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+            ("mlp", "up"), ("mlp", "gate"), ("mlp", "down"))
+
+
+def _with_masters(jp, masters):
+    """The block node ``jp`` with its seven weight masters and its two
+    RMSNorm scales taken from ``masters``."""
+    out = {**jp, "ln1": {"scale": masters["ln1"]},
+           "ln2": {"scale": masters["ln2"]}}
+    for grp in ("attn", "mlp"):
+        out[grp] = {k: dict(v) for k, v in jp[grp].items()}
+    for grp, k in _TRAINED:
+        out[grp][k]["w"] = masters[f"{grp}.{k}"]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _jblock_grads(mode):
+    """``jax.grad`` of mean(y**2) through the reference's megakernel route
+    of a block lowered inside the gradient (its custom VJP of
+    ``_plan_codes``), w.r.t. the input, the weight masters and the
+    RMSNorm scales."""
+    jacfg, _ = _acfgs(mode)
+    jacfg = jacfg.replace(use_pallas=False)
+    jp = _jblock_params(False)
+    kw = dict(n_heads=CFG.n_heads, n_kv_heads=CFG.n_kv_heads,
+              head_dim=CFG.hd, seq=SEQ, rope_theta=CFG.rope_theta)
+    masters = {"ln1": jp["ln1"]["scale"], "ln2": jp["ln2"]["scale"]}
+    masters.update({f"{g}.{k}": jp[g][k]["w"] for g, k in _TRAINED})
+
+    def loss(m, x):
+        plan = JE.lower_block(_with_masters(jp, m), jacfg, **kw)
+        return (JE.run(plan, x, megakernel=True) ** 2).mean()
+
+    gm, gx = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+        masters, jnp.asarray(_block_x(2, seed=4)))
+    return {k: np.asarray(v) for k, v in gm.items()}, np.asarray(gx)
+
+
+def _port_block_grads(mode, megakernel):
+    """The port's gradients of the same loss, the block lowered under
+    autograd from the reference's parameters."""
+    _, acfg = _acfgs(mode)
+    tp = _port(_jblock_params(False))
+    masters = {"ln1": tp["ln1"]["scale"], "ln2": tp["ln2"]["scale"]}
+    masters.update({f"{g}.{k}": tp[g][k]["w"] for g, k in _TRAINED})
+    for t in masters.values():
+        t.requires_grad_(True)
+    x = torch.from_numpy(_block_x(2, seed=4)).requires_grad_(True)
+    plan = lower_block(tp, acfg, n_heads=CFG.n_heads,
+                       n_kv_heads=CFG.n_kv_heads, head_dim=CFG.hd, seq=SEQ,
+                       rope_theta=CFG.rope_theta)
+    trun.reset_dispatch_count()
+    (trun.run(plan, x, megakernel=megakernel) ** 2).mean().backward()
+    assert trun.dispatch_count() == (1 if megakernel else 4)
+    return {k: t.grad for k, t in masters.items()}, x.grad
+
+
+class TestBlockNoise:
+    @pytest.mark.parametrize("mode", MODES)
+    def test_noisy_replay_matches_reference_draws(self, mode):
+        jacfg, acfg = _acfgs(mode, deterministic=False)
+        jp = _jblock_params(False)
+        kw = dict(n_heads=CFG.n_heads, n_kv_heads=CFG.n_kv_heads,
+                  head_dim=CFG.hd, seq=SEQ, rope_theta=CFG.rope_theta)
+        jplan = JE.lower_block(jp, jacfg, **kw)
+        tplan = lower_block(_port(jp), acfg, **kw)
+        x = _block_x(2, seed=5)
+        key = jax.random.PRNGKey(11)
+        want = JE.run(jplan, jnp.asarray(x), key=key)
+        feed = NoiseFeed(_block_draws(key, jplan, 2, mode))
+        trun.reset_dispatch_count()
+        got = trun.run(tplan, torch.from_numpy(x), noise=feed)
+        assert feed.pos == len(feed.draws) == 8      # 4 layers x 2 passes
+        assert trun.dispatch_count() == 8
+        _close(got, want)
+        # the draws took effect: the deterministic replay differs
+        assert not np.array_equal(_np(got), _np(trun.run(
+            tplan, torch.from_numpy(x))))
+
+    def test_noisy_megakernel_refused_with_reason(self):
+        _, acfg = _acfgs(deterministic=False)
+        tplan = lower_block(_port(_jblock_params(False)), acfg,
+                            n_heads=CFG.n_heads, n_kv_heads=CFG.n_kv_heads,
+                            head_dim=CFG.hd, seq=SEQ,
+                            rope_theta=CFG.rope_theta)
+        x = torch.from_numpy(_block_x(1))
+        gen = torch.Generator().manual_seed(0)
+        reason = "noisy replay (readout-noise keys) is layer-by-layer"
+        with pytest.raises(ValueError, match=reason.replace("(", r"\(")
+                           .replace(")", r"\)")):
+            trun.run(tplan, x, noise=gen, megakernel=True)
+        assert trun.megakernel_fallback_reason(tplan, x, noise=gen) == reason
+        assert trun.megakernel_fallback_reason(tplan, x) is None
+
+
+class TestBlockHILGradients:
+    @pytest.mark.parametrize("mode", MODES)
+    def test_block_route_gradients_match_reference(self, mode):
+        jgm, jgx = _jblock_grads(mode)
+        gm, gx = _port_block_grads(mode, True)
+        assert np.abs(jgx).max() > 0
+        np.testing.assert_allclose(_np(gx), jgx, rtol=0, atol=1e-6)
+        for k, want in jgm.items():
+            assert np.abs(want).max() > 0, k
+            np.testing.assert_allclose(_np(gm[k]), want, rtol=0, atol=1e-6,
+                                       err_msg=k)
+
+    @pytest.mark.parametrize("mode", MODES)
+    def test_block_route_gradients_equal_per_layer(self, mode):
+        gm, gx = _port_block_grads(mode, True)
+        fm, fx = _port_block_grads(mode, False)
+        _eq(gx, fx)
+        for k in gm:
+            _eq(gm[k], fm[k])
 
 
 @functools.lru_cache(maxsize=None)

@@ -20,9 +20,9 @@ reference on the same tables.  Tolerances:
   at a tie); a remap hot-swap the same, and bit-exact against a fresh
   compile of the remapped snapshot in the port.
 
-Not mirrored here: the reference's verify rules (``TestVerifyFleetRules``,
-waiting for ``repro_torch.verify``) and the fleet-health mesh test
-(``TestFleetHealthRouting``, waiting for ``repro_torch.distributed``).
+The reference's verify rules (``TestVerifyFleetRules``) are mirrored in
+``tests/test_torch_verify.py``.  Not mirrored here: the fleet-health mesh
+test (``TestFleetHealthRouting``, waiting for the port's mesh).
 """
 import dataclasses
 

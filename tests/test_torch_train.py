@@ -407,16 +407,37 @@ class TestChainHIL:
             _grad_check(path, g_pl[path].numpy(), g_mk, kind == "full")
 
     def test_block_plans_and_split_raise_under_autograd(self):
-        # the split pair has its HIL backward now (the LM training
-        # path, tests/test_torch_lm_train.py); a block plan still raises
+        # neither raises any more: the split pair has its HIL backward
+        # (the LM training path, tests/test_torch_lm_train.py), and so
+        # has a block plan's one launch (held against the reference in
+        # tests/test_torch_block.py::TestBlockHILGradients)
         x = torch.ones((2, 256), requires_grad=True)
         w = torch.ones((256, 4))
         g = torch.ones(4)
         ops.analog_mvm_split(x, x, w, g, None).sum().backward()
         assert torch.equal(x.grad, torch.zeros_like(x))   # da_pos - da_neg
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.analog_plan_codes(x, (w,), g[None], torch.zeros((2, 4)),
-                                  schedule=(), block=object())
+        from repro_torch.configs.base import ArchConfig
+        from repro_torch.exec.lower import lower_block
+        from repro_torch.models import transformer as T
+
+        arch = ArchConfig(name="t", family="dense", n_layers=1, d_model=64,
+                          n_heads=2, n_kv_heads=2, d_ff=96, vocab_size=64)
+        plan = lower_block(
+            T._layer_init(torch.Generator().manual_seed(0), "attn_mlp", arch,
+                          "cpu"), AnalogConfig(act_calib="static"),
+            n_heads=2, n_kv_heads=2, head_dim=32, seq=4, rope_theta=1e4)
+        xb = torch.randn((2, 4, 64), generator=torch.Generator()
+                         .manual_seed(1)).requires_grad_(True)
+        m = plan.mega
+        y = ops.analog_plan_codes(
+            xb.reshape(8, 64), m.stores, m.gain, m.off,
+            schedule=m.schedule, extras=m.extras, block=m.block)
+        (gx,) = torch.autograd.grad((y ** 2).sum(), xb)
+        xf = xb.detach().requires_grad_(True)
+        (gf,) = torch.autograd.grad(
+            (trun.run(plan, xf, megakernel=False) ** 2).sum(), xf)
+        assert float(gx.abs().max()) > 0
+        assert torch.equal(gx, gf)
 
 
 def _named(tree, prefix=""):
