@@ -42,7 +42,10 @@ with random weights from a seed, on one NVIDIA GPU:
   host-device synchronisation, ``CompiledModel.verify()`` on the models
   the phases above built, and ``python -m repro_torch.verify``; a block
   plan's noisy replay and its HIL backward around the one
-  ``analog_plan_block`` launch.
+  ``analog_plan_block`` launch;
+- the port's four examples (``examples_torch/``) as a user runs them, a
+  six-step training trajectory card against CPU, and llama4-maverick at
+  its published widths through ``ServeEngine``.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -202,6 +205,8 @@ exits non-zero without printing a result):
    warmup 100): a held-out batch's loss, read through the no-grad path
    before the steps and after each, finite, and lower after the three
    steps than before;
+   then a control step at ``learning_rate=0``, which must leave every
+   parameter and the held-out loss bit-identical;
    each step's loss equal to the no-grad path's on its own batch with
    the same parameters (within TRAIN_PATH_LOSS_REL); per step exactly
    160 forward + 160 remat-recompute + 1 lm_head split launches, 64 flash
@@ -362,14 +367,42 @@ exits non-zero without printing a result):
    weight masters, ln1, ln2) within BLOCK_GRAD_REL of its max; the
    launch's device ms and the backward's device and host ms beside the
    per-layer route's;
-43. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+43. (after the telemetry line, since ``serve_batch`` resets the metric
+   registry) the four examples of ``examples_torch/`` on the card, each
+   through ``main(argv)`` in this process with its output captured:
+   ``quickstart``, ``serve_batch --requests 4 --max-new 4 --batch 2
+   --mode analog_faithful``, ``lm_analog_train --steps 4 --batch 2
+   --seq-len 32``, ``ecg_train --fast``: the markers of the reference's
+   output, each run's seconds and launches (each must launch its
+   kernels: EXAMPLE_KERNELS); then ``python3 examples_torch/quickstart.py``
+   in a subprocess, exit 0 with the same markers;
+44. tests/test_torch_lm_trajectory.py's six ``make_train_step`` steps of
+   stablelm-3b's SMOKE config on the card against the same steps on the
+   CPU (deterministic, noisy, warmup 2 into the schedule's decay; integer
+   effective weights, static calibration, fp32 activations): every
+   step's loss, grad_norm and lr, the held-out loss before the steps and
+   after each, within the CPU test's tolerances;
+45. (inside phase 22) the lr-0 control step;
+46. llama4-maverick-400b-a17b at its published widths (d_model 5120,
+   40/8 heads of 128, 128 experts top-1 of width 8192 + a shared expert,
+   MoE every second layer, vocab 202048, bf16 parameters) through
+   ``ServeEngine`` at batch 4 (8 requests of 4-11 prompt tokens, 8 new
+   tokens), the depth cut to SERVED_LAYERS (one [dense, MoE] group), its
+   expert stacks drawn and lowered ``EXPERT_BLOCK`` experts at a time:
+   11 split and 3 expert launches per call, the lowering's own peak below
+   one stack's fp32 bytes, the serving peak below PEAK_BUDGET_GIB, decode
+   ms per step (host, device, idle share), prefill latency, the expert
+   launches' device ms at M = 4 per expert beside their bound; blockwise
+   against whole-stack lowering of a [16, 5120, 8192] slice, bit-identical;
+47. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
 ``python3 chip_smoke.py --slice10`` runs the build and phases 22-27
 alone, ``--slice11`` the build and phases 28-32, ``--slice12`` the build
 and phases 33-36, ``--slice13`` the build and phases 37-40, ``--slice14``
-the build and phases 41-42 on models of their own (quick checks; the
-contract's run takes no arguments).
+the build and phases 41-42 on models of their own, ``--slice15`` the
+build, the lr-0 control step on a fresh stablelm-3b and phases 43-46
+(quick checks; the contract's run takes no arguments).
 """
 from __future__ import annotations
 
@@ -3338,6 +3371,10 @@ def lm_train_full():
     finally:
         for u in undo:
             u()
+    state, control = lr0_control(
+        state, _lm_batch(cfg, TRAIN_LM_SEQ, step=TRAIN_LM_STEPS), eval_batch,
+        cfg, run, held[-1])
+    emit("lm_train_lr0_control", control)
     peak = torch.cuda.max_memory_allocated() / 2**30
     bad = []
     per = 5 * cfg.n_layers
@@ -3369,6 +3406,7 @@ def lm_train_full():
               "seq": TRAIN_LM_SEQ, "batch": 1, "steps": steps,
               "losses": losses, "no_grad_losses": own,
               "held_out_losses": held,
+              "held_out_after_lr0_control": control["held_out_after"],
               "learning_rate": run.learning_rate,
               "warmup_steps": run.warmup_steps, "init_s": t_init,
               "state_gib": mem_state, "peak_memory_gib": peak,
@@ -4128,24 +4166,23 @@ def _serve_timing(cfg, prefill, decode, params, batch, step_input):
             else 1 - dev_ms / host}
 
 
-def _expert_launch_ms(tree, cfg, g):
+def _expert_launch_ms(tree, cfg, g, layer="l0", m=EXPERT_M):
     """Device ms of one MoE layer's three expert launches at the decode
-    shape (M = 32 per expert), on the served tree's lowered stacks, and
-    their bound."""
+    shape (``m`` rows per expert; qwen3's 32 by default), on the served
+    tree's lowered stacks (the MoE layer ``layer`` of group 0), and their
+    bound."""
     from repro_torch.exec.run import run_expert_stack
 
     acfg = AnalogConfig(mode="analog_faithful")
-    node = T.stack_index(tree["layers"]["l0"], 0)["moe"]["_groups"]
+    node = T.stack_index(tree["layers"][layer], 0)["moe"]["_groups"]
     out = {}
     for name, k, n in expert_shapes(cfg):
         gp = node[name]
-        xe = torch.randn((cfg.n_experts, EXPERT_M, k), generator=g,
-                         device=DEV)
+        xe = torch.randn((cfg.n_experts, m, k), generator=g, device=DEV)
         ms, rec = kernel_record_ms(lambda: run_expert_stack(gp, xe, acfg),
                                    "split_kernel", iters=10)
         out[name] = {"device_ms": ms, "records": rec,
-                     "bound_ms": bound(*expert_work(cfg.n_experts, EXPERT_M,
-                                                    k, n),
+                     "bound_ms": bound(*expert_work(cfg.n_experts, m, k, n),
                                        BF16_OPS_PER_S)[0]}
     return out
 
@@ -4866,8 +4903,11 @@ TRAINED_LAYERS = {MOE_ARCH: 4, VL_ARCH: 10, RWKV_ARCH: 14, HYBRID_ARCH: 54}
 # names the cuts): their step is the per-token scans' host loop, about
 # 2 s per layer at 4096 (phase 38), over 45 s per step at 4096 for both;
 # zamba2's 54 layers are cut further for the run's time (46 s for its
-# two steps at 1024; PERF.md, Cells)
-TRAINED_SEQ = {RWKV_ARCH: 2048, HYBRID_ARCH: 512}
+# two steps at 1024; PERF.md, Cells).  Both halved once more (from 2048
+# and 512) to make room for phases 43-46 in the run's 1200 s: the steps
+# are host-bound per token, so the halves save about half their 32 and
+# 28 s (smoke run 4, PR 24)
+TRAINED_SEQ = {RWKV_ARCH: 1024, HYBRID_ARCH: 256}
 # the kernel each family's training step must reach
 TRAIN_FAMILIES = (MOE_ARCH, VL_ARCH, RWKV_ARCH, HYBRID_ARCH)
 
@@ -5732,6 +5772,426 @@ def block_paths(cfg, counts):
     return report
 
 
+# ------------------------------------------------------------ phases 43-46
+# the port's examples, in-process (``main(argv)``, stdout captured): the
+# arguments of each and the markers its output must hold.  serve_batch
+# runs analog_faithful (its default, digital, launches no kernel)
+EXAMPLE_RUNS = (
+    ("quickstart", [], ("[1] analog vs digital linear", "mode=analog_fast",
+                        "[3] 8-tile inference")),
+    ("serve_batch", ["--requests", "4", "--max-new", "4", "--batch", "2",
+                     "--mode", "analog_faithful"],
+     ("served 4 requests", "tok/s on cuda",
+      "serve.all/serve.batch/serve.decode")),
+    ("lm_analog_train", ["--steps", "4", "--batch", "2", "--seq-len", "32"],
+     ("=== summary ===", "digital:", "analog:")),
+    ("ecg_train", ["--fast"], ("analog HIL: detection", "per inference:",
+                               "CR2032")),
+)
+# the kernels each example's run must launch (the LM examples' analog
+# layers through the split kernel; ecg_train's preprocessing and its
+# float-glue chain's per-layer eval replay)
+EXAMPLE_KERNELS = {
+    "quickstart": ("analog_mvm_split",),
+    "serve_batch": ("analog_mvm_split",),
+    "lm_analog_train": ("analog_mvm_split",),
+    "ecg_train": ("maxmin_pool", "analog_mvm"),
+}
+# phase 44: the SMOKE trajectory of tests/test_torch_lm_trajectory.py on
+# the card against the port on the CPU: six make_train_step steps of
+# stablelm-3b's SMOKE config at fp32 activations, on integer effective
+# weights (the fixed pattern NOISELESS) at static activation calibration,
+# as phases 23 and 39 hold card against CPU: the card's tensor-core sums
+# round a float-gain ADC readout other than the CPU's at a tie (the 1-LSB
+# contract; slice15 run 2: the default pattern's step-1 loss 2.2e-4
+# apart), and a dynamic code flips at a tie; the CPU test's tolerances
+TRAJ_STEPS = 6
+TRAJ_SEQ, TRAJ_BATCH = 16, 2
+TRAJ_CASES = (("deterministic", False, 100), ("noisy", True, 100),
+              ("warmup", False, 2))
+TRAJ_STEP1_LOSS_REL = 1e-6
+TRAJ_STEP1_METRIC_REL = 1e-5
+TRAJ_LATER_LOSS_REL = 1e-5
+# phase 46: llama4-maverick at its published widths, cut to one
+# [dense, MoE] group: raw bf16 weights 33.8 GB and int8 codes 16.6 GB per
+# group, 5.2 GB for the embedding, the lm_head and its codes, so a second
+# group (~50 GB more) does not fit 80 GB
+MAVERICK_ARCH = "llama4-maverick-400b-a17b"
+SERVED_LAYERS[MAVERICK_ARCH] = 2
+# blockwise against whole-stack lowering on the card: this many experts of
+# a maverick up stack
+MAVERICK_SLICE_E = 16
+
+
+def run_examples(counts):
+    """Phase 43: the four examples of ``examples_torch/`` on the card at
+    small arguments, each through ``main(argv)`` in this process with its
+    output captured: its markers, its seconds and the launches of its run
+    alone (each must launch its kernels); then ``python3
+    examples_torch/quickstart.py`` in a subprocess, the README's command,
+    exit 0 with the same markers."""
+    import importlib
+    import io
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    report, bad = {}, []
+    for name, argv, markers in EXAMPLE_RUNS:
+        mod = importlib.import_module(f"examples_torch.{name}")
+        out = io.StringIO()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            mod.main(list(argv))
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        launches = ops.launch_counts()
+        text = out.getvalue()
+        missing = [m for m in markers if m not in text]
+        idle = [k for k in EXAMPLE_KERNELS[name] if not launches[k]]
+        if missing or idle:
+            bad.append(f"{name}: markers missing {missing}, kernels not "
+                       f"launched {idle} ({launches})")
+        for k, v in launches.items():
+            counts[k] += v
+        report[name] = {"argv": list(argv), "seconds": secs,
+                        "launches": {k: v for k, v in launches.items() if v},
+                        "last_lines": text.strip().splitlines()[-3:]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.monotonic()
+    res = subprocess.run([sys.executable, "examples_torch/quickstart.py"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    report["quickstart_subprocess"] = {
+        "returncode": res.returncode, "seconds": time.monotonic() - t0,
+        "last_lines": res.stdout.strip().splitlines()[-3:]}
+    missing = [m for m in EXAMPLE_RUNS[0][2] if m not in res.stdout]
+    if res.returncode or missing:
+        bad.append(f"python3 examples_torch/quickstart.py: exit "
+                   f"{res.returncode}, markers missing {missing}: "
+                   f"{res.stderr[-2000:]}")
+    if bad:
+        emit("examples", report)
+        raise AssertionError("; ".join(bad))
+    return report
+
+
+def _traj_state(cfg, run):
+    """The port's init on the CPU with integer effective weights."""
+    saved = T.NOISE
+    T.NOISE = NOISELESS
+    try:
+        return TS.init_state(torch.Generator().manual_seed(SEED), cfg, run,
+                             device="cpu")
+    finally:
+        T.NOISE = saved
+
+
+def _held_out_loss(params, batch, cfg, run):
+    with torch.no_grad():
+        plan = api.compile(T.lm_module_spec(cfg, params), params, run,
+                           device=batch["tokens"].device).lower()
+        return float(T.lm_loss(plan, batch, cfg, run)[0])
+
+
+def trajectory_card_vs_cpu(counts):
+    """Phase 44: tests/test_torch_lm_trajectory.py's six steps on the card
+    against the same steps on the CPU (the port's own init on integer
+    effective weights, copied to both; static calibration; the readout
+    noise drawn on the CPU and replayed on both): every
+    step's loss, grad_norm and lr, the held-out loss through the no-grad
+    path before the steps and after each; the CPU test's tolerances."""
+    cfg = configs.get_smoke(TRAIN_LM_ARCH)
+    held_cpu = {k: v.cpu() for k, v in _lm_batch(
+        cfg, TRAJ_SEQ, step=TRAIN_LM_EVAL_BATCH, batch=TRAJ_BATCH).items()}
+    held = {k: v.to(DEV) for k, v in held_cpu.items()}
+    report, bad = {}, []
+    for case, noisy, warmup in TRAJ_CASES:
+        run = RunConfig(analog=AnalogConfig(
+            mode="analog_faithful", act_calib="static",
+            deterministic=not noisy), warmup_steps=warmup,
+            activation_dtype="float32")
+        cpu = _traj_state(cfg, run)
+        card = to_device(O.tree_map(lambda t: t.clone(), cpu), DEV)
+        step = TS.make_train_step(cfg, run)
+        rows = [("held-out", 0, _held_out_loss(card["params"], held, cfg,
+                                               run),
+                 _held_out_loss(cpu["params"], held_cpu, cfg, run))]
+        ops.reset_launch_counts()
+        for i in range(TRAJ_STEPS):
+            b = _lm_batch(cfg, TRAJ_SEQ, step=i, batch=TRAJ_BATCH)
+            feed = (NoiseFeed(generator=torch.Generator().manual_seed(
+                SEED + 100 + i)) if noisy else None)
+            card, mc = step(card, b, feed)
+            if feed is not None:
+                feed.rewind()
+            cpu, mp = step(cpu, {k: v.cpu() for k, v in b.items()}, feed)
+            rows += [(k, i + 1, float(mc[k]), float(mp[k]))
+                     for k in ("loss", "grad_norm", "lr")]
+            rows.append(("held-out", i + 1,
+                         _held_out_loss(card["params"], held, cfg, run),
+                         _held_out_loss(cpu["params"], held_cpu, cfg, run)))
+        launches = ops.launch_counts()
+        for k, v in launches.items():
+            counts[k] += v
+        worst = 0.0
+        for what, i, got, want in rows:
+            if what in ("grad_norm", "lr") and i > 1:
+                continue
+            lim = ((TRAJ_LATER_LOSS_REL if i > 1 else TRAJ_STEP1_LOSS_REL)
+                   if what in ("loss", "held-out") else TRAJ_STEP1_METRIC_REL)
+            rel = abs(got - want) / abs(want) if want else abs(got)
+            worst = max(worst, rel) if what in ("loss", "held-out") else worst
+            if not np.isfinite(got) or rel > lim:
+                bad.append(f"{case} step {i} {what}: card {got!r} CPU "
+                           f"{want!r}")
+        if not launches["analog_mvm_split"]:
+            bad.append(f"{case}: no split launch on the card")
+        report[case] = {
+            "losses": [r[2] for r in rows if r[0] == "loss"],
+            "held_out": [r[2] for r in rows if r[0] == "held-out"],
+            "cpu_held_out": [r[3] for r in rows if r[0] == "held-out"],
+            "max_loss_rel": worst,
+            "launches": {k: v for k, v in launches.items() if v}}
+        del card, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    if bad:
+        emit("trajectory", report)
+        raise AssertionError("; ".join(bad[:12]))
+    return report
+
+
+def lr0_control(state, step_batch, eval_batch, cfg, run, held_before):
+    """Phase 22's control step: one ``make_train_step`` step at
+    ``learning_rate=0`` must leave every parameter (compared leaf by leaf
+    against a host copy) and the held-out loss bit-identical; otherwise
+    the step changes state outside its update."""
+    host = O.tree_map(lambda t: t.detach().to("cpu", copy=True),
+                      state["params"])
+    ctrl = TS.make_train_step(cfg, dataclasses.replace(run,
+                                                       learning_rate=0.0))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    state, metrics = ctrl(state, step_batch)
+    torch.cuda.synchronize()
+    step_s = time.monotonic() - t0
+    changed = []
+
+    def cmp(path, a, b):
+        if not torch.equal(a, b.detach().cpu()):
+            changed.append(path)
+
+    now = _named(state["params"])
+    for path, a in _named(host).items():
+        cmp(path, a, now[path])
+    del host
+    held = _held_out_loss(state["params"], eval_batch, cfg, run)
+    torch.cuda.empty_cache()
+    rep = {"lr": float(metrics["lr"]), "loss": float(metrics["loss"]),
+           "grad_norm": float(metrics["grad_norm"]), "step_s": step_s,
+           "held_out_before": held_before, "held_out_after": held,
+           "leaves_changed": changed}
+    if float(metrics["lr"]) != 0.0 or changed or held != held_before:
+        raise AssertionError(f"lr-0 control step changed state: {rep}")
+    return state, rep
+
+
+def maverick_lowering_slice():
+    """Blockwise against whole-stack lowering of a [16, 5120, 8192] slice
+    of a maverick up stack on the card (bf16 raw weights): codes, w_scale
+    and gains bit-identical; each lowering's own peak above what it
+    started from."""
+    from repro_torch.exec.lower import lower_expert_stack
+
+    full = configs.get_arch(MAVERICK_ARCH)
+    w = (torch.randn((MAVERICK_SLICE_E, full.d_model, full.moe_d_ff),
+                     generator=torch.Generator(device=DEV).manual_seed(
+                         SEED + 15), device=DEV) * full.d_model ** -0.5
+         ).to(torch.bfloat16)
+    acfg = AnalogConfig(mode="analog_faithful")
+    out, peaks = {}, {}
+    saved = M.EXPERT_BLOCK
+    try:
+        for label, block in (("blockwise", saved),
+                             ("whole_stack", MAVERICK_SLICE_E)):
+            M.EXPERT_BLOCK = block
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            lp = lower_expert_stack(w, acfg)
+            torch.cuda.synchronize()
+            peaks[label] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            out[label] = lp.store
+    finally:
+        M.EXPERT_BLOCK = saved
+    same = {k: bool(torch.equal(getattr(out["blockwise"], k),
+                                getattr(out["whole_stack"], k)))
+            for k in ("codes", "w_scale", "gain")}
+    rep = {"shape": list(w.shape), "expert_block": saved,
+           "bit_identical": same, "lowering_peak_gib": peaks,
+           "fp32_slice_gib": w.numel() * 4 / 2**30}
+    if not all(same.values()) or out["blockwise"].codes.dtype != torch.int8:
+        raise AssertionError(f"blockwise lowering differs: {rep}")
+    return rep
+
+
+def maverick_full_serving(counts):
+    """Phase 46: llama4-maverick-400b-a17b at its published widths (d_model
+    5120, 40/8 heads of 128, 128 experts top-1 of width 8192 + a shared
+    expert, MoE every second layer beside a dense d_ff of 8192, vocab
+    202048, bf16 parameters), random weights, ``analog_faithful``,
+    through ``ServeEngine`` at batch 4 (phase 29's traffic), its depth cut
+    to SERVED_LAYERS (one [dense, MoE] group): the expert stacks drawn
+    and lowered EXPERT_BLOCK experts at a time, so no fp32 copy of a whole
+    stack exists - the lowering's own peak above the raw weights and the
+    plans it leaves is held below one stack's fp32 bytes; per call 3
+    expert launches per MoE layer; decode ms per step (host, device, idle
+    share), prefill latency, the expert launches' device ms at the decode
+    shape beside their bound, the serving peak below PEAK_BUDGET_GIB; then
+    blockwise against whole-stack lowering on a 16-expert slice."""
+    full = configs.get_arch(MAVERICK_ARCH)
+    depth = SERVED_LAYERS[MAVERICK_ARCH]
+    cfg = _cut(full, depth)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    kinds = T.group_def(cfg) * T.n_groups(cfg)
+    n_moe = kinds.count("attn_moe")
+    n_dense = len(kinds) - n_moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = T.lm_init(torch.Generator(device=DEV).manual_seed(SEED), cfg,
+                       device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    raw_bytes = torch.cuda.memory_allocated() - base
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in O.tree_leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                         max_len=LM_MAX_LEN, device=DEV)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    lower_peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    del params
+    plan_bytes = held - raw_bytes
+    stack_fp32 = full.n_experts * full.d_model * full.moe_d_ff * 4
+    verify_on_card("maverick expert stacks", engine.model)
+    calls = _counting(engine)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    done = engine.serve(_lm_requests(cfg))
+    torch.cuda.synchronize()
+    serve_s = time.monotonic() - t0
+    launches = ops.launch_counts()
+    calls = dict(calls)          # the served calls (the timing adds more)
+    n_calls = calls["prefill"] + calls["decode"]
+    # per layer the fused QKV and o; a dense layer's up, gate and down; an
+    # MoE layer's shared expert (up, gate, down) and its three stacks
+    per_call = {"analog_mvm_split": 5 * n_dense + 5 * n_moe + 1,
+                "analog_mvm_split_experts": 3 * n_moe}
+    want = _launches(**{k: v * n_calls for k, v in per_call.items()})
+    bad = []
+    if launches != want:
+        bad.append(f"maverick launch counts {launches} != {want} ({calls})")
+    for k, v in launches.items():
+        counts[k] += v
+    for r in done:
+        out = r.output.tolist()
+        if len(out) != LM_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in out):
+            bad.append(f"request {r.uid}: tokens {out}")
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
+    timing = _serve_timing(cfg, engine.prefill, engine.decode, engine.params,
+                           {"tokens": toks}, toks[:, :1])
+    moe_layer = f"l{T.group_def(cfg).index('attn_moe')}"
+    per_layer = _expert_launch_ms(engine.params, cfg,
+                                  torch.Generator(device=DEV).manual_seed(
+                                      SEED + 16),
+                                  layer=moe_layer, m=LM_BATCH)
+    dev_ms = [v["device_ms"] for v in per_layer.values()]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    report = {
+        "arch": cfg.name, "published_layers": full.n_layers,
+        "layers": depth, "n_params": n_params, "param_dtype": str(
+            cfg.dtype), "init_s": init_s, "build_s": build_s,
+        "serve_s": serve_s, "calls": calls, "launches": {
+            k: v for k, v in launches.items() if v},
+        "launches_per_call": per_call, **timing,
+        "expert_launches_device_ms_per_layer": per_layer,
+        "expert_device_ms_per_decode_step": None if None in dev_ms
+        else n_moe * sum(dev_ms),
+        "expert_bound_ms_per_decode_step": n_moe * sum(
+            v["bound_ms"] for v in per_layer.values()),
+        "raw_gib": raw_bytes / 2**30, "plans_gib": plan_bytes / 2**30,
+        "raw_plus_plans_gib": held / 2**30,
+        "init_peak_gib": init_peak / 2**30, "base_gib": base / 2**30,
+        "lowering_peak_gib": lower_peak / 2**30,
+        "lowering_transient_gib": (lower_peak - held) / 2**30,
+        "one_stack_fp32_gib": stack_fp32 / 2**30,
+        "peak_memory_gib": peak,
+        "tokens": {r.uid: r.output.tolist() for r in done},
+    }
+    if lower_peak - held >= stack_fp32:
+        bad.append(f"the lowering's peak is {report['lowering_transient_gib']}"
+                   " GiB above what it leaves: an fp32 stack's worth")
+    if peak > PEAK_BUDGET_GIB or init_peak / 2**30 > PEAK_BUDGET_GIB:
+        bad.append(f"maverick peak {peak} GiB (init {init_peak / 2**30}) "
+                   f"above the {PEAK_BUDGET_GIB} GiB budget")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["lowering_slice"] = maverick_lowering_slice()
+    if bad:
+        emit("maverick_full_serving", report)
+        raise AssertionError("; ".join(bad))
+    return report
+
+
+def slice15_phases(counts):
+    """Phases 43-46 (the lr-0 control of phase 22 runs there)."""
+    emit("examples", run_examples(counts))
+    emit("trajectory", trajectory_card_vs_cpu(counts))
+    emit("maverick_full_serving", maverick_full_serving(counts))
+
+
+def slice15_only() -> None:
+    """``python3 chip_smoke.py --slice15``: the build and phases 43-46
+    alone, with phase 22's lr-0 control step on a freshly drawn
+    stablelm-3b at its published size (a quick check of this slice; the
+    run the contract reads takes no arguments)."""
+    print(card_line(), flush=True)
+    emit("build", {"seconds_per_kernel": _build.build()})
+    counts = {name: 0 for name in TPU_KERNELS}
+    try:
+        cfg = configs.get_arch(TRAIN_LM_ARCH)
+        run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+        state = TS.init_state(torch.Generator(device=DEV).manual_seed(SEED),
+                              cfg, run)
+        eval_batch = _lm_batch(cfg, TRAIN_LM_SEQ, step=TRAIN_LM_EVAL_BATCH)
+        held = _held_out_loss(state["params"], eval_batch, cfg, run)
+        state, control = lr0_control(
+            state, _lm_batch(cfg, TRAIN_LM_SEQ, step=0), eval_batch, cfg,
+            run, held)
+        emit("lm_train_lr0_control", control)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        slice15_phases(counts)
+    finally:
+        emit("wall_s", WALL)
+    emit("launches", counts)
+
+
 def slice14_only() -> None:
     """``python3 chip_smoke.py --slice14``: the build and phases 41-42
     alone, on models of their own: phi4-mini at full width compiled under
@@ -5975,6 +6435,8 @@ def main() -> None:
     emit("profiler_traces", TRACES)
     obs.trace.end(tr)
     emit("telemetry", obs_line(tr))
+    # after the telemetry line: serve_batch resets the metric registry
+    slice15_phases(counts)
     emit("wall_s", WALL)
 
     kernels = []
@@ -6060,8 +6522,11 @@ if __name__ == "__main__":
         slice13_only()
     elif sys.argv[1:] == ["--slice14"]:
         slice14_only()
+    elif sys.argv[1:] == ["--slice15"]:
+        slice15_only()
     elif sys.argv[1:]:
         _fail(f"unknown arguments {sys.argv[1:]}; run with none, "
-              "--slice10, --slice11, --slice12, --slice13 or --slice14")
+              "--slice10, --slice11, --slice12, --slice13, --slice14 or "
+              "--slice15")
     else:
         main()

@@ -475,35 +475,58 @@ def lower_expert_stack(w: torch.Tensor, cfg: AnalogConfig) -> LayerPlan:
     There is no fixed pattern (the reference
     omits expert fixed-pattern noise), so each expert's effective weights
     are its integer codes and the gain applies after the sum; activation
-    scaling stays dynamic at run time (``a_scale`` ones).  The same
+    scaling stays dynamic at run time (``a_scale`` ones).  Without
+    autograd the stack is lowered ``models.moe.EXPERT_BLOCK`` experts at a
+    time into a preallocated int8 ``[E, K_pad, N]`` (bit-identical to the
+    whole stack at once: every number is per expert).  The same
     formulas as the per-call path
     (:func:`repro_torch.models.moe._analog_expert_matmul`), so
     :func:`repro_torch.exec.run.run_expert_stack` replays it bit-exactly.
     Counts one lowering."""
     from repro_torch.core.analog import _statistical_gain
+    from repro_torch.models.moe import EXPERT_BLOCK
 
     global _LOWERINGS
     _LOWERINGS += 1
     if w.ndim != 3:
         raise ValueError(f"expert stacks are [E, K, N] weight arrays, got "
                          f"shape {tuple(w.shape)}")
-    w = w.to(torch.float32)
     e, k, n = w.shape
-    w_scale = quant.weight_scale_from_max(
-        w.detach().abs().amax(dim=1, keepdim=True) + 1e-9)
     n_chunks = -(-k // cfg.chunk_rows)
-    codes = F.pad(quant.quantize_weight(w, w_scale),
-                  (0, 0, 0, n_chunks * cfg.chunk_rows - k))
-    if not codes.requires_grad:
-        # int8 for serving; codes that require grad stay fp32 STE values
-        # (the cast would cut the straight-through gradient to the
-        # masters), and the card casts them to its int8 operand
-        codes = codes.to(torch.int8)
+    k_pad = n_chunks * cfg.chunk_rows
+
+    def bake(wb):
+        """(codes, w_scale [b, 1, N], gain [b]) of a block of experts;
+        each expert's numbers come from its own slice alone."""
+        wb = wb.to(torch.float32)
+        scale = quant.weight_scale_from_max(
+            wb.detach().abs().amax(dim=1, keepdim=True) + 1e-9)
+        return (quant.quantize_weight(wb, scale), scale,
+                torch.stack([_statistical_gain(wb[i], cfg.chunk_rows)
+                             for i in range(wb.shape[0])]))
+
+    if w.requires_grad and torch.is_grad_enabled():
+        # under autograd the whole stack: the codes stay fp32
+        # straight-through values (an int8 cast would cut the gradient to
+        # the masters), and the card casts them to its int8 operand
+        codes, w_scale, gain = bake(w)
+        codes = F.pad(codes, (0, 0, 0, k_pad - k))
+    else:
+        # serving: EXPERT_BLOCK experts at a time, into the int8 operand,
+        # so no fp32 copy of the whole stack exists
+        codes = torch.zeros((e, k_pad, n), dtype=torch.int8, device=w.device)
+        w_scale = torch.empty((e, 1, n), dtype=torch.float32,
+                              device=w.device)
+        gain = torch.empty((e,), dtype=torch.float32, device=w.device)
+        for e0 in range(0, e, EXPERT_BLOCK):
+            e1 = min(e0 + EXPERT_BLOCK, e)
+            c, w_scale[e0:e1], gain[e0:e1] = bake(w[e0:e1])
+            codes[e0:e1, :k] = c.to(torch.int8)
+            del c
     store = WeightStore(  # verify: allow-packed-weights
         codes=codes,
         w_scale=w_scale,
-        gain=torch.stack([_statistical_gain(w[i], cfg.chunk_rows)
-                          for i in range(e)]),
+        gain=gain,
         chunk_rows=cfg.chunk_rows,
     )
     return LayerPlan(

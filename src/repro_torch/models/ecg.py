@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.analog import analog_linear_init
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.energy import LayerWork
 from repro_torch.core.noise import NoiseConfig
 
 
@@ -42,6 +43,14 @@ class ECGConfig:
     @property
     def conv_cols(self) -> int:
         return self.conv_positions * self.conv_channels
+
+    def layer_works(self) -> list[LayerWork]:
+        """The three layers' (K, N) for the energy model."""
+        return [
+            LayerWork(k=self.conv_taps * self.in_channels, n=self.conv_cols),
+            LayerWork(k=self.conv_cols, n=self.hidden),
+            LayerWork(k=self.hidden, n=self.classes * self.class_copies),
+        ]
 
 
 def ecg_init(generator: torch.Generator, cfg: ECGConfig = ECGConfig(), *,

@@ -194,11 +194,21 @@ def mlp_specs(*, act="swiglu", noise: NoiseConfig = NoiseConfig()):
     return p
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference computes it: ``x * (1 / (1 +
+    exp(-x)))``, every operation rounded to ``x``'s dtype.  ``F.silu``
+    rounds once from fp32, which at bf16 activations differs from the
+    reference in the last bit of about a third of the elements, and a
+    flipped bit moves the next layer's dynamic 5-bit codes."""
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    return x * (one / (one + torch.exp(-x)))
+
+
 def mlp_apply(params, x, acfg: AnalogConfig, *, act="swiglu", noise=None):
     up = linear_apply(params["up"], x, acfg, noise=noise)
     if act == "swiglu":
         gate = linear_apply(params["gate"], x, acfg, noise=noise)
-        h = F.silu(gate) * up
+        h = silu(gate) * up
     elif act == "gelu":
         h = F.gelu(up, approximate="tanh")
     elif act == "relu":

@@ -38,6 +38,11 @@ from repro_torch.models import layers as L
 
 # the reference's no-mesh dispatch names: both build the buffer locally
 _NO_MESH_DISPATCH = ("gspmd_ep", "replicated_buf")
+# Experts per block when an expert stack is drawn (:func:`moe_init`) or
+# lowered without grad (``exec.lower.lower_expert_stack``): one block of
+# fp32 values exists at a time, never a whole stack (llama4-maverick's is
+# 128 x 5120 x 8192, 21.5 GB in fp32).  Every SMOKE stack is one block.
+EXPERT_BLOCK = 8
 
 
 class Routes:
@@ -78,20 +83,29 @@ def moe_init(generator, d_model, d_ff, n_experts, *, n_shared=0,
     """Router ``[d, E]`` (fp32) and the expert stacks ``up`` / ``gate``
     ``[E, d, d_ff]`` and ``down`` ``[E, d_ff, d]``, normal draws at the
     reference's scales (1/sqrt(fan-in)), plus a shared-expert MLP of
-    width ``d_ff * n_shared``."""
+    width ``d_ff * n_shared``.  A stack is drawn :data:`EXPERT_BLOCK`
+    experts at a time, each block cast to ``dtype`` at once."""
     dev = resolve_device(device)
     s_up = d_model ** -0.5
     s_down = d_ff ** -0.5
-    shape_up = (n_experts, d_model, d_ff)
-    shape_down = (n_experts, d_ff, d_model)
+
+    def stack(k, n, scale):
+        # EXPERT_BLOCK experts at a time, each block cast to ``dtype`` at
+        # once (one block is the whole stack up to EXPERT_BLOCK experts)
+        out = torch.empty((n_experts, k, n), dtype=dtype, device=dev)
+        for e0 in range(0, n_experts, EXPERT_BLOCK):
+            e1 = min(e0 + EXPERT_BLOCK, n_experts)
+            out[e0:e1] = _normal(generator, (e1 - e0, k, n), dev) * scale
+        return out
+
     p = {
         "router": {"w": (_normal(generator, (d_model, n_experts), dev)
                          * s_up).to(torch.float32)},
-        "up": (_normal(generator, shape_up, dev) * s_up).to(dtype),
-        "down": (_normal(generator, shape_down, dev) * s_down).to(dtype),
+        "up": stack(d_model, d_ff, s_up),
+        "down": stack(d_ff, d_model, s_down),
     }
     if act == "swiglu":
-        p["gate"] = (_normal(generator, shape_up, dev) * s_up).to(dtype)
+        p["gate"] = stack(d_model, d_ff, s_up)
     if n_shared:
         p["shared"] = L.mlp_init(generator, d_model, d_ff * n_shared,
                                  act=act, noise=noise, dtype=dtype,
@@ -205,7 +219,7 @@ def _expert_ffn(params, xe, act, acfg: AnalogConfig):
     if act == "swiglu":
         gate = _expert_matmul(xe, params["gate"], acfg,
                               plan=plan_of("gate"))
-        h = F.silu(gate) * up
+        h = L.silu(gate) * up
     else:
         h = F.gelu(up, approximate="tanh")
     return _expert_matmul(h, params["down"], acfg, plan=plan_of("down"))

@@ -80,8 +80,11 @@ def _map(tree, fn):
 
 def _stack(make, n: int):
     """``n`` draws of ``make()`` stacked along a new leading axis, filled
-    in place (peak memory: the stack plus one draw)."""
+    in place (peak memory: the stack plus one draw; one draw is its own
+    stack, a view with no copy)."""
     first = make()
+    if n == 1:
+        return _map(first, lambda t: t.unsqueeze(0))
     out = _map(first, lambda t: t.new_empty((n,) + tuple(t.shape)))
 
     def fill(dst, src, i):

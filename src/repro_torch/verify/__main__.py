@@ -1,6 +1,7 @@
 """``python -m repro_torch.verify``: the port's static verification gate.
 
-Runs the AST lint over ``src/repro_torch`` and the invariant sweep (every
+Runs the AST lint over ``src/repro_torch`` and ``examples_torch`` and
+the invariant sweep (every
 SMOKE spec, the representative compiled plans, a placed fleet), printing
 each finding as ``file:line: [rule] message`` / ``[rule] path: message``
 and exiting 1 if anything fired.  The sweep compiles its plans on

@@ -75,8 +75,9 @@ _STORE_HOMES = (
     "repro_torch/exec/store.py",
 )
 _PLAN_DIR = "repro_torch/exec/"
-# the port's library tree (its examples join once they exist)
-DEFAULT_ROOTS = ("src/repro_torch",)
+# the port's library tree and its examples (bare-print / raw-timer stay
+# scoped to the library: an example may print)
+DEFAULT_ROOTS = ("src/repro_torch", "examples_torch")
 # the observability surface: the one place prints and raw timers live
 _OBS_DIR = "repro_torch/obs/"
 

@@ -298,6 +298,66 @@ class TestExpertProducts:
             np.testing.assert_array_equal(_np(got), _np(loop))
 
 
+class TestExpertBlocks:
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_blockwise_lowering_bit_identical(self, monkeypatch, dtype):
+        """A stack lowered ``EXPERT_BLOCK`` experts at a time (a ragged
+        block: E = 7 in blocks of 3) equals the whole stack lowered at
+        once, bit for bit: the int8 codes, ``w_scale``, the gains and the
+        plan's geometry; and the reference's lowering of the same float
+        weights (codes and scales equal, gains within 1e-6); the STE codes of the path
+        under autograd hold the same integers."""
+        rng = np.random.default_rng(7)
+        w = torch.from_numpy((rng.standard_normal((7, 200, 24)) * 0.05)
+                             .astype(np.float32)).to(dtype)
+        acfg = AnalogConfig()
+        monkeypatch.setattr(M, "EXPERT_BLOCK", 64)
+        whole = tlower.lower_expert_stack(w, acfg)
+        monkeypatch.setattr(M, "EXPERT_BLOCK", 3)
+        blocks = tlower.lower_expert_stack(w, acfg)
+        for name in ("codes", "w_scale", "gain"):
+            a, b = getattr(whole.store, name), getattr(blocks.store, name)
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+        assert blocks.store.codes.dtype == torch.int8
+        assert (blocks.k, blocks.n, tuple(blocks.store.codes.shape)) == \
+            (whole.k, whole.n, (7, 256, 24))
+        jl = jlower_expert_stack(jnp.asarray(w.float().numpy()),
+                                 JAnalogConfig())
+        np.testing.assert_array_equal(_np(blocks.store.codes),
+                                      np.asarray(jl.store.codes))
+        np.testing.assert_array_equal(_np(blocks.store.w_scale),
+                                      np.asarray(jl.store.w_scale))
+        # the gain's mean of float squares sums in another order
+        np.testing.assert_allclose(_np(blocks.store.gain),
+                                   np.asarray(jl.store.gain), rtol=1e-6)
+        ste = tlower.lower_expert_stack(w.float().requires_grad_(True), acfg)
+        assert ste.store.codes.dtype == torch.float32
+        np.testing.assert_array_equal(
+            _np(ste.store.codes.detach()), _np(blocks.store.codes.float()))
+
+    @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b",
+                                      "llama4-maverick-400b-a17b"])
+    def test_moe_init_unchanged_at_smoke_size(self, arch):
+        """At SMOKE sizes one block is the whole stack: ``moe_init`` draws
+        the numbers it drew before the blocks, the whole stack at once in
+        fp32 and then cast."""
+        cfg = configs.get_smoke(arch)
+        assert cfg.n_experts <= M.EXPERT_BLOCK
+        got = M.moe_init(torch.Generator().manual_seed(3), cfg.d_model,
+                         cfg.moe_d_ff, cfg.n_experts, act=cfg.act,
+                         device="cpu", dtype=torch.bfloat16)
+        g = torch.Generator().manual_seed(3)
+        d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
+        router = torch.randn((d, e), generator=g) * d ** -0.5
+        want = {"up": (torch.randn((e, d, f), generator=g) * d ** -0.5),
+                "down": (torch.randn((e, f, d), generator=g) * f ** -0.5),
+                "gate": (torch.randn((e, d, f), generator=g) * d ** -0.5)}
+        assert torch.equal(got["router"]["w"], router)
+        for name, t in want.items():
+            assert got[name].dtype == torch.bfloat16
+            assert torch.equal(got[name], t.to(torch.bfloat16)), name
+
+
 class TestCompiled:
     @pytest.mark.parametrize("mode", MODES)
     def test_moe_module_spec_compiles_once(self, mode):

@@ -121,6 +121,21 @@ class TestLint:
     def test_port_is_lint_clean(self):
         assert run_lint(REPO) == []
 
+    def test_examples_are_linted(self):
+        """``examples_torch/`` is a lint root: its files are walked and
+        held to the rules, but an example may print."""
+        from repro_torch.verify.lint import DEFAULT_ROOTS, _iter_files
+        assert "examples_torch" in DEFAULT_ROOTS
+        walked = {p.name for p in _iter_files(pathlib.Path(REPO),
+                                              DEFAULT_ROOTS)
+                  if p.parent.name == "examples_torch"}
+        assert walked == {"quickstart.py", "serve_batch.py",
+                          "lm_analog_train.py", "ecg_train.py"}
+        ex = "examples_torch/foo.py"
+        assert lint_source("print('x')\n", ex) == []
+        assert _rules(lint_source("def f(p):\n    return p['fpn']\n", ex)
+                      ) == ["fpn-access"]
+
 
 # ---------------------------------------------------------------- retrace
 class TestRetrace:
