@@ -198,20 +198,20 @@ exits non-zero without printing a result):
    LSB per chunk readout on rank-1 float tables; its ms per launch beside
    the bound, and the HIL backward's products; then stablelm-3b at its
    published size (32 layers, d_model 2560, 32/32 heads, d_ff 6912,
-   vocab 50304), random weights, faithful, deterministic, three
+   vocab 50304), random weights, faithful, deterministic, two
    ``make_train_step`` steps on ``SyntheticLM`` batches of 1 x 4096 (the
    reference's train_4k length, so attention runs flash forward and
    backward) at the reference's RunConfig defaults (AdamW at 3e-4,
    warmup 100): a held-out batch's loss, read through the no-grad path
-   before the steps and after each, finite, and lower after the three
+   before the steps and after each, finite, and lower after the two
    steps than before;
    then a control step at ``learning_rate=0``, which must leave every
    parameter and the held-out loss bit-identical;
    each step's loss equal to the no-grad path's on its own batch with
    the same parameters (within TRAIN_PATH_LOSS_REL); per step exactly
    160 forward + 160 remat-recompute + 1 lm_head split launches, 64 flash
-   forwards and 32 flash backwards, no other kernel; host ms per step,
-   the middle step's device ms, activities and idle share; peak memory;
+   forwards and 32 flash backwards, no other kernel; host ms per step
+   (a profiled third step was cut for time); peak memory;
 23. one LM train step on the card against the CPU's (same parameters
    with integer effective weights, same batch): phi4-mini's smoke config
    and stablelm-3b at full width with 1 layer, at seq 64, fp32
@@ -394,15 +394,42 @@ exits non-zero without printing a result):
    ms per step (host, device, idle share), prefill latency, the expert
    launches' device ms at M = 4 per expert beside their bound; blockwise
    against whole-stack lowering of a [16, 5120, 8192] slice, bit-identical;
-47. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+47. the device mesh: a process group of world size 1 on the card (NCCL,
+   one all-reduce through it), ``make_host_mesh()`` and a (1, 1)
+   ``(data, model)`` mesh, both on the CUDA device; the group is ended
+   after phase 52;
+48. phi4-mini-3.8b at its published width served by a ``ServeEngine``
+   built under the mesh (phase 7's batch, requests and new tokens; the
+   prelowered plans sharded by ``sharding_specs()``) against the same
+   engine without a mesh: tokens and a 4 x 12 prefill's logits
+   bit-identical, 161 split launches per call, no lowering between
+   batches, phase 9b's decode host and device ms of both; then the same
+   serve and prefill again, under the mesh with every call's tree taken
+   through the walk and rebuild of ``shard_tree`` / ``gather_tree`` that a
+   mesh of 1-sized axes skips, and without the mesh as a plain repeat:
+   both bit-identical to the first no-mesh serve;
+49. one qwen3-moe-30b-a3b MoE layer at its published widths (128
+   experts, top-8) at decode (batch 4), ``dispatch="shard_map"`` on the
+   mesh against ``gspmd_ep``: bit-identical, 3 expert launches;
+50. ``flash_attention_cp`` on the mesh against ``flash_attention``
+   (forward and gradients) and ``pipeline_apply`` on a 1-stage
+   ``("pod",)`` mesh against the stage on each microbatch: bit-identical;
+51. one glm4-9b SMOKE train step under ``make_host_mesh()`` (phase 44's
+   setup: integer effective weights, static calibration, fp32
+   activations): bit-identical to the no-mesh step on the card, within
+   phase 44's step-1 tolerances of the CPU's;
+52. ``examples_torch/serve_batch.py --mesh`` through ``main(argv)``, with
+   the reference's markers;
+53. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
 ``python3 chip_smoke.py --slice10`` runs the build and phases 22-27
 alone, ``--slice11`` the build and phases 28-32, ``--slice12`` the build
 and phases 33-36, ``--slice13`` the build and phases 37-40, ``--slice14``
 the build and phases 41-42 on models of their own, ``--slice15`` the
-build, the lr-0 control step on a fresh stablelm-3b and phases 43-46
-(quick checks; the contract's run takes no arguments).
+build, the lr-0 control step on a fresh stablelm-3b and phases 43-46,
+``--slice16`` the build and phases 47-52 (quick checks; the contract's
+run takes no arguments).
 """
 from __future__ import annotations
 
@@ -607,6 +634,9 @@ from repro_torch.train import ecg_accuracy as tacc  # noqa: E402
 from repro_torch.train import optimizer as O  # noqa: E402
 from repro_torch.verify import (VerifyError, verify_plan,  # noqa: E402
                                 verify_spec)
+from repro_torch.distributed import pipeline as PIPE  # noqa: E402
+from repro_torch.distributed import sharding as SHD  # noqa: E402
+from repro_torch.launch import mesh as MESH  # noqa: E402
 
 DEV = torch.device("cuda")
 MAX_ERR = {name: 0.0 for name in TPU_KERNELS}
@@ -3106,9 +3136,12 @@ def serve_smoke_gate():
 # ----------------------------------------- phases 22-27: LM training slice
 TRAIN_LM_ARCH = "stablelm-3b"
 TRAIN_LM_SEQ = 4096            # the reference's train_4k sequence length
-TRAIN_LM_STEPS = 3
+# two steps: a third, profiled one (31 s of host time with its trace,
+# and its no-grad reading) was cut to keep the run under 1200 s with the
+# mesh phases (PERF.md 4)
+TRAIN_LM_STEPS = 2
 # the held-out batch the loss is read on before the steps and after each
-# (the stateless stream's index; the steps train on indices 0-2)
+# (the stateless stream's index; the steps train on indices 0-1)
 TRAIN_LM_EVAL_BATCH = 1000
 # each step's loss through the training path (autograd, fp32 STE codes
 # cast to the kernel's int8 operand, remat) against the same batch and
@@ -3245,13 +3278,13 @@ def split_m4096(cfg):
 
 
 def lm_train_full():
-    """Phase 22: stablelm-3b at its published size trained three steps on
+    """Phase 22: stablelm-3b at its published size trained two steps on
     the card through ``make_train_step`` (hardware in the loop, flash
     forward and backward at 4096 positions, remat per group), at the
     reference's RunConfig defaults (AdamW at 3e-4, warmup 100 of 10 000
     steps: make_opt_config's schedule).  The loss of a held-out batch is
     read through the no-grad path before the steps and after each, and
-    must be lower after the three steps than before; each step's own
+    must be lower after the two steps than before; each step's own
     loss must equal the no-grad path's on its batch with the parameters
     it starts from."""
     cfg = configs.get_arch(TRAIN_LM_ARCH)
@@ -3321,16 +3354,9 @@ def lm_train_full():
                 seen[k] = 0 if k != "forward" else None
             ops.reset_launch_counts()
             torch.cuda.synchronize()
-            prof = None
             t0 = time.monotonic()
-            if i == 1:          # the middle step under the profiler
-                from torch.profiler import ProfilerActivity, profile
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    state, metrics = step(state, batch)
-                    torch.cuda.synchronize()
-            else:
-                state, metrics = step(state, batch)
-                torch.cuda.synchronize()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
             host_ms = (time.monotonic() - t0) * 1e3
             counts = ops.launch_counts()
             total = counts["analog_mvm_split"]
@@ -3347,17 +3373,6 @@ def lm_train_full():
                                    "backward": seen["flash_bwd"]},
                    "other_launches": {k: v for k, v in counts.items()
                                       if k != "analog_mvm_split" and v}}
-            if prof is not None:
-                ev = [e for e in prof.key_averages()
-                      if getattr(e, "self_device_time_total", 0.0) > 0]
-                dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
-                rec.update(device_ms=dev_ms,
-                           activities=sum(e.count for e in ev),
-                           idle_share=1 - dev_ms / host_ms,
-                           split_device_ms=sum(
-                               e.self_device_time_total for e in ev
-                               if "split_kernel" in e.key) / 1e3)
-                del prof
             # after the counts are read: the held-out batch, and the next
             # step's batch, on the parameters this step left
             nxt = batches[i + 1:i + 2]
@@ -3392,7 +3407,7 @@ def lm_train_full():
                        f"{r['other_launches']}")
     # each step reads its loss on its own batch, before its update; the
     # held-out batch is the same at every reading.  Held: lower after the
-    # three steps than before.  Not at every step: Adam's first steps
+    # two steps than before.  Not at every step: Adam's first steps
     # move every weight by about lr, and even the warmup's 6e-6 overshot
     # once (slice run 5: 11.258, 10.303, 10.883, 9.363; PERF.md 6)
     if not all(np.isfinite(losses + held + own)) or not held[-1] < held[0]:
@@ -6164,6 +6179,352 @@ def slice15_phases(counts):
     emit("maverick_full_serving", maverick_full_serving(counts))
 
 
+# ------------------------------------------------ phases 47-52: the mesh
+MESH_FLASH_SHAPE = (2, 1024, 8, 3, 128)   # phi4-mini's heads: 24 q over 8 kv
+MESH_PIPE_SHAPE = (4, 8, 3072)            # microbatches x rows x d_model
+
+
+def mesh_itself():
+    """Phase 47: a process group of world size 1 on the card: NCCL (one
+    all-reduce through it), ``make_host_mesh()`` on the CUDA device and
+    a (1, 1) ``(data, model)`` mesh over it."""
+    MESH.init_single()
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError(f"the card's group is "
+                             f"{torch.distributed.get_backend()}, not nccl")
+    x = torch.full((4,), 3.0, device=DEV)
+    torch.distributed.all_reduce(x)
+    host = MESH.make_host_mesh()
+    m11 = MESH.make_mesh((1, 1), ("data", "model"))
+    if not (torch.equal(x, torch.full((4,), 3.0, device=DEV))
+            and host.device_type == m11.device_type == "cuda"
+            and host.mesh_dim_names == ("data",)):
+        raise AssertionError(f"mesh: all_reduce {x.tolist()}, host mesh "
+                             f"{host}, (1, 1) mesh {m11}")
+    return m11, {"backend": "nccl", "world_size": 1,
+                 "host_mesh": {"axes": list(host.mesh_dim_names),
+                               "device_type": host.device_type},
+                 "mesh": {"axes": list(m11.mesh_dim_names),
+                          "shape": list(m11.mesh.shape),
+                          "device_type": m11.device_type}}
+
+
+def _walk_every_call(engine):
+    """Make each step of a mesh engine take its tree through the walk of
+    ``shard_tree`` and then ``gather_tree``, as on a mesh that splits:
+    every leaf comes back a new tensor object (a view of itself), so every
+    plan dataclass on the way is rebuilt, copied without re-deriving and
+    then rebuilt through ``__init__``.  On a mesh of 1-sized axes the two
+    functions return the tree unwalked; this is the path they skip."""
+    shardings = engine.param_shardings
+
+    def view(t, ns):
+        return t.view(t.shape)
+
+    def walked(step):
+        def run(params, batch, cache):
+            local = SHD._map_tree(view, params, shardings, derive=False)
+            full = SHD._map_tree(view, local, shardings, derive=True)
+            if full is params:
+                raise AssertionError("the forced walk rebuilt nothing")
+            return step(full, batch, cache)
+        return run
+
+    engine.prefill = walked(engine.prefill)
+    engine.decode = walked(engine.decode)
+
+
+def _mesh_serve_run(mesh):
+    """One phi4-mini engine (phase 7's seed, requests and batch), built
+    and served under ``mesh`` (None: no mesh): tokens, a 4 x 12
+    prefill's logits, the launches and lowerings of the serve, and
+    phase 9b's decode timing; then the same serve and prefill again,
+    under the mesh with every call's tree walked and rebuilt
+    (:func:`_walk_every_call`)."""
+    cfg = configs.get_arch(LM_ARCH)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    with SHD.use_mesh(mesh):
+        params = T.lm_init(torch.Generator(device=DEV).manual_seed(SEED),
+                           cfg)
+        engine = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                             max_len=LM_MAX_LEN)
+        del params
+        sharded = isinstance(engine.prefill, SS.MeshServeStep)
+        calls = _counting(engine)
+        lowered = lowering_count()
+        ops.reset_launch_counts()
+        done = engine.serve(_lm_requests(cfg))
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        calls = dict(calls)         # the serve's; the timing below adds
+        relowered = lowering_count() - lowered
+        toks = torch.as_tensor(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
+        cache = T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN,
+                                dtype=torch.float32, device=DEV)
+        logits, _ = engine.prefill(engine.params, {"tokens": toks}, cache)
+        timing = time_serving(engine)
+        # a second serve: through the forced walk under the mesh, as it
+        # is without one (the card's own run-to-run repeat)
+        if mesh is not None:
+            _walk_every_call(engine)
+        again = engine.serve(_lm_requests(cfg))
+        cache = T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN,
+                                dtype=torch.float32, device=DEV)
+        logits_again, _ = engine.prefill(engine.params, {"tokens": toks},
+                                         cache)
+    out = {"tokens": [r.output.tolist() for r in done],
+           "logits": logits.cpu(), "launches": launches, "calls": calls,
+           "lowerings_between_batches": relowered, "timing": timing,
+           "sharded": sharded,
+           "again_tokens": [r.output.tolist() for r in again],
+           "again_logits": logits_again.cpu()}
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serving(mesh, counts):
+    """Phase 48: phi4-mini-3.8b at its published widths served by a
+    ServeEngine built under the (1, 1) mesh (its prelowered plans sharded
+    by ``sharding_specs()``), against the same engine without a mesh:
+    tokens and prefill logits bit-identical, 161 split launches per call,
+    no lowering between batches, decode ms (host, device) of both.  The
+    second serve of each engine (the mesh's with every call's tree walked
+    and rebuilt, the plain one's a repeat) is bit-identical too."""
+    runs = {}
+    for name, m in (("mesh", mesh), ("no_mesh", None)):
+        runs[name] = _mesh_serve_run(m)
+        if name == "mesh":
+            for k, v in runs[name]["launches"].items():
+                counts[k] += v
+    cfg = configs.get_arch(LM_ARCH)
+    per_call = 5 * cfg.n_layers + 1
+    got = runs["mesh"]
+    n_calls = got["calls"]["prefill"] + got["calls"]["decode"]
+    bad = []
+    want = runs["no_mesh"]
+    same = {
+        "tokens": got["tokens"] == want["tokens"],
+        "logits": torch.equal(got["logits"], want["logits"]),
+        "walked_tokens": got["again_tokens"] == want["tokens"],
+        "walked_logits": torch.equal(got["again_logits"], want["logits"]),
+        "no_mesh_repeat_tokens": want["again_tokens"] == want["tokens"],
+        "no_mesh_repeat_logits": torch.equal(want["again_logits"],
+                                             want["logits"])}
+    for k, v in same.items():
+        if not v:
+            bad.append(f"{k} differ from the no-mesh engine's first serve")
+    if got["launches"] != _launches(analog_mvm_split=per_call * n_calls):
+        bad.append(f"launches {got['launches']} != {per_call} x {n_calls}")
+    if got["lowerings_between_batches"] or not got["sharded"]:
+        bad.append(f"{got['lowerings_between_batches']} lowerings between "
+                   f"batches; mesh steps {got['sharded']}")
+    report = {"arch": cfg.name, "bit_identical": not bad, "equal": same,
+              "launches_per_call": per_call, "calls": got["calls"],
+              "lowerings_between_batches": got["lowerings_between_batches"],
+              **{f"{name}_{k}": r["timing"][k] for name, r in runs.items()
+                 for k in ("decode_ms_per_step_median",
+                           "decode_device_ms_per_step",
+                           "decode_device_idle_share", "prefill_ms_median")}}
+    if bad:
+        emit("mesh_serving", report)
+        raise AssertionError("; ".join(bad))
+    return report
+
+
+def mesh_moe_layer(mesh, counts):
+    """Phase 49: one qwen3-moe-30b-a3b MoE layer at its published widths
+    (128 experts, top-8) at decode (batch 4, one token) through its
+    pre-lowered expert stacks, ``dispatch="shard_map"`` on the (1, 1) mesh
+    against ``gspmd_ep``: bit-identical, 3 expert launches."""
+    cfg = configs.get_arch(MOE_ARCH)
+    acfg = AnalogConfig(mode="analog_faithful")
+    params = M.moe_init(torch.Generator(device=DEV).manual_seed(SEED),
+                        cfg.d_model, cfg.moe_d_ff, cfg.n_experts,
+                        act=cfg.act, dtype=cfg.dtype, device=DEV)
+    model = api.compile(M.moe_module_spec(cfg.d_model, cfg.moe_d_ff,
+                                          cfg.n_experts, top_k=cfg.top_k,
+                                          act=cfg.act), params, acfg)
+    tree = model.lower()
+    x = torch.randn((LM_BATCH, 1, cfg.d_model), device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(1)
+                    ).to(cfg.dtype)
+    kw = dict(acfg=acfg, top_k=cfg.top_k, act=cfg.act)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        with SHD.use_mesh(mesh):
+            y_sm, aux_sm = M.moe_apply(tree, x, dispatch="shard_map", **kw)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        y_gs, aux_gs = M.moe_apply(tree, x, dispatch="gspmd_ep", **kw)
+    for k, v in launches.items():
+        counts[k] += v
+    report = {"arch": cfg.name, "experts": cfg.n_experts,
+              "top_k": cfg.top_k, "launches": {k: v for k, v in
+                                               launches.items() if v},
+              "bit_identical": bool(torch.equal(y_sm, y_gs)
+                                    and torch.equal(aux_sm, aux_gs))}
+    del params, model, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not report["bit_identical"] or launches != _launches(
+            analog_mvm_split_experts=3):
+        emit("mesh_moe_layer", report)
+        raise AssertionError("expert-parallel dispatch: not bit-identical "
+                             "to gspmd_ep, or not 3 expert launches")
+    return report
+
+
+def mesh_cp_and_pipeline(mesh):
+    """Phase 50: context-parallel flash attention on the (1, 1) mesh
+    against ``flash_attention`` (forward and gradients), and
+    ``pipeline_apply`` on a 1-stage ``("pod",)`` mesh against the stage
+    (forward): bit-identical."""
+    g = torch.Generator(device=DEV).manual_seed(2)
+    b, s, kvh, grp, dh = MESH_FLASH_SHAPE
+    q = torch.randn((b, s, kvh, grp, dh), device=DEV, generator=g)
+    k = torch.randn((b, s, kvh, dh), device=DEV, generator=g)
+    v = torch.randn((b, s, kvh, dh), device=DEV, generator=g)
+    outs = {}
+    for name, m in (("cp", mesh), ("plain", None)):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with SHD.use_mesh(m):
+            fn = FL.flash_attention_cp if m is not None else \
+                FL.flash_attention
+            o = fn(*qkv)
+        o.square().sum().backward()
+        outs[name] = [o.detach()] + [t.grad for t in qkv]
+    flash_equal = all(torch.equal(a, b) for a, b in zip(outs["cp"],
+                                                        outs["plain"]))
+    n_micro, mb, d = MESH_PIPE_SHAPE
+    w = torch.randn((1, d, d), device=DEV, generator=g) * d ** -0.5
+    bias = torch.randn((1, d), device=DEV, generator=g) * 0.1
+    x = torch.randn((n_micro, mb, d), device=DEV, generator=g)
+
+    def stage(p, h):
+        return torch.tanh(h @ p["w"] + p["b"])
+
+    with SHD.use_mesh(MESH.make_mesh((1,), ("pod",))):
+        y = PIPE.pipeline_apply(stage, {"w": w, "b": bias}, x)
+    # the stage on each microbatch in turn (the shapes the schedule runs)
+    want = torch.stack([stage({"w": w[0], "b": bias[0]}, x[i])
+                        for i in range(n_micro)])
+    pipe_equal = bool(torch.equal(y, want))
+    report = {"flash_shape": list(MESH_FLASH_SHAPE),
+              "flash_bit_identical": flash_equal,
+              "pipeline_shape": list(MESH_PIPE_SHAPE),
+              "pipeline_bit_identical": pipe_equal}
+    if not (flash_equal and pipe_equal):
+        emit("mesh_cp_and_pipeline", report)
+        raise AssertionError("CP flash or the pipeline differs")
+    return report
+
+
+def mesh_train_step(counts):
+    """Phase 51: one glm4-9b SMOKE step under ``make_host_mesh()`` on the
+    card (integer effective weights, static calibration, fp32
+    activations; phase 44's setup): bit-identical to the no-mesh step on
+    the card, and within phase 44's step-1 tolerances of the CPU's."""
+    cfg = configs.get_smoke("glm4-9b")
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful",
+                                        act_calib="static"),
+                    activation_dtype="float32")
+    cpu = _traj_state(cfg, run)
+    batch = _lm_batch(cfg, TRAJ_SEQ, step=0, batch=TRAJ_BATCH)
+    step = TS.make_train_step(cfg, run)
+    card, m_card = step(to_device(O.tree_map(torch.clone, cpu), DEV), batch)
+    ops.reset_launch_counts()
+    with SHD.use_mesh(MESH.make_host_mesh()):
+        mstep = TS.make_train_step(cfg, run, abstract_state=cpu)
+        state = SHD.shard_tree(to_device(O.tree_map(torch.clone, cpu), DEV),
+                               mstep.state_shardings)
+        state, m_mesh = mstep(state, SHD.shard_tree(batch,
+                                                    mstep.batch_shardings))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for k, v in launches.items():
+        counts[k] += v
+    _, m_cpu = step(cpu, {k: v.cpu() for k, v in batch.items()})
+    same = all(torch.equal(a, b) for a, b in zip(O.tree_leaves(card),
+                                                  O.tree_leaves(state)))
+    same &= all(torch.equal(m_card[k], m_mesh[k])
+                for k in ("loss", "grad_norm", "lr"))
+    rel = {k: abs(float(m_mesh[k]) - float(m_cpu[k])) / abs(float(m_cpu[k]))
+           for k in ("loss", "grad_norm")}
+    report = {"arch": cfg.name, "mesh_equals_no_mesh": same,
+              "loss": float(m_mesh["loss"]), "cpu_loss": float(m_cpu["loss"]),
+              "rel_vs_cpu": rel,
+              "launches": {k: v for k, v in launches.items() if v}}
+    if not same or rel["loss"] > TRAJ_STEP1_LOSS_REL or \
+            rel["grad_norm"] > TRAJ_STEP1_METRIC_REL or \
+            not launches["analog_mvm_split"]:
+        emit("mesh_train_step", report)
+        raise AssertionError("mesh train step: not bit-identical to the "
+                             "no-mesh step, off the CPU's, or no launch")
+    return report
+
+
+def mesh_serve_batch(counts):
+    """Phase 52: ``examples_torch/serve_batch.py --mesh`` through
+    ``main(argv)`` on the card, with the reference's markers."""
+    import importlib
+    import io
+
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    mod = importlib.import_module("examples_torch.serve_batch")
+    out = io.StringIO()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        mod.main(["--mesh", "--requests", "4", "--max-new", "4", "--batch",
+                  "2", "--mode", "analog_faithful"])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    for k, v in launches.items():
+        counts[k] += v
+    text = out.getvalue()
+    markers = ("served 4 requests", "tok/s on cuda",
+               "serve.all/serve.batch/serve.decode")
+    missing = [m for m in markers if m not in text]
+    report = {"launches": {k: v for k, v in launches.items() if v},
+              "last_lines": text.strip().splitlines()[-3:]}
+    if missing or not launches["analog_mvm_split"]:
+        emit("mesh_serve_batch", report)
+        raise AssertionError(f"serve_batch --mesh: markers missing "
+                             f"{missing}, launches {launches}")
+    return report
+
+
+def slice16_phases(counts):
+    """Phases 47-52, under one NCCL group of world size 1, ended after."""
+    try:
+        mesh, report = mesh_itself()
+        emit("mesh", report)
+        emit("mesh_serving", mesh_serving(mesh, counts))
+        emit("mesh_moe_layer", mesh_moe_layer(mesh, counts))
+        emit("mesh_cp_and_pipeline", mesh_cp_and_pipeline(mesh))
+        emit("mesh_train_step", mesh_train_step(counts))
+        emit("mesh_serve_batch", mesh_serve_batch(counts))
+    finally:
+        MESH.destroy()
+
+
+def slice16_only() -> None:
+    """``python3 chip_smoke.py --slice16``: the build and phases 47-52
+    alone (a quick check of this slice; the run the contract reads takes
+    no arguments)."""
+    print(card_line(), flush=True)
+    emit("build", {"seconds_per_kernel": _build.build()})
+    counts = {name: 0 for name in TPU_KERNELS}
+    try:
+        slice16_phases(counts)
+    finally:
+        emit("wall_s", WALL)
+    emit("launches", counts)
+
+
 def slice15_only() -> None:
     """``python3 chip_smoke.py --slice15``: the build and phases 43-46
     alone, with phase 22's lr-0 control step on a freshly drawn
@@ -6437,6 +6798,7 @@ def main() -> None:
     emit("telemetry", obs_line(tr))
     # after the telemetry line: serve_batch resets the metric registry
     slice15_phases(counts)
+    slice16_phases(counts)
     emit("wall_s", WALL)
 
     kernels = []
@@ -6524,9 +6886,11 @@ if __name__ == "__main__":
         slice14_only()
     elif sys.argv[1:] == ["--slice15"]:
         slice15_only()
+    elif sys.argv[1:] == ["--slice16"]:
+        slice16_only()
     elif sys.argv[1:]:
         _fail(f"unknown arguments {sys.argv[1:]}; run with none, "
-              "--slice10, --slice11, --slice12, --slice13, --slice14 or "
-              "--slice15")
+              "--slice10, --slice11, --slice12, --slice13, --slice14, "
+              "--slice15 or --slice16")
     else:
         main()

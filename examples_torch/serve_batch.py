@@ -2,7 +2,8 @@
 decode engine (the twin of ``examples/serve_batch.py``).
 
     PYTHONPATH=src python examples_torch/serve_batch.py --arch stablelm-3b \
-        --requests 12 --max-new 16 [--mode analog_fast] [--device cpu]
+        --requests 12 --max-new 16 [--mode analog_fast] [--mesh] \
+        [--device cpu]
 
 Demonstrates the inference-engine substrate at smoke scale: request
 batching, left-padded prefill, per-sequence stopping, greedy sampling -
@@ -11,10 +12,13 @@ requested.  The engine goes through the ``repro_torch.api`` front door:
 the model is compiled ONCE (attention QKV fused into one dispatch group)
 and every prefill and decode step replays the baked plans, on the CUDA
 device through the hand-written kernels unless ``--device`` names
-another.  ``--mesh`` (the reference's host mesh) raises: the mesh is not
-ported yet (ROADMAP.md, queue 1, item 7).
+another - also under a ``(data, model)`` host mesh (``--mesh``: the
+running process group's ranks along ``data``, or a group of one started
+for the device), where the plan leaves shard by the same logical axes as
+the weights they were baked from.
 """
 import argparse
+import contextlib
 
 import numpy as np
 import torch
@@ -23,6 +27,8 @@ from repro_torch import configs, obs
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -43,14 +49,11 @@ def main(argv=None):
     ap.add_argument("--mode", default="digital",
                     choices=["digital", "analog_faithful", "analog_fast"])
     ap.add_argument("--mesh", action="store_true",
-                    help="the host device mesh (not ported yet: raises)")
+                    help="serve under a (data, model) host mesh with "
+                         "sharded pre-lowered plans")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     a = ap.parse_args(argv)
-    if a.mesh:
-        raise NotImplementedError(
-            "serve_batch --mesh: the device mesh is not ported yet "
-            "(ROADMAP.md queue 1, item 7: distributed/)")
 
     dev = resolve_device(a.device)
     cfg = configs.get_smoke(a.arch)
@@ -60,6 +63,15 @@ def main(argv=None):
     run = RunConfig(analog=AnalogConfig(mode=a.mode)) if a.mode != "digital" \
         else RunConfig()
     params = T.lm_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    mesh_ctx = contextlib.nullcontext()
+    started = False
+    if a.mesh:
+        started = not torch.distributed.is_initialized()
+        if started:
+            mesh_lib.init_single(dev)
+        n = torch.distributed.get_world_size()
+        mesh_ctx = shd.use_mesh(mesh_lib.make_mesh((n, 1),
+                                                   ("data", "model")))
     rng = np.random.default_rng(0)
     reqs = [
         Request(uid=i,
@@ -68,12 +80,16 @@ def main(argv=None):
         for i in range(a.requests)
     ]
     obs.reset_metrics()
-    with obs.collect("serve-batch") as tr:
-        engine = ServeEngine(cfg, run, params, batch_size=a.batch,
-                             max_len=128, device=dev)
-        with obs.span("serve.all") as sp:
-            done = engine.serve(reqs)
-        dt = sp.dur_us / 1e6
+    try:
+        with obs.collect("serve-batch") as tr, mesh_ctx:
+            engine = ServeEngine(cfg, run, params, batch_size=a.batch,
+                                 max_len=128, device=dev)
+            with obs.span("serve.all") as sp:
+                done = engine.serve(reqs)
+            dt = sp.dur_us / 1e6
+    finally:
+        if started:
+            mesh_lib.destroy()
     total_new = sum(len(r.output) for r in done)
     print(f"arch={a.arch} mode={a.mode}: served {len(done)} requests, "
           f"{total_new} tokens in {dt:.1f}s "

@@ -173,3 +173,26 @@ class CompiledModel:
         for part in parent.split(".") if parent else ():
             node = node[part]
         return node.get("_groups", {}).get(g.local_name)
+
+    # ------------------------------------------------------------ sharding
+    def sharding_specs(self):
+        """Logical-axis spec tree matching :meth:`lower`'s output - the
+        baked plan leaves included, so a pre-lowered tree shards over a
+        mesh exactly like ordinary params
+        (:mod:`repro_torch.distributed.sharding`).  A stack or block model
+        gets its plan's specs (None in digital mode, which compiles no
+        plan)."""
+        from repro_torch.distributed import sharding as shd
+        from repro_torch.exec.plan import AnalogPlan
+
+        if self.spec.kind != "tree":
+            if not isinstance(self.lowered, AnalogPlan):
+                return None
+            axes = [l.sharding for l in self.spec.layers]
+            return shd.analog_plan_specs(self.lowered, axes)
+        base = self.spec.param_axes
+        if base is None:
+            raise ValueError(f"spec {self.spec.name!r} carries no param_axes")
+        if self.lowered is None:
+            return base
+        return shd.plan_specs_like(base, self.lowered)

@@ -5,9 +5,10 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig, RunConfig
+from repro_torch.configs.base import SHAPES, ArchConfig, RunConfig, ShapeConfig
 
-__all__ = ["ARCH_NAMES", "ArchConfig", "RunConfig", "get_arch", "get_smoke"]
+__all__ = ["ARCH_NAMES", "SHAPES", "ArchConfig", "RunConfig", "ShapeConfig",
+           "all_cells", "cells", "get_arch", "get_smoke"]
 
 _MODULES = {
     "stablelm-3b": "stablelm_3b",
@@ -38,3 +39,15 @@ def get_arch(name: str) -> ArchConfig:
 
 def get_smoke(name: str) -> ArchConfig:
     return _module(name).SMOKE
+
+
+def cells(arch: str) -> list:
+    """Shape names applicable to one arch (long_500k: sub-quadratic only)."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if get_arch(arch).supports_long_context:
+        out.append("long_500k")
+    return out
+
+
+def all_cells() -> list:
+    return [(a, s) for a in ARCH_NAMES for s in cells(a)]

@@ -56,6 +56,11 @@ class ArchConfig:
         return (torch.bfloat16 if self.param_dtype == "bfloat16"
                 else torch.float32)
 
+    @property
+    def supports_long_context(self) -> bool:
+        """long_500k runs only for sub-quadratic (SSM/hybrid) backbones."""
+        return self.block in ("rwkv", "mamba")
+
     def layer_kind(self, i: int) -> str:
         if self.block == "rwkv":
             return "rwkv"
@@ -67,14 +72,35 @@ class ArchConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input shape of the dry run's cells."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str              # "train" | "prefill" | "decode"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class RunConfig:
     """Execution knobs orthogonal to the architecture, with the
     reference's defaults: the analog backend, AdamW's, flash attention's
-    blocks, the seed, int8 gradient compression and the MoE dispatch's
-    ``capacity_factor``.  The reference's ``optimizer`` name (AdamW is
-    the only one) and its mesh knobs (``fsdp``, ``seq_sp``,
-    ``moe_dispatch``, ``attn_cp``) come with the code that reads them
-    (ROADMAP)."""
+    blocks, the seed, int8 gradient compression, the MoE dispatch's
+    ``capacity_factor`` and the distribution knobs (``fsdp``,
+    ``seq_sp``, ``moe_dispatch``, ``attn_cp``).  The reference's
+    ``optimizer`` name (AdamW is the only one) is not kept."""
 
     analog: AnalogConfig = dataclasses.field(
         default_factory=lambda: AnalogConfig(
@@ -92,3 +118,12 @@ class RunConfig:
     seed: int = 0
     grad_compression: bool = False
     capacity_factor: float = 1.25
+    # --- distribution knobs (read under a mesh) ---
+    fsdp: bool = True            # shard param embed dims over the data axis
+    # the reference's sequence-parallel residual name: read by
+    # sharding.rules_for only (no site of the port splits the residual)
+    seq_sp: bool = True
+    # shard_map = the explicit-collective expert-parallel dispatch; without
+    # a mesh (or a model axis) it is the gspmd_ep path
+    moe_dispatch: str = "shard_map"  # shard_map | gspmd_ep | replicated_buf
+    attn_cp: str = "auto"            # context-parallel attn: auto | cp | off

@@ -44,6 +44,8 @@ NOISELESS = NoiseConfig(gain_std=0.0, offset_std=0.0, readout_std=0.0,
 
 
 def _normal(generator: torch.Generator, shape, device) -> torch.Tensor:
+    if torch.device(device).type == "meta":      # shapes only (the dry run)
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     # drawn on the generator's own device, then moved: the same seed gives
     # the same pattern whatever device the model lives on
     return torch.randn(shape, generator=generator, dtype=torch.float32,
@@ -154,7 +156,7 @@ class NoiseFeed:
                 device=self.generator.device))
         d = self.draws[self.pos]
         self.pos += 1
-        return readout_noise(d, shape, cfg, device=device)
+        return _readout_noise(d, shape, cfg, device=device)
 
 
 def readout_noise(
@@ -170,9 +172,26 @@ def readout_noise(
     itself when it is a tensor - a draw made elsewhere and injected (the
     parity tests pass the reference's draws so).  None when there is no
     noise source (deterministic, standalone mode), when
-    ``cfg.readout_std == 0`` or when ``cfg.mode == "none"``."""
+    ``cfg.readout_std == 0`` or when ``cfg.mode == "none"``.
+
+    Inside a sharded step whose batch is split over mesh ranks
+    (:func:`repro_torch.distributed.sharding.batch_split`), ``shape`` is
+    this rank's batch-major block: the draw (or the injected tensor) has
+    the whole batch's shape, and the rank takes its rows, so the noise
+    does not depend on the mesh."""
     if noise is None or cfg.readout_std == 0.0 or cfg.mode == "none":
         return None
+    from repro_torch.distributed import sharding as shd
+
+    if shd.batch_axes():
+        whole, row0 = shd.batch_rows(tuple(shape))
+        rn = _readout_noise(noise, whole, cfg, device=device)
+        return rn.narrow(0, row0, shape[0])
+    return _readout_noise(noise, shape, cfg, device=device)
+
+
+def _readout_noise(noise, shape: tuple, cfg: NoiseConfig, *,
+                   device: torch.device) -> torch.Tensor:
     if isinstance(noise, NoiseFeed):
         return noise.draw(shape, cfg, device)
     if isinstance(noise, torch.Tensor):

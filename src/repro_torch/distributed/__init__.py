@@ -1,2 +1,3 @@
-"""Fault tolerance for the training launcher (``fault.py``) and the plan
-leaves' logical-axis specs (``sharding.py``); the mesh waits (ROADMAP)."""
+"""The device mesh (``sharding.py``: logical-axis specs, the active mesh,
+the explicit collectives), the GPipe pipeline (``pipeline.py``) and fault
+tolerance for the training launcher (``fault.py``)."""

@@ -60,6 +60,7 @@ from repro_torch.core import quant
 from repro_torch.core.analog import AnalogConfig, analog_matmul, check_route
 from repro_torch.core.hw import BSS2
 from repro_torch.core.noise import NoiseFeed
+from repro_torch.distributed import sharding as shd
 from repro_torch.exec.plan import (
     EPILOGUE_NONE,
     EPILOGUE_RELU_SHIFT,
@@ -129,7 +130,8 @@ def run_layer(
     elif cfg.act_calib == "dynamic":
         # per-call abs-max calibration over the WHOLE batch (the FPGA
         # preprocessing / SIMD-CPU right-shift choice on hardware)
-        a_scale = quant.act_scale_from_max(x.detach().abs().max() + 1e-9)
+        a_scale = quant.act_scale_from_max(
+            shd.batch_amax(x.detach().abs().max()) + 1e-9)
     else:
         # static: a member of a snapshot-calibrated fused group encodes at
         # the group's shared LSB; dequantization below uses the same
@@ -310,7 +312,8 @@ def run_batch_concat(gp: GroupPlan, xs, cfg: AnalogConfig, *, noise=None):
     xf = x.to(torch.float32)
     if cfg.act_calib == "dynamic":
         a_scale = quant.act_scale_from_max(
-            xf.detach().abs().reshape(g, -1).amax(dim=1) + 1e-9)
+            shd.batch_amax(xf.detach().abs().reshape(g, -1).amax(dim=1))
+            + 1e-9)
     else:
         a_scale = lp.in_scale
     lead = (g,) + (1,) * (x.ndim - 1)
@@ -353,7 +356,8 @@ def run_expert_stack(gp: GroupPlan, xe: torch.Tensor,
     lp = gp.fused
     in_dtype = xe.dtype
     xf = xe.to(torch.float32)
-    a_scale = quant.act_scale_from_max(xf.detach().abs().max() + 1e-9)
+    a_scale = quant.act_scale_from_max(
+        shd.batch_amax(xf.detach().abs().max()) + 1e-9)
     a_pos = _pad_codes(quant.quantize_act(xf, a_scale), lp.k_pad)
     a_neg = _pad_codes(quant.quantize_act(-xf, a_scale), lp.k_pad)
     gain = lp.gain_row                                            # [E, N]

@@ -50,9 +50,11 @@ reset_launch_counts = _build.reset_launch_counts
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
+    """True: launch the kernel.  False: the plain version, on the CPU, or
+    on ``meta`` tensors, whose shapes it traces (the dry run)."""
     if t.device.type == "cuda":
         return True
-    if t.device.type != "cpu":
+    if t.device.type not in ("cpu", "meta"):
         raise ValueError(f"no kernel or plain version for device {t.device}")
     return False
 

@@ -1,5 +1,5 @@
 """Training launcher: the fault-tolerant training loop (port of
-``repro.launch.train`` on one device).
+``repro.launch.train``).
 
 ``PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b \
       --smoke --steps 50 --ckpt-dir build/ckpt [--device cpu]``
@@ -9,9 +9,12 @@ train step -> atomic checkpointing -> heartbeat + straggler clock +
 bounded-retry rollback.  The step updates its state in place, so the
 retry covers only its differentiated half (``loss_and_grads``, which
 leaves the state as it was, like the reference's pure step); the update
-is applied once, and a failure inside it ends the loop.  It runs on the CUDA device unless ``device``
-says otherwise.  ``use_mesh=True`` (the reference's host mesh) raises:
-the mesh code is not ported yet (ROADMAP).
+is applied once, and a failure inside it ends the loop.  It runs on the
+CUDA device unless ``device`` says otherwise.  ``use_mesh=True`` trains
+under the host mesh (:func:`repro_torch.launch.mesh.make_host_mesh`, pure
+data parallel over the running process group, or a group of one started
+for ``device``): the state is stored as this rank's blocks, and each
+checkpoint is gathered whole first.
 """
 from __future__ import annotations
 
@@ -25,8 +28,10 @@ from repro_torch.configs.base import RunConfig
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.data.lm_data import DataConfig, SyntheticLM
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.fault import (Heartbeat, RetryPolicy,
                                            StragglerClock)
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.obs import trace as obs_trace
 from repro_torch.train import checkpoint as CKPT
 from repro_torch.train import train_step as TS
@@ -44,12 +49,25 @@ def train_loop(arch: str, *, smoke: bool = True, steps: int = 50,
                device: DeviceLike = None) -> dict:
     """Train ``arch`` for ``steps`` steps, resuming from the newest intact
     checkpoint in ``ckpt_dir`` when there is one.  Returns ``{"losses",
-    "state", "final_metrics"}``."""
-    if use_mesh:
-        raise NotImplementedError(
-            "train_loop(use_mesh=True): the device mesh is not ported yet "
-            "(ROADMAP queue 1, item 7: distributed/)")
+    "state", "final_metrics"}`` (under the mesh, this rank's blocks of the
+    state)."""
     dev = resolve_device(device)
+    if not use_mesh:
+        return _loop(arch, smoke, steps, ckpt_dir, ckpt_every, batch,
+                     seq_len, lr, mode, log_every, dev)
+    started = not torch.distributed.is_initialized()
+    mesh = mesh_lib.make_host_mesh(dev)
+    try:
+        with shd.use_mesh(mesh):
+            return _loop(arch, smoke, steps, ckpt_dir, ckpt_every, batch,
+                         seq_len, lr, mode, log_every, dev)
+    finally:
+        if started:
+            mesh_lib.destroy()
+
+
+def _loop(arch, smoke, steps, ckpt_dir, ckpt_every, batch, seq_len, lr,
+          mode, log_every, dev) -> dict:
     cfg = configs.get_smoke(arch) if smoke else configs.get_arch(arch)
     run = RunConfig(
         learning_rate=lr, warmup_steps=max(steps // 10, 1),
@@ -62,7 +80,6 @@ def train_loop(arch: str, *, smoke: bool = True, steps: int = 50,
     gen = torch.Generator(device=dev).manual_seed(run.seed)
     state = TS.init_state(gen, cfg, run, device=dev)
     opt_cfg = TS.make_opt_config(run, total_steps=steps)
-    grads_fn = functools.partial(TS.loss_and_grads, cfg=cfg, run=run)
 
     start_step = 0
     if ckpt_dir:
@@ -73,6 +90,32 @@ def train_loop(arch: str, *, smoke: bool = True, steps: int = 50,
             state = {"params": params, "opt": opt}
             obs_trace.log(f"resumed from step {start_step}")
 
+    if shd.get_mesh() is None:
+        grads_fn = functools.partial(TS.loss_and_grads, cfg=cfg, run=run)
+        shard_batch = gather_state = lambda t: t
+        pshard = None
+    else:
+        step_fn = TS.make_train_step(cfg, run, opt_cfg,
+                                     abstract_state=state)
+        state = shd.shard_tree(state, step_fn.state_shardings)
+        pshard = step_fn.state_shardings["params"]
+
+        def grads_fn(params, batch_dev, noise):
+            return step_fn.loss_and_grads({"params": params}, batch_dev,
+                                          noise)
+
+        def shard_batch(b):
+            return shd.shard_tree(b, step_fn.batch_shardings)
+
+        def gather_state(s):
+            return shd.gather_tree(s, step_fn.state_shardings)
+
+    def save(step, **extra):
+        whole = gather_state({"params": state["params"],
+                              "opt": state["opt"]})
+        CKPT.save(ckpt_dir, step, whole["params"], whole["opt"],
+                  extra={"arch": cfg.name, **extra})
+
     hb = Heartbeat(ckpt_dir + "/hb", CKPT._process_index()) \
         if ckpt_dir else None
     clock = StragglerClock()
@@ -82,7 +125,7 @@ def train_loop(arch: str, *, smoke: bool = True, steps: int = 50,
     losses = []
 
     for step in range(start_step, steps):
-        batch_dev = _batch_on(data.batch(step), dev)
+        batch_dev = shard_batch(_batch_on(data.batch(step), dev))
 
         def do_grads(state=state, batch_dev=batch_dev, step=step):
             noise = (torch.Generator(device=dev).manual_seed(step)
@@ -99,7 +142,8 @@ def train_loop(arch: str, *, smoke: bool = True, steps: int = 50,
         with obs_trace.span("train.step", step=step) as sp:
             loss, metrics, grads = retry.run(do_grads, on_failure=rollback)
             metrics = {**metrics, **TS.apply_update(state, grads,
-                                                    opt_cfg=opt_cfg),
+                                                    opt_cfg=opt_cfg,
+                                                    shardings=pshard),
                        "loss": loss}
             del grads
             if dev.type == "cuda":
@@ -117,11 +161,9 @@ def train_loop(arch: str, *, smoke: bool = True, steps: int = 50,
                           f"gnorm={float(metrics['grad_norm']):.2f} "
                           f"({dt * 1e3:.0f} ms)")
         if ckpt_dir and (step + 1) % ckpt_every == 0:
-            CKPT.save(ckpt_dir, step + 1, state["params"], state["opt"],
-                      extra={"arch": cfg.name, "loss": losses[-1]})
+            save(step + 1, loss=losses[-1])
     if ckpt_dir:
-        CKPT.save(ckpt_dir, steps, state["params"], state["opt"],
-                  extra={"arch": cfg.name, "final": True})
+        save(steps, final=True)
     return {"losses": losses, "state": state, "final_metrics": metrics}
 
 
@@ -138,7 +180,7 @@ def main(argv=None) -> None:
     ap.add_argument("--mode", default="digital",
                     choices=["digital", "analog_faithful", "analog_fast"])
     ap.add_argument("--mesh", action="store_true",
-                    help="the host device mesh (not ported yet: raises)")
+                    help="use the host device mesh (pure DP)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     a = ap.parse_args(argv)

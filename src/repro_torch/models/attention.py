@@ -24,7 +24,7 @@ from repro_torch.core.noise import NoiseConfig
 from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, find_group
 from repro_torch.exec.run import run_layer
 from repro_torch.models import layers as L
-from repro_torch.models.flash import flash_attention
+from repro_torch.models.flash import flash_attention, flash_attention_cp
 
 NEG_INF = -1e30
 
@@ -135,10 +135,23 @@ def decode_scores(qg: torch.Tensor, ck_f: torch.Tensor) -> torch.Tensor:
                       math.sqrt(qg.shape[-1]))
 
 
+def _cp_wanted(attn_cp: str, n_heads: int) -> bool:
+    """Context-parallel attention: 'auto' turns it on exactly when the
+    head count cannot take the model mesh axis (24/28/40 heads vs 16)."""
+    from repro_torch.distributed import sharding as shd
+
+    sizes = shd.axis_sizes()
+    if attn_cp == "off" or "model" not in sizes:
+        return False
+    if attn_cp == "cp":
+        return True
+    return n_heads % sizes["model"] != 0
+
+
 def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
                     n_kv_heads, head_dim, rope_theta, mrope=False,
                     cache=None, flash_threshold=2048,
-                    flash_blocks=(256, 512), noise=None):
+                    flash_blocks=(256, 512), noise=None, attn_cp="auto"):
     """Returns (out, new_cache).  ``cache``: dict(k, v, len) for decode,
     plus ``k_scale`` / ``v_scale`` when its ``k`` is int8.
 
@@ -148,7 +161,11 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
     same way), and the returned cache holds the same tensors and the
     advanced length.  Without a cache, more than ``flash_threshold``
     positions take :func:`~repro_torch.models.flash.flash_attention`
-    with ``flash_blocks = (block_q, block_kv)``.  ``noise``: the
+    with ``flash_blocks = (block_q, block_kv)``; under a mesh whose
+    ``model`` axis the heads cannot take (``attn_cp``, :func:`_cp_wanted`)
+    the prompt pass is context-parallel
+    (:func:`~repro_torch.models.flash.flash_attention_cp`, the
+    reference's default blocks).  ``noise``: the
     projections' readout-noise source (a generator or a
     :class:`~repro_torch.core.noise.NoiseFeed`)."""
     b, s, _ = x.shape
@@ -202,6 +219,9 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
         p = torch.softmax(sc, dim=-1)
         o = torch.einsum("bhgqk,bkhd->bqhgd", p, cv_f)
         o = o.to(x.dtype)
+    elif _cp_wanted(attn_cp, n_heads):
+        o = flash_attention_cp(qg, k, v, causal=True)
+        new_cache = None
     elif s <= flash_threshold:
         o = _dense_attention(qg, k, v, causal=True)
         new_cache = None
@@ -213,6 +233,19 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
 
     o = o.reshape(b, s, nq)
     return L.linear_apply(params["wo"], o, acfg, noise=noise), new_cache
+
+
+def cache_specs(dtype=torch.bfloat16):
+    """The logical axes of :func:`init_cache`'s tree (``len``: replicated)."""
+    c = {
+        "k": ("batch", "kv_seq", "kv_heads", None),
+        "v": ("batch", "kv_seq", "kv_heads", None),
+        "len": (),
+    }
+    if dtype == torch.int8:
+        c["k_scale"] = ("batch", "kv_seq", "kv_heads")
+        c["v_scale"] = ("batch", "kv_seq", "kv_heads")
+    return c
 
 
 def init_cache(batch, max_len, n_kv_heads, head_dim, dtype=torch.bfloat16,

@@ -186,3 +186,86 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, block_q=256,
                          device=q.device) + q_offset
     o = _Flash.apply(q, k, v, qpos0, causal, block_q, block_kv, window)
     return o[:, :sq]
+
+
+class _CPFlash(torch.autograd.Function):
+    """Context-parallel flash attention on one ``model`` rank: q's
+    sequence block ``idx`` against the whole k/v (the reference's
+    ``shard_map`` body).  Forward: the local block's flash attention, then
+    the blocks all-gathered along the sequence - no other collective.
+    Backward: the local block's blockwise backward; dq's blocks are
+    all-gathered, and dk / dv, which every rank's block contributes to,
+    are all-reduced over ``model`` (the ``shard_map`` transpose)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_kv, window):
+        from repro_torch.distributed import sharding as shd
+
+        b, sq, kvh, g, dh = q.shape
+        n_model = shd.axis_sizes()["model"]
+        idx = shd.axis_index("model")
+        s_loc = sq // n_model
+        bq = min(block_q, s_loc)
+        bk = min(block_kv, k.shape[1])
+        pq = (-s_loc) % bq
+        pk = (-k.shape[1]) % bk
+        ql = q[:, idx * s_loc:(idx + 1) * s_loc]
+        if pq:
+            ql = F.pad(ql, (0, 0, 0, 0, 0, 0, 0, pq))
+        kl, vl = k, v
+        if pk:
+            kl = F.pad(kl, (0, 0, 0, 0, 0, pk))
+            vl = F.pad(vl, (0, 0, 0, 0, 0, pk))
+        qpos = (idx * s_loc + torch.arange(s_loc + pq, device=q.device)
+                ).to(torch.float32)
+        with fp32_matmuls():
+            o, lse = _fwd_blocks(ql, kl, vl, qpos, causal=causal,
+                                 block_q=bq, block_kv=bk, window=window)
+        ctx.save_for_backward(ql, kl, vl, o, lse, qpos)
+        ctx.static = (causal, bq, bk, window, s_loc, k.shape[1])
+        ctx.mesh, ctx.idx = shd.get_mesh(), idx
+        return shd.all_gather(o[:, :s_loc].contiguous(), "model", dim=1)
+
+    @staticmethod
+    def backward(ctx, do):
+        from repro_torch.distributed import sharding as shd
+
+        ql, kl, vl, o, lse, qpos = ctx.saved_tensors
+        causal, bq, bk, window, s_loc, sk = ctx.static
+        idx = ctx.idx
+        dol = do[:, idx * s_loc:(idx + 1) * s_loc]
+        pq = o.shape[1] - s_loc
+        if pq:
+            dol = F.pad(dol, (0, 0, 0, 0, 0, 0, 0, pq))
+        with fp32_matmuls():
+            dq, dk, dv = _bwd_blocks(ql, kl, vl, o, lse, qpos, dol,
+                                     causal=causal, block_q=bq, block_kv=bk,
+                                     window=window)
+        with shd.use_mesh(ctx.mesh):
+            dq = shd.all_gather(dq[:, :s_loc].contiguous(), "model", dim=1)
+            dk = shd.all_reduce(dk[:, :sk].contiguous(), "model")
+            dv = shd.all_reduce(dv[:, :sk].contiguous(), "model")
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_cp(q, k, v, *, causal=True, block_q=256, block_kv=512,
+                       window: Optional[int] = None):
+    """Context-parallel flash attention: q's sequence axis splits over the
+    ``model`` mesh axis, each rank's block offset by ``rank * s_loc`` in
+    position; k and v stay whole on every rank (they already are for
+    every config whose head count does not divide the model axis).  The
+    forward needs no collective but the output's all-gather; the
+    backward all-reduces dk / dv over ``model`` (:class:`_CPFlash`).
+    Falls back to :func:`flash_attention` where the reference does: no
+    mesh, no ``model`` axis, or ``sq`` not divisible by it.
+
+    The batch is whatever the caller holds: inside a sharded step its
+    block, else the whole batch on every rank."""
+    from repro_torch.distributed import sharding as shd
+
+    sizes = shd.axis_sizes()
+    sq = q.shape[1]
+    if "model" not in sizes or sq % sizes["model"]:
+        return flash_attention(q, k, v, causal=causal, block_q=block_q,
+                               block_kv=block_kv, window=window)
+    return _CPFlash.apply(q, k, v, causal, block_q, block_kv, window)

@@ -132,7 +132,7 @@ def _mrope_section_ids(sections: tuple, device: torch.device) -> torch.Tensor:
     made once per device: no host-to-device copy per attention call."""
     return torch.repeat_interleave(
         torch.arange(len(sections), device=device),
-        torch.tensor(sections, device=device))
+        torch.tensor(sections, device=device), output_size=sum(sections))
 
 
 def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,

@@ -20,11 +20,15 @@ arithmetic step for step:
      atomics, so the sum is the same on every run and device.
 
 A dense fallback (``dense=True``) runs every expert on every token, for
-tiny smoke configs.  The expert-parallel shard_map dispatch waits for
-the mesh (ROADMAP).
+tiny smoke configs.  Under a mesh with a ``model`` axis,
+``dispatch="shard_map"`` is the expert-parallel dispatch
+(:func:`_expert_block_shard_map`): each model rank fills and runs its own
+experts' buffer, and one all-gather assembles the expert outputs.
+Without a mesh it is the ``gspmd_ep`` path, as in the reference.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -33,11 +37,14 @@ import torch.nn.functional as F
 from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.noise import NoiseConfig, _normal
-from repro_torch.exec.plan import GROUP_EXPERT_STACK, GroupPlan, find_group
+from repro_torch.distributed import sharding as shd
+from repro_torch.exec.plan import (GROUP_EXPERT_STACK, PYTREE_FIELDS,
+                                   GroupPlan, find_group)
 from repro_torch.models import layers as L
 
-# the reference's no-mesh dispatch names: both build the buffer locally
-_NO_MESH_DISPATCH = ("gspmd_ep", "replicated_buf")
+# the reference's dispatch names: the two GSPMD paths build the whole
+# buffer on every rank; shard_map is the expert-parallel dispatch
+DISPATCH = ("shard_map", "gspmd_ep", "replicated_buf")
 # Experts per block when an expert stack is drawn (:func:`moe_init`) or
 # lowered without grad (``exec.lower.lower_expert_stack``): one block of
 # fp32 values exists at a time, never a whole stack (llama4-maverick's is
@@ -225,6 +232,68 @@ def _expert_ffn(params, xe, act, acfg: AnalogConfig):
     return _expert_matmul(h, params["down"], acfg, plan=plan_of("down"))
 
 
+def _expert_rows(obj, lo: int, hi: int, e: int):
+    """An expert-stack plan (or any plan dataclass below it) with every
+    tensor whose leading axis is the expert axis (``e``) cut to experts
+    ``lo:hi``; stores are rebuilt, so their derived tables are the cut's."""
+    if isinstance(obj, torch.Tensor):
+        return obj[lo:hi] if obj.ndim and obj.shape[0] == e else obj
+    if type(obj) not in PYTREE_FIELDS:
+        return obj
+    return dataclasses.replace(obj, **{
+        f: _expert_rows(getattr(obj, f), lo, hi, e)
+        for f in PYTREE_FIELDS[type(obj)][0]})
+
+
+def _local_experts(params, lo: int, hi: int) -> dict:
+    """The expert FFN parameters (and pre-lowered ``expert_stack`` plans)
+    of experts ``lo:hi``."""
+    e = params["up"].shape[0]
+    if hi - lo == e:        # a 1-way model axis: every expert is local
+        return params
+    out = {k: params[k][lo:hi] for k in ("up", "gate", "down")
+           if k in params}
+    if "_groups" in params:
+        out["_groups"] = {
+            name: _expert_rows(gp, lo, hi, e) if gp.kind == GROUP_EXPERT_STACK
+            else gp for name, gp in params["_groups"].items()}
+    return out
+
+
+def _expert_block_shard_map(params, x, eg, pos_c, keep, tok, e, capacity,
+                            act, acfg):
+    """Expert-parallel FFN with explicit collectives (the reference's
+    ``shard_map`` block): each ``model`` rank scatters the tokens of its
+    ``e_loc`` LOCAL experts into a ``[B, e_loc, C, d]`` buffer (a copy
+    routed elsewhere is masked out), runs its experts (one
+    ``expert_stack`` dispatch on the card), and one all-gather of the
+    expert outputs along axis 1 over ``model`` gives ``[B, E, C, d]``.
+    The dynamic abs-max spans every rank's buffer, so the codes are the
+    whole buffer's (``gspmd_ep``'s).  Under autograd the tokens' gradient
+    is all-reduced over ``model`` (every rank's experts read them), and
+    each rank's output block takes its part of the (agreeing) cotangent."""
+    n_model = shd.axis_sizes()["model"]
+    if e % n_model:
+        raise ValueError(f"{e} experts do not split over a {n_model}-way "
+                         "model axis")
+    e_loc = e // n_model
+    lo = shd.axis_index("model") * e_loc
+    b, _, d = x.shape
+    x = shd.psum_grad(x, "model")
+    se_loc = eg - lo
+    valid = keep & (se_loc >= 0) & (se_loc < e_loc)
+    se_c = torch.clamp(se_loc, 0, e_loc - 1)
+    src = torch.where(valid[..., None], x[:, tok], 0.0)
+    buf = torch.zeros((b, e_loc * capacity, d), dtype=x.dtype,
+                      device=x.device)
+    buf.index_put_((torch.arange(b, device=x.device)[:, None],
+                    se_c * capacity + pos_c), src, accumulate=True)
+    with shd.amax_over("model"):
+        ye_loc = _expert_ffn(_local_experts(params, lo, lo + e_loc),
+                             buf.reshape(b, e_loc, capacity, d), act, acfg)
+    return shd.gather_blocks(ye_loc, "model", dim=1)
+
+
 def top_k_lower_index(probs: torch.Tensor, k: int):
     """``(values, indices)`` of the ``k`` largest entries of the last
     axis, descending, equal values ordered by the lower index (the order
@@ -246,17 +315,25 @@ def route(probs: torch.Tensor, top_k: int, routes=None):
     ``probs [B, S, E]``: ``(topw, topi, aux)``, weights renormalized by
     ``max(sum, 1e-9)``, ``aux = E * sum_e mean_prob_e * frac_routed_e``.
     ``routes`` (a :class:`Routes`) records the top-k, or replays another
-    run's in its place, the aux loss's routed fractions included."""
+    run's in its place, the aux loss's routed fractions included.  Inside
+    a sharded step whose batch is split, both means are the whole
+    batch's (summed over the split's ranks)."""
     e = probs.shape[-1]
     topw, topi = top_k_lower_index(probs, top_k)
     topw = _renormalize(topw)
     if routes is not None:
         topw, topi = routes.route(topw, topi, probs)
-    me = probs.mean(dim=(0, 1))
+    n = shd.batch_count()
+    if n == 1:
+        me = probs.mean(dim=(0, 1))
+    else:
+        me = shd.batch_sum(probs.sum(dim=(0, 1))) / (
+            probs.shape[0] * probs.shape[1] * n)
     ce = torch.zeros((e,), dtype=torch.float32, device=probs.device)
     ce = ce.index_put_((topi.reshape(-1),),
-                       torch.full((topi.numel(),), 1.0 / topi.numel(),
+                       torch.full((topi.numel(),), 1.0 / (topi.numel() * n),
                                   device=probs.device), accumulate=True)
+    ce = shd.batch_sum(ce)
     aux = e * torch.sum(me * ce)
     return topw, topi, aux
 
@@ -298,13 +375,14 @@ def moe_apply(params, x, *, acfg: AnalogConfig, top_k: int,
     records this call's top-k, or replays another run's in its place (the aux
     loss's probabilities stay this call's router's).  ``noise`` reaches the
     shared expert (the expert products have no readout noise, as in the
-    reference).  ``dispatch`` accepts only the no-mesh paths (``"gspmd_ep"``,
-    ``"replicated_buf"``): ``"shard_map"`` needs the mesh (ROADMAP)."""
-    if dispatch not in _NO_MESH_DISPATCH:
-        raise NotImplementedError(
-            f"moe dispatch {dispatch!r} needs the device mesh, which is not "
-            f"ported yet (ROADMAP); one device takes "
-            f"{', '.join(_NO_MESH_DISPATCH)}")
+    reference).  ``dispatch``: ``"shard_map"`` is the expert-parallel
+    dispatch under a mesh with a ``model`` axis
+    (:func:`_expert_block_shard_map`) and the ``"gspmd_ep"`` path without
+    one; ``"gspmd_ep"`` and ``"replicated_buf"`` build the whole buffer
+    (the same values: the reference's two differ only in a layout
+    constraint)."""
+    if dispatch not in DISPATCH:
+        raise ValueError(f"moe dispatch {dispatch!r}: one of {DISPATCH}")
     b, s, d = x.shape
     e = params["up"].shape[0]
     logits = x.to(torch.float32) @ params["router"]["w"]          # [B, S, E]
@@ -324,15 +402,20 @@ def moe_apply(params, x, *, acfg: AnalogConfig, top_k: int,
         capacity = int(max(top_k, capacity_factor * s * top_k / e))
         eg, pos_c, keep, slot_order = dispatch_layout(topi, e, capacity)
         tok = torch.arange(s * top_k, device=x.device) // top_k     # [S k]
-        src = torch.where(keep[..., None], x[:, tok], 0.0)         # [B, Sk, d]
-        # the [B, E, C, d] buffer: a kept copy owns its slot; the dropped
-        # copies' clamped slot receives their zeros
-        buf = torch.zeros((b, e * capacity, d), dtype=x.dtype,
-                          device=x.device)
-        buf.index_put_(
-            (torch.arange(b, device=x.device)[:, None],
-             eg * capacity + pos_c), src, accumulate=True)
-        ye = _expert_ffn(params, buf.reshape(b, e, capacity, d), act, acfg)
+        if dispatch == "shard_map" and "model" in shd.axis_sizes():
+            ye = _expert_block_shard_map(params, x, eg, pos_c, keep, tok, e,
+                                         capacity, act, acfg)
+        else:
+            src = torch.where(keep[..., None], x[:, tok], 0.0)  # [B, Sk, d]
+            # the [B, E, C, d] buffer: a kept copy owns its slot; the
+            # dropped copies' clamped slot receives their zeros
+            buf = torch.zeros((b, e * capacity, d), dtype=x.dtype,
+                              device=x.device)
+            buf.index_put_(
+                (torch.arange(b, device=x.device)[:, None],
+                 eg * capacity + pos_c), src, accumulate=True)
+            ye = _expert_ffn(params, buf.reshape(b, e, capacity, d), act,
+                             acfg)
         # combine: each routed copy's output at its slot, weighted (zero
         # when dropped), then each token's k copies summed in the sorted
         # dispatch order, in the activation dtype

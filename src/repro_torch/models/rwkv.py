@@ -245,6 +245,11 @@ def rwkv_apply(params, x, *, acfg: AnalogConfig, n_heads, cache=None,
     return out, {"x_prev": x[:, -1], "state": state}
 
 
+def rwkv_cache_specs():
+    """The logical axes of the time mix's decode cache."""
+    return {"x_prev": ("batch", None), "state": ("batch", "heads", None, None)}
+
+
 # ------------------------------------------------------- channel mix (FFN)
 def channel_mix_init(generator, d_model, d_ff, *,
                      noise: NoiseConfig = NoiseConfig(), dtype=torch.float32,

@@ -21,6 +21,14 @@ from repro_torch.models import layers as L
 CONV_K = 4
 
 
+def mamba_cache_specs():
+    """The logical axes of the Mamba layer's decode cache."""
+    return {
+        "conv": ("batch", None, "mlp"),
+        "state": ("batch", "mlp", None, None),
+    }
+
+
 def mamba_init(generator, d_model, *, d_state=64, expand=2, head_dim=64,
                noise: NoiseConfig = NoiseConfig(), dtype=torch.float32,
                device: DeviceLike = None):

@@ -34,6 +34,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.noise import NoiseConfig, NoiseFeed
+from repro_torch.distributed import sharding as shd
 from repro_torch.exec.plan import PlanStack
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -280,6 +281,7 @@ def _layer_apply(p, kind, x, *, cfg, run, positions, cache, noise=None,
         rope_theta=cfg.rope_theta, mrope=cfg.mrope,
         cache=None if cache is None else cache["attn"],
         flash_blocks=(run.flash_block_q, run.flash_block_kv), noise=noise,
+        attn_cp=run.attn_cp,
     )
     x = x + attn_out.to(x.dtype)
     h = L.norm_apply(p["ln2"], x, cfg.norm)
@@ -290,7 +292,7 @@ def _layer_apply(p, kind, x, *, cfg, run, positions, cache, noise=None,
         y, aux = M.moe_apply(
             p["moe"], h, acfg=acfg, top_k=cfg.top_k,
             capacity_factor=run.capacity_factor, act=cfg.act, noise=noise,
-            routes=routes)
+            dispatch=run.moe_dispatch, routes=routes)
     x = x + y.to(x.dtype)
     return x, (None if cache is None else {"attn": c}), aux
 
@@ -310,7 +312,8 @@ def _group_apply(gp, x, *, cfg, run, positions, cache, noise=None,
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
             rope_theta=cfg.rope_theta,
             cache=None if cache is None else cache["shared_attn"],
-            flash_blocks=(run.flash_block_q, run.flash_block_kv), noise=noise)
+            flash_blocks=(run.flash_block_q, run.flash_block_kv), noise=noise,
+            attn_cp=run.attn_cp)
         x = x + y.to(x.dtype)
         if cache is not None:
             new_cache["shared_attn"] = c
@@ -568,6 +571,26 @@ def init_lm_cache(cfg: ArchConfig, batch: int, max_len: int,
     return {"layers": group, "step": 0}
 
 
+def _layer_cache_specs(kind, dtype=torch.bfloat16):
+    if kind == "rwkv":
+        return {"tmix": R.rwkv_cache_specs(),
+                "cmix": {"x_prev": ("batch", None)}}
+    if kind == "mamba":
+        return {"mamba": S.mamba_cache_specs()}
+    return {"attn": A.cache_specs(dtype)}
+
+
+def lm_cache_specs(cfg: ArchConfig, dtype=torch.bfloat16):
+    """The logical axes of :func:`init_lm_cache`'s tree: every leaf with
+    the groups' leading ``layers`` axis; the step and the lengths are
+    replicated."""
+    group = {f"l{i}": _layer_cache_specs(kind, dtype)
+             for i, kind in enumerate(group_def(cfg))}
+    if cfg.attn_every:
+        group["shared_attn"] = A.cache_specs(dtype)
+    return {"layers": _prepend(group), "step": ()}
+
+
 # ------------------------------------------------------------------- loss
 def lm_loss(params, batch, cfg: ArchConfig, run: RunConfig, noise=None,
             routes=None):
@@ -584,13 +607,18 @@ def lm_loss(params, batch, cfg: ArchConfig, run: RunConfig, noise=None,
                         )[..., 0].to(torch.float32)
     nll = logz - gold
     mask = batch.get("mask")
+    n = shd.batch_count()
     if mask is not None:
         nll = nll * mask
-        denom = torch.clamp_min(mask.sum(), 1.0)
+        denom = torch.clamp_min(shd.batch_sum(mask.sum()), 1.0)
     else:
-        denom = nll.numel()
+        denom = nll.numel() * n
     aux = torch.as_tensor(aux, dtype=torch.float32, device=nll.device)
-    loss = nll.sum() / denom + 0.01 * aux
-    metrics = {"nll": nll.sum() / denom, "aux": aux,
-               "logit_z": torch.mean(logz ** 2)}
+    # inside a sharded step whose batch is split, the sums are the whole
+    # batch's (batch_sum; the identity without a split)
+    nll_sum = shd.batch_sum(nll.sum())
+    loss = nll_sum / denom + 0.01 * aux
+    logit_z = torch.mean(logz ** 2) if n == 1 else \
+        shd.batch_sum(torch.sum(logz ** 2)) / (logz.numel() * n)
+    metrics = {"nll": nll_sum / denom, "aux": aux, "logit_z": logit_z}
     return loss, metrics

@@ -32,6 +32,14 @@ The deployment hooks (the reference's):
   remapped onto a spare and the spare's tables hot-swapped the same way;
 - ``prelower=False`` serves the raw parameters, every analog layer
   lowered per call (the reference's unbaked route).
+
+Under a mesh (:func:`repro_torch.distributed.sharding.use_mesh`) the
+served tree - the pre-lowered plans, a hot-swapped or remapped tree, or
+the raw parameters - is stored as this rank's blocks, sharded by
+``CompiledModel.sharding_specs()`` (``T.lm_specs`` for raw parameters),
+and the steps are :class:`~repro_torch.serve.serve_step.MeshServeStep`:
+nothing is lowered between batches, and every rank samples the same
+tokens.
 """
 from __future__ import annotations
 
@@ -45,11 +53,12 @@ import torch
 from repro_torch import api
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.device import DeviceLike, resolve_device, to_device
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as T
 from repro_torch.obs import energy as obs_energy
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
-from repro_torch.serve.serve_step import make_serve_steps
+from repro_torch.serve.serve_step import init_cache, make_serve_steps
 
 
 @dataclasses.dataclass
@@ -121,12 +130,26 @@ class ServeEngine:
             params = self.model.lower()
         else:
             params = to_device(params, self.device)
-        self.params = params
+        step_kw = {}
+        if shd.get_mesh() is not None:
+            step_kw = dict(abstract_params=params, param_specs=(
+                T.lm_specs(cfg) if self.model is None
+                else self.model.sharding_specs()))
+        self.prefill, self.decode = make_serve_steps(cfg, run, **step_kw)
+        self.param_shardings = getattr(self.prefill, "param_shardings", None)
+        self.params = self._placed(params)
         self.batch_size = batch_size
         self.max_len = max_len
         self.greedy = greedy
-        self.prefill, self.decode = make_serve_steps(cfg, run)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+    def _placed(self, params):
+        """The served tree as this engine stores it: this rank's blocks
+        under a mesh (plan leaves shard by the axes of the weights they
+        were baked from), else as it is."""
+        if shd.get_mesh() is None:
+            return params
+        return shd.shard_tree(params, self.param_shardings)
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         if self.greedy:
@@ -145,7 +168,7 @@ class ServeEngine:
             return False
         with obs_trace.span("serve.hot_swap"):
             self.model = self.model.with_calibration(snapshot)
-            self.params = self.model.lower()
+            self.params = self._placed(self.model.lower())
         obs_metrics.counter("serve.hot_swap").inc()
         return True
 
@@ -161,7 +184,7 @@ class ServeEngine:
             return False
         with obs_trace.span("serve.hot_swap", reason="fleet.remap"):
             self.model = model
-            self.params = self.model.lower()
+            self.params = self._placed(self.model.lower())
         obs_metrics.counter("serve.hot_swap").inc()
         return True
 
@@ -191,8 +214,8 @@ class ServeEngine:
             toks = np.zeros((b, prompt_len), np.int64)
             for i, r in enumerate(requests):
                 toks[i, prompt_len - len(r.prompt):] = r.prompt  # left-pad
-            cache = T.init_lm_cache(self.cfg, b, self.max_len,
-                                    dtype=torch.float32, device=self.device)
+            cache = init_cache(self.cfg, b, self.max_len,
+                               dtype=torch.float32, device=self.device)
             with obs_trace.span("serve.prefill", batch=b,
                                 prompt_len=prompt_len) as psp:
                 logits, cache = self.prefill(

@@ -23,9 +23,16 @@ def ef_init(params):
                                           device=p.device), params)
 
 
-def compress(g: torch.Tensor):
-    """Symmetric int8 quantization; returns (codes int8, scale f32)."""
-    scale = _div_exact(torch.clamp_min(g.abs().max(), 1e-30), 127.0)
+def compress(g: torch.Tensor, axes=()):
+    """Symmetric int8 quantization; returns (codes int8, scale f32).
+    ``axes``: the mesh axes that split ``g`` into this rank's block (the
+    scale is the whole leaf's)."""
+    from repro_torch.distributed import sharding as shd
+
+    amax = g.abs().max()
+    if axes:
+        amax = shd.all_reduce(amax, axes, op="max")
+    scale = _div_exact(torch.clamp_min(amax, 1e-30), 127.0)
     codes = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return codes, scale
 
@@ -34,16 +41,23 @@ def decompress(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return codes.to(torch.float32) * scale
 
 
-def compress_grads(grads, ef):
+def compress_grads(grads, ef, shardings=None):
     """Apply error feedback, compress each leaf.  Returns (a tree of
-    ``(codes, scale)`` pairs, the new error buffers)."""
+    ``(codes, scale)`` pairs, the new error buffers).  ``shardings``: the
+    leaves' sharding tree when they are this rank's blocks."""
 
-    def one(g, e):
+    from repro_torch.distributed import sharding as shd
+
+    def one(g, e, ns=None):
         corrected = g.to(torch.float32) + e
-        codes, scale = compress(corrected)
+        axes = () if ns is None else shd.spec_axes(ns.spec)
+        codes, scale = compress(corrected, axes)
         return (codes, scale), corrected - decompress(codes, scale)
 
-    pairs = tree_map(one, grads, ef)      # a (codes, scale) tuple is a leaf
+    if shardings is None:
+        pairs = tree_map(one, grads, ef)  # a (codes, scale) tuple is a leaf
+    else:
+        pairs = tree_map(one, grads, ef, shardings)
     return tree_map(lambda p: p[0], pairs), tree_map(lambda p: p[1], pairs)
 
 

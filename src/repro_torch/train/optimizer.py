@@ -96,11 +96,22 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
     }
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares over every leaf, in fp32."""
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree_leaves(tree)]
-    return torch.sqrt(sum(leaves))
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, in fp32.  Under a mesh
+    ``shardings`` (the leaves' :class:`~repro_torch.distributed.sharding.
+    NamedSharding` tree) says which leaves are this rank's blocks: each
+    such leaf's partial sum is all-reduced over the axes that split it,
+    so every rank gets the norm of the whole tree."""
+    def sumsq(x, ns=None):
+        s = torch.sum(torch.square(x.to(torch.float32)))
+        if ns is None:
+            return s
+        from repro_torch.distributed import sharding as shd
+
+        return shd.all_reduce(s, shd.spec_axes(ns.spec))
+
+    rest = () if shardings is None else (shardings,)
+    return torch.sqrt(sum(tree_leaves(tree_map(sumsq, tree, *rest))))
 
 
 def _upd(p, g, m, v, lr, scale, bc1, bc2, cfg: AdamWConfig):
@@ -120,17 +131,21 @@ def _upd(p, g, m, v, lr, scale, bc1, bc2, cfg: AdamWConfig):
     return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
 
 
-def adamw_update_(params, grads, state, cfg: AdamWConfig) -> dict:
+def adamw_update_(params, grads, state, cfg: AdamWConfig,
+                  shardings=None) -> dict:
     """One AdamW step with global-norm clipping, in place: each trainable
     leaf of ``params`` and of ``state``'s moments is overwritten with its
     new value, leaf by leaf, and ``state["step"]`` advanced, so one leaf's
     temporaries are live at a time (the reference donates its state to
     the same end).  Runs on the parameters' device, reads nothing back to
-    the host, and returns ``{"grad_norm", "lr"}``."""
+    the host, and returns ``{"grad_norm", "lr"}``.  ``shardings``: the
+    parameters' sharding tree when ``params``, ``grads`` and the moments
+    are this rank's blocks (the norm is then the whole tree's,
+    :func:`global_norm`)."""
     mask = trainable_mask(params)
     step = state["step"] + 1
     lr = schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.pow(cfg.b1, stepf)
@@ -159,3 +174,12 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
              "v": tree_map(torch.clone, state["v"])}
     metrics = adamw_update_(params, grads, state, cfg)
     return params, state, metrics
+
+
+def opt_state_specs(param_specs):
+    """Sharding specs of the optimizer state: the moments mirror the
+    parameters' for trainable leaves and are replicated scalars for the
+    frozen calibration buffers."""
+    mask = trainable_mask(param_specs)
+    mv = tree_map(lambda s, m: s if m else (), param_specs, mask)
+    return {"step": (), "m": mv, "v": mv}

@@ -1,5 +1,4 @@
-"""The LM training step (port of ``repro.train.train_step`` without a
-mesh).
+"""The LM training step (port of ``repro.train.train_step``).
 
 State layout, as in the reference:
     state = {"params": ..., "opt": {"step", "m", "v"}, ["ef": ...]}
@@ -8,6 +7,14 @@ State layout, as in the reference:
 the caller's tensors in place (the reference's jit donates its state the
 same way), so a full-size model never holds two copies of its
 parameters and moments.
+
+Under a mesh (:func:`make_train_step` with one active) the state and the
+batch are this rank's blocks (``shard_tree`` of :func:`state_specs` /
+:func:`batch_specs`): the step all-gathers the parameters, runs the
+forward and backward on its batch block (whole-batch reductions summed
+over the batch axes), reduces the gradients over the batch axes - a
+reduce-scatter where FSDP splits a leaf over ``data`` - and applies
+AdamW to its blocks with the whole tree's gradient norm.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.device import DeviceLike
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import transformer as T
 from repro_torch.train import compression as C
 from repro_torch.train import optimizer as O
@@ -48,6 +56,22 @@ def init_state(generator: torch.Generator, cfg: ArchConfig, run: RunConfig,
     if run.grad_compression:
         state["ef"] = C.ef_init(params)
     return state
+
+
+def state_specs(cfg: ArchConfig, run: RunConfig):
+    """The logical axes of :func:`init_state`'s tree."""
+    pspecs = T.lm_specs(cfg)
+    specs = {"params": pspecs, "opt": O.opt_state_specs(pspecs)}
+    if run.grad_compression:
+        specs["ef"] = pspecs
+    return specs
+
+
+def batch_specs(cfg: ArchConfig):
+    """The logical axes of a training batch."""
+    if cfg.embed_inputs:
+        return {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    return {"embeds": ("batch", "seq", None), "labels": ("batch", "seq")}
 
 
 def loss_and_grads(params, batch, noise=None, *, cfg: ArchConfig,
@@ -89,18 +113,23 @@ def loss_and_grads(params, batch, noise=None, *, cfg: ArchConfig,
     return loss.detach(), metrics, _unflatten(params, iter(grads))
 
 
-def apply_update(state, grads, *, opt_cfg: O.AdamWConfig) -> dict:
+def apply_update(state, grads, *, opt_cfg: O.AdamWConfig,
+                 shardings=None) -> dict:
     """The update half of a step, in place on ``state``: the optional int8
     gradient compression with error feedback, then AdamW.  Returns the
     optimizer's metrics.  Not safe to repeat after a failure: the leaves
-    written before it are written again on a second call."""
+    written before it are written again on a second call.
+    ``shardings``: the parameters' sharding tree when the state and the
+    gradients are this rank's blocks."""
     with torch.no_grad():
         if "ef" in state:
             # int8 gradient compression with error feedback: the codes are
             # what would cross the data-parallel axes
-            comp, state["ef"] = C.compress_grads(grads, state["ef"])
+            comp, state["ef"] = C.compress_grads(grads, state["ef"],
+                                                 shardings)
             grads = C.decompress_grads(comp)
-        return O.adamw_update_(state["params"], grads, state["opt"], opt_cfg)
+        return O.adamw_update_(state["params"], grads, state["opt"], opt_cfg,
+                               shardings)
 
 
 def train_step(state, batch, noise=None, *, cfg: ArchConfig,
@@ -120,13 +149,89 @@ def _unflatten(tree, it):
     return next(it)
 
 
+def reduce_grads(grads, shardings, batch_axes):
+    """Whole-parameter gradients of one batch block -> this rank's blocks
+    of the whole batch's gradients: summed over ``batch_axes`` (a
+    reduce-scatter along a dim those axes split, an all-reduce over the
+    rest) and cut to the blocks the other axes split (every rank of those
+    computed the same gradient)."""
+    def one(g, ns):
+        used = set()
+        for d, axes in shd.split_dims(ns, g.ndim):
+            for a in axes:
+                if a in batch_axes:
+                    g = shd.reduce_scatter(g, a, dim=d)
+                    used.add(a)
+                else:
+                    size = g.shape[d] // shd.axis_sizes()[a]
+                    g = g.narrow(d, shd.axis_index(a) * size, size)
+        rest = tuple(a for a in batch_axes if a not in used)
+        return shd.all_reduce(g, rest) if rest else g
+
+    return O.tree_map(one, grads, shardings)
+
+
+class MeshTrainStep:
+    """The step under a mesh: ``step(state, batch, noise=None,
+    routes=None) -> (state, metrics)`` on this rank's blocks of the state
+    and the batch (``shard_tree(state, step.state_shardings)``,
+    ``shard_tree(batch, step.batch_shardings)``), the state updated in
+    place.  ``noise`` and ``routes`` are the whole batch's (each rank
+    takes its rows of every draw)."""
+
+    def __init__(self, cfg: ArchConfig, run: RunConfig,
+                 opt_cfg: O.AdamWConfig, state_shardings, batch_shardings):
+        self.cfg, self.run, self.opt_cfg = cfg, run, opt_cfg
+        self.state_shardings = state_shardings
+        self.batch_shardings = batch_shardings
+        lead = next(iter(batch_shardings.values())).spec
+        self.batch_axes = shd.split_axes(lead[0] if lead else None)
+
+    def loss_and_grads(self, state, batch, noise=None, routes=None):
+        """``(loss, metrics, grads)``: the whole batch's loss and metrics,
+        this rank's blocks of the whole batch's gradients."""
+        pshard = self.state_shardings["params"]
+        params = shd.gather_tree(state["params"], pshard)
+        with shd.batch_split(self.batch_axes):
+            loss, metrics, grads = loss_and_grads(
+                params, batch, noise, cfg=self.cfg, run=self.run,
+                routes=routes)
+        del params
+        return loss, metrics, reduce_grads(grads, pshard, self.batch_axes)
+
+    def __call__(self, state, batch, noise=None, routes=None):
+        loss, metrics, grads = self.loss_and_grads(state, batch, noise,
+                                                   routes)
+        opt_metrics = apply_update(
+            state, grads, opt_cfg=self.opt_cfg,
+            shardings=self.state_shardings["params"])
+        return state, {**metrics, **opt_metrics, "loss": loss}
+
+
 def make_train_step(cfg: ArchConfig, run: RunConfig,
                     opt_cfg: Optional[O.AdamWConfig] = None,
-                    total_steps: int = 10_000):
-    """The step for one device (the reference's no-mesh step):
-    ``step(state, batch, noise=None, routes=None) -> (state, metrics)``,
+                    total_steps: int = 10_000, abstract_state=None,
+                    abstract_batch=None):
+    """``step(state, batch, noise=None, routes=None) -> (state, metrics)``,
     the state donated (updated in place).  ``batch`` holds ``tokens`` (or
     ``embeds`` for the configs fed precomputed embeddings) and ``labels``
-    on the state's device.  Every family of the registry trains."""
+    on the state's device.  Every family of the registry trains.
+
+    Without a mesh, the step for one device.  Under a mesh, a
+    :class:`MeshTrainStep` whose shardings resolve shape-aware against
+    ``abstract_state`` / ``abstract_batch`` (trees of tensors of the
+    whole shapes, on the meta device if need be; the state's default is
+    :func:`init_state`'s on meta)."""
     opt_cfg = opt_cfg or make_opt_config(run, total_steps)
-    return functools.partial(train_step, cfg=cfg, run=run, opt_cfg=opt_cfg)
+    if shd.get_mesh() is None:
+        return functools.partial(train_step, cfg=cfg, run=run,
+                                 opt_cfg=opt_cfg)
+    if abstract_state is None:
+        abstract_state = init_state(torch.Generator(), cfg, run, opt_cfg,
+                                    device="meta")
+    sspec = shd.sharding_like(state_specs(cfg, run), abstract_state)
+    if abstract_batch is not None:
+        bspec = shd.sharding_like(batch_specs(cfg), abstract_batch)
+    else:
+        bspec = shd.tree_sharding(batch_specs(cfg))
+    return MeshTrainStep(cfg, run, opt_cfg, sspec, bspec)

@@ -4,7 +4,7 @@ to end through the ``repro_torch.api`` front door with ``--device cpu``
 and the reference test's tiny arguments, and prints the reference's
 markers.  Also: the quickstart's energy line is the reference
 quickstart's, character for character (the energy model is
-deterministic); ``serve_batch --mesh`` raises (the mesh is not ported);
+deterministic); ``serve_batch --mesh`` serves on a 1-rank CPU mesh;
 without ``--device`` an example asks for the CUDA device."""
 import pytest
 
@@ -45,11 +45,18 @@ def test_serve_batch_main(capsys, mode):
     assert "serve.all/serve.batch/serve.decode" in out
 
 
-def test_serve_batch_mesh_raises():
+def test_serve_batch_mesh_raises(capsys):
+    """``--mesh`` serves under a 1-rank (data, model) CPU mesh (a gloo
+    group of one, ended after) and prints the reference's markers."""
     from examples_torch import serve_batch
 
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        serve_batch.main(["--mesh", "--device", "cpu"])
+    serve_batch.main(["--mesh", "--requests", "2", "--max-new", "2",
+                      "--batch", "2", "--mode", "analog_faithful",
+                      "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "served 2 requests" in out and "tok/s on cpu" in out
+    assert "serve.all/serve.batch/serve.decode" in out
+    assert not torch.distributed.is_initialized()
 
 
 def test_lm_analog_train_main(capsys):

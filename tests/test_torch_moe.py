@@ -217,10 +217,16 @@ class TestMoeApply:
         want = np.asarray(jy)
         np.testing.assert_allclose(_np(ty), want, rtol=0,
                                    atol=1e-5 * np.abs(want).max())
-        with pytest.raises(NotImplementedError, match="mesh"):
-            M.moe_apply(params_from_numpy(p, "cpu"), torch.from_numpy(x),
-                        acfg=AnalogConfig(), top_k=2, act="gelu",
-                        dispatch="shard_map")
+        # without a mesh the expert-parallel dispatch is the gspmd_ep path
+        sy, saux = M.moe_apply(params_from_numpy(p, "cpu"),
+                               torch.from_numpy(x), acfg=AnalogConfig(),
+                               top_k=2, act="gelu", dispatch="shard_map",
+                               routes=_replay(jw, ji))
+        gy, gaux = M.moe_apply(params_from_numpy(p, "cpu"),
+                               torch.from_numpy(x), acfg=AnalogConfig(),
+                               top_k=2, act="gelu", dispatch="gspmd_ep",
+                               routes=_replay(jw, ji))
+        assert torch.equal(sy, gy) and torch.equal(saux, gaux)
 
 
 class TestExpertProducts:
