@@ -420,7 +420,18 @@ exits non-zero without printing a result):
    phase 44's step-1 tolerances of the CPU's;
 52. ``examples_torch/serve_batch.py --mesh`` through ``main(argv)``, with
    the reference's markers;
-53. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+53. tensor parallelism's blocks (:func:`tp_blocks`): phase 48's phi4-mini
+   tree, block 0's q|k|v group, ``wo``, ``gate``, ``up``, ``down`` and the
+   lm_head cut into the 4 blocks of a (1, 4) ``(data, model)`` mesh's
+   ranks by ``shard_tree``: each column block's launch, side by side,
+   bit-identical to the whole launch; every plan gathered back by
+   ``gather_leaf`` bit-identical; no block derives its fp32 ``w_eff``;
+   the launches' device ms;
+54. phi4-mini at its published widths cut to TP_LAYERS layers, served on
+   a (1, 4) mesh of 4 threads over torch's threaded process group on the
+   one card (:func:`tp_threaded_serving`): tokens and prefill logits
+   bit-identical to no mesh on every rank, each rank's resident bytes;
+55. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
 ``python3 chip_smoke.py --slice10`` runs the build and phases 22-27
@@ -428,8 +439,9 @@ alone, ``--slice11`` the build and phases 28-32, ``--slice12`` the build
 and phases 33-36, ``--slice13`` the build and phases 37-40, ``--slice14``
 the build and phases 41-42 on models of their own, ``--slice15`` the
 build, the lr-0 control step on a fresh stablelm-3b and phases 43-46,
-``--slice16`` the build and phases 47-52 (quick checks; the contract's
-run takes no arguments).
+``--slice16`` the build and phases 47-52, ``--slice17`` the build, phase
+48's no-mesh engine and phases 53-54 (quick checks; the contract's run
+takes no arguments).
 """
 from __future__ import annotations
 
@@ -6234,13 +6246,14 @@ def _walk_every_call(engine):
     engine.decode = walked(engine.decode)
 
 
-def _mesh_serve_run(mesh):
+def _mesh_serve_run(mesh, keep=False):
     """One phi4-mini engine (phase 7's seed, requests and batch), built
     and served under ``mesh`` (None: no mesh): tokens, a 4 x 12
     prefill's logits, the launches and lowerings of the serve, and
     phase 9b's decode timing; then the same serve and prefill again,
     under the mesh with every call's tree walked and rebuilt
-    (:func:`_walk_every_call`)."""
+    (:func:`_walk_every_call`).  ``keep``: the result also holds the
+    engine's pre-lowered tree (``"tree"``, phase 53's)."""
     cfg = configs.get_arch(LM_ARCH)
     run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
     with SHD.use_mesh(mesh):
@@ -6279,6 +6292,8 @@ def _mesh_serve_run(mesh):
            "sharded": sharded,
            "again_tokens": [r.output.tolist() for r in again],
            "again_logits": logits_again.cpu()}
+    if keep:
+        out["tree"] = engine.params
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -6295,7 +6310,7 @@ def mesh_serving(mesh, counts):
     and rebuilt, the plain one's a repeat) is bit-identical too."""
     runs = {}
     for name, m in (("mesh", mesh), ("no_mesh", None)):
-        runs[name] = _mesh_serve_run(m)
+        runs[name] = _mesh_serve_run(m, keep=name == "no_mesh")
         if name == "mesh":
             for k, v in runs[name]["launches"].items():
                 counts[k] += v
@@ -6331,7 +6346,7 @@ def mesh_serving(mesh, counts):
     if bad:
         emit("mesh_serving", report)
         raise AssertionError("; ".join(bad))
-    return report
+    return report, runs["no_mesh"]["tree"]
 
 
 def mesh_moe_layer(mesh, counts):
@@ -6497,18 +6512,363 @@ def mesh_serve_batch(counts):
     return report
 
 
+# ------------------------------------------------------------ phases 53-54
+TP_WORLD = 4          # ranks of phases 53-54's (1, 4) (data, model) mesh
+TP_LAYERS = 2         # phase 54's phi4-mini depth (published widths)
+TP_TIMEOUT = 400.0    # seconds phase 54's rank threads may take
+
+
+def _fake_tp_mesh():
+    """A (1, TP_WORLD) ``(data, model)`` mesh over a fake group of
+    TP_WORLD ranks, this process rank 0: it resolves the ranks'
+    shardings, and :func:`_as_rank` walks the ranks."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    torch.distributed.init_process_group("fake", store=FakeStore(), rank=0,
+                                         world_size=TP_WORLD)
+    return MESH.make_mesh((1, TP_WORLD), ("data", "model"))
+
+
+@contextlib.contextmanager
+def _as_rank(r):
+    """Inside the block ``shard_tree`` cuts rank ``r``'s blocks."""
+    saved = SHD.axis_index
+    SHD.axis_index = lambda axis: r if axis == "model" else 0
+    try:
+        yield
+    finally:
+        SHD.axis_index = saved
+
+
+def _leaf_list(tree, sh):
+    out = []
+    SHD._map_tree(lambda t, ns: out.append(t) or t, tree, sh, derive=False)
+    return out
+
+
+@contextlib.contextmanager
+def _gather_from(blocks, sh):
+    """Inside the block ``all_gather`` of rank 0's leaf of a tree gives
+    the ranks' blocks of it side by side, in rank order: what the
+    collective returns on a mesh of TP_WORLD ranks, so
+    ``SHD.gather_leaf`` runs its own code on one process."""
+    table = {id(leaves[0]): leaves for leaves in zip(
+        *(_leaf_list(b, sh) for b in blocks))}
+    saved = SHD.all_gather
+    SHD.all_gather = lambda x, axes, dim: torch.cat(table[id(x)], dim=dim)
+    try:
+        yield
+    finally:
+        SHD.all_gather = saved
+
+
+def _same_plan(a, b) -> bool:
+    """Two plans equal field for field, tensors bit for bit."""
+    from repro_torch.exec.plan import PYTREE_FIELDS
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and a.shape == b.shape and torch.equal(a, b))
+    fields = PYTREE_FIELDS.get(type(a))
+    if fields is None:
+        return a == b
+    return type(a) is type(b) and all(
+        _same_plan(getattr(a, f), getattr(b, f)) for f in fields[0]) and \
+        all(getattr(a, f) == getattr(b, f) for f in fields[1])
+
+
+def _tp_item(what, plan, psh, acfg, g, bad):
+    """One of block 0's plans (or the lm_head's) cut into the TP_WORLD
+    ranks' blocks by ``shard_tree``: a column block's launches side by
+    side (a group's member by member) against the whole launch, and the
+    blocks gathered back by ``gather_leaf`` against the whole plan and
+    launched; the device ms of each launch."""
+    from repro_torch.exec.plan import GroupPlan
+
+    fused = plan.fused if isinstance(plan, GroupPlan) else plan
+    x = torch.randn((LM_BATCH, fused.k), generator=g, device=DEV)
+    blocks = []
+    for r in range(TP_WORLD):
+        with _as_rank(r):
+            blocks.append(SHD.shard_tree(plan, psh))
+    bfs = [b.fused if isinstance(b, GroupPlan) else b for b in blocks]
+    col = bfs[0].n != fused.n
+
+    def launch(p):
+        if isinstance(p, GroupPlan):
+            return torch.cat(trun.run_group(p, x, acfg), dim=-1)
+        return trun.run_layer(p, x, acfg)
+
+    with torch.no_grad():
+        want = launch(plan)
+        with _gather_from(blocks, psh):
+            back = SHD.gather_leaf(blocks[0], psh)
+        bf = back.fused if isinstance(back, GroupPlan) else back
+        row = {"what": what, "split": "N" if col else "K", "k": fused.k,
+               "n": fused.n,
+               "block_codes": list(bfs[0].store.codes.shape),
+               "gathered_bit_identical": _same_plan(back, plan),
+               "gathered_launch_bit_identical": torch.equal(launch(back),
+                                                            want),
+               "whole_device_ms": kernel_record_ms(lambda: launch(plan),
+                                                   "split_kernel")[0],
+               "gathered_device_ms": kernel_record_ms(
+                   lambda: launch(back), "split_kernel")[0]}
+        if col:
+            parts = [launch(b) for b in blocks]
+            got = torch.cat(parts, dim=-1)
+            if isinstance(plan, GroupPlan):
+                got = SHD._uncut(got, -1, TP_WORLD,
+                                 [w // TP_WORLD for w in plan.member_ns])
+            row["blocks_bit_identical"] = torch.equal(got, want)
+            row["block_device_ms"] = [kernel_record_ms(
+                lambda b=b: launch(b), "split_kernel")[0] for b in blocks]
+        # the card's kernel read the int8 codes of every launched block
+        # and gathered store: none derived its fp32 w_eff
+        row["no_w_eff"] = all("_w_eff" not in s.store.__dict__
+                              for s in ([bf] + (bfs if col else [])))
+    for k in ("blocks_bit_identical", "gathered_bit_identical",
+              "gathered_launch_bit_identical", "no_w_eff"):
+        if row.get(k) is False:
+            bad.append(f"{what}: {k}")
+    emit("tp_block", row)
+    return row
+
+
+def tp_blocks(tree):
+    """Phase 53: phi4-mini-3.8b at its published widths (phase 48's
+    pre-lowered tree, nothing lowered anew): block 0's q|k|v group,
+    ``wo``, ``gate``, ``up``, ``down`` and the lm_head cut into the
+    blocks ranks 0-3 of a (1, 4) ``(data, model)`` mesh hold, by the
+    ``shard_tree`` the ranks run.  The column-split plans (the group
+    member by member: each rank's 6 of 24 query and 2 of 8 KV heads;
+    ``gate`` / ``up``, 2048 of 8192 columns; the lm_head, 50016 of
+    200064) launch the split kernel on each block, side by side
+    bit-identical to the whole launch; every plan, the K-split ``wo`` /
+    ``down`` included, gathered back by ``gather_leaf`` bit-identical to
+    the whole plan and its launch; no block or gathered store derives
+    its fp32 ``w_eff``; each launch's device ms at M = 4."""
+    cfg = configs.get_arch(LM_ARCH)
+    acfg = AnalogConfig(mode="analog_faithful")
+    specs = SHD.plan_specs_like(T.lm_specs(cfg), tree)
+    node = T.stack_index(tree["layers"], 0)["l0"]
+    gname = next(iter(node["attn"]["_groups"]))
+    bad, rows = [], []
+    mesh = _fake_tp_mesh()
+    try:
+        with SHD.use_mesh(mesh):
+            sh = SHD.sharding_like(specs, tree)
+            nsh = SHD.stack_shardings(sh["layers"], 0)["l0"]
+            items = {
+                "qkv": (node["attn"]["_groups"][gname],
+                        nsh["attn"]["_groups"][gname]),
+                "wo": (node["attn"]["wo"]["_plan"],
+                       nsh["attn"]["wo"]["_plan"]),
+                **{k: (node["mlp"][k]["_plan"], nsh["mlp"][k]["_plan"])
+                   for k in ("gate", "up", "down")},
+                "lm_head": (tree["lm_head"]["_plan"],
+                            sh["lm_head"]["_plan"]),
+            }
+            g = torch.Generator(device=DEV).manual_seed(SEED + 53)
+            for what, (plan, psh) in items.items():
+                rows.append(_tp_item(what, plan, psh, acfg, g, bad))
+    finally:
+        MESH.destroy()
+    report = {"arch": cfg.name, "ranks": TP_WORLD, "bit_identical": not bad,
+              "items": {r["what"]: {k: r[k] for k in (
+                  "split", "block_codes", "whole_device_ms",
+                  "gathered_device_ms") + (("block_device_ms",)
+                                           if "block_device_ms" in r
+                                           else ())} for r in rows}}
+    if bad:
+        emit("tp_blocks", report)
+        raise AssertionError("; ".join(bad))
+    return report
+
+
+def _plan_tensors(tree):
+    """Every tensor of a tree of dicts, lists and plan dataclasses."""
+    from repro_torch.exec.plan import PYTREE_FIELDS
+
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _plan_tensors(v)
+    elif type(tree) in PYTREE_FIELDS:
+        for f in PYTREE_FIELDS[type(tree)][0]:
+            yield from _plan_tensors(getattr(tree, f))
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _plan_tensors(v)
+
+
+def _tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _plan_tensors(tree))
+
+
+def _largest_leaf(tree) -> int:
+    return max(t.numel() * t.element_size() for t in _plan_tensors(tree))
+
+
+def _tp_rank(r, cfg, run, params, toks, store, lock, results):
+    """One thread of phase 54: rank ``r`` of the threaded group, its
+    engine on a (1, 4) mesh, the serve and the prefill."""
+    from torch.testing._internal.distributed import multi_threaded_pg as mtpg
+
+    try:
+        torch.distributed.init_process_group("threaded", rank=r,
+                                             world_size=TP_WORLD,
+                                             store=store)
+        mesh = MESH.make_mesh((1, TP_WORLD), ("data", "model"))
+        with SHD.use_mesh(mesh), torch.no_grad():
+            with lock:      # one rank lowers at a time: the peak stays low
+                eng = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                                  max_len=LM_MAX_LEN)
+            with SHD.record_collectives() as log:
+                done = eng.serve(_lm_requests(cfg))
+                cache = SS.init_cache(cfg, LM_BATCH, LM_MAX_LEN,
+                                      dtype=torch.float32, device=DEV)
+                logits, _ = eng.prefill(eng.params, {"tokens": toks}, cache)
+            torch.cuda.synchronize()
+            results[r] = {
+                "tokens": [x.output.tolist() for x in done],
+                "logits": logits.cpu(), "params_bytes": _tree_bytes(
+                    eng.params), "cache_bytes": _tree_bytes(cache),
+                "whole_tree_dropped": eng.model.lowered is None,
+                "collectives": log}
+    except BaseException as exc:  # wake the other ranks' collectives
+        import traceback
+
+        results[r] = {"error": traceback.format_exc()[-3000:]}
+        mtpg.ProcessLocalGroup.exception_handle(exc)
+    # the rank's group goes with the threaded world when the phase
+    # uninstalls it (``destroy_process_group`` reads a field that some
+    # torch versions' threaded world lacks)
+
+
+def tp_threaded_serving(counts):
+    """Phase 54: phi4-mini-3.8b at its published widths, cut to
+    TP_LAYERS layers, served by a ``ServeEngine`` on each of 4 threads
+    of one process - the ranks of a (1, 4) ``(data, model)`` mesh over
+    torch's threaded process group, whose collectives copy between the
+    threads' tensors on the card - against the same engine without a
+    mesh: tokens and a 4 x 12 prefill's logits bit-identical on every
+    rank; each rank's resident parameter, plan and cache bytes against
+    the whole's; the largest single all-gather against the largest
+    leaf; the split launches of the four ranks' serves."""
+    import threading
+
+    from torch.testing._internal.distributed import multi_threaded_pg as mtpg
+
+    cfg = _cut(configs.get_arch(LM_ARCH), TP_LAYERS)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    params = T.lm_init(torch.Generator(device=DEV).manual_seed(SEED), cfg)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
+    with torch.no_grad():
+        engine = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                             max_len=LM_MAX_LEN)
+        want = [x.output.tolist() for x in engine.serve(_lm_requests(cfg))]
+        cache = T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN,
+                                dtype=torch.float32, device=DEV)
+        want_logits = engine.prefill(engine.params, {"tokens": toks},
+                                     cache)[0].cpu()
+    whole = {"params_bytes": _tree_bytes(engine.params),
+             "cache_bytes": _tree_bytes(cache),
+             "largest_leaf_bytes": _largest_leaf(engine.params)}
+    del engine, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    results = [None] * TP_WORLD
+    torch._C._distributed_c10d._set_thread_isolation_mode(True)
+    mtpg._install_threaded_pg()
+    t0 = time.monotonic()
+    ops.reset_launch_counts()
+    try:
+        store, lock = torch.distributed.HashStore(), threading.Lock()
+        threads = [threading.Thread(
+            target=_tp_rank, args=(r, cfg, run, params, toks, store, lock,
+                                   results), daemon=True)
+            for r in range(TP_WORLD)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(max(1.0, TP_TIMEOUT - (time.monotonic() - t0)))
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        mtpg._uninstall_threaded_pg()
+        torch._C._distributed_c10d._set_thread_isolation_mode(False)
+    for k, v in launches.items():
+        counts[k] += v
+    bad = []
+    ranks = []
+    for r, got in enumerate(results):
+        if got is None or "error" in got:
+            bad.append(f"rank {r}: {'still running' if got is None else got['error']}")
+            continue
+        log = got["collectives"]
+        row = {"rank": r, "tokens_equal": got["tokens"] == want,
+               "logits_bit_identical": torch.equal(got["logits"],
+                                                   want_logits),
+               "params_bytes": got["params_bytes"],
+               "cache_bytes": got["cache_bytes"],
+               "whole_tree_dropped": got["whole_tree_dropped"],
+               "all_gathers": log["counts"].get("all-gather", 0),
+               "all_gather_bytes": log["bytes_per_op"].get("all-gather", 0),
+               "largest_all_gather_bytes": log["largest"].get("all-gather",
+                                                              0),
+               "all_reduces": log["counts"].get("all-reduce", 0)}
+        ranks.append(row)
+        for k in ("tokens_equal", "logits_bit_identical",
+                  "whole_tree_dropped"):
+            if not row[k]:
+                bad.append(f"rank {r}: {k} false")
+        if row["params_bytes"] > whole["params_bytes"] / 2:
+            bad.append(f"rank {r}: {row['params_bytes']} parameter and plan "
+                       f"bytes of {whole['params_bytes']}")
+        if row["cache_bytes"] > whole["cache_bytes"] / TP_WORLD:
+            bad.append(f"rank {r}: {row['cache_bytes']} cache bytes of "
+                       f"{whole['cache_bytes']}")
+        if row["largest_all_gather_bytes"] > whole["largest_leaf_bytes"]:
+            bad.append(f"rank {r}: an all-gather of "
+                       f"{row['largest_all_gather_bytes']} B > the largest "
+                       f"leaf")
+    report = {"arch": cfg.name, "layers": TP_LAYERS, "ranks": ranks,
+              "whole": whole, "launches": launches,
+              "seconds": time.monotonic() - t0, "bit_identical": not bad}
+    if bad:
+        emit("tp_threaded_serving", report)
+        raise AssertionError("; ".join(bad)[:4000])
+    return report
+
+
+def slice17_phases(counts, tree):
+    """Phases 53-54: tensor parallelism over the ``model`` axis, with no
+    process group of the run's own left (phase 47's is ended)."""
+    emit("tp_blocks", tp_blocks(tree))
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("tp_threaded_serving", tp_threaded_serving(counts))
+
+
 def slice16_phases(counts):
-    """Phases 47-52, under one NCCL group of world size 1, ended after."""
+    """Phases 47-52, under one NCCL group of world size 1, ended after;
+    returns phase 48's pre-lowered phi4-mini tree (phase 53's)."""
     try:
         mesh, report = mesh_itself()
         emit("mesh", report)
-        emit("mesh_serving", mesh_serving(mesh, counts))
+        report, tree = mesh_serving(mesh, counts)
+        emit("mesh_serving", report)
         emit("mesh_moe_layer", mesh_moe_layer(mesh, counts))
         emit("mesh_cp_and_pipeline", mesh_cp_and_pipeline(mesh))
         emit("mesh_train_step", mesh_train_step(counts))
         emit("mesh_serve_batch", mesh_serve_batch(counts))
     finally:
         MESH.destroy()
+    return tree
 
 
 def slice16_only() -> None:
@@ -6520,6 +6880,20 @@ def slice16_only() -> None:
     counts = {name: 0 for name in TPU_KERNELS}
     try:
         slice16_phases(counts)
+    finally:
+        emit("wall_s", WALL)
+    emit("launches", counts)
+
+
+def slice17_only() -> None:
+    """``python3 chip_smoke.py --slice17``: the build, phase 48's no-mesh
+    phi4-mini engine (for its pre-lowered tree) and phases 53-54 alone
+    (a quick check of this slice)."""
+    print(card_line(), flush=True)
+    emit("build", {"seconds_per_kernel": _build.build()})
+    counts = {name: 0 for name in TPU_KERNELS}
+    try:
+        slice17_phases(counts, _mesh_serve_run(None, keep=True)["tree"])
     finally:
         emit("wall_s", WALL)
     emit("launches", counts)
@@ -6798,7 +7172,8 @@ def main() -> None:
     emit("telemetry", obs_line(tr))
     # after the telemetry line: serve_batch resets the metric registry
     slice15_phases(counts)
-    slice16_phases(counts)
+    # phase 48's tree goes to phase 53 alone, which frees it after
+    slice17_phases(counts, slice16_phases(counts))
     emit("wall_s", WALL)
 
     kernels = []
@@ -6888,9 +7263,11 @@ if __name__ == "__main__":
         slice15_only()
     elif sys.argv[1:] == ["--slice16"]:
         slice16_only()
+    elif sys.argv[1:] == ["--slice17"]:
+        slice17_only()
     elif sys.argv[1:]:
         _fail(f"unknown arguments {sys.argv[1:]}; run with none, "
               "--slice10, --slice11, --slice12, --slice13, --slice14, "
-              "--slice15 or --slice16")
+              "--slice15, --slice16 or --slice17")
     else:
         main()

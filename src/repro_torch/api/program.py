@@ -17,6 +17,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core.analog import AnalogConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.exec.lower import lower_layer
 from repro_torch.exec.run import run as run_plan
 from repro_torch.exec.run import run_layer
@@ -31,9 +33,28 @@ def apply_linear(params: dict, x: torch.Tensor, cfg: AnalogConfig, *,
     otherwise the layer is lowered for this call.  A baked plan whose
     static attributes disagree with the call-site config is ignored
     rather than run with the wrong encoding.  ``noise``: the layer's
-    readout-noise source (:func:`repro_torch.exec.run.run_layer`)."""
+    readout-noise source (:func:`repro_torch.exec.run.run_layer`).
+
+    Under a mesh, a view marked row-parallel (``params["_tp"] == "row"``,
+    :mod:`repro_torch.distributed.tensor_parallel`) holds this rank's
+    ``K`` block: ``x`` (whole, or already this rank's block of its
+    features) times the block, summed over the ``model`` axis."""
     if cfg.mode == "digital":
-        y = torch.matmul(x, params["w"].to(x.dtype))
+        w = params["w"]
+        if tp.split_rows(params):
+            k = w.shape[0]
+            if x.shape[-1] != k:
+                # a whole input every rank holds: its block, the
+                # gradient summed over the ranks' blocks
+                x = shd.psum_grad(x, shd.split_axes("model")).narrow(
+                    -1, shd.axis_index("model") * k, k)
+            # fp32 partial sums, rounded once after the all-reduce (a
+            # bf16 activation would round each rank's partial first)
+            y = shd.sum_over(torch.matmul(x.to(torch.float32),
+                                          w.to(torch.float32)),
+                             "model").to(x.dtype)
+        else:
+            y = torch.matmul(x, w.to(x.dtype))
         if "b" in params:
             y = y + params["b"].to(y.dtype)
         return y
@@ -182,7 +203,6 @@ class CompiledModel:
         (:mod:`repro_torch.distributed.sharding`).  A stack or block model
         gets its plan's specs (None in digital mode, which compiles no
         plan)."""
-        from repro_torch.distributed import sharding as shd
         from repro_torch.exec.plan import AnalogPlan
 
         if self.spec.kind != "tree":

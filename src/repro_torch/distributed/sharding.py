@@ -16,8 +16,12 @@ those sub-groups - the reference's ``shard_map`` sites already write
 theirs out - and never DTensor's sharding propagation: every kernel
 binding takes a plain local tensor.  A leaf is stored as this rank's
 block (:func:`shard_tree`, the twin of ``jax.device_put`` with a
-``NamedSharding``) and all-gathered before use (:func:`gather_tree`);
-the batch stays split over its axes through a sharded step
+``NamedSharding``), a tensor of its own; inside a sharded step
+(:func:`sharded_params`) each layer gathers its leaves as it runs
+(:func:`gather_leaf`), keeping the ``model`` blocks of the layers that
+compute split (:mod:`repro_torch.distributed.tensor_parallel`), and
+:func:`gather_tree` gathers a whole tree for a checkpoint.  The batch
+stays split over its axes through a sharded step
 (:func:`batch_split`), where every whole-batch reduction (a dynamic
 calibration's abs-max, a loss mean) is all-reduced over those axes.
 On an axis of size 1 every collective is the identity and moves nothing,
@@ -47,7 +51,8 @@ from typing import Any, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.exec.plan import (GROUP_BATCH_CONCAT, PYTREE_FIELDS,
+from repro_torch.exec.plan import (GROUP_BATCH_CONCAT, GROUP_COLUMN_CONCAT,
+                                   PYTREE_FIELDS, GroupPlan, LayerPlan,
                                    PlanStack, WeightStore)
 
 # logical axis -> preferred mesh axes, in priority order.  The first mesh
@@ -202,6 +207,21 @@ def group_plan_specs(gp, parent_spec):
     return _with(gp, fused=layer_plan_specs(gp.fused, w_spec))
 
 
+def replicated_specs(plan):
+    """A spec tree that keeps every tensor of ``plan`` (a plan
+    dataclass, a :class:`PlanStack`, a tensor) whole on every rank."""
+    if isinstance(plan, torch.Tensor):
+        return (None,) * plan.ndim
+    if isinstance(plan, PlanStack):
+        return PlanStack(replicated_specs(m) for m in plan)
+    if type(plan) in PYTREE_FIELDS:
+        return _with(plan, **{f: replicated_specs(getattr(plan, f))
+                              for f in PYTREE_FIELDS[type(plan)][0]})
+    if isinstance(plan, (list, tuple)):
+        return type(plan)(replicated_specs(m) for m in plan)
+    return plan
+
+
 def plan_specs_like(spec_tree, lowered_tree):
     """Augment a logical-axis spec tree with entries for the ``"_plan"`` /
     ``"_groups"`` leaves of a pre-lowered params tree, so the result
@@ -213,6 +233,10 @@ def plan_specs_like(spec_tree, lowered_tree):
         for k, v in lowered_tree.items():
             if k == "_plan":
                 out[k] = layer_plan_specs(v, spec_tree["w"])
+            elif k == "_block_plan":
+                # a block's packing interleaves its four layers: whole on
+                # every rank
+                out[k] = replicated_specs(v)
             elif k == "_groups":
                 out[k] = {name: group_plan_specs(gp, spec_tree)
                           for name, gp in v.items()}
@@ -262,6 +286,10 @@ class _Ctx(threading.local):
         # further axes a dynamic abs-max spans (the expert-parallel block)
         self.amax_axes: tuple[str, ...] = ()
         self.logs: list = []
+        # the parameters' shardings inside a sharded step (sharded_params)
+        self.params = None
+        # the member widths of the column_concat group being walked
+        self.cols = None
 
 
 _CTX = _Ctx()
@@ -494,32 +522,90 @@ def block_index(axes) -> tuple[int, int]:
     return idx, n
 
 
+def _cut(t: torch.Tensor, d: int, i: int, n: int, members=None):
+    """Block ``i`` of ``n`` along dim ``d``.  ``members``: the widths of
+    the members laid side by side along ``d`` (a ``column_concat``
+    group's fused columns, q | k | v): each member is cut on its own and
+    the block holds member 0's part, then member 1's, ..."""
+    widths = (t.shape[d],) if members is None else tuple(members)
+    if sum(widths) != t.shape[d] or any(w % n for w in widths):
+        raise ValueError(f"dim {d} of shape {tuple(t.shape)} (members "
+                         f"{widths}) does not split {n} ways")
+    parts, c0 = [], 0
+    for w in widths:
+        parts.append(t.narrow(d, c0 + i * (w // n), w // n))
+        c0 += w
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
+
+
+def _uncut(t: torch.Tensor, d: int, n: int, per=None):
+    """The inverse of :func:`_cut` for ``t``, the ``n`` blocks side by
+    side along ``d`` in block order (an all-gather's result); ``per``:
+    the members' widths in one block."""
+    if per is None:
+        return t
+    blocks = [b.split(list(per), dim=d) for b in t.split(sum(per), dim=d)]
+    return torch.cat([blocks[r][j] for j in range(len(per))
+                      for r in range(n)], dim=d)
+
+
+def _members(t: torch.Tensor, d: int):
+    """The member widths a cut or a gather along ``d`` follows while a
+    ``column_concat`` group is walked: the group's own (as stored: the
+    whole widths in a whole tree, a block's in a rank's), for its
+    columns - the last dim of a per-column leaf - else None."""
+    cols = _CTX.cols
+    if cols is None or d != t.ndim - 1 or t.shape[d] != sum(cols):
+        return None
+    return tuple(cols)
+
+
 def _local_block(t: torch.Tensor, ns: NamedSharding) -> torch.Tensor:
+    """This rank's block of ``t``: a tensor of its own (contiguous, not a
+    view), so the whole leaf can be freed.  A meta tensor stays a view:
+    it holds no bytes."""
+    cut = False
     for d, axes in split_dims(ns, t.ndim):
         i, n = block_index(axes)
-        if t.shape[d] % n:
-            raise ValueError(f"dim {d} of shape {tuple(t.shape)} does not "
-                             f"split {n} ways over {axes}")
-        size = t.shape[d] // n
-        t = t.narrow(d, i * size, size)
+        t = _cut(t, d, i, n, _members(t, d))
+        cut = True
+    if cut and t.device.type != "meta":
+        t = t.clone(memory_format=torch.contiguous_format)
     return t
+
+
+# a plan field that indexes a column_concat group's fused columns
+_PER_COL = {"codes", "w_scale", "gain", "col_gain", "chunk_gain", "gain_map",
+            "chunk_offset", "colsum", "bias"}
 
 
 def _rebuild(obj, fields: dict, *, derive: bool):
     """A plan dataclass with ``fields`` replaced; the original object when
-    nothing changed.  ``derive``: rebuild through ``__init__`` so a
-    :class:`WeightStore` re-derives ``w_eff`` from its full tensors (a
-    gathered store); else copy without re-deriving (a rank's block, whose
-    derived views would mix blocked and whole tables) and drop the
-    cached ``w_eff``."""
+    nothing changed.  The static widths follow the new tensors: a
+    :class:`LayerPlan`'s ``n``, a store's ``col_blocks`` and a group's
+    ``member_ns`` (a rank's block of N columns holds N / n of each
+    member's).  ``derive``: rebuild through ``__init__``, so a
+    :class:`WeightStore` derives ``w_eff`` as its constructor does; else
+    a copy whose derived views come from its own tensors, ``w_eff`` at
+    first read (:meth:`WeightStore.lazy`): a rank's block, or a leaf
+    gathered for one layer."""
     if all(getattr(obj, k) is v for k, v in fields.items()):
         return obj
+    fields = dict(fields)
+    if isinstance(obj, WeightStore) and obj.col_blocks is not None:
+        n_old, n_new = obj.codes.shape[-1], fields["codes"].shape[-1]
+        fields["col_blocks"] = tuple(w * n_new // n_old
+                                     for w in obj.col_blocks)
+    elif isinstance(obj, LayerPlan):
+        fields["n"] = fields["store"].codes.shape[-1]
+    elif isinstance(obj, GroupPlan):
+        n_old, n_new = obj.fused.n, fields["fused"].n
+        fields["member_ns"] = tuple(w * n_new // n_old
+                                    for w in obj.member_ns)
     if derive:
         return dataclasses.replace(obj, **fields)
     out = _with(obj, **fields)
-    if isinstance(out, WeightStore):
-        out.__dict__.pop("_w_eff", None)
-    return out
+    return out.lazy() if isinstance(out, WeightStore) else out
 
 
 def _first_sharding(tree) -> Optional[NamedSharding]:
@@ -540,17 +626,29 @@ def _first_sharding(tree) -> Optional[NamedSharding]:
     return None
 
 
-def _splits(shardings) -> bool:
+def splits(shardings) -> bool:
     """Does a sharding tree's mesh split anything (an axis of size > 1)?"""
     ns = _first_sharding(shardings)
     return ns is not None and any(n > 1 for n in
                                   axis_sizes(ns.mesh).values())
 
 
+@contextlib.contextmanager
+def _columns(members):
+    saved = _CTX.cols
+    _CTX.cols = members
+    try:
+        yield
+    finally:
+        _CTX.cols = saved
+
+
 def _map_tree(fn, tree, shardings, *, derive: bool):
     """``fn(tensor, sharding)`` over the tensor leaves of ``tree``;
     containers whose leaves all come back unchanged are returned as they
-    are, so a 1-device mesh copies nothing."""
+    are, so a 1-device mesh copies nothing.  Inside a ``column_concat``
+    group a cut or a gather of the fused columns goes member by member
+    (:func:`_members`)."""
     if tree is None or shardings is None:
         return tree
     if _is_sharding(shardings):
@@ -561,10 +659,29 @@ def _map_tree(fn, tree, shardings, *, derive: bool):
                for k, v in tree.items()}
         return tree if all(out[k] is tree[k] for k in tree) else out
     if type(tree) in PYTREE_FIELDS:
+        names = PYTREE_FIELDS[type(tree)][0]
+        if isinstance(tree, GroupPlan) and tree.kind == GROUP_COLUMN_CONCAT:
+            # the fused columns hold q | k | v: cut each member on its own
+            with _columns(tree.member_ns):
+                return _rebuild(tree, {"fused": _map_tree(
+                    fn, tree.fused, shardings.fused, derive=derive)},
+                    derive=derive)
+        if isinstance(tree, (LayerPlan, WeightStore)) and \
+                _CTX.cols is not None:
+            out = {}
+            for f in names:
+                if f in _PER_COL or f == "store":
+                    out[f] = _map_tree(fn, getattr(tree, f),
+                                       getattr(shardings, f), derive=derive)
+                else:
+                    with _columns(None):
+                        out[f] = _map_tree(fn, getattr(tree, f),
+                                           getattr(shardings, f),
+                                           derive=derive)
+            return _rebuild(tree, out, derive=derive)
         return _rebuild(tree, {
             f: _map_tree(fn, getattr(tree, f), getattr(shardings, f),
-                         derive=derive)
-            for f in PYTREE_FIELDS[type(tree)][0]}, derive=derive)
+                         derive=derive) for f in names}, derive=derive)
     if isinstance(tree, (list, tuple)):
         out = [_map_tree(fn, v, s, derive=derive)
                for v, s in zip(tree, shardings)]
@@ -576,10 +693,15 @@ def _map_tree(fn, tree, shardings, *, derive: bool):
 
 def shard_tree(tree, shardings):
     """This rank's block of every leaf (the twin of ``jax.device_put(tree,
-    shardings)``): each tensor narrowed along the dims its
-    :class:`NamedSharding` splits, a view of the whole leaf.  On a mesh
-    of 1-sized axes the tree comes back as it is, without a walk."""
-    if not _splits(shardings):
+    shardings)``): each tensor cut along the dims its
+    :class:`NamedSharding` splits into a tensor of its own, so the caller
+    frees the whole leaf by dropping its tree.  A plan's block is a valid
+    plan: every table is cut by the axis it indexes, a ``column_concat``
+    group member by member (a rank holds its heads of q, of k and of v),
+    and its ``w_eff`` is derived from the block's own tables at first
+    read.  On a mesh of 1-sized axes the tree comes back as it is,
+    without a walk."""
+    if not splits(shardings):
         return tree
     return _map_tree(_local_block, tree, shardings, derive=False)
 
@@ -587,17 +709,116 @@ def shard_tree(tree, shardings):
 def gather_tree(tree, shardings, axes=None):
     """The inverse of :func:`shard_tree`: every split dim all-gathered
     over its mesh axes (``axes``: only these mesh axes; None: all).  Plan
-    stores are rebuilt, so their derived weights are the whole leaf's."""
-    if not _splits(shardings):
+    stores are rebuilt, so their derived weights are the whole leaf's.
+    The whole tree at once: for a checkpoint or a caller that asks; a
+    step gathers one layer at a time (:func:`gather_leaf`)."""
+    if not splits(shardings):
         return tree
     only = None if axes is None else set(_axes(axes))
 
     def one(t, ns):
         for d, ax in split_dims(ns, t.ndim, only):
-            t = all_gather(t, ax, dim=d)
+            t = _uncut(all_gather(t, ax, dim=d), d, block_index(ax)[1],
+                       _members(t, d))
         return t
 
     return _map_tree(one, tree, shardings, derive=True)
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """One leaf's block all-gathered along ``dim`` over ``axes``
+    (member-aware, :func:`_uncut`).  Backward: this rank's block of the
+    cotangent, summed first over the axes among them that split the batch
+    (their ranks' cotangents differ: the transpose of an all-gather is a
+    reduce-scatter, which it is where every axis splits the batch); the
+    other ranks computed the same cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, axes, dim, per):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.per = _CTX.mesh, axes, dim, per
+        ctx.block = block_index(axes)
+        ctx.summed = tuple(a for a in axes if a in _CTX.batch_axes)
+        return _uncut(all_gather(x, axes, dim), dim, ctx.block[1], per)
+
+    @staticmethod
+    def backward(ctx, g):
+        i, n = ctx.block
+        with use_mesh(ctx.mesh):
+            if ctx.per is None and ctx.summed == ctx.axes:
+                # every axis splits the batch (FSDP's data): the sum and
+                # the cut are one reduce-scatter
+                return reduce_scatter(g.contiguous(), ctx.axes, ctx.dim), \
+                    None, None, None
+            if ctx.summed:
+                g = all_reduce(g, ctx.summed)
+        whole = None if ctx.per is None else [w * n for w in ctx.per]
+        return _cut(g, ctx.dim, i, n, whole).contiguous(), None, None, None
+
+
+def gather_leaf(tree, shardings, keep=(), split_compute=False):
+    """One layer's leaves whole (a tensor, a linear's dict, a plan): every
+    dim split over a mesh axis not in ``keep`` all-gathered, just before
+    the layer runs; the dims ``keep``'s axes split stay this rank's block.
+    Differentiable (:class:`_GatherLeaf`): a leaf's gradient comes back as
+    this rank's block.  ``split_compute``: the layer computes on its
+    ``keep`` blocks (column-parallel), so a leaf they do not split (a
+    gain, a row table) takes a partial gradient on each rank, summed over
+    them (:func:`psum_grad`).  Plans are rebuilt without deriving their
+    fp32 ``w_eff`` (:meth:`~repro_torch.exec.plan.WeightStore.lazy`): a
+    kernel that reads the int8 codes never builds it."""
+    if shardings is None or not splits(shardings):
+        return tree
+    keep = set(_axes(keep))
+    summed = split_axes(tuple(sorted(keep))) if split_compute else ()
+
+    def one(t, ns):
+        kept = False
+        for d, ax in split_dims(ns, t.ndim):
+            kept = kept or any(a in keep for a in ax)
+            ax = tuple(a for a in ax if a not in keep)
+            if ax:
+                t = _GatherLeaf.apply(t, ax, d, _members(t, d))
+        if summed and not kept:
+            t = psum_grad(t, summed)
+        return t
+
+    return _map_tree(one, tree, shardings, derive=False)
+
+
+def stack_shardings(node, i: int):
+    """Group ``i``'s shardings of a scan-stacked tree's (the twin of
+    :func:`~repro_torch.models.transformer.stack_index`): a leaf's spec
+    without its leading stack entry, member ``i`` of a
+    :class:`PlanStack`."""
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: stack_shardings(v, i) for k, v in node.items()}
+    if _is_sharding(node):
+        return NamedSharding(node.mesh, P(*tuple(node.spec)[1:]))
+    if isinstance(node, (PlanStack, list)):
+        return node[i]
+    return node
+
+
+@contextlib.contextmanager
+def sharded_params(shardings):
+    """Inside the block the model's parameters are this rank's blocks,
+    laid out by ``shardings``: the model gathers one layer's leaves at a
+    time (:func:`gather_leaf`) and keeps the ``model`` axis's blocks where
+    the layer computes split (:mod:`repro_torch.distributed.
+    tensor_parallel`)."""
+    saved = _CTX.params
+    _CTX.params = shardings
+    try:
+        yield
+    finally:
+        _CTX.params = saved
+
+
+def param_shardings():
+    """The shardings of :func:`sharded_params`, or None."""
+    return _CTX.params
 
 
 # ------------------------------------------------------- the batch split
@@ -693,10 +914,12 @@ COLL_FACTOR = {"all-gather": 1.0, "all-reduce": 2.0, "reduce-scatter": 1.0,
 @contextlib.contextmanager
 def record_collectives():
     """Count every collective issued in the block: yields ``{"counts":
-    {op: n}, "bytes_per_op": {op: bytes}, "total_bytes"}`` (bytes per
-    rank, as the reference's ``parse_collectives`` reads them from
-    HLO)."""
-    log = {"counts": {}, "bytes_per_op": {}, "total_bytes": 0.0}
+    {op: n}, "bytes_per_op": {op: bytes}, "largest": {op: bytes},
+    "total_bytes"}`` (bytes per rank, as the reference's
+    ``parse_collectives`` reads them from HLO; ``largest``: the largest
+    single call's)."""
+    log = {"counts": {}, "bytes_per_op": {}, "largest": {},
+           "total_bytes": 0.0}
     _CTX.logs.append(log)
     try:
         yield log
@@ -709,6 +932,7 @@ def _record(op: str, result: torch.Tensor) -> None:
     for log in _CTX.logs:
         log["counts"][op] = log["counts"].get(op, 0) + 1
         log["bytes_per_op"][op] = log["bytes_per_op"].get(op, 0.0) + nbytes
+        log["largest"][op] = max(log["largest"].get(op, 0.0), nbytes)
         log["total_bytes"] += nbytes
 
 

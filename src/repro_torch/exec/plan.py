@@ -139,7 +139,9 @@ class WeightStore:
                   construction, except for int8 codes without any gain
                   table (an expert stack's store, whose kernel reads the
                   codes): there ``codes`` as fp32, derived at first read,
-                  so a store served on the card holds no fp32 copy.
+                  so a store served on the card holds no fp32 copy.  A
+                  rank's block of a store and a store gathered for one
+                  layer (:meth:`lazy`) derive it at first read too.
       gain_row:   [N] the gain broadcast over the columns, contiguous
                   (an expert stack's [E, N], each expert's gain; a
                   batch_concat store's [G, N], each member's).
@@ -158,6 +160,14 @@ class WeightStore:
                                                compare=False)
 
     def __post_init__(self):
+        object.__setattr__(self, "gain_row", self.derive_gain_row())
+        if not (self.codes.dtype == torch.int8 and all(
+                t is None for t in (self.col_gain, self.row_gain,
+                                    self.chunk_gain, self.gain_map))):
+            object.__setattr__(self, "_w_eff", self._derive_w_eff())
+
+    def derive_gain_row(self) -> torch.Tensor:
+        """:attr:`gain_row` from the gain and the codes' shape."""
         gain = self.gain
         if self.codes.ndim == 2:
             gain = torch.broadcast_to(gain, (self.codes.shape[-1],))
@@ -168,11 +178,18 @@ class WeightStore:
         elif self.codes.ndim == 3:  # a batch_concat store's [G, N]
             gain = torch.broadcast_to(gain, (self.codes.shape[0],
                                              self.codes.shape[-1]))
-        object.__setattr__(self, "gain_row", gain.contiguous())
-        if not (self.codes.dtype == torch.int8 and all(
-                t is None for t in (self.col_gain, self.row_gain,
-                                    self.chunk_gain, self.gain_map))):
-            object.__setattr__(self, "_w_eff", self._derive_w_eff())
+        return gain.contiguous()
+
+    def lazy(self) -> "WeightStore":
+        """This store with its derived views taken from its own tensors,
+        ``w_eff`` left to its first read: a rank's block, or a leaf
+        gathered for one layer.  A kernel that reads the int8 codes then
+        never pays the 4 bytes per weight of the fp32 copy; the plain
+        version on the CPU derives it when it reads it."""
+        out = copy.copy(self)
+        out.__dict__.pop("_w_eff", None)
+        object.__setattr__(out, "gain_row", out.derive_gain_row())
+        return out
 
     @property
     def w_eff(self) -> torch.Tensor:

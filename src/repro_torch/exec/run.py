@@ -159,7 +159,7 @@ def run_layer(
             _count()
             y_int = kernel_ops.analog_mvm_split(
                 a_pos.reshape(-1, lp.k_pad), a_neg.reshape(-1, lp.k_pad),
-                lp.w_eff, lp.gain_row, lp.chunk_offset,
+                _split_weights(lp, x), lp.gain_row, lp.chunk_offset,
                 chunk_rows=lp.chunk_rows,
                 faithful=cfg.mode != "analog_fast", store=lp.store,
             ).reshape(batch_shape + (lp.n,))
@@ -202,6 +202,19 @@ def run_layer(
     if lp.bias is not None:
         y = y + lp.bias
     return y.to(in_dtype)
+
+
+def _split_weights(lp: LayerPlan, x: torch.Tensor):
+    """The fp32 ``w_eff`` operand of a fused split call, or None where the
+    card's kernel reads the store's int8 codes and nothing differentiates
+    through the call: a store that has not derived its ``w_eff`` (a
+    rank's block, a leaf gathered for one layer) then never does."""
+    st = lp.store
+    if (x.is_cuda and st.code_operand and "_w_eff" not in st.__dict__
+            and not needs_grad(x, st.codes, st.col_gain, st.row_gain,
+                               st.chunk_gain)):
+        return None
+    return lp.w_eff
 
 
 def _pass_noise(noise):

@@ -8,8 +8,11 @@ synapse array holds static weights only.  :func:`prefill_attention_glue`
 is the static-prefill glue of a fused attention+MLP block.  A prefill
 past ``flash_threshold`` positions without a cache runs
 :func:`repro_torch.models.flash.flash_attention`; the cache is float or
-int8 (per-(position, head) scales).  Not ported yet (ROADMAP):
-context-parallel attention, which needs a mesh.
+int8 (per-(position, head) scales).  Under a mesh the attention runs on
+this rank's heads (:func:`~repro_torch.distributed.tensor_parallel.
+attention_view`), or context-parallel where
+the heads do not divide the ``model`` axis, and decodes split-KV on a
+cache split over its sequence (:func:`_decode_kv_block`).
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from repro_torch.core.analog import AnalogConfig
 from repro_torch.core.quant import _div_exact
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.noise import NoiseConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.exec.plan import GROUP_COLUMN_CONCAT, find_group
 from repro_torch.exec.run import run_layer
 from repro_torch.models import layers as L
@@ -96,7 +101,7 @@ def prefill_attention_glue(qkv, *, batch: int, seq: int, n_heads: int,
     return o.reshape(batch * seq, nq)
 
 
-def _qkv_plan(params, acfg: AnalogConfig):
+def qkv_plan(params, acfg: AnalogConfig):
     """The compiled QKV dispatch group of this attention node (resolved by
     kind and exact members), or None when there is none or its baked
     attributes disagree with the call site."""
@@ -138,14 +143,55 @@ def decode_scores(qg: torch.Tensor, ck_f: torch.Tensor) -> torch.Tensor:
 def _cp_wanted(attn_cp: str, n_heads: int) -> bool:
     """Context-parallel attention: 'auto' turns it on exactly when the
     head count cannot take the model mesh axis (24/28/40 heads vs 16)."""
-    from repro_torch.distributed import sharding as shd
-
     sizes = shd.axis_sizes()
     if attn_cp == "off" or "model" not in sizes:
         return False
     if attn_cp == "cp":
         return True
     return n_heads % sizes["model"] != 0
+
+
+def _decode_kv_block(qg, k, v, ck, cv, cache, length, s, kv_block):
+    """Decode attention on this rank's ``kv_seq`` block of the cache (the
+    reference's split-KV layout, where the KV heads do not divide the
+    ``model`` axis): the new keys and values written where their
+    positions fall in the block, the scores of the block's positions,
+    then flash-decoding - the max and the softmax sum all-reduced over
+    the block's axes, and the weighted values summed.  Within fp32
+    rounding of the whole cache's softmax (the sums run in another
+    order)."""
+    i, n, axes = kv_block
+    sl = ck.shape[1]
+    lo = i * sl
+    first, end = max(length, lo), min(length + s, lo + sl)
+    int8 = ck.dtype == torch.int8
+    if first < end:
+        src, dst = slice(first - length, end - length), \
+            slice(first - lo, end - lo)
+        if int8:
+            kq, ks = _quantize_kv(k[:, src])
+            vq, vs = _quantize_kv(v[:, src])
+            ck[:, dst], cache["k_scale"][:, dst] = kq, ks
+            cv[:, dst], cache["v_scale"][:, dst] = vq, vs
+        else:
+            ck[:, dst] = k[:, src].to(ck.dtype)
+            cv[:, dst] = v[:, src].to(cv.dtype)
+    if int8:
+        ck_f = ck.to(torch.float32) * cache["k_scale"][..., None]
+        cv_f = cv.to(torch.float32) * cache["v_scale"][..., None]
+    else:
+        ck_f, cv_f = ck.to(torch.float32), cv.to(torch.float32)
+    kpos = lo + torch.arange(sl, device=qg.device)
+    qpos = length + torch.arange(s, device=qg.device)
+    mask = qpos[:, None] >= kpos[None, :]
+    mask &= (kpos < length + s)[None, :]
+    sc = decode_scores(qg, ck_f)
+    sc = torch.where(mask[None, None, None], sc, NEG_INF)
+    top = shd.all_reduce(sc.amax(dim=-1, keepdim=True), axes, op="max")
+    p = torch.exp(sc - top)
+    den = shd.all_reduce(p.sum(dim=-1, keepdim=True), axes)
+    o = shd.all_reduce(torch.einsum("bhgqk,bkhd->bqhgd", p, cv_f), axes)
+    return o / den.permute(0, 3, 1, 2, 4)
 
 
 def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
@@ -167,12 +213,26 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
     (:func:`~repro_torch.models.flash.flash_attention_cp`, the
     reference's default blocks).  ``noise``: the
     projections' readout-noise source (a generator or a
-    :class:`~repro_torch.core.noise.NoiseFeed`)."""
+    :class:`~repro_torch.core.noise.NoiseFeed`).
+
+    Under a mesh, a view on this rank's heads
+    (:func:`~repro_torch.distributed.tensor_parallel.attention_view`,
+    ``params["_tp"] == "col"``) runs its ``n_heads / m`` query and
+    ``n_kv_heads / m`` KV heads (``m`` the ``model`` axis's size) against
+    its heads' block of the cache; a cache split over ``kv_seq`` instead
+    (its ``"kv_block"``) runs split-KV decoding
+    (:func:`_decode_kv_block`)."""
     b, s, _ = x.shape
+    heads = tp.split_cols(params)
+    if heads:
+        # every rank's heads read x: its gradient sums over the ranks
+        x = shd.psum_grad(x, shd.split_axes(tp.MODEL))
+        m = tp.model_size()
+        n_heads, n_kv_heads = n_heads // m, n_kv_heads // m
     g = n_heads // n_kv_heads
     nq = n_heads * head_dim
     nkv = n_kv_heads * head_dim
-    qkv_lp = _qkv_plan(params, acfg)
+    qkv_lp = qkv_plan(params, acfg)
     if qkv_lp is not None:
         # the three same-input projections as ONE analog dispatch over the
         # concatenated output columns
@@ -190,10 +250,20 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
     k = rope(k, positions, rope_theta)
     qg = q.reshape(b, s, n_kv_heads, g, head_dim)
 
-    if cache is not None:
+    if cache is not None and cache.get("kv_block") is not None:
+        ck, cv = cache["k"], cache["v"]
+        length = cache["len"]
+        new_cache = {k_: v_ for k_, v_ in cache.items() if k_ != "len"}
+        new_cache["len"] = length + s
+        o = _decode_kv_block(qg, k, v, ck, cv, cache, length, s,
+                             cache["kv_block"]).to(x.dtype)
+    elif cache is not None:
         # decode: append to the cache, attend over the valid prefix
         ck, cv = cache["k"], cache["v"]
         length = cache["len"]
+        if ck.shape[2] != n_kv_heads:
+            raise ValueError(f"a cache of {ck.shape[2]} KV heads for "
+                             f"{n_kv_heads} KV heads on this rank")
         new_cache = {"k": ck, "v": cv, "len": length + s}
         at = slice(length, length + s)
         if ck.dtype == torch.int8:
@@ -219,7 +289,7 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
         p = torch.softmax(sc, dim=-1)
         o = torch.einsum("bhgqk,bkhd->bqhgd", p, cv_f)
         o = o.to(x.dtype)
-    elif _cp_wanted(attn_cp, n_heads):
+    elif not heads and _cp_wanted(attn_cp, n_heads):
         o = flash_attention_cp(qg, k, v, causal=True)
         new_cache = None
     elif s <= flash_threshold:
@@ -232,6 +302,8 @@ def attention_apply(params, x, *, positions, acfg: AnalogConfig, n_heads,
         new_cache = None
 
     o = o.reshape(b, s, nq)
+    if heads and not tp.split_rows(params["wo"]):
+        o = shd.gather_blocks(o, "model", dim=-1)
     return L.linear_apply(params["wo"], o, acfg, noise=noise), new_cache
 
 

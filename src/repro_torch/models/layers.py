@@ -19,6 +19,8 @@ from repro_torch.api.program import apply_linear
 from repro_torch.core.analog import AnalogConfig, analog_linear_init
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.noise import NoiseConfig, _normal
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 
 
 # ---------------------------------------------------------------- linear
@@ -163,7 +165,20 @@ def embedding_init(generator, vocab, dim, dtype=torch.float32,
 
 
 def embedding_apply(params, tokens):
-    return params["table"][tokens]
+    """``table[tokens]``.  A view whose table is this rank's vocabulary
+    block (:func:`~repro_torch.distributed.tensor_parallel.embedding_view`)
+    looks up the tokens in its range, zeros elsewhere, and sums the ranks'
+    rows over the ``model`` axis: one term of each sum is the row, the
+    others exact zeros."""
+    table = params["table"]
+    if not tp.split_cols(params):
+        return table[tokens]
+    v = table.shape[0]
+    local = tokens - shd.axis_index("model") * v
+    mine = (local >= 0) & (local < v)
+    rows = table[torch.clamp(local, 0, v - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return shd.sum_over(rows, "model")
 
 
 def embedding_specs():
@@ -205,6 +220,15 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_apply(params, x, acfg: AnalogConfig, *, act="swiglu", noise=None):
+    """``down(act(gate(x)) * up(x))``.  Under a mesh a view whose ``up``
+    holds this rank's hidden columns
+    (:func:`~repro_torch.distributed.tensor_parallel.mlp_view`) computes the
+    activation on them; ``down`` then runs row-parallel on them, or on
+    their all-gather."""
+    split = tp.split_cols(params["up"])
+    if split:
+        # every rank's columns read x: its gradient sums over the ranks
+        x = shd.psum_grad(x, shd.split_axes(tp.MODEL))
     up = linear_apply(params["up"], x, acfg, noise=noise)
     if act == "swiglu":
         gate = linear_apply(params["gate"], x, acfg, noise=noise)
@@ -217,6 +241,8 @@ def mlp_apply(params, x, acfg: AnalogConfig, *, act="swiglu", noise=None):
         h = torch.square(torch.relu(up))
     else:
         raise ValueError(act)
+    if split and not tp.split_rows(params["down"]):
+        h = shd.gather_blocks(h, tp.MODEL, dim=-1)
     return linear_apply(params["down"], h, acfg, noise=noise)
 
 

@@ -384,7 +384,7 @@ def moe_apply(params, x, *, acfg: AnalogConfig, top_k: int,
     if dispatch not in DISPATCH:
         raise ValueError(f"moe dispatch {dispatch!r}: one of {DISPATCH}")
     b, s, d = x.shape
-    e = params["up"].shape[0]
+    e = params["router"]["w"].shape[-1]
     logits = x.to(torch.float32) @ params["router"]["w"]          # [B, S, E]
     probs = torch.softmax(logits, dim=-1)
     topw, topi, aux = route(probs, top_k, routes)

@@ -35,6 +35,7 @@ from repro_torch.configs.base import ArchConfig, RunConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.noise import NoiseConfig, NoiseFeed
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.exec.plan import PlanStack
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
@@ -297,12 +298,41 @@ def _layer_apply(p, kind, x, *, cfg, run, positions, cache, noise=None,
     return x, (None if cache is None else {"attn": c}), aux
 
 
+def _group_view(gp, shardings, cfg: ArchConfig, run: RunConfig):
+    """One scan group's parameters as this rank runs them under a mesh
+    (:mod:`repro_torch.distributed.tensor_parallel`): the group's leaves
+    gathered over every axis but the ``model`` axis's blocks of the
+    attention heads, the MLP columns and the expert stacks; an RWKV or
+    Mamba layer and a block plan whole."""
+    acfg = run.analog
+    out = {}
+    for i, kind in enumerate(group_def(cfg)):
+        p, sh = gp[f"l{i}"], shardings[f"l{i}"]
+        if kind not in ("attn_mlp", "attn_moe") or "_block_plan" in p:
+            out[f"l{i}"] = shd.gather_leaf(p, sh)
+            continue
+        v = {"ln1": shd.gather_leaf(p["ln1"], sh["ln1"]),
+             "attn": tp.attention_view(p["attn"], sh["attn"], acfg,
+                                       cfg.n_heads, cfg.n_kv_heads),
+             "ln2": shd.gather_leaf(p["ln2"], sh["ln2"])}
+        if kind == "attn_mlp":
+            v["mlp"] = tp.mlp_view(p["mlp"], sh["mlp"], acfg)
+        else:
+            v["moe"] = tp.moe_view(p["moe"], sh["moe"], run.moe_dispatch)
+        out[f"l{i}"] = v
+    return out
+
+
 def _group_apply(gp, x, *, cfg, run, positions, cache, noise=None,
-                 routes=None, shared_attn=None):
+                 routes=None, shared_attn=None, shardings=None):
     """One scan group: ``(x, new_cache, aux)``, the group's MoE aux
     losses summed in layer order.  ``shared_attn``: Zamba2's shared
     attention block, applied at the group's entry with the group's own
-    KV cache."""
+    KV cache.  ``shardings``: the group's, when ``gp`` holds this rank's
+    blocks (the group's view is gathered here, :func:`_group_view`, so a
+    remat recompute gathers it again)."""
+    if shardings is not None:
+        gp = _group_view(gp, shardings, cfg, run)
     new_cache = {} if cache is not None else None
     aux_total = 0.0
     if shared_attn is not None:
@@ -345,7 +375,7 @@ def _set_noise_state(noise, state) -> None:
 
 
 def _remat_group(gp, x, *, cfg, run, positions, noise, routes=None,
-                 shared_attn=None):
+                 shared_attn=None, shardings=None):
     """One scan group under ``torch.utils.checkpoint``: ``(x, aux)``, the
     backward recomputing the group from its input ``x`` (the reference's
     ``jax.checkpoint``).  The checkpoint restores only the default
@@ -365,7 +395,8 @@ def _remat_group(gp, x, *, cfg, run, positions, noise, routes=None,
         y, _, aux = _group_apply(gp, h, cfg=cfg, run=run,
                                  positions=positions, cache=None,
                                  noise=noise, routes=rts,
-                                 shared_attn=shared_attn)
+                                 shared_attn=shared_attn,
+                                 shardings=shardings)
         return y, torch.as_tensor(aux, dtype=torch.float32, device=y.device)
 
     def fn(h):
@@ -406,12 +437,32 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
     drawn in call order, or a :class:`~repro_torch.core.noise.NoiseFeed`
     of injected draws), ignored when ``run.analog.deterministic``.  Under
     autograd without a cache, ``cfg.remat`` recomputes each group in the
-    backward (:func:`_remat_group`); the values do not change."""
+    backward (:func:`_remat_group`); the values do not change.
+
+    Inside :func:`~repro_torch.distributed.sharding.sharded_params`,
+    ``params`` are this rank's blocks: each scan group's leaves are
+    gathered as the group runs (never the whole tree), the heads, MLP
+    columns and vocabulary computed on this rank's block of the
+    ``model`` axis (:mod:`repro_torch.distributed.tensor_parallel`).  The
+    logits are then this rank's vocabulary block: the loss reduces them
+    where they are (:func:`lm_loss`), the serve steps gather the last
+    position's (:func:`repro_torch.serve.serve_step.serve_decode`)."""
     acfg = run.analog
+    psh = shd.param_shardings()
+    if psh is not None and not shd.splits(psh):
+        psh = None          # a mesh of 1-sized axes: the tree is whole
+
+    def sh(*keys):
+        """The shardings under ``keys`` (None: the tree is whole)."""
+        node = psh
+        for k in keys:
+            node = None if node is None else node[k]
+        return node
     adt = (torch.bfloat16 if run.activation_dtype == "bfloat16"
            else torch.float32)
     if cfg.embed_inputs:
-        x = L.embedding_apply(params["embed"], batch["tokens"])
+        x = L.embedding_apply(tp.embedding_view(params["embed"],
+                                                sh("embed")), batch["tokens"])
     else:
         x = batch["embeds"]
     x = x.to(adt)
@@ -428,21 +479,29 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     layer_cache = None if cache is None else cache["layers"]
     shared = params.get("shared_attn")
+    if shared is not None:
+        shared = {"ln": shd.gather_leaf(shared["ln"],
+                                        sh("shared_attn", "ln")),
+                  "attn": tp.attention_view(
+                      shared["attn"], sh("shared_attn", "attn"), acfg,
+                      cfg.n_heads, cfg.n_kv_heads)}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     retyped: dict = {}
     for i in range(n_groups(cfg)):
         gp = stack_index(params["layers"], i)
+        gsh = shd.stack_shardings(sh("layers"), i)
         if remat:
             x, aux_g = _remat_group(gp, x, cfg=cfg, run=run,
                                     positions=positions, noise=noise,
-                                    routes=routes, shared_attn=shared)
+                                    routes=routes, shared_attn=shared,
+                                    shardings=gsh)
             aux = aux + aux_g
             continue
         x, nc, aux_g = _group_apply(
             gp, x, cfg=cfg, run=run, positions=positions,
             cache=None if layer_cache is None else stack_index(layer_cache,
                                                                i),
-            noise=noise, routes=routes, shared_attn=shared,
+            noise=noise, routes=routes, shared_attn=shared, shardings=gsh,
         )
         aux = aux + aux_g
         if layer_cache is not None:
@@ -450,12 +509,20 @@ def lm_apply(params, batch, cfg: ArchConfig, run: RunConfig, *,
     for node, k, vals in retyped.values():
         node[k] = torch.stack(vals)
 
-    x = L.norm_apply(params["final_norm"], x, cfg.norm)
+    x = L.norm_apply(shd.gather_leaf(params["final_norm"],
+                                     sh("final_norm")), x, cfg.norm)
     if cfg.tie_embeddings:
-        logits = torch.einsum("bsd,vd->bsv", x,
-                              params["embed"]["table"].to(x.dtype))
+        head = tp.embedding_view(params["embed"], sh("embed"))
     else:
-        logits = L.linear_apply(params["lm_head"], x, acfg, noise=noise)
+        head = tp.linear_view(params["lm_head"], sh("lm_head"), "col", acfg)
+    if tp.split_cols(head):
+        # every rank's vocabulary block reads x: its gradient sums over
+        # the ranks
+        x = shd.psum_grad(x, shd.split_axes(tp.MODEL))
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", x, head["table"].to(x.dtype))
+    else:
+        logits = L.linear_apply(head, x, acfg, noise=noise)
     new_cache = None
     if cache is not None:
         new_cache = {"layers": layer_cache, "step": cache["step"] + s}
@@ -592,19 +659,47 @@ def lm_cache_specs(cfg: ArchConfig, dtype=torch.bfloat16):
 
 
 # ------------------------------------------------------------------- loss
+def _vocab_block_logz_gold(logits, labels):
+    """``(logsumexp, gold logit)`` of logits split along the vocabulary
+    over ``model`` (this rank's block), in fp32: the max all-reduced, the
+    exponentials' sums and the gold logit (each label's one rank holds
+    it, the others add zeros) summed over the ranks, each rank's term
+    taking its own gradient.  Within fp32 rounding of the whole
+    vocabulary's ``torch.logsumexp`` (the sums run in another order)."""
+    lf = logits.to(torch.float32)
+    v = lf.shape[-1]
+    top = shd.all_reduce(lf.detach().amax(dim=-1, keepdim=True), tp.MODEL,
+                         op="max")
+    logz = torch.log(shd.sum_over(torch.exp(lf - top).sum(dim=-1),
+                                  tp.MODEL)) + top[..., 0]
+    local = labels.to(torch.int64) - shd.axis_index(tp.MODEL) * v
+    mine = (local >= 0) & (local < v)
+    gold = torch.gather(logits, -1, torch.clamp(local, 0, v - 1)[..., None]
+                        )[..., 0].to(torch.float32)
+    gold = shd.sum_over(torch.where(mine, gold, torch.zeros_like(gold)),
+                        tp.MODEL)
+    return logz, gold
+
+
 def lm_loss(params, batch, cfg: ArchConfig, run: RunConfig, noise=None,
             routes=None):
     """Next-token cross-entropy + 0.01 x the MoE aux loss (0 for the
     dense families).  ``batch`` needs ``"labels"``; an optional ``"mask"``
     weights the positions.  Returns ``(loss, {"nll", "aux",
     "logit_z"})``; the reductions run in fp32 over the activation-dtype
-    logits, as in the reference.  ``routes``: :func:`lm_apply`'s."""
+    logits, as in the reference.  ``routes``: :func:`lm_apply`'s.  Logits
+    that are this rank's vocabulary block (tensor parallelism) reduce
+    vocabulary-parallel (:func:`_vocab_block_logz_gold`), never
+    gathered."""
     logits, _, aux = lm_apply(params, batch, cfg, run, noise=noise,
                               routes=routes)
     labels = batch["labels"]
-    logz = torch.logsumexp(logits.to(torch.float32), dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64)
-                        )[..., 0].to(torch.float32)
+    if logits.shape[-1] != cfg.vocab_size:
+        logz, gold = _vocab_block_logz_gold(logits, labels)
+    else:
+        logz = torch.logsumexp(logits.to(torch.float32), dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].to(torch.int64)
+                            )[..., 0].to(torch.float32)
     nll = logz - gold
     mask = batch.get("mask")
     n = shd.batch_count()

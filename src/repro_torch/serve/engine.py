@@ -146,10 +146,19 @@ class ServeEngine:
     def _placed(self, params):
         """The served tree as this engine stores it: this rank's blocks
         under a mesh (plan leaves shard by the axes of the weights they
-        were baked from), else as it is."""
+        were baked from), else as it is.  Where the mesh splits the tree,
+        the engine lets the whole tree go - its compiled model keeps the
+        spec and the calibration, not the whole tree - unless a drift
+        monitor or a fleet may hot-swap the plans, which re-derives them
+        from the whole compiled model."""
         if shd.get_mesh() is None:
             return params
-        return shd.shard_tree(params, self.param_shardings)
+        local = shd.shard_tree(params, self.param_shardings)
+        if (local is not params and self.model is not None
+                and self.drift_monitor is None and self.fleet is None):
+            self.model = dataclasses.replace(self.model, params=None,
+                                             lowered=None)
+        return local
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         if self.greedy:

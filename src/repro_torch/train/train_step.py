@@ -10,11 +10,15 @@ parameters and moments.
 
 Under a mesh (:func:`make_train_step` with one active) the state and the
 batch are this rank's blocks (``shard_tree`` of :func:`state_specs` /
-:func:`batch_specs`): the step all-gathers the parameters, runs the
-forward and backward on its batch block (whole-batch reductions summed
-over the batch axes), reduces the gradients over the batch axes - a
-reduce-scatter where FSDP splits a leaf over ``data`` - and applies
-AdamW to its blocks with the whole tree's gradient norm.
+:func:`batch_specs`): the step runs the forward and backward on its batch
+block, each layer's leaves gathered as it runs and the heads, MLP columns
+and vocabulary computed on this rank's ``model`` block
+(:mod:`repro_torch.distributed.tensor_parallel`; whole-batch reductions
+summed over the batch axes).  The gathers' backward hands each leaf's
+gradient back as this rank's block, summed over the batch axes that
+split it (an FSDP leaf's reduce-scatter over ``data``);
+:func:`reduce_grads` sums it over the batch axes that do not, and AdamW
+updates the blocks with the whole tree's gradient norm.
 """
 from __future__ import annotations
 
@@ -100,12 +104,18 @@ def loss_and_grads(params, batch, noise=None, *, cfg: ArchConfig,
     # leaf views of the masters that record gradients (shared storage)
     params = O.tree_map(lambda p: p.detach().requires_grad_(True), params)
     leaves = O.tree_leaves(params)
+    pshard = shd.param_shardings()
     with torch.enable_grad():
-        model = api.compile(T.lm_module_spec(cfg, params), params, run,
-                            device=leaves[0].device)
-        loss, metrics = T.lm_loss(model.lower(), batch, cfg, run,
-                                  noise=noise, routes=routes)
-        del model
+        if pshard is not None and shd.splits(pshard):
+            # this rank's blocks: each layer is lowered from its gathered
+            # view as it runs (a block's lowering is not the whole leaf's)
+            tree = params
+        else:
+            tree = api.compile(T.lm_module_spec(cfg, params), params, run,
+                               device=leaves[0].device).lower()
+        loss, metrics = T.lm_loss(tree, batch, cfg, run, noise=noise,
+                                  routes=routes)
+        del tree
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
@@ -150,22 +160,15 @@ def _unflatten(tree, it):
 
 
 def reduce_grads(grads, shardings, batch_axes):
-    """Whole-parameter gradients of one batch block -> this rank's blocks
-    of the whole batch's gradients: summed over ``batch_axes`` (a
-    reduce-scatter along a dim those axes split, an all-reduce over the
-    rest) and cut to the blocks the other axes split (every rank of those
-    computed the same gradient)."""
+    """This rank's block gradients of one batch block -> its blocks of the
+    whole batch's gradients: summed over the ``batch_axes`` that do not
+    split the leaf.  The per-layer gathers' backward
+    (:func:`~repro_torch.distributed.sharding.gather_leaf`) already summed
+    each leaf's over the batch axes that split it, and cut it to this
+    rank's block."""
     def one(g, ns):
-        used = set()
-        for d, axes in shd.split_dims(ns, g.ndim):
-            for a in axes:
-                if a in batch_axes:
-                    g = shd.reduce_scatter(g, a, dim=d)
-                    used.add(a)
-                else:
-                    size = g.shape[d] // shd.axis_sizes()[a]
-                    g = g.narrow(d, shd.axis_index(a) * size, size)
-        rest = tuple(a for a in batch_axes if a not in used)
+        split = {a for _, axes in shd.split_dims(ns, g.ndim) for a in axes}
+        rest = tuple(a for a in batch_axes if a not in split)
         return shd.all_reduce(g, rest) if rest else g
 
     return O.tree_map(one, grads, shardings)
@@ -191,12 +194,10 @@ class MeshTrainStep:
         """``(loss, metrics, grads)``: the whole batch's loss and metrics,
         this rank's blocks of the whole batch's gradients."""
         pshard = self.state_shardings["params"]
-        params = shd.gather_tree(state["params"], pshard)
-        with shd.batch_split(self.batch_axes):
+        with shd.batch_split(self.batch_axes), shd.sharded_params(pshard):
             loss, metrics, grads = loss_and_grads(
-                params, batch, noise, cfg=self.cfg, run=self.run,
+                state["params"], batch, noise, cfg=self.cfg, run=self.run,
                 routes=routes)
-        del params
         return loss, metrics, reduce_grads(grads, pshard, self.batch_axes)
 
     def __call__(self, state, batch, noise=None, routes=None):

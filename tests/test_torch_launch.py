@@ -210,8 +210,9 @@ def _decode_arg_bytes() -> int:
     """This rank's argument bytes of phi4-mini's decode_32k step on the
     16 x 16 mesh, from the shapes: each parameter's block (the dims its
     ``sharding_like`` spec splits, divided by the axes' sizes), the
-    cache's rows (batch over ``data``; whole along every other dim) and
-    the whole [B, 1] tokens."""
+    cache's block (its rows over ``data``, and its sequence over
+    ``model``: phi4-mini's 8 KV heads do not divide 16) and the whole
+    [B, 1] tokens."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     cfg = configs.get_arch("phi4-mini-3.8b")
@@ -234,7 +235,7 @@ def _decode_arg_bytes() -> int:
                 total += n * t.element_size()
     finally:
         MM.destroy()
-    cache = T.init_lm_cache(cfg, sh.global_batch // 16, sh.seq_len,
+    cache = T.init_lm_cache(cfg, sh.global_batch // 16, sh.seq_len // 16,
                             device="meta")
     total += sum(t.numel() * t.element_size() for t in _flat(cache)
                  if isinstance(t, torch.Tensor))

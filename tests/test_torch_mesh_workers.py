@@ -15,15 +15,18 @@ import torch
 import torch.distributed as dist
 
 
-def spawn(cases, inputs, out_dir, world: int = 4, timeout: float = 240.0):
-    """Run ``cases`` (names of functions of this module) on ``world`` gloo
-    ranks over a ``FileStore`` under ``out_dir`` (no fixed port: several
-    test processes spawn at once); returns each rank's results."""
+def spawn(cases, inputs, out_dir, world: int = 4, timeout: float = 240.0,
+          module: str = __name__):
+    """Run ``cases`` (names of functions of ``module``, this one by
+    default) on ``world`` gloo ranks over a ``FileStore`` under
+    ``out_dir`` (no fixed port: several test processes spawn at once);
+    returns each rank's results."""
     import torch.multiprocessing as mp
 
     os.makedirs(out_dir, exist_ok=True)
     torch.save(inputs, os.path.join(out_dir, "inputs.pt"))
-    ctx = mp.start_processes(_rank_main, args=(world, out_dir, tuple(cases)),
+    ctx = mp.start_processes(_rank_main,
+                             args=(world, out_dir, tuple(cases), module),
                              nprocs=world, start_method="spawn", join=False)
     deadline = time.monotonic() + timeout
     try:
@@ -39,7 +42,9 @@ def spawn(cases, inputs, out_dir, world: int = 4, timeout: float = 240.0):
                        weights_only=False) for r in range(world)]
 
 
-def _rank_main(rank, world, out_dir, cases):
+def _rank_main(rank, world, out_dir, cases, module=__name__):
+    import importlib
+
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     torch.set_num_threads(1)
     inputs = torch.load(os.path.join(out_dir, "inputs.pt"),
@@ -47,7 +52,8 @@ def _rank_main(rank, world, out_dir, cases):
     store = dist.FileStore(os.path.join(out_dir, "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
-        results = {name: globals()[name](inputs) for name in cases}
+        fns = importlib.import_module(module)
+        results = {name: getattr(fns, name)(inputs) for name in cases}
     finally:
         dist.destroy_process_group()
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
