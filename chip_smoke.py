@@ -45,7 +45,11 @@ with random weights from a seed, on one NVIDIA GPU:
   ``analog_plan_block`` launch;
 - the port's four examples (``examples_torch/``) as a user runs them, a
   six-step training trajectory card against CPU, and llama4-maverick at
-  its published widths through ``ServeEngine``.
+  its published widths through ``ServeEngine``;
+- the device mesh on one card, tensor parallelism over 4 threaded ranks;
+- glm4-9b and minitron-4b at their published widths: served (oracle,
+  calibrated; glm4's block route), HIL-trained, and glm4 over 4 ranks
+  with its KV cache split over ``kv_seq``.
 
     python3 chip_smoke.py          # from the root of a checkout
 
@@ -320,7 +324,8 @@ exits non-zero without printing a result):
    training shape (M = 4096 per member, 320 per expert) and the two backward
    products, beside their bounds;
 38. the recurrences' segmented backward: one rwkv6-7b time-mix layer
-   and one zamba2-2.7b Mamba-2 layer at full width, 1 x 4096, forward and
+   and one zamba2-2.7b Mamba-2 layer at full width, 1 x 2048
+   (SCAN_MEMORY_SEQ), forward and
    backward, with segments of SCAN_SEGMENT steps and with plain autograd
    through the loop: peak memory of each (lower with segments), host and
    device ms, and the gradients within SCAN_GRAD_REL of plain autograd's;
@@ -401,13 +406,13 @@ exits non-zero without printing a result):
 48. phi4-mini-3.8b at its published width served by a ``ServeEngine``
    built under the mesh (phase 7's batch, requests and new tokens; the
    prelowered plans sharded by ``sharding_specs()``) against the same
-   engine without a mesh: tokens and a 4 x 12 prefill's logits
-   bit-identical, 161 split launches per call, no lowering between
-   batches, phase 9b's decode host and device ms of both; then the same
-   serve and prefill again, under the mesh with every call's tree taken
-   through the walk and rebuild of ``shard_tree`` / ``gather_tree`` that a
-   mesh of 1-sized axes skips, and without the mesh as a plain repeat:
-   both bit-identical to the first no-mesh serve;
+   engine without a mesh (phase 7's: its tokens, the same prefill on it
+   and phase 9b's timing; ``--slice16`` builds one): tokens and a 4 x 12
+   prefill's logits bit-identical, 161 split launches per call, no
+   lowering between batches, phase 9b's decode host and device ms of
+   both; then the same serve and prefill again, every call's tree taken
+   through the walk and rebuild of ``shard_tree`` / ``gather_tree`` that
+   a mesh of 1-sized axes skips: bit-identical to no mesh;
 49. one qwen3-moe-30b-a3b MoE layer at its published widths (128
    experts, top-8) at decode (batch 4), ``dispatch="shard_map"`` on the
    mesh against ``gspmd_ep``: bit-identical, 3 expert launches;
@@ -429,9 +434,50 @@ exits non-zero without printing a result):
    the launches' device ms;
 54. phi4-mini at its published widths cut to TP_LAYERS layers, served on
    a (1, 4) mesh of 4 threads over torch's threaded process group on the
-   one card (:func:`tp_threaded_serving`): tokens and prefill logits
-   bit-identical to no mesh on every rank, each rank's resident bytes;
-55. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
+   one card (:func:`tp_threaded_serving`): tokens, prefill logits and the
+   next decode step's logits bit-identical to no mesh on every rank,
+   each rank's resident bytes;
+55. glm4-9b at its published widths (40 layers, d_model 4096, 32 query
+   heads over 2 KV heads, d_ff 13696, vocab 151552), random weights,
+   ``analog_faithful``, through ``ServeEngine`` at batch 4 (phase 7's
+   requests): the oracle engine, 201 split launches per call, no store
+   deriving its fp32 w_eff, decode ms per step (host, device, idle
+   share), the 4 x 12 prefill, the peak, and the split launch of the
+   fused QKV, down (K = 13696) and lm_head (N = 151552) at M = 4 beside
+   its bound; then the calibrated engine on the same masters (phase 18's
+   blind lm_head calibration, its chunk_gain read in the int8 operand),
+   the same launches, no derived w_eff, the lm_head's readouts held by
+   check_readouts, the peak below PEAK_BUDGET_GIB; then the block route
+   at static calibration, all 40 layers: one ``analog_plan_block``
+   launch per block (G = 16) and one split launch per 4 x 12 prefill;
+   each block, on the block route's input, bit-identical to the
+   per-layer route with the launch's 5-bit codes replayed where the
+   per-layer route's part from them at a rounding tie, and the whole
+   route's logits bit-identical to the per-layer route's with every
+   block's codes so replayed; the free-running per-layer logits beside
+   them (relative max diff, argmax agreement at least phase 10's 0.5);
+   phase 11's stage-by-stage checks on block 0; the launch beside its
+   bound;
+56. minitron-4b at its published widths (32 layers, d_model 3072, 24/8
+   heads, squared-ReLU MLP of 9216, LayerNorm, vocab 256000): phase 55's
+   oracle and calibrated engines, 129 split launches per call;
+57. glm4-9b and minitron-4b each trained two ``make_train_step`` steps
+   at 1 x 4096 at their published widths, depth TRAINED_LAYERS (phase
+   40's checks), and each cut to 1 layer at published widths, integer
+   effective weights, static calibration, fp32 activations: one step on
+   the card against the CPU's at 1 x ONE_LAYER_SEQ, loss and grad_norm
+   within phase 44's step-1 tolerances;
+58. glm4-9b cut to TP_LAYERS layers served on phase 54's 4 threaded
+   ranks: its 2 KV heads do not divide 4, so the attention runs whole on
+   each rank over its block of a cache split over ``kv_seq`` (split-KV
+   decoding), 12 of KV_SEQ_MAX_LEN positions per rank: tokens and the
+   4 x 12 prefill's logits bit-identical to no mesh on every rank; then
+   KV_SEQ_DECODE_STEPS decode steps on the no-mesh engine's tokens, to
+   position 39, so every rank's block holds keys (counted in the cache),
+   their logits within KV_SEQ_DECODE_REL x max |logit| with the no-mesh
+   5-bit codes replayed at rounding ties (fp32 activations, as the CPU's
+   4-rank test of the split); each rank's resident bytes;
+59. ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as the
    last line.
 
 ``python3 chip_smoke.py --slice10`` runs the build and phases 22-27
@@ -439,9 +485,10 @@ alone, ``--slice11`` the build and phases 28-32, ``--slice12`` the build
 and phases 33-36, ``--slice13`` the build and phases 37-40, ``--slice14``
 the build and phases 41-42 on models of their own, ``--slice15`` the
 build, the lr-0 control step on a fresh stablelm-3b and phases 43-46,
-``--slice16`` the build and phases 47-52, ``--slice17`` the build, phase
-48's no-mesh engine and phases 53-54 (quick checks; the contract's run
-takes no arguments).
+``--slice16`` the build and phases 47-52 (phase 48 with an engine
+without a mesh of its own), ``--slice17`` the build, phase 48's no-mesh
+engine and phases 53-54, ``--slice18`` the build and phases
+55-58 (quick checks; the contract's run takes no arguments).
 """
 from __future__ import annotations
 
@@ -456,6 +503,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -629,6 +677,7 @@ from repro_torch.models import rwkv as R  # noqa: E402
 from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.core import quant as quant_mod  # noqa: E402
 from repro_torch.core.quant import quantize_act  # noqa: E402
 from repro_torch.exec import run as trun  # noqa: E402
 from repro_torch.exec.lower import (lower_block, lowering_count,  # noqa: E402
@@ -986,6 +1035,20 @@ def _device_trace_once(fn, iters=20):
     return per_call_us / 1e3, per_call
 
 
+def device_total(prof):
+    """(device ms, device activities) of a whole ``torch.profiler``
+    trace: its device records' durations summed (kernels, copies and
+    fills: what ``key_averages()``'s ``self_device_time_total`` sums),
+    read from the raw trace, without ``key_averages()``'s per-name
+    aggregation, which takes tens of seconds over a train step's 10^5
+    records."""
+    cuda = torch.autograd.DeviceType.CUDA
+    durations = [e.duration_ns()
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda]
+    return sum(durations) / 1e6, len(durations)
+
+
 def kernel_record_ms(fn, needle: str, iters: int = 10, traces: int = 5):
     """(mean device ms, records) of the trace records whose kernel name
     holds ``needle``: the per-launch time of one kernel, from
@@ -1258,6 +1321,34 @@ def _counting(engine):
     engine.prefill = wrap("prefill", engine.prefill)
     engine.decode = wrap("decode", engine.decode)
     return calls
+
+
+def _serve_counted(cfg, engine, what, per_call):
+    """Phase 7's serve on ``engine`` (8 requests at batch 4, 8 new tokens
+    each): exactly ``per_call`` launches (kernel: count) per prefill or
+    decode call, every request's tokens in the vocabulary.  Returns the
+    served calls, launches, seconds and tokens."""
+    calls = _counting(engine)
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    done = engine.serve(_lm_requests(cfg))
+    torch.cuda.synchronize()
+    t_serve = time.monotonic() - t0
+    counts = ops.launch_counts()
+    calls = dict(calls)          # the served calls (a timing adds more)
+    n_calls = calls["prefill"] + calls["decode"]
+    want = _launches(**{k: v * n_calls for k, v in per_call.items()})
+    if counts != want:
+        raise AssertionError(f"{what} launch counts {counts} != {want} "
+                             f"({calls})")
+    for r in done:
+        out = r.output.tolist()
+        if len(out) != LM_NEW_TOKENS or not all(
+                0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"{what} request {r.uid}: tokens {out}")
+    return {"calls": calls, "launches": counts, "launches_per_call": per_call,
+            "serve_s": t_serve,
+            "tokens": {r.uid: r.output.tolist() for r in done}}
 
 
 def lm_main_path():
@@ -4235,24 +4326,9 @@ def moe_full_serving():
     torch.cuda.synchronize()
     t_build = time.monotonic() - t0
     verify_on_card("qwen3-moe expert stacks", engine.model)
-    calls = _counting(engine)
-    ops.reset_launch_counts()
-    t0 = time.monotonic()
-    done = engine.serve(_lm_requests(cfg))
-    torch.cuda.synchronize()
-    t_serve = time.monotonic() - t0
-    counts = ops.launch_counts()
-    n_calls = calls["prefill"] + calls["decode"]
-    want = _launches(analog_mvm_split=(2 * depth + 1) * n_calls,
-                     analog_mvm_split_experts=3 * depth * n_calls)
-    if counts != want:
-        raise AssertionError(f"qwen3 launch counts {counts} != {want} "
-                             f"({calls})")
-    for r in done:
-        out = r.output.tolist()
-        if len(out) != LM_NEW_TOKENS or not all(
-                0 <= t < cfg.vocab_size for t in out):
-            raise AssertionError(f"request {r.uid}: tokens {out}")
+    served = _serve_counted(cfg, engine, "qwen3", {
+        "analog_mvm_split": 2 * depth + 1,
+        "analog_mvm_split_experts": 3 * depth})
     toks = torch.as_tensor(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
     timing = _serve_timing(cfg, engine.prefill, engine.decode, engine.params,
@@ -4262,18 +4338,13 @@ def moe_full_serving():
     dev = [v["device_ms"] for v in per_layer.values()]
     report = {
         "arch": cfg.name, "published_layers": full.n_layers,
-        "layers": depth, "build_s": t_build,
-        "serve_s": t_serve, "calls": calls, "launches": counts,
-        "launches_per_call": {"analog_mvm_split": 2 * depth + 1,
-                              "analog_mvm_split_experts": 3 * depth},
-        **timing,
+        "layers": depth, "build_s": t_build, **served, **timing,
         "expert_launches_device_ms_per_layer": per_layer,
         "expert_device_ms_per_decode_step": None if None in dev
         else depth * sum(dev),
         "expert_bound_ms_per_decode_step": depth * sum(
             v["bound_ms"] for v in per_layer.values()),
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "tokens": {r.uid: r.output.tolist() for r in done},
     }
     if report["peak_memory_gib"] > PEAK_BUDGET_GIB:
         raise AssertionError(f"qwen3 serving peak {report['peak_memory_gib']}"
@@ -4634,24 +4705,9 @@ def rwkv_full_serving():
     torch.cuda.synchronize()
     t_build = time.monotonic() - t0
     verify_on_card("rwkv6-7b member group", engine.model)
-    calls = _counting(engine)
-    ops.reset_launch_counts()
-    t0 = time.monotonic()
-    done = engine.serve(_lm_requests(cfg))
-    torch.cuda.synchronize()
-    t_serve = time.monotonic() - t0
-    counts = ops.launch_counts()
-    n_calls = calls["prefill"] + calls["decode"]
-    want = _launches(analog_mvm_split=(3 * depth + 1) * n_calls,
-                     analog_mvm_split_members=depth * n_calls)
-    if counts != want:
-        raise AssertionError(f"rwkv launch counts {counts} != {want} "
-                             f"({calls})")
-    for r in done:
-        out = r.output.tolist()
-        if len(out) != LM_NEW_TOKENS or not all(
-                0 <= t < cfg.vocab_size for t in out):
-            raise AssertionError(f"request {r.uid}: tokens {out}")
+    served = _serve_counted(cfg, engine, "rwkv", {
+        "analog_mvm_split": 3 * depth + 1,
+        "analog_mvm_split_members": depth})
     toks = torch.as_tensor(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
     timing = _serve_timing(cfg, engine.prefill, engine.decode, engine.params,
@@ -4671,11 +4727,7 @@ def rwkv_full_serving():
                                     iters=5)
     report = {
         "arch": cfg.name, "published_layers": full.n_layers,
-        "layers": depth, "build_s": t_build, "serve_s": t_serve,
-        "calls": calls, "launches": counts,
-        "launches_per_call": {"analog_mvm_split": 3 * depth + 1,
-                              "analog_mvm_split_members": depth},
-        **timing,
+        "layers": depth, "build_s": t_build, **served, **timing,
         "member_launch_device_ms_per_layer": member,
         "member_device_ms_per_decode_step": None
         if member["device_ms"] is None else depth * member["device_ms"],
@@ -4683,7 +4735,6 @@ def rwkv_full_serving():
         "wkv_scan_device_ms_per_layer_prefill": wkv_ms,
         "wkv_scan_device_activities_per_layer_prefill": wkv_acts,
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "tokens": {r.uid: r.output.tolist() for r in done},
     }
     if report["peak_memory_gib"] > PEAK_BUDGET_GIB:
         raise AssertionError(f"rwkv serving peak {report['peak_memory_gib']}"
@@ -4915,6 +4966,9 @@ RWKV_GRAD_REL = 2e-4
 # a layer's LAYER_SUMS within LAYER_SUM_TOL of it
 SCAN_GRAD_REL = 1e-5
 TRAIN_FAMILY_SEQ = 4096
+# phase 38's sequence: 4096 cut to 2048 for the run's 1200 s when phases
+# 55-58 came in (its two layers' scans run a host loop per position)
+SCAN_MEMORY_SEQ = 2048
 TRAIN_FAMILY_STEPS = 2
 # phase 40: the trained depth of each family at its published widths,
 # the most whose peak stays under PEAK_BUDGET_GIB, fitted on an H100 80GB
@@ -4924,8 +4978,12 @@ TRAIN_FAMILY_STEPS = 2
 # 2-layer peaks (3.03 GiB per layer) come from the backward's end, but
 # at depth the lowering's STE codes and w_eff peak first: 18 layers ran
 # out of the card's 80 GB; refitted from 12 and 14 layers at its trained
-# sequence (scripts/fit_train_depth.py rwkv6-7b:12,14): 4.01 + 12.66
-TRAINED_LAYERS = {MOE_ARCH: 4, VL_ARCH: 10, RWKV_ARCH: 14, HYBRID_ARCH: 54}
+# sequence (scripts/fit_train_depth.py rwkv6-7b:12,14): 4.01 + 12.66;
+# glm4-9b 3.72 + 34.43 from 4 and 6 layers (10 of 40, 71.63 predicted,
+# 73.14 measured: one layer less), minitron-4b 1.69 + 45.93 from 8 and
+# 14 (15 of 32, 71.28 predicted and measured)
+TRAINED_LAYERS = {MOE_ARCH: 4, VL_ARCH: 10, RWKV_ARCH: 14, HYBRID_ARCH: 54,
+                  "glm4-9b": 9, "minitron-4b": 15}
 # the sequence of the recurrent families' steps, cut from 4096 (PERF.md
 # names the cuts): their step is the per-token scans' host loop, about
 # 2 s per layer at 4096 (phase 38), over 45 s per step at 4096 for both;
@@ -5131,7 +5189,8 @@ def check_lead_axis_grad():
 def _layer_grads(name, segment):
     """One full-width recurrent layer (rwkv6-7b's time mix compiled with
     its r/k/v/g group, or a zamba2-2.7b Mamba-2 layer), analog faithful,
-    forward and backward at 1 x 4096 with ``segment`` steps per segment
+    forward and backward at 1 x SCAN_MEMORY_SEQ with ``segment`` steps
+    per segment
     of the scan's backward (None: plain autograd through the loop, not
     profiled): (gradients by leaf, peak GiB above the inputs, host ms,
     device ms, activities, the parameters by leaf)."""
@@ -5140,7 +5199,7 @@ def _layer_grads(name, segment):
     cfg = configs.get_arch(name)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 32)
     acfg = AnalogConfig(mode="analog_faithful")
-    d, t = cfg.d_model, TRAIN_FAMILY_SEQ
+    d, t = cfg.d_model, SCAN_MEMORY_SEQ
     if name == RWKV_ARCH:
         params = R.rwkv_init(gen, d, cfg.n_heads, device=DEV)
     else:
@@ -5181,10 +5240,7 @@ def _layer_grads(name, segment):
         L.SCAN_SEGMENT = saved
     dev_ms = acts = None
     if prof is not None:
-        ev = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0.0) > 0]
-        dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
-        acts = sum(e.count for e in ev)
+        dev_ms, acts = device_total(prof)
         del prof
     names = list(_named(leaves)) + ["x"]
     return ({k: g for k, g in zip(names, grads) if g is not None}, peak,
@@ -5193,9 +5249,10 @@ def _layer_grads(name, segment):
 
 def scan_memory():
     """Phase 38: one rwkv6-7b time-mix layer and one zamba2-2.7b Mamba-2
-    layer at full width, 1 x 4096, forward and backward on the card,
-    with the scans' segmented backward (SCAN_SEGMENT steps per segment)
-    and with plain autograd through the loop (every step's tensors kept,
+    layer at full width, 1 x SCAN_MEMORY_SEQ, forward and backward on the
+    card, with the scans' segmented backward (SCAN_SEGMENT steps per
+    segment) and with plain autograd through the loop (every step's
+    tensors kept,
     as the reference's scan keeps them): the peak memory of each, host
     and device ms, the idle share, and every gradient of the segmented
     backward within SCAN_GRAD_REL of its max |value| under plain
@@ -5203,7 +5260,7 @@ def scan_memory():
     larger of that and its terms' scale, :func:`_gain_term_scale`)."""
     out = []
     for name in (RWKV_ARCH, HYBRID_ARCH):
-        rep = {"arch": name, "seq": TRAIN_FAMILY_SEQ,
+        rep = {"arch": name, "seq": SCAN_MEMORY_SEQ,
                "segment": L.SCAN_SEGMENT}
         g_seg, rep["peak_gib_segments"], rep["host_ms_segments"], \
             rep["device_ms_segments"], rep["activities_segments"], \
@@ -5293,7 +5350,9 @@ def _train_launches(cfg, act_calib="dynamic"):
     mlp = sum(k == "attn_mlp" for k in kinds)
     shared = T.n_groups(cfg) if cfg.attn_every else 0
     qkv = 1 if act_calib == "dynamic" else 3
-    per_fwd = (qkv + 1) * (attn + shared) + 3 * mlp + 3 * rwkv + 2 * mamba
+    per_fwd = ((qkv + 1) * (attn + shared)
+               + (3 if cfg.act == "swiglu" else 2) * mlp + 3 * rwkv
+               + 2 * mamba)
     if moe and cfg.n_shared_experts:
         per_fwd += 3 * moe
     return _launches(analog_mvm_split=2 * per_fwd + 1,
@@ -5454,10 +5513,8 @@ def train_family(name, depth, seq, steps=TRAIN_FAMILY_STEPS, profile=True):
                                      for p in O.tree_leaves(
                                          state["params"]))}
         if prof is not None:
-            ev = [e for e in prof.key_averages()
-                  if getattr(e, "self_device_time_total", 0.0) > 0]
-            dev_ms = sum(e.self_device_time_total for e in ev) / 1e3
-            r.update(device_ms=dev_ms, activities=sum(e.count for e in ev),
+            dev_ms, acts = device_total(prof)
+            r.update(device_ms=dev_ms, activities=acts,
                      idle_share=1 - dev_ms / host_ms)
             del prof
         if counts != want:
@@ -6112,30 +6169,14 @@ def maverick_full_serving(counts):
     plan_bytes = held - raw_bytes
     stack_fp32 = full.n_experts * full.d_model * full.moe_d_ff * 4
     verify_on_card("maverick expert stacks", engine.model)
-    calls = _counting(engine)
-    ops.reset_launch_counts()
-    t0 = time.monotonic()
-    done = engine.serve(_lm_requests(cfg))
-    torch.cuda.synchronize()
-    serve_s = time.monotonic() - t0
-    launches = ops.launch_counts()
-    calls = dict(calls)          # the served calls (the timing adds more)
-    n_calls = calls["prefill"] + calls["decode"]
     # per layer the fused QKV and o; a dense layer's up, gate and down; an
     # MoE layer's shared expert (up, gate, down) and its three stacks
-    per_call = {"analog_mvm_split": 5 * n_dense + 5 * n_moe + 1,
-                "analog_mvm_split_experts": 3 * n_moe}
-    want = _launches(**{k: v * n_calls for k, v in per_call.items()})
-    bad = []
-    if launches != want:
-        bad.append(f"maverick launch counts {launches} != {want} ({calls})")
-    for k, v in launches.items():
+    served = _serve_counted(cfg, engine, "maverick", {
+        "analog_mvm_split": 5 * n_dense + 5 * n_moe + 1,
+        "analog_mvm_split_experts": 3 * n_moe})
+    for k, v in served["launches"].items():
         counts[k] += v
-    for r in done:
-        out = r.output.tolist()
-        if len(out) != LM_NEW_TOKENS or not all(
-                0 <= t < cfg.vocab_size for t in out):
-            bad.append(f"request {r.uid}: tokens {out}")
+    bad = []
     toks = torch.as_tensor(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
     timing = _serve_timing(cfg, engine.prefill, engine.decode, engine.params,
@@ -6151,9 +6192,8 @@ def maverick_full_serving(counts):
         "arch": cfg.name, "published_layers": full.n_layers,
         "layers": depth, "n_params": n_params, "param_dtype": str(
             cfg.dtype), "init_s": init_s, "build_s": build_s,
-        "serve_s": serve_s, "calls": calls, "launches": {
-            k: v for k, v in launches.items() if v},
-        "launches_per_call": per_call, **timing,
+        **served, "launches": {
+            k: v for k, v in served["launches"].items() if v}, **timing,
         "expert_launches_device_ms_per_layer": per_layer,
         "expert_device_ms_per_decode_step": None if None in dev_ms
         else n_moe * sum(dev_ms),
@@ -6166,7 +6206,6 @@ def maverick_full_serving(counts):
         "lowering_transient_gib": (lower_peak - held) / 2**30,
         "one_stack_fp32_gib": stack_fp32 / 2**30,
         "peak_memory_gib": peak,
-        "tokens": {r.uid: r.output.tolist() for r in done},
     }
     if lower_peak - held >= stack_fp32:
         bad.append(f"the lowering's peak is {report['lowering_transient_gib']}"
@@ -6225,8 +6264,7 @@ def _walk_every_call(engine):
     """Make each step of a mesh engine take its tree through the walk of
     ``shard_tree`` and then ``gather_tree``, as on a mesh that splits:
     every leaf comes back a new tensor object (a view of itself), so every
-    plan dataclass on the way is rebuilt, copied without re-deriving and
-    then rebuilt through ``__init__``.  On a mesh of 1-sized axes the two
+    plan dataclass on the way is rebuilt through ``__init__``, twice.  On a mesh of 1-sized axes the two
     functions return the tree unwalked; this is the path they skip."""
     shardings = engine.param_shardings
 
@@ -6235,8 +6273,8 @@ def _walk_every_call(engine):
 
     def walked(step):
         def run(params, batch, cache):
-            local = SHD._map_tree(view, params, shardings, derive=False)
-            full = SHD._map_tree(view, local, shardings, derive=True)
+            local = SHD._map_tree(view, params, shardings)
+            full = SHD._map_tree(view, local, shardings)
             if full is params:
                 raise AssertionError("the forced walk rebuilt nothing")
             return step(full, batch, cache)
@@ -6246,12 +6284,21 @@ def _walk_every_call(engine):
     engine.decode = walked(engine.decode)
 
 
+def _prefill_logits(engine, cfg):
+    """Phase 48's 4 x 12 prefill on ``engine``: its logits, on the CPU."""
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
+    cache = T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN, dtype=torch.float32,
+                            device=DEV)
+    return engine.prefill(engine.params, {"tokens": toks}, cache)[0].cpu()
+
+
 def _mesh_serve_run(mesh, keep=False):
     """One phi4-mini engine (phase 7's seed, requests and batch), built
     and served under ``mesh`` (None: no mesh): tokens, a 4 x 12
     prefill's logits, the launches and lowerings of the serve, and
-    phase 9b's decode timing; then the same serve and prefill again,
-    under the mesh with every call's tree walked and rebuilt
+    phase 9b's decode timing; under a mesh, then the same serve and
+    prefill again with every call's tree walked and rebuilt
     (:func:`_walk_every_call`).  ``keep``: the result also holds the
     engine's pre-lowered tree (``"tree"``, phase 53's)."""
     cfg = configs.get_arch(LM_ARCH)
@@ -6271,27 +6318,16 @@ def _mesh_serve_run(mesh, keep=False):
         launches = ops.launch_counts()
         calls = dict(calls)         # the serve's; the timing below adds
         relowered = lowering_count() - lowered
-        toks = torch.as_tensor(np.random.default_rng(1).integers(
-            0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
-        cache = T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN,
-                                dtype=torch.float32, device=DEV)
-        logits, _ = engine.prefill(engine.params, {"tokens": toks}, cache)
-        timing = time_serving(engine)
-        # a second serve: through the forced walk under the mesh, as it
-        # is without one (the card's own run-to-run repeat)
+        out = {"tokens": {r.uid: r.output.tolist() for r in done},
+               "logits": _prefill_logits(engine, cfg), "launches": launches,
+               "calls": calls, "lowerings_between_batches": relowered,
+               "timing": time_serving(engine), "sharded": sharded}
         if mesh is not None:
+            # a second serve, through the forced walk
             _walk_every_call(engine)
-        again = engine.serve(_lm_requests(cfg))
-        cache = T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN,
-                                dtype=torch.float32, device=DEV)
-        logits_again, _ = engine.prefill(engine.params, {"tokens": toks},
-                                         cache)
-    out = {"tokens": [r.output.tolist() for r in done],
-           "logits": logits.cpu(), "launches": launches, "calls": calls,
-           "lowerings_between_batches": relowered, "timing": timing,
-           "sharded": sharded,
-           "again_tokens": [r.output.tolist() for r in again],
-           "again_logits": logits_again.cpu()}
+            out["again_tokens"] = {r.uid: r.output.tolist()
+                                   for r in engine.serve(_lm_requests(cfg))}
+            out["again_logits"] = _prefill_logits(engine, cfg)
     if keep:
         out["tree"] = engine.params
     del engine
@@ -6300,20 +6336,21 @@ def _mesh_serve_run(mesh, keep=False):
     return out
 
 
-def mesh_serving(mesh, counts):
+def mesh_serving(mesh, counts, no_mesh=None):
     """Phase 48: phi4-mini-3.8b at its published widths served by a
     ServeEngine built under the (1, 1) mesh (its prelowered plans sharded
-    by ``sharding_specs()``), against the same engine without a mesh:
-    tokens and prefill logits bit-identical, 161 split launches per call,
-    no lowering between batches, decode ms (host, device) of both.  The
-    second serve of each engine (the mesh's with every call's tree walked
-    and rebuilt, the plain one's a repeat) is bit-identical too."""
-    runs = {}
-    for name, m in (("mesh", mesh), ("no_mesh", None)):
-        runs[name] = _mesh_serve_run(m, keep=name == "no_mesh")
-        if name == "mesh":
-            for k, v in runs[name]["launches"].items():
-                counts[k] += v
+    by ``sharding_specs()``), against the same engine without a mesh
+    (``no_mesh``: phase 7's engine's tokens, this phase's prefill on it
+    and phase 9b's timing; None: such an engine built here): tokens and
+    prefill logits bit-identical, 161 split launches per call, no
+    lowering between batches, decode ms (host, device) of both.  The
+    mesh engine's second serve, every call's tree walked and rebuilt, is
+    bit-identical too.  Returns the report and the mesh engine's
+    pre-lowered tree."""
+    runs = {"mesh": _mesh_serve_run(mesh, keep=True),
+            "no_mesh": no_mesh or _mesh_serve_run(None)}
+    for k, v in runs["mesh"]["launches"].items():
+        counts[k] += v
     cfg = configs.get_arch(LM_ARCH)
     per_call = 5 * cfg.n_layers + 1
     got = runs["mesh"]
@@ -6324,13 +6361,10 @@ def mesh_serving(mesh, counts):
         "tokens": got["tokens"] == want["tokens"],
         "logits": torch.equal(got["logits"], want["logits"]),
         "walked_tokens": got["again_tokens"] == want["tokens"],
-        "walked_logits": torch.equal(got["again_logits"], want["logits"]),
-        "no_mesh_repeat_tokens": want["again_tokens"] == want["tokens"],
-        "no_mesh_repeat_logits": torch.equal(want["again_logits"],
-                                             want["logits"])}
+        "walked_logits": torch.equal(got["again_logits"], want["logits"])}
     for k, v in same.items():
         if not v:
-            bad.append(f"{k} differ from the no-mesh engine's first serve")
+            bad.append(f"{k} differ from the no-mesh engine's")
     if got["launches"] != _launches(analog_mvm_split=per_call * n_calls):
         bad.append(f"launches {got['launches']} != {per_call} x {n_calls}")
     if got["lowerings_between_batches"] or not got["sharded"]:
@@ -6346,7 +6380,7 @@ def mesh_serving(mesh, counts):
     if bad:
         emit("mesh_serving", report)
         raise AssertionError("; ".join(bad))
-    return report, runs["no_mesh"]["tree"]
+    return report, got["tree"]
 
 
 def mesh_moe_layer(mesh, counts):
@@ -6542,7 +6576,7 @@ def _as_rank(r):
 
 def _leaf_list(tree, sh):
     out = []
-    SHD._map_tree(lambda t, ns: out.append(t) or t, tree, sh, derive=False)
+    SHD._map_tree(lambda t, ns: out.append(t) or t, tree, sh)
     return out
 
 
@@ -6711,9 +6745,33 @@ def _largest_leaf(tree) -> int:
     return max(t.numel() * t.element_size() for t in _plan_tensors(tree))
 
 
-def _tp_rank(r, cfg, run, params, toks, store, lock, results):
-    """One thread of phase 54: rank ``r`` of the threaded group, its
-    engine on a (1, 4) mesh, the serve and the prefill."""
+def _kv_seq_live(cache):
+    """The positions of this rank's ``kv_seq`` block of a decode cache
+    that hold a key (the fewest over its attention caches), or None where
+    no attention cache splits over ``kv_seq``."""
+    live = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            if node.get("kv_block") is not None:
+                k = node["k"].movedim(-3, 0)
+                live.append(int(k.reshape(k.shape[0], -1).ne(0).any(1)
+                                .sum()))
+            for v in node.values():
+                walk(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                walk(v)
+
+    walk(cache)
+    return min(live) if live else None
+
+
+def _tp_rank(r, cfg, run, params, ref, store, lock, results):
+    """One thread of phase 54 (58): rank ``r`` of the threaded group, its
+    engine on a (1, 4) mesh, the serve, the prefill and the decode steps
+    on ``ref``'s tokens (the three with the no-mesh run's codes replayed
+    at ties where ``ref`` holds a :class:`_CodeReplay`)."""
     from torch.testing._internal.distributed import multi_threaded_pg as mtpg
 
     try:
@@ -6724,17 +6782,27 @@ def _tp_rank(r, cfg, run, params, toks, store, lock, results):
         with SHD.use_mesh(mesh), torch.no_grad():
             with lock:      # one rank lowers at a time: the peak stays low
                 eng = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
-                                  max_len=LM_MAX_LEN)
-            with SHD.record_collectives() as log:
+                                  max_len=ref["max_len"])
+            part = ref["codes"].taking_part() if ref["codes"] \
+                else contextlib.nullcontext({})
+            with SHD.record_collectives() as log, part as st:
                 done = eng.serve(_lm_requests(cfg))
-                cache = SS.init_cache(cfg, LM_BATCH, LM_MAX_LEN,
+                cache = SS.init_cache(cfg, LM_BATCH, ref["max_len"],
                                       dtype=torch.float32, device=DEV)
-                logits, _ = eng.prefill(eng.params, {"tokens": toks}, cache)
+                logits, cache = eng.prefill(eng.params,
+                                            {"tokens": ref["toks"]}, cache)
+                dec = []
+                for tok in ref["feed"]:
+                    out, cache = eng.decode(eng.params, tok, cache)
+                    dec.append(out.cpu())
             torch.cuda.synchronize()
             results[r] = {
                 "tokens": [x.output.tolist() for x in done],
-                "logits": logits.cpu(), "params_bytes": _tree_bytes(
-                    eng.params), "cache_bytes": _tree_bytes(cache),
+                "logits": logits.cpu(), "decode_logits": dec,
+                "replay": dict(st),
+                "kv_seq_live_positions": _kv_seq_live(cache),
+                "params_bytes": _tree_bytes(eng.params),
+                "cache_bytes": _tree_bytes(cache),
                 "whole_tree_dropped": eng.model.lowered is None,
                 "collectives": log}
     except BaseException as exc:  # wake the other ranks' collectives
@@ -6747,39 +6815,69 @@ def _tp_rank(r, cfg, run, params, toks, store, lock, results):
     # torch versions' threaded world lacks)
 
 
-def tp_threaded_serving(counts):
-    """Phase 54: phi4-mini-3.8b at its published widths, cut to
-    TP_LAYERS layers, served by a ``ServeEngine`` on each of 4 threads
-    of one process - the ranks of a (1, 4) ``(data, model)`` mesh over
-    torch's threaded process group, whose collectives copy between the
-    threads' tensors on the card - against the same engine without a
-    mesh: tokens and a 4 x 12 prefill's logits bit-identical on every
-    rank; each rank's resident parameter, plan and cache bytes against
-    the whole's; the largest single all-gather against the largest
-    leaf; the split launches of the four ranks' serves."""
-    import threading
+def tp_threaded_serving(counts, arch=LM_ARCH, decode_rel=0.0,
+                        max_len=LM_MAX_LEN, decode_steps=1, split_kv=False):
+    """Phase 54 (and 58): ``arch`` (phi4-mini-3.8b; glm4-9b) at its
+    published widths, cut to TP_LAYERS layers, served by a
+    ``ServeEngine`` (``max_len``) on each of 4 threads of one process -
+    the ranks of a (1, 4) ``(data, model)`` mesh over torch's threaded
+    process group, whose collectives copy between the threads' tensors
+    on the card - against the same engine without a mesh: tokens and a
+    4 x 12 prefill's logits bit-identical on every rank; ``decode_steps``
+    decode steps after it, each fed the no-mesh engine's greedy token,
+    their logits against no mesh within ``decode_rel`` x max |logit| (0:
+    bit-identical); each rank's resident parameter, plan and cache bytes
+    against the whole's; the largest single all-gather against the
+    largest leaf; the split launches of the four ranks' serves.
 
+    ``split_kv`` (glm4-9b, whose 2 KV heads do not divide 4 ranks: its
+    cache splits over ``kv_seq`` and decode runs split-KV, each rank's
+    block of ``max_len / 4`` positions): every rank's block must hold
+    keys after the decode steps, all ``LM_SEQ + decode_steps`` positions
+    written once over the ranks, so the flash-decoding combine sums real
+    partial softmaxes (the serve's requests reach rank 1's block too);
+    activations in fp32, and the no-mesh serve's, prefill's and decode
+    steps' 5-bit codes replayed where a rank's part from them at a
+    rounding tie within KV_SEQ_TIE_REL (:class:`_CodeReplay`: the
+    combine sums in another order, and the encodes after it are where
+    that shows; in bf16 a one-ulp difference there is 2^-8 of the value,
+    no tie), the largest difference of any encode's ``x / scale``
+    recorded."""
     from torch.testing._internal.distributed import multi_threaded_pg as mtpg
 
-    cfg = _cut(configs.get_arch(LM_ARCH), TP_LAYERS)
-    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    cfg = _cut(configs.get_arch(arch), TP_LAYERS)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"),
+                    **({"activation_dtype": "float32"} if split_kv else {}))
     params = T.lm_init(torch.Generator(device=DEV).manual_seed(SEED), cfg)
     toks = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
+    codes = _CodeReplay(KV_SEQ_TIE_REL) if split_kv else None
     with torch.no_grad():
         engine = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
-                             max_len=LM_MAX_LEN)
-        want = [x.output.tolist() for x in engine.serve(_lm_requests(cfg))]
-        cache = T.init_lm_cache(cfg, LM_BATCH, LM_MAX_LEN,
-                                dtype=torch.float32, device=DEV)
-        want_logits = engine.prefill(engine.params, {"tokens": toks},
-                                     cache)[0].cpu()
+                             max_len=max_len)
+        part = codes.on() if codes else contextlib.nullcontext()
+        with part:
+            want = [x.output.tolist()
+                    for x in engine.serve(_lm_requests(cfg))]
+            cache = T.init_lm_cache(cfg, LM_BATCH, max_len,
+                                    dtype=torch.float32, device=DEV)
+            want_logits, cache = engine.prefill(engine.params,
+                                                {"tokens": toks}, cache)
+            feed, want_decode, logits = [], [], want_logits
+            for _ in range(decode_steps):
+                feed.append(logits.argmax(-1)[:, None])
+                logits, cache = engine.decode(engine.params, feed[-1], cache)
+                want_decode.append(logits.cpu())
+        want_logits = want_logits.cpu()
     whole = {"params_bytes": _tree_bytes(engine.params),
              "cache_bytes": _tree_bytes(cache),
              "largest_leaf_bytes": _largest_leaf(engine.params)}
-    del engine, cache
+    del engine, cache, logits
     gc.collect()
     torch.cuda.empty_cache()
+    if codes:
+        codes.replay = codes.taken
+    ref = {"max_len": max_len, "toks": toks, "feed": feed, "codes": codes}
     results = [None] * TP_WORLD
     torch._C._distributed_c10d._set_thread_isolation_mode(True)
     mtpg._install_threaded_pg()
@@ -6788,13 +6886,14 @@ def tp_threaded_serving(counts):
     try:
         store, lock = torch.distributed.HashStore(), threading.Lock()
         threads = [threading.Thread(
-            target=_tp_rank, args=(r, cfg, run, params, toks, store, lock,
+            target=_tp_rank, args=(r, cfg, run, params, ref, store, lock,
                                    results), daemon=True)
             for r in range(TP_WORLD)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(max(1.0, TP_TIMEOUT - (time.monotonic() - t0)))
+        with codes.installed() if codes else contextlib.nullcontext():
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(max(1.0, TP_TIMEOUT - (time.monotonic() - t0)))
         torch.cuda.synchronize()
         launches = ops.launch_counts()
     finally:
@@ -6812,6 +6911,12 @@ def tp_threaded_serving(counts):
         row = {"rank": r, "tokens_equal": got["tokens"] == want,
                "logits_bit_identical": torch.equal(got["logits"],
                                                    want_logits),
+               "decode_rel_max_diff": max(
+                   float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(got["decode_logits"], want_decode)),
+               "decode_steps": len(got["decode_logits"]),
+               "kv_seq_live_positions": got["kv_seq_live_positions"],
+               "replay": got["replay"],
                "params_bytes": got["params_bytes"],
                "cache_bytes": got["cache_bytes"],
                "whole_tree_dropped": got["whole_tree_dropped"],
@@ -6825,6 +6930,16 @@ def tp_threaded_serving(counts):
                   "whole_tree_dropped"):
             if not row[k]:
                 bad.append(f"rank {r}: {k} false")
+        if row["decode_steps"] != decode_steps or \
+                row["decode_rel_max_diff"] > decode_rel:
+            bad.append(f"rank {r}: decode logits {row['decode_rel_max_diff']}"
+                       f" x max |logit| off no mesh (limit {decode_rel}) "
+                       f"over {row['decode_steps']} of {decode_steps} steps")
+        if codes and row["replay"]["i"] != len(codes.replay):
+            bad.append(f"rank {r}: {row['replay']['i']} encodes in its "
+                       f"decode steps, {len(codes.replay)} without a mesh")
+        if split_kv and not row["kv_seq_live_positions"]:
+            bad.append(f"rank {r}: its kv_seq block holds no key")
         if row["params_bytes"] > whole["params_bytes"] / 2:
             bad.append(f"rank {r}: {row['params_bytes']} parameter and plan "
                        f"bytes of {whole['params_bytes']}")
@@ -6835,13 +6950,649 @@ def tp_threaded_serving(counts):
             bad.append(f"rank {r}: an all-gather of "
                        f"{row['largest_all_gather_bytes']} B > the largest "
                        f"leaf")
-    report = {"arch": cfg.name, "layers": TP_LAYERS, "ranks": ranks,
-              "whole": whole, "launches": launches,
+    live = [row["kv_seq_live_positions"] for row in ranks]
+    if split_kv and len(ranks) == TP_WORLD and None not in live and \
+            sum(live) != LM_SEQ + decode_steps:
+        bad.append(f"the ranks' kv_seq blocks hold {live} keyed positions, "
+                   f"not {LM_SEQ + decode_steps} over them")
+    report = {"arch": cfg.name, "layers": TP_LAYERS, "max_len": max_len,
+              "activation_dtype": run.activation_dtype,
+              "ranks": ranks, "whole": whole, "launches": launches,
+              "decode_rel_limit": decode_rel,
               "seconds": time.monotonic() - t0, "bit_identical": not bad}
     if bad:
         emit("tp_threaded_serving", report)
         raise AssertionError("; ".join(bad)[:4000])
     return report
+
+
+# ------------------------------------------------------------ phases 55-58
+GLM_ARCH = "glm4-9b"
+MINITRON_ARCH = "minitron-4b"
+DENSE_ARCHS = (GLM_ARCH, MINITRON_ARCH)
+# phase 57's 1-layer full-width steps card vs CPU: one sequence of
+# ONE_LAYER_SEQ tokens (the CPU side's lm_head products over 151552 and
+# 256000 columns and its AdamW over 5-7 G parameters bound it); the CPU
+# halves, on a thread beside the card's training, take 50-130 s
+ONE_LAYER_SEQ = 16
+ONE_LAYER_CPU_TIMEOUT = 400.0
+# phase 55: the columns of the calibrated lm_head whose every ADC readout
+# check_readouts holds (the whole head's fp32 w_eff would be 2.5 GB)
+READOUT_COLS = 2048
+# phase 58: glm4-9b's decode logits under the kv_seq split against no
+# mesh, relative to max |logit| (split-KV decoding sums the softmax in
+# another order; the CPU's 4 gloo ranks hold 1e-5)
+KV_SEQ_DECODE_REL = 1e-5
+# phase 58's cache: 48 positions, 12 per rank, so the 4 x 12 prefill
+# fills rank 0's block and 28 decode steps write positions 12-39, the
+# last 4 in rank 3's: every step after the first 12 reads the partial
+# softmaxes of two or more ranks
+KV_SEQ_MAX_LEN = 48
+KV_SEQ_DECODE_STEPS = 28
+# phase 58's rounding ties: the split-KV softmax's fp32 sums part from
+# the whole cache's by up to 1.2e-5 of max(|x / scale|, 1) at an encode
+# (glm4-9b SMOKE on the CPU's 4 threaded ranks); a fault parts by O(1)
+KV_SEQ_TIE_REL = 1e-4
+# phase 57: how far (relative to max(|x / scale|, 1)) the card's and the
+# CPU's ``x / scale`` may lie apart where their 5-bit codes part at a
+# rounding tie: fp32 rounding differences, far below one code step
+TIE_CODE_REL = 1e-5
+
+
+def _per_call(cfg):
+    """Split launches of one serving call of a dense LM: the fused QKV,
+    o, up, (gate,) down per layer and the lm_head."""
+    return (5 if cfg.act == "swiglu" else 4) * cfg.n_layers + 1
+
+
+def _derived(tree):
+    """The stores of a lowered tree that have derived their fp32 w_eff."""
+    return sum(st.derived for st in _stores_of(tree))
+
+
+def _dense_split_rows(engine, cfg, g):
+    """The split launch of the served fused QKV, down and lm_head at the
+    decode shape (M = 4, the int8 code operand): device and call ms, the
+    plain version's call ms (on a w_eff derived for the timing and
+    freed, not kept on the store), the bound."""
+    tree = engine.params
+    g0 = T.stack_index(tree["layers"]["l0"], 0)
+    rows = []
+    for name, lp in (("qkv", g0["attn"]["_groups"]["qkv"].fused),
+                     ("down", g0["mlp"]["down"]["_plan"]),
+                     ("lm_head", tree["lm_head"]["_plan"])):
+        k, n = lp.k_pad, lp.n
+        a_pos, a_neg = _split_codes(LM_BATCH, k, g)
+        kern = lambda a=a_pos, b=a_neg, lp=lp: ops.analog_mvm_split(  # noqa: E731
+            a, b, None, lp.gain_row, lp.chunk_offset, store=lp.store)
+        w = dataclasses.replace(lp.store).w_eff   # a copy's, not kept
+        plain = lambda a=a_pos, b=a_neg, lp=lp, w=w: ref.analog_mvm_split_ref(  # noqa: E731
+            a, b, w, lp.gain_row, lp.chunk_offset)
+        nbytes, _, nops = split_work(LM_BATCH, k, n, lp.store, k // 128)
+        b_ms, b_by = bound(nbytes, nops, BF16_OPS_PER_S)
+        row = {"kernel": "analog_mvm_split", "arch": cfg.name,
+               "layer": name, "what": f"{cfg.name} decode {name} "
+               f"M={LM_BATCH} K={k} N={n}",
+               "operand": _operand_label(lp.store),
+               "device_ms": device_trace(kern, iters=10)[0],
+               "ms": time_ms(kern, iters=10, reps=3),
+               "plain_ms": time_ms(plain, iters=2, reps=3),
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        emit("timing", row)
+        rows.append(row)
+        del w, plain
+    return rows
+
+
+def _head_readouts(lp, g, what):
+    """check_readouts on the first READOUT_COLS columns of a served
+    lm_head (every faithful ADC readout of a decode-shaped call within 1
+    LSB, only at a rounding tie), through the store's own code operand;
+    the slice's w_eff is derived from a store of those columns alone."""
+    st = lp.store
+    nc = min(READOUT_COLS, st.codes.shape[1])
+    sub = WeightStore(  # verify: allow-packed-weights
+        codes=st.codes[:, :nc].contiguous(),
+        w_scale=st.w_scale[:, :nc].contiguous(),
+        gain=st.gain if st.gain.ndim == 0 else st.gain[..., :nc],
+        col_gain=None if st.col_gain is None
+        else st.col_gain[:nc].contiguous(),
+        row_gain=st.row_gain,
+        chunk_gain=None if st.chunk_gain is None
+        else st.chunk_gain[:, :nc].contiguous(),
+        chunk_rows=st.chunk_rows)
+    op = block_operand(sub, st.k_pad, nc, st.codes.device)
+    w = sub.w_eff
+    gain = lp.gain_row[:nc].contiguous()
+    off = lp.chunk_offset[:, :nc].contiguous()
+    a_pos, a_neg = _split_codes(LM_BATCH, st.k_pad, g)
+    got = _split_on_card(op, a_pos, a_neg, gain, off, True)
+    want = _split_chunked_ref(a_pos, a_neg, w, gain, off, st.chunk_rows)
+    return _readout_case("analog_mvm_split", op, w, gain, off, a_pos, a_neg,
+                         got, want, st.chunk_rows, what)
+
+
+def dense_full_serving(name, counts):
+    """Phases 55-56: ``name`` (glm4-9b, minitron-4b) at its published
+    widths, all its layers, random weights, ``analog_faithful``, through
+    ``ServeEngine`` at batch 4 (phase 7's requests):
+
+    - the oracle engine: :func:`_per_call` split launches per call, no
+      store derived its fp32 w_eff, decode host and device ms and the
+      idle share, the 4 x 12 prefill, the peak; the split launch of the
+      fused QKV, down and lm_head at M = 4 beside its bound;
+    - the calibrated engine on the oracle engine's masters (its plans
+      freed first): phase 18's blind calibration of the lm_head, the
+      measured chunk_gain read in the int8 operand (form 2), the same
+      launches, no store derived its w_eff, every ADC readout of the
+      lm_head's first READOUT_COLS columns within 1 LSB at a tie, the
+      peak below PEAK_BUDGET_GIB.
+
+    Returns the report and the masters."""
+    cfg = configs.get_arch(name)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful"))
+    per_call = {"analog_mvm_split": _per_call(cfg)}
+    g = torch.Generator(device=DEV).manual_seed(SEED + 55)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = T.lm_init(torch.Generator(device=DEV).manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    t_init = time.monotonic() - t0
+    engine = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                         max_len=LM_MAX_LEN)
+    torch.cuda.synchronize()
+    oracle = {"init_s": t_init, "build_s": time.monotonic() - t0 - t_init,
+              **_serve_counted(cfg, engine, f"{name} oracle", per_call)}
+    oracle["stores_derived"] = _derived(engine.params)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
+    oracle.update(_serve_timing(cfg, engine.prefill, engine.decode,
+                                engine.params, {"tokens": toks},
+                                toks[:, :1]))
+    oracle["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    rows = _dense_split_rows(engine, cfg, g)
+    for k, v in oracle["launches"].items():
+        counts[k] += v
+    params = _strip_plans(engine.params)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    spec = T.lm_module_spec(cfg, params)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    t0 = time.monotonic()
+    chips = calib.model_chips(spec, params, gen)
+    snap = calib.calibrate_model(spec, params, gen, chips=chips)
+    torch.cuda.synchronize()
+    t_cal = time.monotonic() - t0
+    eng = ServeEngine(cfg, run, params, batch_size=LM_BATCH,
+                      max_len=LM_MAX_LEN, calibration=snap)
+    torch.cuda.synchronize()
+    head = eng.params["lm_head"]["_plan"]
+    if head.store.chunk_gain is None or not head.store.code_operand:
+        raise AssertionError(f"{name}: the calibrated lm_head is not read "
+                             "as the int8 operand with its chunk_gain")
+    cal = {"calibrated_layers": list(chips), "calibrate_s": t_cal,
+           "build_s": time.monotonic() - t0 - t_cal,
+           **_serve_counted(cfg, eng, f"{name} calibrated", per_call)}
+    cal["stores_derived"] = _derived(eng.params)
+    cal["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    cal["lm_head_readouts"] = _head_readouts(head, g,
+                                             f"{name} calibrated lm_head")
+    for k, v in cal["launches"].items():
+        counts[k] += v
+    del eng, head
+    gc.collect()
+    torch.cuda.empty_cache()
+    report = {"arch": name, "layers": cfg.n_layers, "oracle": oracle,
+              "calibrated": cal, "split_rows": rows}
+    bad = [f"{what}: {r['stores_derived']} stores derived w_eff"
+           for what, r in (("oracle", oracle), ("calibrated", cal))
+           if r["stores_derived"]]
+    bad += [f"{what}: peak {r['peak_memory_gib']} GiB above the "
+            f"{PEAK_BUDGET_GIB} GiB budget"
+            for what, r in (("oracle", oracle), ("calibrated", cal))
+            if r["peak_memory_gib"] > PEAK_BUDGET_GIB]
+    if bad:
+        emit(f"{name}_full_serving", report)
+        raise AssertionError(f"{name}: " + "; ".join(bad))
+    return report, params
+
+
+# the per-layer route's 7 encoded inputs of one block in call order (q,
+# k, v, o, up, gate, down: each x, then -x), as the block kernel's stage
+# that encodes it (its float region; the codes in ``_pos`` / ``_neg``)
+_BLOCK_ENCODES = ("n1", "n1", "n1", "attn", "n2", "n2", "sw")
+_BLOCK_STAGE_LAYER = {"n1": 0, "attn": 1, "n2": 2, "sw": 3}
+
+
+def _block_encodes(stages, kw):
+    """One block launch's 14 encodes as :class:`_CodeReplay` replays them
+    into the per-layer route: (5-bit codes, ``x / scale``) per call."""
+    enc, out = kw["extras"][2], []
+    for name in _BLOCK_ENCODES:
+        li = _BLOCK_STAGE_LAYER[name]
+        k = kw["schedule"][li].k
+        v = stages[name][:, :k] / enc[li, 0]
+        out += [(stages[f"{name}_pos"][:, :k].clone(), v),
+                (stages[f"{name}_neg"][:, :k].clone(), -v)]
+    return out
+
+
+def _blocks_vs_per_layer(tree, p_block, x, cfg, run):
+    """Each block's one launch against the same block of the per-layer
+    static route, chained as the block route runs (block i reads block
+    i - 1's launch output): the per-layer route on the same input with
+    the launch's 14 encodes replayed wherever its own codes part from
+    them at a rounding tie (:class:`_CodeReplay`: both ``x / scale``
+    within TIE_CODE_REL of one half-integer, on its two sides; the
+    kernel's RMSNorm, softmax and SiLU round otherwise than PyTorch's by
+    an ulp), its output then bit-identical to the launch's.  Returns the
+    per-block rows and every block's encodes in order (the whole route's
+    replay, :func:`glm4_block_route`); raises at a parting away from a
+    tie or an output that differs."""
+    stack = p_block["layers"]["l0"]["_block_plan"]
+    pos = torch.broadcast_to(torch.arange(x.shape[1], dtype=torch.int32,
+                                          device=DEV)[None], x.shape[:2])
+    h, rows, encodes = x, [], []
+    for i, bp in enumerate(stack):
+        tensors, kw = _block_args(bp)
+        out, stages, _ = analog_plan_block_cuda(
+            h.reshape(-1, cfg.d_model).contiguous(), *tensors, **kw)
+        out = out.reshape(h.shape)
+        rec = _CodeReplay()
+        rec.replay = _block_encodes(stages, kw)
+        del stages
+        with torch.no_grad(), rec.on() as st:
+            y = T._layer_apply(T.stack_index(tree["layers"]["l0"], i),
+                               "attn_mlp", h, cfg=cfg, run=run,
+                               positions=pos, cache=None)[0]
+        row = {"block": i, "encodes": st["i"],
+               "codes_replayed_at_ties": st["flips"],
+               "max_tie_dv_rel": st["worst"], "max_dv_rel": st["max_dv"],
+               "identical": torch.equal(y, out)}
+        rows.append(row)
+        if st["i"] != len(rec.replay) or not row["identical"]:
+            emit("glm4_blocks_vs_per_layer", rows)
+            raise AssertionError(f"glm4 block {i} against the per-layer "
+                                 f"route with its codes replayed: {row}")
+        encodes += rec.replay
+        h = out
+    return rows, encodes
+
+
+def glm4_block_route(params, counts):
+    """Phase 55, the block route: glm4-9b's masters, all 40 layers (the
+    masters, static per-layer plans and block plans fit under
+    PEAK_BUDGET_GIB), lowered for static calibration,
+    ``attach_block_plans(seq=12)``:
+    one 4 x 12 prefill issues one ``analog_plan_block`` launch per block
+    (GQA group G = 16, d_ff 13696) and one split launch; each block
+    against the per-layer route on the same input with the launch's
+    codes replayed at rounding ties (:func:`_blocks_vs_per_layer`); the
+    block route's logits bit-identical to the per-layer route's with
+    every block's and the lm_head's codes of the block route replayed at
+    ties, and the free-running per-layer route's logits beside them
+    (relative max diff; argmax agreement at least phase 10's 0.5);
+    phase 11's stage checks on block 0; one block launch's device ms
+    beside its bound, the peak below PEAK_BUDGET_GIB."""
+    cfg = configs.get_arch(GLM_ARCH)
+    depth, p = cfg.n_layers, params
+    acfg, run = _block_run()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    tree = api.lower_tree(p, run)
+    p_block = T.attach_block_plans(tree, cfg, acfg, seq=LM_SEQ)
+    torch.cuda.synchronize()
+    t_lower = time.monotonic() - t0
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ)), device=DEV)
+    out = {}
+    head = _CodeReplay()    # the block route's encodes outside its blocks
+    for name, tree_, want in (
+            ("block", p_block, {"analog_plan_block": depth,
+                                "analog_mvm_split": 1}),
+            ("per_layer", tree, {"analog_mvm_split": 7 * depth + 1})):
+        ops.reset_launch_counts()
+        with torch.no_grad(), head.on() if name == "block" \
+                else contextlib.nullcontext():
+            logits = T.lm_apply(tree_, {"tokens": toks}, cfg, run)[0]
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        for k, v in got.items():
+            counts[k] += v
+        if got != _launches(**want):
+            raise AssertionError(f"glm4 {name} prefill launches {got} != "
+                                 f"{want}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"glm4 {name} prefill logits not finite")
+        out[name] = logits
+    yb, yp = out["block"], out["per_layer"]
+    bp = p_block["layers"]["l0"]["_block_plan"][0]
+    x = L.embedding_apply(p["embed"], toks).to(torch.float32)
+    kern = lambda: trun.run(bp, x)  # noqa: E731
+    b8, _, nops = block_work(bp, LM_BATCH * LM_SEQ)
+    b_ms, b_by = bound(b8, nops, BF16_OPS_PER_S)
+    tensors, kw = _block_args(bp)
+    x2 = x.reshape(-1, cfg.d_model)
+    plain = lambda: ref.analog_plan_ref(  # noqa: E731
+        x2, *tensors, kw["schedule"], extras=kw["extras"], block=kw["block"])
+    row = {"kernel": "analog_plan_block",
+           "what": f"glm4-9b block M={LM_BATCH * LM_SEQ} (4 x {LM_SEQ}), "
+           f"G = {cfg.n_heads // cfg.n_kv_heads}, d_ff {cfg.d_ff}",
+           "operand": "int8 codes + rank-1 gain tables",
+           "device_ms": kernel_record_ms(kern, "analog_plan_block")[0],
+           "ms": time_ms(kern, iters=10, reps=3),
+           "plain_ms": time_ms(plain, iters=2, reps=3),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    emit("timing", row)
+    # each block on the block route's input, the whole route with every
+    # block's codes replayed, and phase 11's stage-by-stage checks of
+    # block 0 at G = 16
+    per_block, encodes = _blocks_vs_per_layer(tree, p_block, x, cfg, run)
+    if len(head.taken) != 2:
+        raise AssertionError(f"the block route encoded {len(head.taken)} "
+                             "inputs outside its blocks, not the lm_head's "
+                             "x and -x")
+    replay = _CodeReplay()
+    replay.replay = encodes + head.taken
+    with torch.no_grad(), replay.on() as st:
+        yr = T.lm_apply(tree, {"tokens": toks}, cfg, run)[0]
+    replayed = {"encodes": st["i"], "codes_replayed_at_ties": st["flips"],
+                "max_tie_dv_rel": st["worst"],
+                "logits_identical": torch.equal(yr, yb)
+                and st["i"] == len(replay.replay)}
+    del replay, encodes, yr
+    checks, whole = check_block_kernel(cfg, bp, x2.contiguous())
+    agree = float((yb.argmax(-1) == yp.argmax(-1)).float().mean())
+    report = {"arch": cfg.name, "layers": depth,
+              "blocks_without_a_tie": sum(
+                  not r["codes_replayed_at_ties"] for r in per_block),
+              "blocks_with_codes_replayed_at_ties": [
+                  r for r in per_block if r["codes_replayed_at_ties"]],
+              "per_layer_route_with_block_codes": replayed,
+              "stage_checks": len(checks), "whole_block": whole,
+              "max_share_differing": max(c["share_differing"]
+                                         for c in checks),
+              "argmax_agreement": agree,
+              "logits_identical_to_per_layer": torch.equal(yb, yp),
+              "rel_max_logit_diff": float((yb - yp).abs().max()
+                                          / yp.abs().max()),
+              "lower_and_attach_s": t_lower, "block_row": row,
+              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del tree, p_block, bp, out, yb, yp, x, x2, tensors
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not replayed["logits_identical"] or agree < 0.5 or \
+            report["peak_memory_gib"] > PEAK_BUDGET_GIB:
+        emit("glm4_block_route", report)
+        raise AssertionError(f"glm4 block route: logits not identical to "
+                             f"the per-layer route's with its codes at ties "
+                             f"({replayed}), argmax agreement {agree} with "
+                             f"the free-running one, or peak above budget")
+    return report
+
+
+class _CodeReplay:
+    """``core.quant.quantize_act`` recording the 5-bit codes each call
+    gives in one run (and each call's ``x / scale``), then replaying them
+    in another where the two runs' codes part at a rounding tie: there
+    ``x / scale`` lies within ``tie_rel`` (relative to ``max(|x / scale|,
+    1)``) of a half-integer in both, on opposite sides (LayerNorm's mean
+    and rsqrt round otherwise on the card than on the CPU by an ulp;
+    split-KV decoding sums its softmax in another order than the whole
+    cache).  A replayed code keeps the straight-through gradient (the
+    run's code plus the detached difference).  Any other parting raises.
+
+    :meth:`on` records or replays every call while it holds the hook
+    installed, from any thread (autograd's backward, and the recompute of
+    a checkpointed group in it, runs on a thread of its own on the card).
+    Else, while :meth:`installed` holds it, only the calls of a thread
+    inside :meth:`taking_part` are (each thread its own sequence); the
+    others pass through.  Each section yields its state: its calls ``i``,
+    the codes replayed ``flips``, the largest ``|dx / scale|`` relative to
+    ``max(|x / scale|, 1)`` at a replayed code ``worst`` and over every
+    element ``max_dv``."""
+
+    def __init__(self, tie_rel=TIE_CODE_REL):
+        self.taken, self.replay, self.tie_rel = [], None, tie_rel
+        self._orig = quant_mod.quantize_act
+        self._local = threading.local()
+        self._every = None      # the state of :meth:`on`, for all threads
+
+    def __call__(self, x, scale):
+        codes = self._orig(x, scale)
+        st = getattr(self._local, "state", None) or self._every
+        if st is None:
+            return codes
+        with torch.no_grad():
+            v = x / scale
+        st["i"] += 1
+        if self.replay is None:
+            self.taken.append((codes.detach().clone(), v))
+            return codes
+        want, v_ref = (t.to(codes.device).reshape(codes.shape)
+                       for t in self.replay[st["i"] - 1])
+        mag = v_ref.abs().clamp_min(1.0)
+        dv = (v - v_ref).abs() / mag
+        st["max_dv"] = max(st["max_dv"], float(dv.max()))
+        part = codes.detach() != want
+        if not bool(part.any()):
+            return codes
+        half = torch.floor(v_ref) + 0.5
+        tie = ((v - half) * (v_ref - half) <= 0) & \
+            ((v - half).abs() <= self.tie_rel * mag)
+        worst = float(dv[part].max())
+        if not bool(tie[part].all()) or worst > self.tie_rel:
+            raise AssertionError(f"quantize_act call {st['i'] - 1}: codes "
+                                 f"part away from a rounding tie "
+                                 f"(|dv| / |v| {worst})")
+        st["flips"] += int(part.sum())
+        st["worst"] = max(st["worst"], worst)
+        return codes + (want.to(codes.dtype) - codes).detach()
+
+    @contextlib.contextmanager
+    def installed(self):
+        quant_mod.quantize_act = self
+        try:
+            yield self
+        finally:
+            quant_mod.quantize_act = self._orig
+
+    @staticmethod
+    def _state():
+        return {"i": 0, "flips": 0, "worst": 0.0, "max_dv": 0.0}
+
+    @contextlib.contextmanager
+    def taking_part(self):
+        self._local.state = st = self._state()
+        try:
+            yield st
+        finally:
+            self._local.state = None
+
+    @contextlib.contextmanager
+    def on(self):
+        self._every = st = self._state()
+        try:
+            with self.installed():
+                yield st
+        finally:
+            self._every = None
+
+
+def _grad_norm(grads):
+    """The gradients' global L2 norm, accumulated in float64."""
+    return float(sum(g.double().pow(2).sum() for g in O.tree_leaves(grads)
+                     ) ** 0.5)
+
+
+def _one_layer_draw(name):
+    """Phase 57's 1-layer cut of ``name`` at its published widths (its
+    config and run: integer effective weights, static calibration, fp32
+    activations), its batch and its parameters drawn on the card with a
+    fingerprint of them (each leaf's float64 sum): a redraw gives the
+    same."""
+    cfg = _cut(configs.get_arch(name), 1)
+    run = RunConfig(analog=AnalogConfig(mode="analog_faithful",
+                                        act_calib="static"),
+                    activation_dtype="float32")
+    saved = T.NOISE
+    T.NOISE = NOISELESS
+    try:
+        card = T.lm_init(torch.Generator(device=DEV).manual_seed(SEED), cfg)
+    finally:
+        T.NOISE = saved
+    prints = [float(t.double().sum()) for t in O.tree_leaves(card)]
+    return cfg, run, _lm_batch(cfg, ONE_LAYER_SEQ, step=0, batch=1), card, \
+        prints
+
+
+def _one_layer_cpu_sides(jobs):
+    """The CPU halves of phase 57's checks, on a thread of their own while
+    the card trains: each job's ``loss_and_grads`` on the CPU with its
+    5-bit codes recorded (:class:`_CodeReplay`, this thread's calls; on
+    the CPU autograd's backward runs on the calling thread), its loss, the
+    gradients' norm and the seconds; an error is kept for the caller, and
+    the jobs after it are not run."""
+    import traceback
+
+    for job in jobs.values():
+        try:
+            rec = _CodeReplay()
+            t0 = time.monotonic()
+            with rec.installed(), rec.taking_part():
+                loss, _, grads = TS.loss_and_grads(
+                    job.pop("params"), job["batch"], cfg=job["cfg"],
+                    run=job["run"])
+            job.update(cpu_s=time.monotonic() - t0, loss=float(loss),
+                       norm=_grad_norm(grads), codes=rec)
+            del grads
+        except BaseException:
+            job["error"] = traceback.format_exc()[-3000:]
+            return
+
+
+def one_layer_step_vs_cpu(name, job, counts):
+    """Phase 57's check: ``name`` at its published widths cut to 1 layer,
+    integer effective weights, static calibration, fp32 activations: the
+    train step's differentiated half (``loss_and_grads``: the per-step
+    compile under autograd, forward, remat, HIL backward) on the CPU
+    (``job``, :func:`_one_layer_cpu_sides`), then on the card with the
+    CPU's activation codes replayed where the two part at a rounding tie
+    (:class:`_CodeReplay`; the parameters drawn on the card, copied for
+    the CPU and drawn again), at 1 x ONE_LAYER_SEQ: the loss and the
+    gradients' global norm within phase 44's step-1 tolerances, the codes
+    replayed counted, split launches on the card.  (AdamW is left out: on
+    the CPU its pass over the 1.4-1.7 G parameters of the embedding and
+    lm_head would cost more than the step.)"""
+    cfg, run, batch, card, prints = _one_layer_draw(name)
+    if prints != job["prints"]:
+        raise AssertionError(f"{name}: the card's second draw of the "
+                             "1-layer parameters differs from the first")
+    rec = job["codes"]
+    rec.replay = rec.taken
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    with rec.on() as st:
+        loss, _, grads = TS.loss_and_grads(card, batch, cfg=cfg, run=run)
+    torch.cuda.synchronize()
+    card_s = time.monotonic() - t0
+    launches = ops.launch_counts()
+    for k, v in launches.items():
+        counts[k] += v
+    norm = _grad_norm(grads)
+    del card, grads, rec.taken, rec.replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    c_loss, c_norm = job["loss"], job["norm"]
+    rel = {"loss": abs(float(loss) - c_loss) / abs(c_loss),
+           "grad_norm": abs(norm - c_norm) / c_norm}
+    report = {"arch": name, "layers": 1, "seq": ONE_LAYER_SEQ,
+              "loss": float(loss), "cpu_loss": c_loss,
+              "grad_norm": norm, "cpu_grad_norm": c_norm,
+              "rel_vs_cpu": rel, "cpu_s": job["cpu_s"], "card_s": card_s,
+              "encodes": st["i"], "codes_replayed_at_ties": st["flips"],
+              "max_tie_dv_rel": st["worst"], "max_dv_rel": st["max_dv"],
+              "launches": {k: v for k, v in launches.items() if v}}
+    if rel["loss"] > TRAJ_STEP1_LOSS_REL or \
+            rel["grad_norm"] > TRAJ_STEP1_METRIC_REL or \
+            not launches["analog_mvm_split"]:
+        emit("one_layer_step_vs_cpu", report)
+        raise AssertionError(f"{name} 1-layer step: card off the CPU's "
+                             f"{rel}, or no launch")
+    return report
+
+
+def dense_train_phase(counts):
+    """Phase 57: glm4-9b and minitron-4b trained two steps at their
+    published widths at 1 x 4096 (:func:`train_family`, depth
+    TRAINED_LAYERS), and each one's 1-layer step card vs CPU, whose CPU
+    halves run on a thread while the card trains (the card's copies of
+    their parameters freed meanwhile)."""
+    jobs = {}
+    for name in DENSE_ARCHS:
+        cfg, run, batch, card, prints = _one_layer_draw(name)
+        jobs[name] = {"cfg": cfg, "run": run, "prints": prints,
+                      "params": O.tree_map(lambda t: t.to("cpu", copy=True),
+                                           card),
+                      "batch": {k: v.cpu() for k, v in batch.items()}}
+        del card, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    worker = threading.Thread(target=_one_layer_cpu_sides, args=(jobs,),
+                              daemon=True)
+    worker.start()
+    bad = []
+    try:
+        for name in DENSE_ARCHS:
+            rep, b = train_family(name, TRAINED_LAYERS[name],
+                                  TRAIN_FAMILY_SEQ)
+            emit("dense_train_full", rep)
+            for r in rep["steps"]:
+                for k, v in r["launches"].items():
+                    counts[k] += v
+            bad += b
+    finally:
+        worker.join(ONE_LAYER_CPU_TIMEOUT)
+    if worker.is_alive():
+        raise AssertionError(f"the 1-layer steps' CPU halves still run "
+                             f"after {ONE_LAYER_CPU_TIMEOUT} s")
+    errors = [job["error"] for job in jobs.values() if "error" in job]
+    if errors:
+        raise AssertionError(f"a 1-layer step on the CPU: {errors[0]}")
+    if bad:
+        raise AssertionError("; ".join(bad[:12]))
+    for name in DENSE_ARCHS:
+        emit("one_layer_step_vs_cpu", one_layer_step_vs_cpu(
+            name, jobs.pop(name), counts))
+
+
+def slice18_phases(counts):
+    """Phases 55-58: glm4-9b and minitron-4b at their published widths
+    served (oracle, calibrated; glm4's block route), trained, and glm4
+    over the ``model`` axis of 4 threaded ranks with its cache split over
+    ``kv_seq``."""
+    report, params = dense_full_serving(GLM_ARCH, counts)
+    emit("glm4-9b_full_serving", report)
+    emit("glm4_block_route", glm4_block_route(params, counts))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    report, params = dense_full_serving(MINITRON_ARCH, counts)
+    emit("minitron-4b_full_serving", report)
+    del params, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_train_phase(counts)
+    emit("tp_threaded_serving_kv_seq", tp_threaded_serving(
+        counts, arch=GLM_ARCH, decode_rel=KV_SEQ_DECODE_REL,
+        max_len=KV_SEQ_MAX_LEN, decode_steps=KV_SEQ_DECODE_STEPS,
+        split_kv=True))
 
 
 def slice17_phases(counts, tree):
@@ -6854,13 +7605,14 @@ def slice17_phases(counts, tree):
     emit("tp_threaded_serving", tp_threaded_serving(counts))
 
 
-def slice16_phases(counts):
+def slice16_phases(counts, no_mesh=None):
     """Phases 47-52, under one NCCL group of world size 1, ended after;
-    returns phase 48's pre-lowered phi4-mini tree (phase 53's)."""
+    returns phase 48's pre-lowered phi4-mini tree (phase 53's).
+    ``no_mesh``: phase 48's reference (:func:`mesh_serving`)."""
     try:
         mesh, report = mesh_itself()
         emit("mesh", report)
-        report, tree = mesh_serving(mesh, counts)
+        report, tree = mesh_serving(mesh, counts, no_mesh)
         emit("mesh_serving", report)
         emit("mesh_moe_layer", mesh_moe_layer(mesh, counts))
         emit("mesh_cp_and_pipeline", mesh_cp_and_pipeline(mesh))
@@ -6869,6 +7621,20 @@ def slice16_phases(counts):
     finally:
         MESH.destroy()
     return tree
+
+
+def slice18_only() -> None:
+    """``python3 chip_smoke.py --slice18``: the build and phases 55-58
+    alone (a quick check of this slice; the run the contract reads takes
+    no arguments)."""
+    print(card_line(), flush=True)
+    emit("build", {"seconds_per_kernel": _build.build()})
+    counts = {name: 0 for name in TPU_KERNELS}
+    try:
+        slice18_phases(counts)
+    finally:
+        emit("wall_s", WALL)
+    emit("launches", counts)
 
 
 def slice16_only() -> None:
@@ -7111,6 +7877,9 @@ def main() -> None:
         lm_timing[f"split_{key}_per_prefill"] = per_step(
             split_rows, "prefill", key, cfg.n_layers)
     emit("lm_serving", lm_timing)
+    # phase 48's engine without a mesh is phase 7's
+    no_mesh = {"tokens": lm_report["tokens"],
+               "logits": _prefill_logits(engine, cfg), "timing": lm_timing}
 
     # the calibrated, fleet and block paths reuse the full-width
     # parameters; the dynamic plans of the serving phase are freed first
@@ -7173,7 +7942,8 @@ def main() -> None:
     # after the telemetry line: serve_batch resets the metric registry
     slice15_phases(counts)
     # phase 48's tree goes to phase 53 alone, which frees it after
-    slice17_phases(counts, slice16_phases(counts))
+    slice17_phases(counts, slice16_phases(counts, no_mesh))
+    slice18_phases(counts)
     emit("wall_s", WALL)
 
     kernels = []
@@ -7265,9 +8035,11 @@ if __name__ == "__main__":
         slice16_only()
     elif sys.argv[1:] == ["--slice17"]:
         slice17_only()
+    elif sys.argv[1:] == ["--slice18"]:
+        slice18_only()
     elif sys.argv[1:]:
         _fail(f"unknown arguments {sys.argv[1:]}; run with none, "
               "--slice10, --slice11, --slice12, --slice13, --slice14, "
-              "--slice15, --slice16 or --slice17")
+              "--slice15, --slice16, --slice17 or --slice18")
     else:
         main()

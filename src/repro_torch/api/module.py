@@ -245,6 +245,21 @@ class ModuleSpec:
                 )
             seen[key] = g.name
 
+    def layer(self, name: str) -> LayerSpec:
+        for layer in self.layers:
+            if layer.name == name:
+                return layer
+        raise KeyError(
+            f"no layer {name!r} in spec {self.name!r}; declared layers: "
+            f"{', '.join(self.layer_names()) or '(none)'}"
+        )
+
+    def layer_names(self) -> Tuple[str, ...]:
+        """Every declared analog layer name, in order - the key space of
+        a :class:`repro_torch.calib.snapshot.CalibrationSnapshot` for
+        this model (stack: layer names; tree: dotted params paths)."""
+        return tuple(layer.name for layer in self.layers)
+
     def group(self, name: str) -> GroupSpec:
         for g in self.groups:
             if g.name == name:
@@ -253,6 +268,13 @@ class ModuleSpec:
             f"no fusion group {name!r} in spec {self.name!r}; declared "
             f"groups: {', '.join(g.name for g in self.groups) or '(none)'}"
         )
+
+    def group_members(self) -> dict:
+        """{group name -> member name tuple} for every fusion group.
+        Group members share one analog dispatch; calibration fits their
+        activation scales together
+        (:func:`repro_torch.calib.routines.share_group_input_scale`)."""
+        return {g.name: tuple(g.members) for g in self.groups}
 
 
 def linear_spec(in_dim: int, out_dim: int, *, name: str = "layer",

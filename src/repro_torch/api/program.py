@@ -5,9 +5,12 @@ function every model matmul routes through.
     model = api.compile(spec, params, run_cfg)   # on the CUDA device
     y     = model.apply(x)                       # run the compiled program
     plan  = model.lower()                        # AnalogPlan / lowered tree
+    model = model.relower(new_params)            # re-bake after a weight update
     model = model.with_calibration(snapshot)     # drift hot-swap, no lowering
 
-Serving compiles once and replays the baked plans for every request.
+Serving compiles once and replays the baked plans for every request;
+training compiles (or relowers) inside the differentiated step, so the
+HIL gradients reach the float masters.
 """
 from __future__ import annotations
 
@@ -126,6 +129,15 @@ class CompiledModel:
         mode), or the pre-lowered params tree (tree kind; the raw params
         in digital mode)."""
         return self.lowered
+
+    def relower(self, params) -> "CompiledModel":
+        """Re-bake the plans for updated parameters (one weight update =
+        one relower; the spec, run config, calibration and device are
+        reused)."""
+        from repro_torch.api.compile import compile as _compile
+
+        return _compile(self.spec, params, self.run_cfg,
+                        calibration=self.calibration, device=self.device)
 
     def with_calibration(self, snapshot) -> "CompiledModel":
         """Hot-swap a refreshed calibration snapshot's measured tables into

@@ -57,6 +57,10 @@ class ArchConfig:
                 else torch.float32)
 
     @property
+    def attention_free(self) -> bool:
+        return self.block in ("rwkv", "mamba") and self.attn_every == 0
+
+    @property
     def supports_long_context(self) -> bool:
         """long_500k runs only for sub-quadratic (SSM/hybrid) backbones."""
         return self.block in ("rwkv", "mamba")
@@ -69,6 +73,46 @@ class ArchConfig:
         if self.n_experts and (i % self.moe_every == self.moe_every - 1):
             return "attn_moe"
         return "attn_mlp"
+
+    def param_count(self) -> int:
+        """Analytic parameter count (embeddings included once if tied)."""
+        d, v = self.d_model, self.vocab_size
+        total = v * d * (1 if self.tie_embeddings else 2)
+        for i in range(self.n_layers):
+            kind = self.layer_kind(i)
+            if kind in ("attn_mlp", "attn_moe"):
+                total += d * self.hd * (self.n_heads + 2 * self.n_kv_heads)
+                total += self.n_heads * self.hd * d
+                if kind == "attn_mlp":
+                    ff = self.moe_dense_d_ff or self.d_ff
+                    total += (3 if self.act == "swiglu" else 2) * d * ff
+                else:
+                    nm = 3 if self.act == "swiglu" else 2
+                    total += self.n_experts * nm * d * self.moe_d_ff
+                    total += d * self.n_experts  # router
+                    if self.n_shared_experts:
+                        total += nm * d * self.moe_d_ff * self.n_shared_experts
+            elif kind == "rwkv":
+                total += 5 * d * d + 2 * d * 64 + d * self.d_ff * 2
+            elif kind == "mamba":
+                d_in = 2 * d
+                total += d * (2 * d_in + 2 * self.ssm_state + d_in // 64)
+                total += d_in * d
+        if self.attn_every:  # zamba2 shared attention block (one param set)
+            total += d * self.hd * (self.n_heads + 2 * self.n_kv_heads)
+            total += self.n_heads * self.hd * d
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if not self.n_experts:
+            return self.param_count()
+        nm = 3 if self.act == "swiglu" else 2
+        moe_layers = sum(1 for i in range(self.n_layers)
+                         if self.layer_kind(i) == "attn_moe")
+        inactive = moe_layers * nm * self.d_model * self.moe_d_ff * (
+            self.n_experts - self.top_k)
+        return self.param_count() - inactive
 
 
 @dataclasses.dataclass(frozen=True)

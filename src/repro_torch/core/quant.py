@@ -92,6 +92,10 @@ def quantize_act(x: torch.Tensor, scale) -> torch.Tensor:
     return _clip_ste(_round_ste(x / scale), 0.0, float(BSS2.a_max))
 
 
+def dequantize_act(code: torch.Tensor, scale) -> torch.Tensor:
+    return code * scale
+
+
 def quantize_weight(w: torch.Tensor, scale) -> torch.Tensor:
     """6-bit signed codes (float dtype, integer values):
     ``clip(round(w / scale), -63, 63)``; ``scale`` broadcasts
@@ -99,6 +103,10 @@ def quantize_weight(w: torch.Tensor, scale) -> torch.Tensor:
     ``scale``."""
     return _clip_ste(_round_ste(w / scale), -float(BSS2.w_max),
                      float(BSS2.w_max))
+
+
+def dequantize_weight(code: torch.Tensor, scale) -> torch.Tensor:
+    return code * scale
 
 
 _DIVISORS: dict = {}

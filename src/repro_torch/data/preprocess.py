@@ -36,3 +36,8 @@ def preprocess(raw, *, window: int = POOL_WINDOW, quant_shift: int = 4,
     pooled = kernel_ops.maxmin_pool(deriv, window)
     codes = torch.floor(pooled / (1 << quant_shift))
     return torch.clamp(codes, 0, BSS2.a_max)
+
+
+def preprocess_batch(raw_batch, **kw) -> torch.Tensor:
+    """[N, C, T] raw records -> [N, C, T'] activation codes."""
+    return preprocess(raw_batch, **kw)

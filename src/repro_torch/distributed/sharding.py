@@ -579,16 +579,14 @@ _PER_COL = {"codes", "w_scale", "gain", "col_gain", "chunk_gain", "gain_map",
             "chunk_offset", "colsum", "bias"}
 
 
-def _rebuild(obj, fields: dict, *, derive: bool):
-    """A plan dataclass with ``fields`` replaced; the original object when
-    nothing changed.  The static widths follow the new tensors: a
-    :class:`LayerPlan`'s ``n``, a store's ``col_blocks`` and a group's
-    ``member_ns`` (a rank's block of N columns holds N / n of each
-    member's).  ``derive``: rebuild through ``__init__``, so a
-    :class:`WeightStore` derives ``w_eff`` as its constructor does; else
-    a copy whose derived views come from its own tensors, ``w_eff`` at
-    first read (:meth:`WeightStore.lazy`): a rank's block, or a leaf
-    gathered for one layer."""
+def _rebuild(obj, fields: dict):
+    """A plan dataclass with ``fields`` replaced, rebuilt through
+    ``__init__`` (its derived views come from its new tensors; a
+    :class:`WeightStore`'s ``w_eff`` at its first read); the original
+    object when nothing changed.  The static widths follow the new
+    tensors: a :class:`LayerPlan`'s ``n``, a store's ``col_blocks`` and a
+    group's ``member_ns`` (a rank's block of N columns holds N / n of
+    each member's)."""
     if all(getattr(obj, k) is v for k, v in fields.items()):
         return obj
     fields = dict(fields)
@@ -602,10 +600,7 @@ def _rebuild(obj, fields: dict, *, derive: bool):
         n_old, n_new = obj.fused.n, fields["fused"].n
         fields["member_ns"] = tuple(w * n_new // n_old
                                     for w in obj.member_ns)
-    if derive:
-        return dataclasses.replace(obj, **fields)
-    out = _with(obj, **fields)
-    return out.lazy() if isinstance(out, WeightStore) else out
+    return dataclasses.replace(obj, **fields)
 
 
 def _first_sharding(tree) -> Optional[NamedSharding]:
@@ -643,7 +638,7 @@ def _columns(members):
         _CTX.cols = saved
 
 
-def _map_tree(fn, tree, shardings, *, derive: bool):
+def _map_tree(fn, tree, shardings):
     """``fn(tensor, sharding)`` over the tensor leaves of ``tree``;
     containers whose leaves all come back unchanged are returned as they
     are, so a 1-device mesh copies nothing.  Inside a ``column_concat``
@@ -655,8 +650,7 @@ def _map_tree(fn, tree, shardings, *, derive: bool):
         return fn(tree, shardings) if isinstance(tree, torch.Tensor) \
             else tree
     if isinstance(tree, dict):
-        out = {k: _map_tree(fn, v, shardings[k], derive=derive)
-               for k, v in tree.items()}
+        out = {k: _map_tree(fn, v, shardings[k]) for k, v in tree.items()}
         return tree if all(out[k] is tree[k] for k in tree) else out
     if type(tree) in PYTREE_FIELDS:
         names = PYTREE_FIELDS[type(tree)][0]
@@ -664,27 +658,24 @@ def _map_tree(fn, tree, shardings, *, derive: bool):
             # the fused columns hold q | k | v: cut each member on its own
             with _columns(tree.member_ns):
                 return _rebuild(tree, {"fused": _map_tree(
-                    fn, tree.fused, shardings.fused, derive=derive)},
-                    derive=derive)
+                    fn, tree.fused, shardings.fused)})
         if isinstance(tree, (LayerPlan, WeightStore)) and \
                 _CTX.cols is not None:
             out = {}
             for f in names:
                 if f in _PER_COL or f == "store":
                     out[f] = _map_tree(fn, getattr(tree, f),
-                                       getattr(shardings, f), derive=derive)
+                                       getattr(shardings, f))
                 else:
                     with _columns(None):
                         out[f] = _map_tree(fn, getattr(tree, f),
-                                           getattr(shardings, f),
-                                           derive=derive)
-            return _rebuild(tree, out, derive=derive)
+                                           getattr(shardings, f))
+            return _rebuild(tree, out)
         return _rebuild(tree, {
-            f: _map_tree(fn, getattr(tree, f), getattr(shardings, f),
-                         derive=derive) for f in names}, derive=derive)
+            f: _map_tree(fn, getattr(tree, f), getattr(shardings, f))
+            for f in names})
     if isinstance(tree, (list, tuple)):
-        out = [_map_tree(fn, v, s, derive=derive)
-               for v, s in zip(tree, shardings)]
+        out = [_map_tree(fn, v, s) for v, s in zip(tree, shardings)]
         if all(a is b for a, b in zip(out, tree)):
             return tree
         return type(tree)(out)
@@ -703,7 +694,7 @@ def shard_tree(tree, shardings):
     without a walk."""
     if not splits(shardings):
         return tree
-    return _map_tree(_local_block, tree, shardings, derive=False)
+    return _map_tree(_local_block, tree, shardings)
 
 
 def gather_tree(tree, shardings, axes=None):
@@ -722,7 +713,7 @@ def gather_tree(tree, shardings, axes=None):
                        _members(t, d))
         return t
 
-    return _map_tree(one, tree, shardings, derive=True)
+    return _map_tree(one, tree, shardings)
 
 
 class _GatherLeaf(torch.autograd.Function):
@@ -763,9 +754,9 @@ def gather_leaf(tree, shardings, keep=(), split_compute=False):
     this rank's block.  ``split_compute``: the layer computes on its
     ``keep`` blocks (column-parallel), so a leaf they do not split (a
     gain, a row table) takes a partial gradient on each rank, summed over
-    them (:func:`psum_grad`).  Plans are rebuilt without deriving their
-    fp32 ``w_eff`` (:meth:`~repro_torch.exec.plan.WeightStore.lazy`): a
-    kernel that reads the int8 codes never builds it."""
+    them (:func:`psum_grad`).  Plans are rebuilt, and a store derives its
+    fp32 ``w_eff`` as every store does, at its first read: a kernel that
+    reads the int8 codes never builds it."""
     if shardings is None or not splits(shardings):
         return tree
     keep = set(_axes(keep))
@@ -782,7 +773,7 @@ def gather_leaf(tree, shardings, keep=(), split_compute=False):
             t = psum_grad(t, summed)
         return t
 
-    return _map_tree(one, tree, shardings, derive=False)
+    return _map_tree(one, tree, shardings)
 
 
 def stack_shardings(node, i: int):

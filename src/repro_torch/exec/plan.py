@@ -10,7 +10,7 @@ schedule.  The plans are frozen dataclasses holding tensors:
   int8 6-bit weight codes (padded to whole 128-row chunks), the
   per-column weight LSB, the calibrated gain and the fixed-pattern gain
   tables; the fp32 effective weights (:attr:`w_eff`) are derived from
-  them once, when the store is built.
+  them at their first read.
 - :class:`LayerPlan` - one lowered analog layer.
 - :class:`GroupPlan` - one lowered fusion group (the attention QKV
   ``column_concat`` group: one dispatch over concatenated columns; the
@@ -130,18 +130,25 @@ class WeightStore:
     with a leading member axis (a batch_concat or expert_stack group)
     derives its ``w_eff`` the same way.
 
-    Derived once and kept beside the tables (an eager replay would
-    otherwise rebuild them on every call; the reference's jit folds that
-    work into its compiled program):
+    Derived views, kept beside the tables once derived (an eager replay
+    would otherwise rebuild them on every call; the reference's jit folds
+    that work into its compiled program, ``w_eff`` there being computed
+    in-graph):
 
       w_eff:      [K_pad, N] fp32 effective weights, a differentiable view
-                  of the codes and the gain tables; derived at
-                  construction, except for int8 codes without any gain
-                  table (an expert stack's store, whose kernel reads the
-                  codes): there ``codes`` as fp32, derived at first read,
-                  so a store served on the card holds no fp32 copy.  A
-                  rank's block of a store and a store gathered for one
-                  layer (:meth:`lazy`) derive it at first read too.
+                  of the codes and the gain tables, derived at its first
+                  read and kept: the card's kernels read the int8 codes
+                  and the tables, so a store served there never holds the
+                  4 bytes per weight of the fp32 copy; the plain versions
+                  on the CPU and the offset route derive it where they
+                  read it.  A store built under autograd from tensors that
+                  require grad (hardware-in-the-loop training lowers in
+                  every step) derives it at construction instead: the
+                  derivation is then recorded where the store is built,
+                  not inside a checkpointed group whose recompute would
+                  find it already kept.  The bits are the same whenever
+                  it is derived.  Ask :meth:`records_grad` whether autograd
+                  records a call on the store: that reads no ``w_eff``.
       gain_row:   [N] the gain broadcast over the columns, contiguous
                   (an expert stack's [E, N], each expert's gain; a
                   batch_concat store's [G, N], each member's).
@@ -161,10 +168,25 @@ class WeightStore:
 
     def __post_init__(self):
         object.__setattr__(self, "gain_row", self.derive_gain_row())
-        if not (self.codes.dtype == torch.int8 and all(
-                t is None for t in (self.col_gain, self.row_gain,
-                                    self.chunk_gain, self.gain_map))):
+        # the grad mode a first read derives w_eff under: the one the
+        # store was built in (a store built under no_grad keeps no graph)
+        object.__setattr__(self, "_grad_mode", torch.is_grad_enabled())
+        if self.records_grad():
             object.__setattr__(self, "_w_eff", self._derive_w_eff())
+
+    def records_grad(self) -> bool:
+        """Would autograd record a call on ``w_eff`` now, i.e. does the
+        view read now require grad?  What a call asks instead of reading
+        ``w_eff``, which would derive it."""
+        if not torch.is_grad_enabled():
+            return False
+        w = self.__dict__.get("_w_eff")
+        if w is not None:
+            return w.requires_grad
+        return self.__dict__.get("_grad_mode", True) and any(
+            t is not None and t.requires_grad
+            for t in (self.codes, self.col_gain, self.row_gain,
+                      self.chunk_gain, self.gain_map))
 
     def derive_gain_row(self) -> torch.Tensor:
         """:attr:`gain_row` from the gain and the codes' shape."""
@@ -180,28 +202,29 @@ class WeightStore:
                                              self.codes.shape[-1]))
         return gain.contiguous()
 
-    def lazy(self) -> "WeightStore":
-        """This store with its derived views taken from its own tensors,
-        ``w_eff`` left to its first read: a rank's block, or a leaf
-        gathered for one layer.  A kernel that reads the int8 codes then
-        never pays the 4 bytes per weight of the fp32 copy; the plain
-        version on the CPU derives it when it reads it."""
-        out = copy.copy(self)
-        out.__dict__.pop("_w_eff", None)
-        object.__setattr__(out, "gain_row", out.derive_gain_row())
-        return out
+    @property
+    def derived(self) -> bool:
+        """Has this store derived (and kept) its fp32 ``w_eff``?"""
+        return "_w_eff" in self.__dict__
 
     @property
     def w_eff(self) -> torch.Tensor:
         w = self.__dict__.get("_w_eff")
         if w is None:
-            w = self._derive_w_eff()
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and self.__dict__.get("_grad_mode",
+                                                              True)):
+                w = self._derive_w_eff()
             object.__setattr__(self, "_w_eff", w)
         return w
 
-    def _derive_w_eff(self) -> torch.Tensor:
-        w = self.codes.to(torch.float32)
-        col, row = self.col_gain, self.row_gain
+    def _derive_w_eff(self, rows: Optional[int] = None) -> torch.Tensor:
+        """``w_eff`` from the codes and the tables; ``rows``: its first
+        rows alone (elementwise, so the same bits as the whole's)."""
+        k = self.codes.shape[-2] if rows is None else rows
+        w = self.codes[..., :k, :].to(torch.float32)
+        col = self.col_gain
+        row = None if self.row_gain is None else self.row_gain[..., :k]
         if (col is not None and row is not None and self.col_blocks is None
                 and torch.is_grad_enabled()
                 and any(t.requires_grad for t in (w, col, row))):
@@ -218,10 +241,10 @@ class WeightStore:
                     c0 += nb
                 w = torch.cat(parts, dim=-1)
         if self.chunk_gain is not None:
-            w = w * torch.repeat_interleave(self.chunk_gain,
-                                            self.chunk_rows, dim=-2)
+            w = w * torch.repeat_interleave(self.chunk_gain, self.chunk_rows,
+                                            dim=-2)[..., :k, :]
         if self.gain_map is not None:
-            w = w * self.gain_map
+            w = w * self.gain_map[..., :k, :]
         return w
 
     @property

@@ -206,13 +206,12 @@ def run_layer(
 
 def _split_weights(lp: LayerPlan, x: torch.Tensor):
     """The fp32 ``w_eff`` operand of a fused split call, or None where the
-    card's kernel reads the store's int8 codes and nothing differentiates
-    through the call: a store that has not derived its ``w_eff`` (a
-    rank's block, a leaf gathered for one layer) then never does."""
+    store's int8 codes can stand for it and nothing differentiates
+    through the call: the kernel wrapper then reads the codes on the card
+    (a store that has not derived its ``w_eff`` never does) and the view
+    only for the CPU's plain version."""
     st = lp.store
-    if (x.is_cuda and st.code_operand and "_w_eff" not in st.__dict__
-            and not needs_grad(x, st.codes, st.col_gain, st.row_gain,
-                               st.chunk_gain)):
+    if st.code_operand and not needs_grad(x) and not st.records_grad():
         return None
     return lp.w_eff
 
@@ -640,7 +639,7 @@ def run(
             and lp.signed_input == "none"
             and lp.epilogue == EPILOGUE_RELU_SHIFT
             and (nz is None or cfg.deterministic)
-            and not needs_grad(h, lp.w_eff)
+            and not needs_grad(h) and not lp.store.records_grad()
         )
         if fuse_in_kernel:
             h = _run_layer_fused_infer(lp, h, cfg)

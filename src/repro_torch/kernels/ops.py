@@ -134,15 +134,18 @@ def _split(a_pos, a_neg, w_eff, gain, chunk_offset, *, chunk_rows,
            faithful, epilogue, store):
     """One signed-split call: the kernel on the card, the plain version on
     the CPU (:func:`analog_mvm_split`)."""
-    if _on_cuda(a_pos):
-        if store is not None and store.code_operand:
-            return analog_mvm_split_codes_cuda(
-                a_pos.contiguous(), a_neg.contiguous(), int8_codes(store),
-                store.col_gain, store.row_gain, gain.contiguous(),
-                _contiguous(chunk_offset),
-                chunk_gain=_contiguous(store.chunk_gain),
-                col_blocks=store.col_blocks,
-                chunk_rows=chunk_rows, faithful=faithful, epilogue=epilogue)
+    on_card = _on_cuda(a_pos)
+    if on_card and store is not None and store.code_operand:
+        return analog_mvm_split_codes_cuda(
+            a_pos.contiguous(), a_neg.contiguous(), int8_codes(store),
+            store.col_gain, store.row_gain, gain.contiguous(),
+            _contiguous(chunk_offset),
+            chunk_gain=_contiguous(store.chunk_gain),
+            col_blocks=store.col_blocks,
+            chunk_rows=chunk_rows, faithful=faithful, epilogue=epilogue)
+    if w_eff is None:       # the store's codes stood for it
+        w_eff = store.w_eff
+    if on_card:
         return analog_mvm_split_cuda(
             a_pos.contiguous(), a_neg.contiguous(), w_eff.contiguous(),
             gain.contiguous(), _contiguous(chunk_offset),
@@ -303,7 +306,9 @@ def analog_mvm_split(
     tables and a measured ``chunk_gain``) selects the kernel's int8 code
     operand - under autograd too, where the store holds its codes as fp32
     STE values; a store with a gain map, or none, the fp32 ``w_eff``
-    operand.  On the CPU: the faithful chunk scan, or for fast mode the
+    operand; ``w_eff`` None: the store's codes stand for it (the plain
+    version and the fp32 operand read the store's view).  On the CPU: the
+    faithful chunk scan, or for fast mode the
     stacked ``[2M, K]`` plain version (pre-round sums are
     order-sensitive, so fast mode keeps the oracle's arithmetic).
     Differentiable without an epilogue (HIL backward,
@@ -359,7 +364,7 @@ def analog_mvm_split_members(
     bit.  Differentiable: under autograd the same launch runs inside
     :class:`_AnalogMVMLead`, whose backward is the 2-D pair's batched
     over the members (the weights' gradient reaches ``store.w_eff``)."""
-    if needs_grad(a_pos, a_neg, store.w_eff):
+    if needs_grad(a_pos, a_neg) or store.records_grad():
         return _AnalogMVMLead.apply(a_pos, a_neg, store.w_eff, gain,
                                     chunk_offset, False, chunk_rows,
                                     faithful, store)
@@ -419,8 +424,11 @@ def analog_plan_codes(
     if block is None:
         operands.append(weights)
     else:
-        operands.extend(getattr(w, "w_eff", w) for w in weights)
-    if not needs_grad(x_in, *operands):
+        # a store is asked, not read: a read of its w_eff derives it
+        operands.extend(w for w in weights if isinstance(w, torch.Tensor))
+    if not needs_grad(x_in, *operands) and not any(
+            w.records_grad() for w in weights
+            if block is not None and not isinstance(w, torch.Tensor)):
         return _plan_forward(x_in, weights, gain_all, off_cat, **kw)
     if block is not None:
         stores = None

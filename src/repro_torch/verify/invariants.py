@@ -1075,11 +1075,14 @@ def _packed_layout(ctx: _Ctx):
             w = w * _host(s.chunk_gain[..., :1, :]).numpy()
         if s.gain_map is not None:
             w = w * _host(s.gain_map[..., :cr, :]).numpy()
-        # the store's derived view; a table-free int8 store derives it
-        # at first read (codes as fp32), which the probe does not force
+        # the store's derived view where it has derived one, else its
+        # derivation of the first chunk alone (the probe derives no
+        # whole w_eff: a store derives it at first read)
         cached = s.__dict__.get("_w_eff")
-        got = _host(codes[..., :cr, :].to(torch.float32) if cached is None
-                    else cached[..., :cr, :]).numpy()
+        with torch.no_grad():
+            got = (s._derive_w_eff(rows=cr) if cached is None
+                   else cached[..., :cr, :])
+        got = _host(got.detach()).numpy()
         if not np.array_equal(got, w):
             yield Diagnostic(
                 "packed-layout", f"{spath}.codes",

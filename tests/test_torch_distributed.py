@@ -426,8 +426,7 @@ class TestMeshShardedPlans:
         lowered = model.lower()
         shardings = shd.sharding_like(model.sharding_specs(), lowered)
         seen = []
-        shd._map_tree(lambda t, ns: seen.append(ns) or t, lowered, shardings,
-                      derive=False)
+        shd._map_tree(lambda t, ns: seen.append(ns) or t, lowered, shardings)
         from repro_torch.verify.invariants import leaves_with_path
         n = sum(isinstance(v, torch.Tensor)
                 for _, v in leaves_with_path(lowered))
@@ -500,10 +499,8 @@ class TestMeshShardedPlans:
             def call(tree, batch, cache):
                 def view(t, ns):
                     return t.view(t.shape)
-                local = shd._map_tree(view, tree, eng.param_shardings,
-                                      derive=False)
-                full = shd._map_tree(view, local, eng.param_shardings,
-                                     derive=True)
+                local = shd._map_tree(view, tree, eng.param_shardings)
+                full = shd._map_tree(view, local, eng.param_shardings)
                 rebuilt.append(full["lm_head"]["_plan"]
                                is not tree["lm_head"]["_plan"])
                 return step(full, batch, cache)

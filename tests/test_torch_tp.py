@@ -447,25 +447,29 @@ def test_k_split_blocks_uncut_bit_identical(fake14, monkeypatch):
 
 
 def test_gathered_split_store_derives_no_w_eff(fake14, monkeypatch):
-    """A rank's block, and a store rebuilt from gathered tensors, derive
-    no fp32 ``w_eff`` until a call reads it: the card's split kernel
-    reads the int8 codes and never does (``exec.run._split_weights``
-    hands it None there); the CPU's plain version derives it at its
-    read, as the offset route's ``analog_mvm`` does on every device."""
+    """The whole lowered tree, a rank's block, and a store rebuilt from
+    gathered tensors derive no fp32 ``w_eff`` until a call reads it: the
+    card's split kernel reads the int8 codes and never does
+    (``exec.run._split_weights`` hands the wrapper None); the CPU's plain
+    version derives it at its read, as the offset route's ``analog_mvm``
+    does on every device, with the bits of ``_derive_w_eff()``."""
     from repro_torch.exec import run as R
 
     _, run, tree, specs = _lowered("stablelm-3b")
+    whole = T.stack_index(tree["layers"], 0)["l0"]["mlp"]["up"]["_plan"]
+    assert not whole.store.derived
+    assert not tree["lm_head"]["_plan"].store.derived
     sh = shd.sharding_like(specs, tree)
     blk = _blocks(monkeypatch, tree, sh)[1]
     up = T.stack_index(blk["layers"], 0)["l0"]["mlp"]["up"]["_plan"]
     assert "_w_eff" not in up.store.__dict__
-    rebuilt = shd._rebuild(up.store, {"codes": up.store.codes.clone()},
-                           derive=False)
+    rebuilt = shd._rebuild(up.store, {"codes": up.store.codes.clone()})
     assert "_w_eff" not in rebuilt.__dict__
     x = torch.randn((3, up.k))
-    assert R._split_weights(up, x) is not None       # the CPU reads it
-    y = run_layer(up, x, run.analog)
+    assert R._split_weights(up, x) is None   # the wrapper picks the operand
+    y = run_layer(up, x, run.analog)         # the CPU's plain version reads it
     assert "_w_eff" in up.store.__dict__ and y.shape == (3, up.n)
+    assert torch.equal(up.store.w_eff, up.store._derive_w_eff())
 
 
 def test_a_leaf_the_shardings_do_not_name_raises(fake14):

@@ -48,7 +48,7 @@ def _replicated_bytes(tree, shardings) -> int:
             total.append(t.numel() * t.element_size())
         return t
 
-    shd._map_tree(one, tree, shardings, derive=False)
+    shd._map_tree(one, tree, shardings)
     return sum(total)
 
 
